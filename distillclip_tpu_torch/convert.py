@@ -1,0 +1,75 @@
+"""JAX student parameters -> state dicts of the port's towers.
+
+The port's module tree mirrors the JAX parameter tree name for name, so the
+mapping is a renaming and no value changes:
+
+=====================================  =====================================
+JAX (``params`` of a student tower)    port state dict
+=====================================  =====================================
+``patch_kernel`` [P·P·3, D]            ``patch_kernel`` (image)
+``patch_bias``, ``cls_token`` [1,1,D]  same names (image)
+``pos_embed`` [1,N,D] / [ctx,D]        ``pos_embed``
+``patch_embed/embed/embedding``        ``patch_embed.embed.embedding`` (text)
+``patch_embed/expand/{kernel,bias}``   ``patch_embed.expand.*`` (compression)
+``blocks_{b}/norm1_{r}/{scale,bias}``  ``blocks.{b}.norm1.{r}.*`` (and norm2)
+``blocks_{b}/attn/qkv/{kernel,bias}``  ``blocks.{b}.attn.qkv.*`` (no text bias)
+``blocks_{b}/attn/conv_l`` [R,H,H]     ``blocks.{b}.attn.conv_l`` (and conv_w)
+``blocks_{b}/attn/proj/*``             ``blocks.{b}.attn.proj.*``
+``blocks_{b}/mlp/fc1/*``, ``fc2/*``    ``blocks.{b}.mlp.fc1.*``, ``fc2.*``
+``norm/{scale,bias}``, ``head/*``      ``norm.*``, ``head.*``
+=====================================  =====================================
+
+Dense kernels stay ``[in, out]`` (Flax's layout, not torch.nn.Linear's
+``[out, in]``): the port's ``Dense`` computes ``x @ kernel`` and its
+LN-prologue kernels (K1, K2) read W as ``[C, N]`` row-major, so nothing is
+transposed.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Mapping
+
+import numpy as np
+import torch
+
+_REQUIRED = {
+    "image": ("patch_kernel", "patch_bias", "cls_token", "pos_embed"),
+    "text": ("pos_embed", "patch_embed.embed.embedding"),
+}
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> dict:
+    flat = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            flat.update(_flatten(v, key))
+        else:
+            flat[key] = v
+    return flat
+
+
+def _torch_name(jax_path: str) -> str:
+    name = jax_path.replace("/", ".")
+    return re.sub(r"\b(blocks|norm1|norm2)_(\d+)\b", r"\1.\2", name)
+
+
+def jax_student_to_torch(params: Mapping, tower: str) -> dict:
+    """State dict for ``Repeat{Vision,Text}Transformer`` from a JAX student's
+    params: a nested dict (optionally under ``"params"``) or a flat dict with
+    ``/``-joined keys, with array values.  ``tower`` is ``"image"`` or
+    ``"text"``; the tower's own parameters must be present."""
+    if tower not in _REQUIRED:
+        raise ValueError(f"tower must be 'image' or 'text', got {tower!r}")
+    if "params" in params and isinstance(params["params"], Mapping):
+        params = params["params"]
+    state = {_torch_name(k): torch.from_numpy(np.array(v, dtype=np.float32))
+             for k, v in _flatten(params).items()}
+    missing = [k for k in _REQUIRED[tower] if k not in state]
+    other = "text" if tower == "image" else "image"
+    foreign = [k for k in _REQUIRED[other] if k in state and k not in _REQUIRED[tower]]
+    if missing or foreign:
+        raise ValueError(f"not a JAX {tower} student: missing {missing}, "
+                         f"{other}-tower keys {foreign}")
+    return state

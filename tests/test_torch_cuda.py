@@ -1,0 +1,181 @@
+"""The port's CUDA kernels on the card, against their plain PyTorch versions.
+
+Every test here needs an NVIDIA GPU with nvcc (sm_90a) and skips without
+one.  The GPU machine has no JAX, so run this file without the suite's
+conftest (which sets JAX up):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Tolerances: the kernels store bf16, which rounds an output y by up to
+2^-9·|y|, so each check allows 1e-2 absolute plus 1e-2 relative against the
+plain version in fp32 on the same bf16 inputs.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from distillclip_tpu_torch import ops
+from distillclip_tpu_torch.ops import fc1_act, layer_norm, transform_attention as ta
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(autouse=True)
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels are CUDA only)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _bf16(rng, shape, std=1.0, mean=0.0):
+    a = rng.standard_normal(shape, dtype=np.float32) * np.float32(std) + np.float32(mean)
+    return torch.from_numpy(a).cuda().to(torch.bfloat16)
+
+
+def _close(out, ref):
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
+
+
+# -- K1 / K2 at ragged row counts, widths and column counts ---------------------
+
+@pytest.mark.parametrize("rows,C,N", [(1, 32, 8), (63, 96, 136), (65, 768, 2304),
+                                      (130, 256, 520)])
+@pytest.mark.parametrize("act,bias", [(None, True), (None, False), ("gelu_exact", True),
+                                      ("quick_gelu", True)],
+                         ids=["dense_ln", "dense_ln_no_bias", "gelu_exact", "quick_gelu"])
+def test_dense_ln_kernels_match_plain(rows, C, N, act, bias):
+    rng = np.random.default_rng(rows + C + N)
+    x, ls, lb = _bf16(rng, (rows, C), 1.0, 0.5), _bf16(rng, (C,), 0.1, 1.0), _bf16(rng, (C,), 0.1)
+    w, b = _bf16(rng, (C, N), C ** -0.5), _bf16(rng, (N,), 0.1) if bias else None
+    with torch.inference_mode():
+        if act is None:
+            out = fc1_act.dense_ln(x, ls, lb, w, b)
+        else:
+            out = fc1_act.dense_act_ln(x, ls, lb, w, b, act)
+        ref = fc1_act.dense_ln_plain(x.float(), ls.float(), lb.float(), w.float(),
+                                     None if b is None else b.float(), act=act)
+    assert out.shape == (rows, N)
+    _close(out, ref)
+
+
+# -- K3 over head counts and sequence lengths -------------------------------------
+
+@pytest.mark.parametrize("B,H,d,N", [(3, 1, 8, 1), (5, 4, 16, 17), (4, 24, 32, 50),
+                                     (4, 12, 64, 77), (2, 2, 8, 256), (2, 16, 64, 256)])
+def test_transform_attention_kernel_matches_plain(B, H, d, N):
+    rng = np.random.default_rng(B * H * N)
+    qkv = _bf16(rng, (B * N, 3 * H * d))
+    wl, ww = _bf16(rng, (H, H), H ** -0.5), _bf16(rng, (H, H), 0.5 * H ** -0.5)
+    with torch.inference_mode():
+        out = ta.transform_attention_rows_qkv(qkv, wl, ww, heads=H, seq=N)
+        ref = ta.transform_attention_rows_qkv_plain(qkv.float(), wl.float(), ww.float(),
+                                                    heads=H, seq=N, scale=d ** -0.5)
+    assert out.shape == (B * N, H * d)
+    _close(out, ref)
+
+
+# -- K4 -------------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rows,C", [(1, 8), (9, 768), (1000, 1024), (77, 40)])
+def test_layer_norm_kernel_matches_plain(rows, C):
+    rng = np.random.default_rng(rows + C)
+    x, s, b = _bf16(rng, (rows, C), 3.0, 1.0), _bf16(rng, (C,), 0.1, 1.0), _bf16(rng, (C,), 0.1)
+    with torch.inference_mode():
+        out = layer_norm.layer_norm_rows(x, s, b)
+        ref = layer_norm.layer_norm_rows_plain(x.float(), s.float(), b.float())
+    _close(out, ref)
+
+
+# -- what the wrappers refuse, and what they count ---------------------------------
+
+def _ln_args(rng, rows=16, C=64, N=64):
+    return [_bf16(rng, (rows, C)), _bf16(rng, (C,)), _bf16(rng, (C,)), _bf16(rng, (C, N)),
+            _bf16(rng, (N,))]
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    rng = np.random.default_rng(0)
+    x, ls, lb, w, b = _ln_args(rng)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fc1_act.dense_ln(x.float(), ls, lb, w, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        fc1_act.dense_ln(x, ls, lb, w.t().contiguous().t(), b)
+    with pytest.raises(ValueError, match="every operand must be on"):
+        fc1_act.dense_ln(x, ls.cpu(), lb, w, b)
+    with pytest.raises(ValueError, match="C % 32"):
+        fc1_act.dense_ln(x[:, :48].contiguous(), ls[:48].contiguous(), lb[:48].contiguous(),
+                         w[:48].contiguous(), b)
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
+        fc1_act.dense_act_ln(x.requires_grad_(), ls, lb, w, b)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ta.transform_attention_rows_qkv(_bf16(rng, (8, 3 * 2 * 12)), _bf16(rng, (2, 2)),
+                                        _bf16(rng, (2, 2)), heads=2, seq=4)
+    with pytest.raises(ValueError, match="does not fit"):
+        ta.transform_attention_rows_qkv(_bf16(rng, (1024, 3 * 64 * 8)), _bf16(rng, (64, 64)),
+                                        _bf16(rng, (64, 64)), heads=64, seq=1024)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        layer_norm.layer_norm_rows(_bf16(rng, (4, 12)), _bf16(rng, (12,)), _bf16(rng, (12,)))
+
+
+def test_each_launch_counts_once():
+    rng = np.random.default_rng(1)
+    x, ls, lb, w, b = _ln_args(rng, N=3 * 4 * 16)
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        qkv = fc1_act.dense_ln(x, ls, lb, w, b)
+        ta.transform_attention_rows_qkv(qkv, _bf16(rng, (4, 4)), _bf16(rng, (4, 4)),
+                                        heads=4, seq=8)
+        fc1_act.dense_act_ln(x, ls, lb, w, b)
+        layer_norm.layer_norm_rows(x, ls, lb)
+        layer_norm.layer_norm_rows(x, ls, lb)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"dense_ln": 1, "dense_act_ln": 1,
+                                   "transform_attention_rows_qkv": 1, "layer_norm_rows": 2}
+
+
+def test_kernels_run_on_the_current_stream():
+    rng = np.random.default_rng(2)
+    x, ls, lb = _bf16(rng, (4096, 768)), _bf16(rng, (768,)), _bf16(rng, (768,))
+    side = torch.cuda.Stream()
+    with torch.inference_mode(), torch.cuda.stream(side):
+        out = layer_norm.layer_norm_rows(x, ls, lb)
+    side.synchronize()
+    _close(out, layer_norm.layer_norm_rows_plain(x.float(), ls.float(), lb.float()))
+
+
+# -- a tiny tower end to end ------------------------------------------------------
+
+def test_tiny_scorer_on_card_matches_plain_cpu_path(tmp_path):
+    import yaml
+
+    from distillclip_tpu_torch.serving import LCLIPScorer
+
+    common = dict(out_dim=64, embed_dim=64, depth=2, num_heads=4, repeated_times=2,
+                  use_transform=True)
+    cfg = {"model": {"init_args": {
+        "image_student": {"class_path": "model.component.weight_share_model."
+                                        "RepeatVisionTransformer",
+                          "init_args": dict(common, img_size=32, patch_size=8, qkv_bias=True)},
+        "text_student": {"class_path": "model.component.weight_share_model."
+                                       "RepeatTextTransformer",
+                         "init_args": dict(common, vocab_size=100, context_length=13)}}}}
+    path = tmp_path / "tiny.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    card = LCLIPScorer.from_config(str(path), device="cuda", seed=3)
+    cpu = LCLIPScorer.from_config(str(path), device="cpu", dtype=torch.float32, seed=3)
+    rng = np.random.default_rng(3)
+    images = rng.integers(0, 256, size=(6, 32, 32, 3), dtype=np.uint8)
+    tokens = rng.integers(1, 99, size=(6, 13))
+    tokens[:, 7] = 99
+    ops.reset_launch_counts()
+    feats = card.encode_images(images)
+    assert ops.launch_counts()["layer_norm_rows"] == 1
+    assert ops.launch_counts()["dense_ln"] == 2
+    cos = (feats * cpu.encode_images(images)).sum(axis=1)
+    assert cos.min() > 0.999
+    cos = (card.encode_tokens(tokens) * cpu.encode_tokens(tokens)).sum(axis=1)
+    assert cos.min() > 0.999
