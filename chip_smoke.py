@@ -1,24 +1,37 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (distillclip_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # the check
+    python3 chip_smoke.py --profile  # the check, then torch.profiler tables
 
 Needs one CUDA card (Hopper, sm_90a) and nvcc; it fails with no card.  The
 phases, each of which exits non-zero on failure:
 
 1. the card's name and power limit (nvidia-smi);
-2. build the four kernels from distillclip_tpu_torch/csrc with nvcc into
-   build/torch_kernels/;
-3. kernel oracles: each kernel on bf16 inputs at the serving shapes against
-   its plain PyTorch version in fp32 on the same values (TF32 off);
+2. build the kernels from distillclip_tpu_torch/csrc with nvcc (one process
+   per source, all at once) into build/torch_kernels/;
+3. kernel oracles: each kernel on bf16 inputs at the shapes the serving call
+   and the train step give it, and on a ragged small shape, against its plain
+   PyTorch version in fp32 on the same values (TF32 off).  The modes that also
+   write statistics, residuals or probabilities must give the same bits as
+   the lean mode for the shared output;
 4. the serving slice: both students of configs/final/l_clip.yaml at full
    width with seeded random weights, 256 uint8 images scored against 256
    token rows through LCLIPScorer.score_tokens; scores finite and in [-1, 1],
    the first 16 within 2e-2 of the plain path (same weights, fp32, CPU),
-   every kernel launched by that run, and the streamed path equal to the
-   serial calls;
-5. card numbers: each kernel's time beside its plain version's, and fenced
-   scored pairs/s at batch 256 and 1024.
+   every serving kernel launched by that run, and the streamed path equal to
+   the serial calls;
+5. the train slice: DualDistillTask.make_train_step(cached_teachers=True) on
+   the same students (full width, full depth, seeded weights, seeded uint8
+   images, tokens and teacher representations).  (a) 16 pairs: loss, parts and
+   every parameter's gradient on the kernel path against the plain fp32 CPU
+   path on the same masters; (b) 256 pairs: 12 steps on one fixed batch, every
+   loss finite, the last lower than the first, parameters changed, and the
+   launch counts of one step as expected; (c) ms/step, pairs/s and peak
+   device memory at 256 pairs;
+6. card numbers: each kernel's time beside its plain version's, its bound
+   and, where one PyTorch call computes the same function, that call's time;
+   fenced scored pairs/s at batch 256 and 1024.
 
 The last two lines before the final one are the card line and a JSON object
 of the kernels; the last line is {"ok": true, "device": {...}}.
@@ -26,28 +39,32 @@ of the kernels; the last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "final" / "l_clip.yaml"
 SEED = 0
+PAIRS = 256     # pairs per serving call and per train step
+DEVICE = "cuda"
 SOT, EOT = 49406, 49407  # CLIP's start / end of text ids
 
-# Oracle limits (max abs, and mean abs where given) against fp32.  K3: the
-# bf16 class the TPU kernels met in their hardware oracle.
-LIMITS = {
-    "dense_ln": (1e-2, 1e-3),
-    "dense_act_ln": (1e-2, 1e-3),
-    "transform_attention_rows_qkv": (8e-3, None),
-    "layer_norm_rows": (1e-2, None),
-}
+# The card's published peaks (H100 SXM): device memory rate, dense bf16/fp16
+# tensor-core rate, fp32 rate outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+TENSOR_FLOPS = 989e12
+FP32_FLOPS = 67e12
+
+# kernel -> (source, the TPU kernel it replaces)
 SOURCES = {
     "dense_ln": ("distillclip_tpu_torch/csrc/dense_ln.cu",
                  "distillclip_tpu/ops/fc1_act.py:419"),
@@ -57,6 +74,25 @@ SOURCES = {
                                      "distillclip_tpu/ops/transform_attention.py:118"),
     "layer_norm_rows": ("distillclip_tpu_torch/csrc/layer_norm.cu",
                         "distillclip_tpu/ops/layer_norm.py:50"),
+    "transform_attention_save_p": ("distillclip_tpu_torch/csrc/transform_attention.cu",
+                                   "distillclip_tpu/ops/transform_attention.py:467"),
+    "transform_attention_bwd": ("distillclip_tpu_torch/csrc/transform_attention_bwd.cu",
+                                "distillclip_tpu/ops/transform_attention.py:224"),
+    "layer_norm_rows_bwd": ("distillclip_tpu_torch/csrc/layer_norm.cu",
+                            "distillclip_tpu/ops/layer_norm.py:63"),
+    "dense_act_ln_res": ("distillclip_tpu_torch/csrc/dense_ln.cu",
+                         "distillclip_tpu/ops/fc1_act.py:307"),
+    "dense_ln_bwd": ("distillclip_tpu_torch/csrc/dense_ln_bwd.cu",
+                     "distillclip_tpu/ops/fc1_act.py:571"),
+}
+SERVING_KERNELS = ("dense_ln", "dense_act_ln", "transform_attention_rows_qkv",
+                   "layer_norm_rows")
+# launches of one train step: 10 logical layers (6 image + 4 text), two LN
+# GEMMs and so two backward GEMMs each, and the two towers' final norm
+TRAIN_STEP_LAUNCHES = {
+    "dense_ln": 10, "dense_act_ln_res": 10, "transform_attention_save_p": 10,
+    "transform_attention_bwd": 10, "dense_ln_bwd": 20, "layer_norm_rows": 2,
+    "layer_norm_rows_bwd": 2, "dense_act_ln": 0, "transform_attention_rows_qkv": 0,
 }
 
 
@@ -85,95 +121,282 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bf16(rng: np.random.Generator, shape, std: float = 1.0, mean: float = 0.0,
-         device: str = "cuda"):
+def bf16(rng: np.random.Generator, shape, std: float = 1.0, mean: float = 0.0):
     a = rng.standard_normal(shape, dtype=np.float32) * np.float32(std) + np.float32(mean)
-    return torch.from_numpy(a).to(device).to(torch.bfloat16)
+    return torch.from_numpy(a).to(DEVICE).to(torch.bfloat16)
 
 
 # -- phase 3 ----------------------------------------------------------------
 
-def oracle_cases(rng, device: str = "cuda"):
-    """(kernel, label, kernel call, plain fp32 call, plain call on the kernel's
-    own bf16 inputs for timing) at the shapes the serving path gives each.
+@dataclasses.dataclass
+class Case:
+    """One kernel at one shape.  ``run`` and ``ref`` return tuples of tensors,
+    output by output; ``limits`` holds, per output, ("abs", max[, mean]) for an
+    absolute limit on the error (and on its mean) or ("rel", x) for a limit on
+    the largest error over the largest reference entry.  ``same`` returns the
+    lean mode's output, which ``run()[0]`` must equal bit for bit.  ``plain`` is
+    the plain version on the kernel's own bf16 inputs (timed, not compared);
+    ``library`` one PyTorch call that computes the same function, if any."""
 
-    Every output is bf16, which rounds |y| in [2, 4) by up to 0.0078 and
-    |y| >= 4 by up to 0.0156, so an absolute limit of 1e-2 or 8e-3 only holds
-    while the outputs stay under 4; the inputs below keep them there."""
+    kernel: str
+    label: str
+    run: Callable[[], tuple]
+    ref: Callable[[], tuple]
+    limits: tuple
+    plain: Callable[[], object]
+    flops: float
+    nbytes: float
+    peak: float = TENSOR_FLOPS
+    same: Optional[Callable[[], torch.Tensor]] = None
+    library: Optional[Callable[[], object]] = None
+
+    def bound(self):
+        by_bytes, by_ops = self.nbytes / HBM_BYTES_PER_S, self.flops / self.peak
+        return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
+
+
+def _f32(ts):
+    return [None if t is None else t.float() for t in ts]
+
+
+def oracle_cases(rng):
+    """The cases, main-path shapes first for each kernel (the first case of a
+    kernel gives its times in the JSON line).
+
+    Every bf16 output rounds |y| in [2, 4) by up to 0.0078 and |y| in [4, 8)
+    by up to 0.0156, so an absolute limit of 1e-2 or 8e-3 only holds while the
+    outputs stay under 4, and 3e-2 while they stay under 8; the inputs below
+    keep them there."""
     from distillclip_tpu_torch.ops import fc1_act, layer_norm, transform_attention as ta
 
-    t = lambda shape, std=1.0, mean=0.0: bf16(rng, shape, std, mean, device)
-    f32 = lambda ts: [None if x is None else x.float() for x in ts]
+    t = lambda shape, std=1.0, mean=0.0: bf16(rng, shape, std, mean)
     cases = []
     C = 768
-    # K1/K2: LN output of std ~1 times W of std 0.02 over C = 768 gives
-    # outputs of std ~0.55 (largest ~3.2 over 30M values).
-    for label, rows, n, bias in (("image qkv", 256 * 50, 3 * C, True),
-                                 ("text qkv", 256 * 77, 3 * C, False)):
-        args = [t((rows, C)), t((C,), 0.1, 1.0), t((C,), 0.1),
-                t((C, n), 0.02), t((n,), 0.02) if bias else None]
-        cases.append(("dense_ln", f"{label} [{rows},{C}]->{n}",
-                      lambda a=args: fc1_act.dense_ln(*a),
-                      lambda a=args: fc1_act.dense_ln_plain(*f32(a)),
-                      lambda a=args: fc1_act.dense_ln_plain(*a)))
-    rows = 256 * 50
-    args = [t((rows, C)), t((C,), 0.1, 1.0), t((C,), 0.1),
-            t((C, 4 * C), 0.02), t((4 * C,), 0.02)]
-    cases.append(("dense_act_ln", f"image fc1 [{rows},{C}]->{4 * C} gelu_exact",
-                  lambda a=args: fc1_act.dense_act_ln(*a, "gelu_exact"),
-                  lambda a=args: fc1_act.dense_ln_plain(*f32(a), act="gelu_exact"),
-                  lambda a=args: fc1_act.dense_ln_plain(*a, act="gelu_exact")))
-    # K3: the head mixes are drawn at std H^-1/2, so the mixed logits have
-    # std ~1 and the softmax is far from uniform; at the towers' init std
-    # (0.02) it is nearly uniform and the check would be weak.
-    for label, B, H, d, N in (("image", 256, 24, 32, 50), ("text", 256, 12, 64, 77),
+    img, txt = PAIRS * 50, PAIRS * 77
+
+    # K1 / K2 / K2-residual / backward GEMM: LN output of std ~1 times W of
+    # std 0.02 over C = 768 gives outputs of std ~0.55 (largest ~3.2 over 30M
+    # values); du is unit-scale, so dxn = du·Wᵀ has std ~1 and dx stays under 8.
+    def gemm_bytes(rows, c, n, outs):
+        return 2 * (rows * c + c * n + 2 * c + n + outs * rows * n)
+
+    def dense_cases(label, rows, c, n, bias, k1=True, k2=True, w_std=0.02):
+        """K1 (with its statistics) and/or K2 (lean and residual mode) at one
+        shape, and the backward GEMM of either."""
+        args = [t((rows, c)), t((c,), 0.1, 1.0), t((c,), 0.1), t((c, n), w_std),
+                t((n,), 0.02) if bias else None]
+        du = t((rows, n))
+        flops = 2.0 * rows * c * n
+        stat = ("rel", 1e-5)
+        stats = fc1_act.dense_ln_stats_plain(*args)[1:]
+        cases.append(Case(
+            "dense_ln_bwd", f"{label} [{rows},{n}]->{c}",
+            lambda: fc1_act.dense_ln_bwd(*args[:4], du, *stats),
+            lambda: fc1_act.dense_ln_bwd_plain(*_f32(args[:4]), du.float(), *stats),
+            (("abs", 3e-2), ("abs", 3e-2), ("rel", 6e-3), ("rel", 6e-3)),
+            lambda: fc1_act.dense_ln_bwd_plain(*args[:4], du, *stats), flops,
+            2 * (3 * rows * c + rows * n + c * n + 2 * c) + 8 * rows + 8 * c))
+        if k1:
+            cases.append(Case(
+                "dense_ln", f"{label} [{rows},{c}]->{n}, with mean/rstd",
+                lambda: fc1_act.dense_ln_fwd(*args, stats=True),
+                lambda: fc1_act.dense_ln_stats_plain(*_f32(args)),
+                (("abs", 1e-2, 1e-3), stat, stat),
+                lambda: fc1_act.dense_ln_plain(*args), flops,
+                gemm_bytes(rows, c, n, 1) + 8 * rows,
+                same=lambda: fc1_act.dense_ln_fwd(*args)[0]))
+        if not k2:
+            return
+        cases.append(Case(
+            "dense_act_ln", f"{label} [{rows},{c}]->{n} gelu_exact",
+            lambda: (fc1_act.dense_act_ln(*args, "gelu_exact"),),
+            lambda: (fc1_act.dense_ln_plain(*_f32(args), act="gelu_exact"),),
+            (("abs", 1e-2, 1e-3),),
+            lambda: fc1_act.dense_ln_plain(*args, act="gelu_exact"), flops,
+            gemm_bytes(rows, c, n, 1)))
+        cases.append(Case(
+            "dense_act_ln_res", f"{label} [{rows},{c}]->{n} gelu_exact",
+            lambda: fc1_act.dense_act_ln_res(*args, "gelu_exact"),
+            lambda: fc1_act.dense_act_ln_res_plain(*_f32(args), "gelu_exact"),
+            (("abs", 1e-2, 1e-3), ("abs", 1e-2, 1e-3), ("abs", 1e-2, 1e-3), stat, stat),
+            lambda: fc1_act.dense_act_ln_res_plain(*args, "gelu_exact"), flops,
+            gemm_bytes(rows, c, n, 3) + 8 * rows,
+            same=lambda: fc1_act.dense_act_ln(*args, "gelu_exact")))
+
+    dense_cases("image qkv", img, C, 3 * C, True, k2=False)
+    dense_cases("image fc1", img, C, 4 * C, True, k1=False)
+    dense_cases("text qkv", txt, C, 3 * C, False, k2=False)
+    dense_cases("text fc1", txt, C, 4 * C, True, k1=False)
+    dense_cases("ragged", 130, 256, 520, True, w_std=0.05)
+
+    # K3 / save-P / backward: the head mixes are drawn at std H^-1/2, so the
+    # mixed logits have std ~1 and the softmax is far from uniform; at the
+    # towers' init std (0.02) it is nearly uniform and the check would be weak.
+    for label, B, H, d, N in (("image", PAIRS, 24, 32, 50), ("text", PAIRS, 12, 64, 77),
                               ("ragged", 64, 4, 16, 17)):
-        qkv = t((B * N, 3 * H * d))
+        qkv, do = t((B * N, 3 * H * d)), t((B * N, H * d))
         wl, ww = t((H, H), H ** -0.5), t((H, H), H ** -0.5)
         kw = dict(heads=H, seq=N, scale=d ** -0.5)
-        cases.append(("transform_attention_rows_qkv", f"{label} B={B} H={H} d={d} N={N}",
-                      lambda q=qkv, l=wl, w=ww, k=kw: ta.transform_attention_rows_qkv(q, l, w, **k),
-                      lambda q=qkv, l=wl, w=ww, k=kw: ta.transform_attention_rows_qkv_plain(
-                          q.float(), l.float(), w.float(), **k),
-                      lambda q=qkv, l=wl, w=ww, k=kw: ta.transform_attention_rows_qkv_plain(
-                          q, l, w, **k)))
-    # K4: rows uniform on [-sqrt(3), sqrt(3)] (unit variance), so the
-    # normalised values stay within sqrt(3) and |y| within ~2.2; unit
+        shape = f"{label} B={B} H={H} d={d} N={N}"
+        product, mix = 2.0 * B * H * N * N * d, 2.0 * B * H * H * N * N
+        io = 2 * (B * N * 4 * H * d + 2 * H * H)
+        pbytes = 2 * B * H * N * N
+        lean = lambda q=qkv, l=wl, w=ww, k=kw: ta.transform_attention_rows_qkv(q, l, w, **k)
+        cases.append(Case(
+            "transform_attention_rows_qkv", shape,
+            lambda f=lean: (f(),),
+            lambda q=qkv, l=wl, w=ww, k=kw: (ta.transform_attention_rows_qkv_plain(
+                q.float(), l.float(), w.float(), **k),),
+            (("abs", 8e-3),),
+            lambda q=qkv, l=wl, w=ww, k=kw: ta.transform_attention_rows_qkv_plain(q, l, w, **k),
+            2 * product + 2 * mix, io))
+        cases.append(Case(
+            "transform_attention_save_p", shape,
+            lambda q=qkv, l=wl, w=ww, k=kw: ta.transform_attention_save_p(q, l, w, **k),
+            lambda q=qkv, l=wl, w=ww, k=kw: ta.transform_attention_save_p_plain(
+                q.float(), l.float(), w.float(), **k),
+            (("abs", 8e-3), ("abs", 4e-3)),
+            lambda q=qkv, l=wl, w=ww, k=kw: ta.transform_attention_save_p_plain(q, l, w, **k),
+            2 * product + 2 * mix, io + pbytes, same=lean))
+        p = ta.transform_attention_save_p_plain(qkv, wl, ww, **kw)[1]
+        cases.append(Case(
+            "transform_attention_bwd", shape,
+            lambda q=qkv, l=wl, w=ww, g=do, p=p, k=kw: ta.transform_attention_bwd(
+                q, l, w, g, p, **k),
+            lambda q=qkv, l=wl, w=ww, g=do, p=p, k=kw: ta.transform_attention_bwd_plain(
+                q.float(), l.float(), w.float(), g.float(), p.float(), **k),
+            (("abs", 3e-2), ("rel", 6e-3), ("rel", 6e-3)),
+            lambda q=qkv, l=wl, w=ww, g=do, p=p, k=kw: ta.transform_attention_bwd_plain(
+                q, l, w, g, p, **k),
+            5 * product + 5 * mix,
+            2 * (B * N * 7 * H * d + 2 * H * H) + pbytes + 8 * H * H))
+
+    # K4 and its backward: rows uniform on [-sqrt(3), sqrt(3)] (unit variance),
+    # so the normalised values stay within sqrt(3) and |y| within ~2.2; unit
     # Gaussian rows put ~50 of the 786k outputs past 4.
-    x = rng.uniform(-3 ** 0.5, 3 ** 0.5, size=(1024, C)).astype(np.float32)
-    args = [torch.from_numpy(x).to(device).to(torch.bfloat16), t((C,), 0.1, 1.0),
-            t((C,), 0.1)]
-    cases.append(("layer_norm_rows", f"[1024,{C}]",
-                  lambda a=args: layer_norm.layer_norm_rows(*a),
-                  lambda a=args: layer_norm.layer_norm_rows_plain(*f32(a)),
-                  lambda a=args: layer_norm.layer_norm_rows_plain(*a)))
+    for rows, c in ((1024, C), (PAIRS, C), (77, 40)):
+        x = rng.uniform(-3 ** 0.5, 3 ** 0.5, size=(rows, c)).astype(np.float32)
+        args = [torch.from_numpy(x).to(DEVICE).to(torch.bfloat16), t((c,), 0.1, 1.0),
+                t((c,), 0.1)]
+        g = t((rows, c))
+        stat = ("rel", 1e-5)
+        cases.append(Case(
+            "layer_norm_rows", f"[{rows},{c}], with mean/rstd",
+            lambda a=args: layer_norm.layer_norm_rows_fwd(*a, stats=True),
+            lambda a=args: layer_norm.layer_norm_rows_stats_plain(*_f32(a)),
+            (("abs", 1e-2), stat, stat),
+            lambda a=args: layer_norm.layer_norm_rows_plain(*a), 8.0 * rows * c,
+            2 * (2 * rows * c + 2 * c) + 8 * rows, FP32_FLOPS,
+            same=lambda a=args: layer_norm.layer_norm_rows_fwd(*a)[0],
+            library=lambda a=args, c=c: F.layer_norm(a[0], (c,), a[1], a[2], 1e-5)))
+        if rows == 1024:
+            continue    # a serving shape; the backward runs at the train step's rows
+        _, mean, rstd = torch.native_layer_norm(args[0], (c,), args[1], args[2], 1e-5)
+        stats = layer_norm.layer_norm_rows_stats_plain(*args)[1:]
+        cases.append(Case(
+            "layer_norm_rows_bwd", f"[{rows},{c}]",
+            lambda a=args, g=g, s=stats: layer_norm.layer_norm_rows_bwd(a[0], a[1], g, *s),
+            lambda a=args, g=g, s=stats: layer_norm.layer_norm_rows_bwd_plain(
+                a[0].float(), a[1].float(), g.float(), *s),
+            (("abs", 3e-2), ("rel", 6e-3), ("rel", 6e-3)),
+            lambda a=args, g=g, s=stats: layer_norm.layer_norm_rows_bwd_plain(a[0], a[1], g, *s),
+            14.0 * rows * c, 2 * (3 * rows * c + c) + 8 * rows + 8 * c, FP32_FLOPS,
+            library=lambda a=args, g=g, c=c, m=mean, r=rstd:
+                torch.ops.aten.native_layer_norm_backward(
+                    g, a[0], [c], m, r, a[1], a[2], [True, True, True])))
     return cases
 
 
+def check_case(case: Case) -> float:
+    """Hold one case's outputs to their limits; returns the largest absolute
+    error of its abs-limited outputs."""
+    outs = case.run()
+    torch.cuda.synchronize()
+    refs = case.ref()
+    if case.same is not None and not torch.equal(outs[0], case.same()):
+        fail(f"{case.kernel} {case.label}: the first output differs from the lean mode's")
+    worst, notes = 0.0, []
+    for i, (out, ref, limit) in enumerate(zip(outs, refs, case.limits)):
+        out, ref = out.float(), ref.float()
+        if out.shape != ref.shape or not torch.isfinite(out).all() \
+                or not torch.isfinite(ref).all():
+            fail(f"{case.kernel} {case.label}: output {i} has shape {tuple(out.shape)} "
+                 f"(want {tuple(ref.shape)}) or is not finite")
+        diff = (out - ref).abs()
+        err = diff.max().item()
+        if limit[0] == "rel":
+            err /= max(ref.abs().max().item(), 1e-30)
+            notes.append(f"out{i} rel {err:.3e} (limit {limit[1]:g})")
+            bad = err > limit[1]
+        else:
+            worst = max(worst, err)
+            mean = diff.mean().item()
+            notes.append(f"out{i} max_abs {err:.3e} (limit {limit[1]:g}) mean_abs {mean:.3e}"
+                         + (f" (limit {limit[2]:g})" if len(limit) > 2 else ""))
+            bad = err > limit[1] or (len(limit) > 2 and mean > limit[2])
+        if bad:
+            print(f"oracle {case.kernel} {case.label}: " + "; ".join(notes), flush=True)
+            fail(f"{case.kernel} {case.label}: output {i} disagrees with its plain version")
+    print(f"oracle {case.kernel} {case.label}: " + "; ".join(notes)
+          + ("; out0 bit-identical to the lean mode" if case.same else ""), flush=True)
+    return worst
+
+
 def kernel_oracles(card: str) -> dict:
-    """Phases 3 and 5a: per kernel, the worst error over its shapes and the
-    kernel/plain times at its first (main-path) shape."""
+    """Phases 3 and 6a: per kernel, the worst error over its shapes and, at
+    its first (main-path) shape, the kernel / plain / library times and the
+    bound."""
     results = {}
-    with torch.inference_mode():
-        for name, label, kern, plain, plain_bf16 in oracle_cases(np.random.default_rng(SEED)):
-            out = kern()
-            torch.cuda.synchronize()
-            ref = plain()
-            diff = (out.float() - ref.float()).abs()
-            max_err, mean_err = diff.max().item(), diff.mean().item()
-            if not (torch.isfinite(out.float()).all() and torch.isfinite(ref).all()):
-                fail(f"{name} {label}: non-finite output")
-            lim_max, lim_mean = LIMITS[name]
-            ms, plain_ms = cuda_ms(kern), cuda_ms(plain_bf16)
-            print(f"oracle {name} {label}: max_abs_err {max_err:.3e} (limit {lim_max:g}) "
-                  f"mean_abs_err {mean_err:.3e}"
-                  + (f" (limit {lim_mean:g})" if lim_mean else "")
-                  + f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]", flush=True)
-            if max_err > lim_max or (lim_mean is not None and mean_err > lim_mean):
-                fail(f"{name} {label} disagrees with its plain version")
-            r = results.setdefault(name, {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms})
-            r["max_abs_err"] = max(r["max_abs_err"], max_err)
+    for case in oracle_cases(np.random.default_rng(SEED)):
+        with torch.no_grad():
+            err = check_case(case)
+            ms, plain_ms = cuda_ms(case.run), cuda_ms(case.plain)
+            lib_ms = None if case.library is None else cuda_ms(case.library)
+        bound_ms, bound_by = case.bound()
+        print(f"time {case.kernel} {case.label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms by {bound_by} ({case.flops / 1e9:.3f} GFLOP, "
+              f"{case.nbytes / 1e6:.3f} MB), library "
+              + ("none" if lib_ms is None else f"{lib_ms:.4f} ms") + f" [{card}]", flush=True)
+        r = results.setdefault(case.kernel, {
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
     return results
+
+
+def scale_lines(card: str) -> None:
+    """PyTorch compositions and library attention at the main-path shapes,
+    for scale only: none of them computes the same function as a kernel (no
+    head mixes in the attention; separate passes in the GEMMs)."""
+    rng = np.random.default_rng(SEED + 2)
+    t = lambda shape, std=1.0, mean=0.0: bf16(rng, shape, std, mean)
+    C = 768
+    with torch.no_grad():
+        for label, rows, n in (("image qkv", PAIRS * 50, 3 * C), ("image fc1", PAIRS * 50, 4 * C),
+                               ("text qkv", PAIRS * 77, 3 * C), ("text fc1", PAIRS * 77, 4 * C)):
+            x, g, b, w, bias, du = (t((rows, C)), t((C,), 0.1, 1.0), t((C,), 0.1),
+                                    t((C, n), 0.02), t((n,), 0.02), t((rows, n)))
+            fwd = lambda: F.layer_norm(x, (C,), g, b, 1e-5) @ w + bias
+            print(f"scale (not the same function) {label}: F.layer_norm + matmul + bias "
+                  f"{cuda_ms(fwd):.4f} ms, + F.gelu {cuda_ms(lambda: F.gelu(fwd())):.4f} ms, "
+                  f"backward du @ W^T + native_layer_norm_backward "
+                  f"{cuda_ms(lambda: _ln_gemm_bwd(x, g, b, w, du)):.4f} ms [{card}]", flush=True)
+    for label, B, H, d, N in (("image", PAIRS, 24, 32, 50), ("text", PAIRS, 12, 64, 77)):
+        q, k, v, do = (t((B, H, N, d)).requires_grad_() for _ in range(4))
+        with torch.no_grad():
+            f_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        o = F.scaled_dot_product_attention(q, k, v)
+        b_ms = cuda_ms(lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True))
+        print(f"scale (not the same function: no head mixes) {label} B={B} H={H} d={d} N={N}: "
+              f"F.scaled_dot_product_attention forward {f_ms:.4f} ms, backward {b_ms:.4f} ms "
+              f"[{card}]", flush=True)
+
+
+def _ln_gemm_bwd(x, g, b, w, du):
+    C = x.shape[1]
+    _, mean, rstd = torch.native_layer_norm(x, (C,), g, b, 1e-5)
+    return torch.ops.aten.native_layer_norm_backward(du @ w.t(), x, [C], mean, rstd, g, b,
+                                                     [True, True, True])
 
 
 # -- phase 4 ----------------------------------------------------------------
@@ -189,19 +412,23 @@ def make_tokens(rng: np.random.Generator, n: int, ctx: int = 77) -> np.ndarray:
     return toks
 
 
+def make_images(rng: np.random.Generator, n: int, size: int = 224) -> np.ndarray:
+    return rng.integers(0, 256, size=(n, size, size, 3), dtype=np.uint8)
+
+
 def serving_slice(ops, LCLIPScorer):
     rng = np.random.default_rng(SEED)
-    scorer = LCLIPScorer.from_config(str(CONFIG), device="cuda", seed=SEED)
-    images = rng.integers(0, 256, size=(256, 224, 224, 3), dtype=np.uint8)
-    tokens = make_tokens(rng, 256)
+    scorer = LCLIPScorer.from_config(str(CONFIG), device=DEVICE, seed=SEED)
+    images = make_images(rng, PAIRS, scorer.image_tower.img_size)
+    tokens = make_tokens(rng, PAIRS, scorer.text_tower.context_length)
 
     ops.reset_launch_counts()
     scores = scorer.score_tokens(images, tokens)
     counts = ops.launch_counts()
     print(f"slice: launches in the main-path run {counts}", flush=True)
-    if missing := [k for k, v in counts.items() if v == 0]:
-        fail(f"kernels not launched by the main path: {missing}")
-    if scores.shape != (256,) or not np.isfinite(scores).all():
+    if missing := [k for k in SERVING_KERNELS if counts[k] == 0]:
+        fail(f"kernels not launched by the serving path: {missing}")
+    if scores.shape != (PAIRS,) or not np.isfinite(scores).all():
         fail(f"scores: shape {scores.shape}, finite {np.isfinite(scores).all()}")
     if np.abs(scores).max() > 1.0 + 1e-5:
         fail(f"scores outside [-1, 1]: max |s| = {np.abs(scores).max()}")
@@ -226,7 +453,8 @@ def serving_slice(ops, LCLIPScorer):
         if cos.min() < 0.999:
             fail(f"kernel-path {name} features disagree with the plain path")
 
-    batches = [(images[i:i + 64], tokens[i:i + 64]) for i in range(0, 256, 64)]
+    batches = [(images[i:i + PAIRS // 4], tokens[i:i + PAIRS // 4])
+               for i in range(0, PAIRS, PAIRS // 4)]
     streamed = list(scorer.score_tokens_stream(batches, depth=2))
     serial = [scorer.score_tokens(*b) for b in batches]
     sdiff = max(float(np.abs(a - b).max()) for a, b in zip(streamed, serial))
@@ -237,13 +465,131 @@ def serving_slice(ops, LCLIPScorer):
     return scorer, counts
 
 
-# -- phase 5b ---------------------------------------------------------------
+# -- phase 5 ----------------------------------------------------------------
+
+def make_task(compute_dtype: str):
+    """The stage-3 task on the students of configs/final/l_clip.yaml, with the
+    config's losses and optimizer settings.  The config's ``load_path`` (a
+    stage-1/2 warm start) is left out: the weights are seeded."""
+    import yaml
+
+    from distillclip_tpu_torch.serving.lclip_score import build_tower
+    from distillclip_tpu_torch.training import DualDistillTask
+
+    with open(CONFIG) as f:
+        args = yaml.safe_load(f)["model"]["init_args"]
+    return DualDistillTask(
+        image_student=build_tower(args["image_student"]),
+        text_student=build_tower(args["text_student"]),
+        loss_control_para=args["loss_control_para"], warm_steps=args["warm_steps"],
+        total_steps=args["total_steps"], weight_decay=args["weight_decay"], lr=args["lr"],
+        compute_dtype=compute_dtype)
+
+
+def train_batch(task, rng: np.random.Generator, n: int, device: str):
+    """tokens, uint8 images and the two teachers' cached representations
+    (fp32 ``[n, out_dim]``), at the task's sizes."""
+    out_dim = task.image_student.head.kernel.shape[1]
+    return [torch.from_numpy(a).to(device) for a in (
+        make_tokens(rng, n, task.text_student.context_length),
+        make_images(rng, n, task.image_student.img_size),
+        rng.standard_normal((n, out_dim), dtype=np.float32),
+        rng.standard_normal((n, out_dim), dtype=np.float32))]
+
+
+def _loss_and_grads(task, params, batch):
+    leaves = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+    loss, (parts, _, _) = task.loss_fn_cached_all(leaves, *batch)
+    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    grads = {k: torch.zeros_like(p) if g is None else g
+             for (k, p), g in zip(leaves.items(), grads)}
+    return loss.detach(), {k: v.detach() for k, v in parts.items()}, grads
+
+
+def train_slice(ops, card: str) -> dict:
+    task = make_task("bfloat16")
+    state, tx = task.init_state(SEED, steps_per_epoch=1, device=DEVICE)
+    print(f"train: {len(state.params)} parameter leaves, "
+          f"{sum(v.numel() for v in state.params.values()) / 1e6:.2f} M fp32 masters", flush=True)
+
+    # (a) 16 pairs: kernel path against the plain fp32 CPU path, same masters
+    rng = np.random.default_rng(SEED + 3)
+    small = train_batch(task, rng, 16, "cpu")
+    loss, parts, grads = _loss_and_grads(task, state.params, [t.to(DEVICE) for t in small])
+    torch.cuda.synchronize()
+    plain = make_task("float32")
+    cpu_params = {k: v.cpu() for k, v in state.params.items()}
+    ref_loss, ref_parts, ref_grads = _loss_and_grads(plain, cpu_params, small)
+    err = abs(float(loss) - float(ref_loss))
+    part_err = max(abs(float(parts[k]) - float(ref_parts[k])) for k in parts)
+    print(f"train (a) 16 pairs: loss {float(loss):.6f} vs plain fp32 CPU {float(ref_loss):.6f} "
+          f"(abs err {err:.3e}, parts max err {part_err:.3e}, limit 2e-2)", flush=True)
+    if not np.isfinite(float(loss)) or err > 2e-2 or part_err > 2e-2:
+        fail("train loss disagrees with the plain path")
+    gn = float(torch.sqrt(sum(g.float().square().sum() for g in grads.values())))
+    ref_gn = float(torch.sqrt(sum(g.square().sum() for g in ref_grads.values())))
+    worst_name, worst_cos = None, 1.0
+    for k, g in grads.items():
+        g, r = g.float().cpu().flatten(), ref_grads[k].flatten()
+        if not torch.isfinite(g).all():
+            fail(f"train gradient of {k} is not finite")
+        if float(r.norm()) == 0.0 and float(g.norm()) == 0.0:
+            continue
+        cos = float(torch.dot(g, r) / (g.norm() * r.norm()).clamp_min(1e-30))
+        if cos < worst_cos:
+            worst_name, worst_cos = k, cos
+    print(f"train (a) gradients: global norm {gn:.6f} vs {ref_gn:.6f} (limit 5%), lowest "
+          f"per-parameter cosine {worst_cos:.6f} at {worst_name} (limit 0.99)", flush=True)
+    if abs(gn - ref_gn) > 0.05 * ref_gn or worst_cos < 0.99:
+        fail("train gradients disagree with the plain path")
+    del plain, cpu_params, ref_grads, grads
+
+    # (b) 256 pairs, 12 steps on one fixed batch
+    batch = train_batch(task, np.random.default_rng(SEED + 4), PAIRS, DEVICE)
+    step = task.make_train_step(tx, cached_teachers=True)
+    before = {k: v.clone() for k, v in state.params.items()}
+    losses, counts = [], None
+    for i in range(12):
+        ops.reset_launch_counts()
+        state, metrics = step(state, *batch)
+        if counts is None:
+            counts = ops.launch_counts()
+        losses.append(float(metrics["loss"]))
+    print(f"train (b) {PAIRS} pairs: launches of one step {counts}", flush=True)
+    print("train (b) losses " + " ".join(f"{x:.6f}" for x in losses), flush=True)
+    if counts != {**dict.fromkeys(ops.KERNELS, 0), **TRAIN_STEP_LAUNCHES}:
+        fail(f"launch counts of one train step differ from {TRAIN_STEP_LAUNCHES}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail("train losses are not finite or did not fall")
+    moved = sum(not torch.equal(before[k], v) for k, v in state.params.items())
+    finite = all(bool(torch.isfinite(v).all()) for v in state.params.values())
+    print(f"train (b) {moved} of {len(before)} parameter leaves changed; all finite: {finite}; "
+          f"parts {({k: round(float(v), 6) for k, v in metrics.items()})}", flush=True)
+    if moved != len(before) or not finite or state.step != 12:
+        fail("train step left parameters unchanged or not finite")
+    del before
+
+    # (c) ms/step and pairs/s, device-resident, fenced by the loss readback
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    iters = 10
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        state, metrics = step(state, *batch)
+    float(metrics["loss"])
+    dt = (time.perf_counter() - t0) / iters
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"throughput train step {PAIRS} pairs (device-resident): {dt * 1e3:.2f} ms/step, "
+          f"{PAIRS / dt:.1f} pairs/s, peak device memory {peak:.2f} GiB [{card}]", flush=True)
+    return {"counts": counts, "task": task, "state": state, "step": step, "batch": batch}
+
+
+# -- phase 6b ---------------------------------------------------------------
 
 def throughput(scorer, card: str) -> None:
     rng = np.random.default_rng(SEED + 1)
     for batch in (256, 1024):
-        images = rng.integers(0, 256, size=(batch, 224, 224, 3), dtype=np.uint8)
-        tokens = make_tokens(rng, batch)
+        images, tokens = make_images(rng, batch), make_tokens(rng, batch)
         d_images, d_tokens = torch.from_numpy(images).cuda(), torch.from_numpy(tokens).cuda()
         for label, args in (("host uint8 in", (images, tokens)),
                             ("device-resident", (d_images, d_tokens))):
@@ -259,14 +605,63 @@ def throughput(scorer, card: str) -> None:
                   f"{dt * 1e3:.2f} ms/call, peak device memory {peak:.2f} GiB [{card}]",
                   flush=True)
         del d_images, d_tokens
-    batches = [(rng.integers(0, 256, size=(256, 224, 224, 3), dtype=np.uint8),
-                make_tokens(rng, 256)) for _ in range(8)]
+    batches = [(make_images(rng, 256), make_tokens(rng, 256)) for _ in range(8)]
     list(scorer.score_tokens_stream(batches[:2]))  # warm-up
     t0 = time.perf_counter()
     n = sum(len(s) for s in scorer.score_tokens_stream(batches, depth=2))
     dt = time.perf_counter() - t0
     print(f"throughput score_tokens_stream 8 x 256 (host uint8 in, depth 2): "
           f"{n / dt:.1f} pairs/s [{card}]", flush=True)
+
+
+# -- --profile --------------------------------------------------------------
+
+# device kernels by the piece of the step they belong to, first match wins
+PROFILE_GROUPS = (
+    ("dense_ln + dense_act_ln_res (LN GEMMs forward)", ("dense_ln_kernel",)),
+    ("dense_ln_bwd (LN GEMM backward)", ("dense_ln_bwd_kernel",)),
+    ("transform_attention_save_p", ("transform_attention_kernel",)),
+    ("transform_attention_bwd", ("tf_bwd_",)),
+    ("layer_norm_rows + bwd", ("layer_norm_rows",)),
+    ("reduce_partials", ("reduce_partials",)),
+    ("optimizer (foreach kernels)", ("multi_tensor_apply",)),
+    ("library products (cuBLAS)", ("gemm", "cutlass", "nvjet", "xmma", "cublas", "splitk")),
+    ("copies and memset", ("memcpy", "memset")),
+)
+
+
+def profile(label: str, fn, iters: int, card: str) -> None:
+    """torch.profiler over ``iters`` calls of ``fn``: wall per call and the
+    device time of each group of kernels as a share of the wall."""
+    from torch.profiler import ProfilerActivity
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    groups = dict.fromkeys([g for g, _ in PROFILE_GROUPS] + ["elementwise and the rest"], 0.0)
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us <= 0 or str(getattr(ev, "device_type", "")).endswith("CPU"):
+            continue
+        name = ev.key.lower()
+        group = next((g for g, keys in PROFILE_GROUPS if any(k in name for k in keys)),
+                     "elementwise and the rest")
+        groups[group] += dev_us / 1e3 / iters
+    total = sum(groups.values())
+    print(f"profile {label}: wall {wall_ms:.3f} ms per call under the profiler, device kernels "
+          f"{total:.3f} ms, busy share {total / wall_ms:.3f} [{card}]", flush=True)
+    if total == 0.0:
+        print(f"profile {label}: the profiler recorded no device time", flush=True)
+    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"profile {label}:   {group}: {ms:.3f} ms/call, share of wall "
+              f"{ms / wall_ms:.3f}", flush=True)
 
 
 def main() -> None:
@@ -288,13 +683,27 @@ def main() -> None:
           f"(log: {_build.BUILD_DIR / 'build.log'})", flush=True)
 
     results = kernel_oracles(card)
-    scorer, counts = serving_slice(ops, LCLIPScorer)
+    if missing := sorted(set(ops.KERNELS) - set(results)):
+        fail(f"kernels without an oracle case: {missing}")
+    scale_lines(card)
+    scorer, serving_counts = serving_slice(ops, LCLIPScorer)
     throughput(scorer, card)
+    train = train_slice(ops, card)
+
+    if "--profile" in sys.argv[1:]:
+        images, tokens = train["batch"][1], train["batch"][0]
+        profile("score_tokens 256 pairs (device-resident)",
+                lambda: scorer.score_tokens(images, tokens), 5, card)
+        state = train["state"]
+        profile("train step 256 pairs",
+                lambda: train["step"](state, *train["batch"]), 5, card)
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
-                "replaces": SOURCES[name][1], "launches": counts[name],
-                "max_abs_err": results[name]["max_abs_err"], "ms": results[name]["ms"],
-                "plain_ms": results[name]["plain_ms"]} for name in ops.KERNELS]
+                "replaces": SOURCES[name][1],
+                "launches": serving_counts[name] + train["counts"][name],
+                "launches_serving_call": serving_counts[name],
+                "launches_train_step": train["counts"][name],
+                **results[name]} for name in ops.KERNELS]
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

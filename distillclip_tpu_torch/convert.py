@@ -1,4 +1,5 @@
-"""JAX student parameters -> state dicts of the port's towers.
+"""JAX student parameters -> state dicts of the port's towers, and the
+stage-3 task's parameter tree -> the port's fp32 masters.
 
 The port's module tree mirrors the JAX parameter tree name for name, so the
 mapping is a renaming and no value changes:
@@ -18,6 +19,12 @@ JAX (``params`` of a student tower)    port state dict
 ``blocks_{b}/mlp/fc1/*``, ``fc2/*``    ``blocks.{b}.mlp.fc1.*``, ``fc2.*``
 ``norm/{scale,bias}``, ``head/*``      ``norm.*``, ``head.*``
 =====================================  =====================================
+
+The stage-3 task's tree ``{"student": {"image_tower": ..., "text_tower": ...}}``
+maps to ``student.image_tower.<name>`` / ``student.text_tower.<name>``
+(:func:`jax_dual_params_to_torch`); :func:`torch_name_to_jax_path` is the
+inverse on names, so a gradient or an updated parameter of the port can be
+laid beside its JAX leaf.
 
 Dense kernels stay ``[in, out]`` (Flax's layout, not torch.nn.Linear's
 ``[out, in]``): the port's ``Dense`` computes ``x @ kernel`` and its
@@ -73,3 +80,26 @@ def jax_student_to_torch(params: Mapping, tower: str) -> dict:
         raise ValueError(f"not a JAX {tower} student: missing {missing}, "
                          f"{other}-tower keys {foreign}")
     return state
+
+
+def torch_name_to_jax_path(name: str) -> str:
+    """``student.image_tower.blocks.0.norm1.1.scale`` ->
+    ``student/image_tower/blocks_0/norm1_1/scale``: the inverse of the
+    renaming above."""
+    return re.sub(r"\b(blocks|norm1|norm2)\.(\d+)\b", r"\1_\2", name).replace(".", "/")
+
+
+def jax_dual_params_to_torch(params: Mapping) -> dict:
+    """fp32 masters ``{"student.image_tower.<name>": tensor, ...}`` for
+    ``DualDistillTask.init_state`` from the JAX task's parameter tree
+    ``{"student": {"image_tower": ..., "text_tower": ...}}`` (arrays as
+    values).  Other top-level entries (``loss_aux``) are refused: the losses
+    that own parameters are not ported."""
+    if set(params) != {"student"} or set(params["student"]) != {"image_tower", "text_tower"}:
+        raise ValueError("expected the tree {'student': {'image_tower': ..., 'text_tower': "
+                         f"...}}}}, got top-level keys {sorted(params)}")
+    out = {}
+    for tower, kind in (("image_tower", "image"), ("text_tower", "text")):
+        for k, v in jax_student_to_torch(params["student"][tower], kind).items():
+            out[f"student.{tower}.{k}"] = v
+    return out

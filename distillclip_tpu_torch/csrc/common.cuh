@@ -56,6 +56,12 @@ __device__ __forceinline__ void store8(f16* p, const float (&f)[8]) {
   *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(h);
 }
 
+// out[j] = Σ_p partials[p·width + j] in ascending p: the second pass of every
+// reduction across blocks (dγ/dβ, dconv_l/dconv_w), so that the sums do not
+// depend on the order in which blocks finish.  Defined in layer_norm.cu.
+int reduce_partials(const float* partials, float* out, int nparts, int width,
+                    cudaStream_t stream);
+
 }  // namespace dc
 
 DC_EXPORT const char* dc_error_string(int err);

@@ -1,12 +1,19 @@
-// K1 and K2: LayerNorm-prologue GEMMs, forward only.
+// K1, K2 and K2's residual mode: LayerNorm-prologue GEMMs (forward).
 //
 //   K1 (act = 0):  u = (LN(x)·γ + β) · W (+ b)
 //   K2 (act = 1):  h = GELU_exact((LN(x)·γ + β) · W + b)
 //      (act = 2):  h = QuickGELU(...) = u · sigmoid(1.702 u)
+//   residual mode of K2 (training): the same main loop, and the epilogue
+//      writes u and e = erf(u/√2) (act 1) or sigmoid(1.702 u) (act 2) beside
+//      h, all from the one fp32 sum, for the backward.
+//   Every mode also writes the rows' LN mean and rstd (fp32 [rows]) when the
+//   caller passes buffers for them; the backward kernel reads them.
 //
 // Replaces distillclip_tpu/ops/fc1_act.py:_dense_ln_kernel (K1, the
-// students' norm1 + qkv projection) and :_fc1_ln_h_kernel (K2, the lean
-// no-grad norm2 + fc1 + GELU that writes h only).
+// students' norm1 + qkv projection), :_fc1_ln_h_kernel (K2, the lean
+// no-grad norm2 + fc1 + GELU that writes h only) and :_fc1_ln_kernel (the
+// residual mode; there h = recombine(u, e) is left to XLA, here the kernel
+// writes it from the fp32 sum, bit-identical to K2's h).
 //
 // Layouts: x [rows, C], W [C, N] row-major (the Flax Dense layout, kept by
 // the port's converter), γ, β [C], b [N], out [rows, N]; all bf16.
@@ -97,11 +104,21 @@ __device__ __forceinline__ void store_w_slice(f16* Bs, const uint4 (&reg)[kWWord
   }
 }
 
+// e of the residual mode: the activation's transcendental value.
 template <int ACT>
+__device__ __forceinline__ float act_e(float u) {
+  if (ACT == 1) return erff(u * 0.70710678118654752f);
+  return 1.0f / (1.0f + expf(-1.702f * u));
+}
+
+// RES: also write u and e (out_u, out_e) beside out = h.
+template <int ACT, bool RES>
 __global__ void __launch_bounds__(kThreads)
 dense_ln_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
                 const bf16* __restrict__ beta, const bf16* __restrict__ w,
                 const bf16* __restrict__ bias, bf16* __restrict__ out,
+                bf16* __restrict__ out_u, bf16* __restrict__ out_e,
+                float* __restrict__ mean_out, float* __restrict__ rstd_out,
                 int rows, int C, int N, float eps) {
   using namespace nvcuda;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -152,6 +169,10 @@ dense_ln_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
       }
     }
     const float rstd = rsqrtf(warp_sum(v) * inv_c + eps);
+    if (mean_out != nullptr && lane == 0) {
+      mean_out[g] = mean;
+      rstd_out[g] = rstd;
+    }
     for (int c = lane * 8; c < C; c += 256) {
       float f[8], gm[8], bt[8];
       load8(xs + c, f);
@@ -226,6 +247,13 @@ dense_ln_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
 #pragma unroll
         for (int t = 0; t < 8; ++t) f[t] += bb[t];
       }
+      if (RES) {
+        float e[8];
+        store8(out_u + (size_t)g * N + col, f);
+#pragma unroll
+        for (int t = 0; t < 8; ++t) e[t] = act_e<ACT>(f[t]);
+        store8(out_e + (size_t)g * N + col, e);
+      }
 #pragma unroll
       for (int t = 0; t < 8; ++t) f[t] = activate<ACT>(f[t]);
       store8(out + (size_t)g * N + col, f);
@@ -234,19 +262,20 @@ dense_ln_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
   }
 }
 
-template <int ACT>
+template <int ACT, bool RES>
 int launch(const void* x, const void* gamma, const void* beta, const void* w,
-           const void* bias, void* out, int rows, int C, int N, float eps,
-           cudaStream_t stream) {
+           const void* bias, void* out, void* out_u, void* out_e, void* mean, void* rstd,
+           int rows, int C, int N, float eps, cudaStream_t stream) {
   const size_t smem = smem_bytes(C);
-  cudaError_t err = cudaFuncSetAttribute(dense_ln_kernel<ACT>,
+  cudaError_t err = cudaFuncSetAttribute(dense_ln_kernel<ACT, RES>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (rows + BM - 1) / BM;
-  dense_ln_kernel<ACT><<<blocks, kThreads, smem, stream>>>(
+  dense_ln_kernel<ACT, RES><<<blocks, kThreads, smem, stream>>>(
       (const bf16*)x, (const bf16*)gamma, (const bf16*)beta, (const bf16*)w,
-      (const bf16*)bias, (bf16*)out, rows, C, N, eps);
+      (const bf16*)bias, (bf16*)out, (bf16*)out_u, (bf16*)out_e, (float*)mean,
+      (float*)rstd, rows, C, N, eps);
   return (int)cudaGetLastError();
 }
 
@@ -259,15 +288,42 @@ int launch(const void* x, const void* gamma, const void* beta, const void* w,
 DC_EXPORT long long dc_dense_ln_smem_bytes(int C) { return (long long)dc::smem_bytes(C); }
 
 // bias may be NULL (the text tower's qkv has none).  act: 0 none (K1),
-// 1 exact GELU, 2 QuickGELU (K2).  Requires C % 32 == 0 and N % 8 == 0.
+// 1 exact GELU, 2 QuickGELU (K2).  mean and rstd ([rows] fp32) are both NULL
+// or both buffers to fill.  Requires C % 32 == 0 and N % 8 == 0.
 DC_EXPORT int dc_dense_ln(const void* x, const void* gamma, const void* beta,
-                          const void* w, const void* bias, void* out, int rows, int C,
-                          int N, float eps, int act, void* stream) {
+                          const void* w, const void* bias, void* out, void* mean,
+                          void* rstd, int rows, int C, int N, float eps, int act,
+                          void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  void* no = nullptr;
+  switch (act) {
+    case 0:
+      return dc::launch<0, false>(x, gamma, beta, w, bias, out, no, no, mean, rstd, rows, C,
+                                  N, eps, s);
+    case 1:
+      return dc::launch<1, false>(x, gamma, beta, w, bias, out, no, no, mean, rstd, rows, C,
+                                  N, eps, s);
+    case 2:
+      return dc::launch<2, false>(x, gamma, beta, w, bias, out, no, no, mean, rstd, rows, C,
+                                  N, eps, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The residual mode of K2: h, u, e [rows, N] bf16 and mean, rstd [rows] fp32.
+// act is 1 or 2; same shape rules as dc_dense_ln.
+DC_EXPORT int dc_dense_act_ln_res(const void* x, const void* gamma, const void* beta,
+                                  const void* w, const void* bias, void* h, void* u, void* e,
+                                  void* mean, void* rstd, int rows, int C, int N, float eps,
+                                  int act, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (act) {
-    case 0: return dc::launch<0>(x, gamma, beta, w, bias, out, rows, C, N, eps, s);
-    case 1: return dc::launch<1>(x, gamma, beta, w, bias, out, rows, C, N, eps, s);
-    case 2: return dc::launch<2>(x, gamma, beta, w, bias, out, rows, C, N, eps, s);
+    case 1:
+      return dc::launch<1, true>(x, gamma, beta, w, bias, h, u, e, mean, rstd, rows, C, N,
+                                 eps, s);
+    case 2:
+      return dc::launch<2, true>(x, gamma, beta, w, bias, h, u, e, mean, rstd, rows, C, N,
+                                 eps, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -2,7 +2,10 @@
 //
 // Replaces distillclip_tpu/ops/transform_attention.py:_tf_kernel (with its
 // _build_mix_expansions), the Pallas forward behind
-// transform_attention_rows_qkv when no probabilities are saved.
+// transform_attention_rows_qkv, without and with saved probabilities
+// (save_p): given a buffer, the kernel also stores P_h, after the per-head
+// normalisation and before the conv_w mix, as bf16 [B, H, N, N] at the true
+// N, for the backward kernel.  The output is the same bits either way.
 //
 // Per sample b and query row i (scores never leave shared memory):
 //   S_g[i, j]  = q_g[i] · k_g[j]                      g = 0..H-1, j = 0..N-1
@@ -35,18 +38,13 @@
 // values, N needs no padding, and d only has to be a multiple of 8.  All
 // products run on the CUDA cores in fp32 (~13 MFLOP per image sample);
 // moving QKᵀ and PV to the tensor cores is later work.
-#include "common.cuh"
+#include "transform_attention.cuh"
 
 namespace dc {
 
 namespace {
 
-constexpr int kTqMax = 16;
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-
-// Rows of the transposed head mixes, padded to whole 16-byte words.
-__host__ __device__ inline int pad4(int H) { return (H + 3) & ~3; }
+using namespace tf;
 
 __host__ __device__ inline size_t tf_smem(int N, int H, int d, int tq) {
   return (size_t)tq * H * d * sizeof(bf16)             // q tile
@@ -54,38 +52,11 @@ __host__ __device__ inline size_t tf_smem(int N, int H, int d, int tq) {
          + (size_t)2 * H * tq * N * sizeof(float);     // two [H, tq, N] score buffers
 }
 
-// T[h, p] = alpha · Σ_g W[h, g] · S[g, p] over the tq·N positions p.  WT is
-// W transposed, [H, pad4(H)], zero past column H.  A thread makes heads
-// h0..h0+3 of one position.
-__device__ __forceinline__ void mix_heads(const float* __restrict__ WT,
-                                          const float* __restrict__ S,
-                                          float* __restrict__ T, int H, int plane,
-                                          float alpha) {
-  const int H4 = pad4(H);
-  for (int idx = threadIdx.x; idx < (H4 / 4) * plane; idx += kThreads) {
-    const int h0 = idx / plane * 4;
-    const int p = idx - h0 / 4 * plane;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int g = 0; g < H; ++g) {
-      const float s = S[g * plane + p];
-      const float4 w = *reinterpret_cast<const float4*>(WT + g * H4 + h0);
-      acc.x += w.x * s;
-      acc.y += w.y * s;
-      acc.z += w.z * s;
-      acc.w += w.w * s;
-    }
-    float* t = T + h0 * plane + p;
-    t[0] = alpha * acc.x;
-    if (h0 + 1 < H) t[plane] = alpha * acc.y;
-    if (h0 + 2 < H) t[2 * plane] = alpha * acc.z;
-    if (h0 + 3 < H) t[3 * plane] = alpha * acc.w;
-  }
-}
-
 __global__ void __launch_bounds__(kThreads)
 transform_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ wl,
                            const bf16* __restrict__ ww, bf16* __restrict__ out,
-                           int N, int H, int d, int tq, float scale) {
+                           bf16* __restrict__ probs, int N, int H, int d, int tq,
+                           float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int HD = H * d;
   const int HD3 = 3 * HD;
@@ -102,59 +73,13 @@ transform_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict_
   const int nq = min(tq, N - i0);
   const bf16* base = qkv + (size_t)b * N * HD3;
 
-  for (int idx = threadIdx.x; idx < H * H4; idx += kThreads) {
-    const int g = idx / H4;
-    const int h = idx - g * H4;
-    Wl[idx] = h < H ? __bfloat162float(wl[h * H + g]) : 0.f;
-    Ww[idx] = h < H ? __bfloat162float(ww[h * H + g]) : 0.f;
-  }
-  // q tile, 8 values per word; rows past the end of the sample are zero.
-  for (int idx = threadIdx.x; idx < tq * (HD / 8); idx += kThreads) {
-    const int i = idx / (HD / 8);
-    const int c = (idx - i * (HD / 8)) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (i < nq) v = *reinterpret_cast<const uint4*>(base + (size_t)(i0 + i) * HD3 + c);
-    *reinterpret_cast<uint4*>(Qs + i * HD + c) = v;
-  }
+  load_mix(wl, Wl, H, false);
+  load_mix(ww, Ww, H, false);
+  load_row_tile(base + (size_t)i0 * HD3, HD3, Qs, HD, tq, nq);
   __syncthreads();
 
-  // 1) raw per-head scores: thread per (g, j) key row, all tq queries at once,
-  //    so each k row is read from memory once per block; four 16-byte chunks
-  //    of it are in flight before the first is used.
-  for (int item = threadIdx.x; item < H * N; item += kThreads) {
-    const int g = item / N;
-    const int j = item - g * N;
-    const bf16* kp = base + (size_t)j * HD3 + HD + g * d;
-    const bf16* qp = Qs + g * d;
-    float acc[kTqMax];
-#pragma unroll
-    for (int i = 0; i < kTqMax; ++i) acc[i] = 0.f;
-    for (int c0 = 0; c0 < d; c0 += 32) {
-      uint4 kr[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        kr[u] = c0 + 8 * u < d ? *reinterpret_cast<const uint4*>(kp + c0 + 8 * u)
-                               : make_uint4(0, 0, 0, 0);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        if (c0 + 8 * u >= d) break;
-        float kf[8];
-        unpack8(kr[u], kf);
-#pragma unroll
-        for (int i = 0; i < kTqMax; ++i) {
-          if (i < tq) {
-            float qf[8];
-            load8(qp + i * HD + c0 + 8 * u, qf);
-#pragma unroll
-            for (int t = 0; t < 8; ++t) acc[i] += qf[t] * kf[t];
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kTqMax; ++i)
-      if (i < tq) S[(g * tq + i) * N + j] = acc[i];
-  }
+  // 1) raw per-head scores S_g = q_g · k_gᵀ.
+  rows_dot(Qs, base + HD, HD3, S, N, H, d, tq);
   __syncthreads();
 
   // 2) conv_l across heads, with the softmax scale.
@@ -180,47 +105,24 @@ transform_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict_
   }
   __syncthreads();
 
+  // 3b) the probabilities, for the backward: P[b, h, i0 + i, :] as bf16.
+  if (probs != nullptr) {
+    for (int idx = threadIdx.x; idx < H * nq * N; idx += kThreads) {
+      const int h = idx / (nq * N);
+      const int rem = idx - h * nq * N;
+      const int i = rem / N;
+      const int j = rem - i * N;
+      probs[(((size_t)b * H + h) * N + i0 + i) * N + j] =
+          __float2bfloat16(T[(h * tq + i) * N + j]);
+    }
+  }
+
   // 4) conv_w across heads on the probabilities.
   mix_heads(Ww, T, S, H, plane, 1.0f);
   __syncthreads();
 
-  // 5) O_h = P'_h · v_h: thread per pair of output columns (one head, since
-  //    d is even), all tq queries at once, so each v element is read from
-  //    memory once per block; eight key rows of v are in flight at a time.
-  for (int col = 2 * threadIdx.x; col < HD; col += 2 * kThreads) {
-    const float* p = S + (size_t)(col / d) * plane;
-    const bf16* vp = base + 2 * HD + col;
-    float acc0[kTqMax], acc1[kTqMax];
-#pragma unroll
-    for (int i = 0; i < kTqMax; ++i) acc0[i] = acc1[i] = 0.f;
-    for (int j0 = 0; j0 < N; j0 += 8) {
-      __nv_bfloat162 vr[8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u)
-        vr[u] = j0 + u < N ? *reinterpret_cast<const __nv_bfloat162*>(vp + (size_t)(j0 + u) * HD3)
-                           : __floats2bfloat162_rn(0.f, 0.f);
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        if (j0 + u >= N) break;
-        const float v0 = __low2float(vr[u]);
-        const float v1 = __high2float(vr[u]);
-#pragma unroll
-        for (int i = 0; i < kTqMax; ++i) {
-          if (i < tq) {
-            const float pv = p[i * N + j0 + u];
-            acc0[i] += pv * v0;
-            acc1[i] += pv * v1;
-          }
-        }
-      }
-    }
-    bf16* o = out + ((size_t)b * N + i0) * HD + col;
-#pragma unroll
-    for (int i = 0; i < kTqMax; ++i)
-      if (i < nq)
-        *reinterpret_cast<__nv_bfloat162*>(o + (size_t)i * HD) =
-            __floats2bfloat162_rn(acc0[i], acc1[i]);
-  }
+  // 5) O_h = P'_h · v_h.
+  plane_rows(S, base + 2 * HD, HD3, out + ((size_t)b * N + i0) * HD, HD, N, H, d, tq, nq);
 }
 
 }  // namespace
@@ -232,22 +134,23 @@ DC_EXPORT long long dc_tf_smem_bytes(int N, int H, int d, int tq) {
   return (long long)dc::tf_smem(N, H, d, tq);
 }
 
-DC_EXPORT int dc_tf_max_tq() { return dc::kTqMax; }
+DC_EXPORT int dc_tf_max_tq() { return dc::tf::kTqMax; }
 
 // qkv: [batch·N, 3·H·d]; wl, ww: [H, H]; out: [batch·N, H·d]; all bf16.
-// 1 <= tq <= dc_tf_max_tq(), d % 8 == 0, dc_tf_smem_bytes(...) within the
-// block limit (the Python wrapper checks all of these).
+// probs: NULL, or [batch, H, N, N] bf16 to fill.  1 <= tq <= dc_tf_max_tq(),
+// d % 8 == 0, dc_tf_smem_bytes(...) within the block limit (the Python
+// wrapper checks all of these).
 DC_EXPORT int dc_transform_attention(const void* qkv, const void* wl, const void* ww,
-                                     void* out, int batch, int N, int H, int d, int tq,
-                                     float scale, void* stream) {
+                                     void* out, void* probs, int batch, int N, int H, int d,
+                                     int tq, float scale, void* stream) {
   const size_t smem = dc::tf_smem(N, H, d, tq);
   cudaError_t err = cudaFuncSetAttribute(dc::transform_attention_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((N + tq - 1) / tq, batch);
-  dc::transform_attention_kernel<<<grid, dc::kThreads, smem, (cudaStream_t)stream>>>(
+  dc::transform_attention_kernel<<<grid, dc::tf::kThreads, smem, (cudaStream_t)stream>>>(
       (const dc::bf16*)qkv, (const dc::bf16*)wl, (const dc::bf16*)ww, (dc::bf16*)out,
-      N, H, d, tq, scale);
+      (dc::bf16*)probs, N, H, d, tq, scale);
   return (int)cudaGetLastError();
 }

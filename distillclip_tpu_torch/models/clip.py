@@ -1,8 +1,20 @@
-"""Feature normalisation for cosine scoring."""
+"""Dual-tower CLIP model producing cosine contrastive logits.
+
+Port of ``distillclip_tpu/models/clip.py``.  Like the reference there is no
+learnable logit scale: the i2t / t2i logits are raw cosine similarities.
+"""
 
 from __future__ import annotations
 
 import torch
+from torch import nn
+
+from distillclip_tpu_torch.models.outputs import (
+    CLIPOutput,
+    ControlFlags,
+    TextOutput,
+    VisionOutput,
+)
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -11,3 +23,34 @@ def l2_normalize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     Port of ``distillclip_tpu/models/clip.py:24-29``; output in x's dtype."""
     x32 = x.float()
     return (x32 / x32.norm(dim=dim, keepdim=True)).to(x.dtype)
+
+
+def cosine_logits(image_rep: torch.Tensor, text_rep: torch.Tensor) -> torch.Tensor:
+    """[B_img, B_txt] fp32 logits: each side normalised in fp32 and rounded to
+    its own dtype (as the JAX package rounds it), the product summed in fp32."""
+    return l2_normalize(image_rep).float() @ l2_normalize(text_rep).float().t()
+
+
+class CLIPModel(nn.Module):
+    """Dual tower wrapper: ``image_tower`` and ``text_tower`` are the port's
+    student towers, which return their pooled representation."""
+
+    def __init__(self, image_tower: nn.Module, text_tower: nn.Module):
+        super().__init__()
+        self.image_tower = image_tower
+        self.text_tower = text_tower
+
+    def encode_image(self, images: torch.Tensor, flags: ControlFlags = ControlFlags()):
+        return VisionOutput(last_representation=self.image_tower(images, flags))
+
+    def encode_text(self, tokens: torch.Tensor, flags: ControlFlags = ControlFlags()):
+        return TextOutput(last_representation=self.text_tower(tokens, flags))
+
+    def forward(self, tokens: torch.Tensor, images: torch.Tensor,
+                flags: ControlFlags = ControlFlags()) -> CLIPOutput:
+        visual_output = self.encode_image(images, flags)
+        text_output = self.encode_text(tokens, flags)
+        logits = cosine_logits(visual_output.last_representation,
+                               text_output.last_representation)
+        return CLIPOutput(visual_output=visual_output, text_output=text_output,
+                          i2t_logits=logits, t2i_logits=logits.t())

@@ -1,4 +1,4 @@
-"""Weight-share student transformers, forward for serving.
+"""Weight-share student transformers, for serving and for training.
 
 Port of ``distillclip_tpu/models/repeat_vit.py``: ``depth`` logical layers run
 as ``depth / repeated_times`` parameter blocks, each used ``repeated_times``
@@ -15,15 +15,20 @@ Each repeat runs, on ``[B·N, C]`` rows at the true token count:
 
 and after the last block the tower pools (the cls row, or the EOT row of
 the text), normalises the pooled rows (:func:`ops.layer_norm_rows`, K4) and
-projects them with ``head``.
+projects them with ``head``.  Each of the four ops carries its gradient (a
+``torch.autograd.Function`` over its backward kernel), so the same forward
+trains: the step hands the towers their parameters cast to the compute dtype
+(``training.train_state.cast_to_compute``), and on the card the kernels
+refuse fp32 operands rather than compute in another precision.
 
 Quirks kept from the reference: the text student is bidirectional (no causal
 mask) and pools at ``argmax(tokens)``; the text qkv has no bias, the image
 qkv has one (``qkv_bias: true`` in the configs).
 
 Not ported yet, and refused rather than approximated: ``use_transform=False``
-(it needs the plain-attention kernel), iRPE, and dropout / drop-path in
-training mode (serving runs in eval mode, where they do nothing).
+(it needs the plain-attention kernel), iRPE, the ``ControlFlags`` taps, and
+non-zero dropout / drop-path rates in training mode (in eval mode they do
+nothing; the final configs set none).
 """
 
 from __future__ import annotations
@@ -69,7 +74,7 @@ class MiniAttention(nn.Module):
         if not use_transform:
             raise NotImplementedError(
                 "MiniAttention(use_transform=False) needs the plain-attention kernel, "
-                "not ported yet (ROADMAP queue 1, item 3)")
+                "not ported yet (ROADMAP queue 1, item 3: the teacher towers)")
         if rpe_config is not None:
             raise NotImplementedError("iRPE is not ported yet (ROADMAP queue 1, item 10)")
         self.num_heads = num_heads
@@ -145,8 +150,8 @@ class _RepeatTower(nn.Module):
         flags.require_default()
         if self.training and any(r > 0.0 for r in self.drop_rates):
             raise NotImplementedError(
-                "dropout / drop-path in training mode are not ported yet (ROADMAP "
-                "queue 1, item 2); call .eval() to serve")
+                "non-zero dropout / drop-path rates in training mode are not ported "
+                "yet (ROADMAP queue 1, item 2: taps and dropout); call .eval() to serve")
 
     def _blocks_and_head(self, x: torch.Tensor, pool) -> torch.Tensor:
         """x: ``[B, N, C]`` embeddings; ``pool`` picks one row per sample."""

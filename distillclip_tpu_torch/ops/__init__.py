@@ -2,18 +2,36 @@
 
 Every wrapper runs its plain version for a CPU tensor and launches its CUDA
 kernel for a CUDA tensor (or raises); it adds one to its ``launches`` count
-where, and only where, it launches the kernel.
+where, and only where, it launches the kernel.  The first four serve; with a
+gradient the public functions go through ``torch.autograd.Function``s whose
+forward and backward launch the other five (and K1 / K4 in the mode that also
+writes the rows' statistics).
 """
 
-from distillclip_tpu_torch.ops.fc1_act import dense_act_ln, dense_ln
-from distillclip_tpu_torch.ops.layer_norm import layer_norm_rows
-from distillclip_tpu_torch.ops.transform_attention import transform_attention_rows_qkv
+from distillclip_tpu_torch.ops.fc1_act import (
+    dense_act_ln,
+    dense_act_ln_res,
+    dense_ln,
+    dense_ln_bwd,
+)
+from distillclip_tpu_torch.ops.layer_norm import layer_norm_rows, layer_norm_rows_bwd
+from distillclip_tpu_torch.ops.transform_attention import (
+    transform_attention_bwd,
+    transform_attention_rows_qkv,
+    transform_attention_save_p,
+)
 
+# Every kernel by the name of the wrapper that launches and counts it.
 KERNELS = {
     "dense_ln": dense_ln,
     "dense_act_ln": dense_act_ln,
     "transform_attention_rows_qkv": transform_attention_rows_qkv,
     "layer_norm_rows": layer_norm_rows,
+    "transform_attention_save_p": transform_attention_save_p,
+    "transform_attention_bwd": transform_attention_bwd,
+    "layer_norm_rows_bwd": layer_norm_rows_bwd,
+    "dense_act_ln_res": dense_act_ln_res,
+    "dense_ln_bwd": dense_ln_bwd,
 }
 
 
@@ -29,9 +47,14 @@ def launch_counts() -> dict:
 __all__ = [
     "KERNELS",
     "dense_act_ln",
+    "dense_act_ln_res",
     "dense_ln",
+    "dense_ln_bwd",
     "launch_counts",
     "layer_norm_rows",
+    "layer_norm_rows_bwd",
     "reset_launch_counts",
+    "transform_attention_bwd",
     "transform_attention_rows_qkv",
+    "transform_attention_save_p",
 ]

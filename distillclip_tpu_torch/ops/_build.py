@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels with nvcc and bind them with ctypes.
 
-All of ``distillclip_tpu_torch/csrc/*.cu`` compile in one nvcc call into one
-shared library with a plain C interface::
+Every ``distillclip_tpu_torch/csrc/*.cu`` compiles to an object file, one
+nvcc process per source and all of them at once, and the objects link into
+one shared library with a plain C interface::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/torch_kernels/libdistillclip_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
+         -c -o build/torch_kernels/<hash>/<name>.o csrc/<name>.cu      (each source)
+    nvcc -shared -o build/torch_kernels/libdistillclip_kernels_<hash>.so <hash>/*.o
 
 The library lands in ``build/torch_kernels/`` at the root of the checkout and
 is named by a hash of the sources and flags, so an edited source rebuilds and
@@ -31,7 +33,7 @@ BUILD_DIR = _PKG_DIR.parent / "build" / "torch_kernels"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -42,12 +44,28 @@ _F = ctypes.c_float
 # ctypes does not cut them to 32-bit ints.
 _SIGNATURES = {
     "dc_error_string": (ctypes.c_char_p, [_I]),
-    "dc_layer_norm_rows": (_I, [_P, _P, _P, _P, _I, _I, _F, _P]),
+    # x, gamma, beta, y, mean, rstd | rows, C, eps, stream
+    "dc_layer_norm_rows": (_I, [_P] * 6 + [_I, _I, _F, _P]),
+    "dc_layer_norm_rows_bwd_blocks": (_I, [_I]),
+    # x, gamma, g, mean, rstd, dx, partial, dgamma_dbeta | rows, C, stream
+    "dc_layer_norm_rows_bwd": (_I, [_P] * 8 + [_I, _I, _P]),
     "dc_dense_ln_smem_bytes": (ctypes.c_longlong, [_I]),
-    "dc_dense_ln": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P]),
+    # x, gamma, beta, w, bias, out, mean, rstd | rows, C, N, eps, act, stream
+    "dc_dense_ln": (_I, [_P] * 8 + [_I, _I, _I, _F, _I, _P]),
+    # x, gamma, beta, w, bias, h, u, e, mean, rstd | rows, C, N, eps, act, stream
+    "dc_dense_act_ln_res": (_I, [_P] * 10 + [_I, _I, _I, _F, _I, _P]),
+    "dc_dense_ln_bwd_smem_bytes": (ctypes.c_longlong, [_I]),
+    "dc_dense_ln_bwd_blocks": (_I, [_I]),
+    # x, gamma, beta, w, du, mean, rstd, dx, xn, partial, dgamma_dbeta | rows, C, N, stream
+    "dc_dense_ln_bwd": (_I, [_P] * 11 + [_I, _I, _I, _P]),
     "dc_tf_smem_bytes": (ctypes.c_longlong, [_I, _I, _I, _I]),
     "dc_tf_max_tq": (_I, []),
-    "dc_transform_attention": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
+    # qkv, wl, ww, out, probs | batch, N, H, d, tq, scale, stream
+    "dc_transform_attention": (_I, [_P] * 5 + [_I, _I, _I, _I, _I, _F, _P]),
+    "dc_tf_bwd_smem_bytes": (ctypes.c_longlong, [_I, _I, _I, _I]),
+    # qkv, wl, ww, dout, probs, dqkv, pm_scratch, ds_scratch, partial, dwl_dww |
+    # batch, N, H, d, tq, scale, stream
+    "dc_transform_attention_bwd": (_I, [_P] * 10 + [_I, _I, _I, _I, _I, _F, _P]),
 }
 
 # Dynamic shared memory one block may use on Hopper (232,448 bytes).
@@ -78,19 +96,37 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu unless the library for these sources exists."""
+    """Compile csrc/*.cu unless the library for these sources exists: one
+    nvcc process per source, all started together, then one link."""
     out = library_path()
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(SRC_DIR), "-o", str(tmp),
-           *[str(s) for s in _sources()]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    (BUILD_DIR / "build.log").write_text(" ".join(cmd) + "\n" + log)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    nvcc = _nvcc()
+    obj_dir = BUILD_DIR / f"{out.stem}.{os.getpid()}.obj"
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for src in _sources():
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(SRC_DIR), "-c", "-o",
+               str(obj_dir / f"{src.stem}.o"), str(src)]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True)))
+    log, failed = "", []
+    for cmd, proc in jobs:
+        text, _ = proc.communicate()
+        log += " ".join(cmd) + "\n" + text
+        if proc.returncode != 0:
+            failed.append(cmd[-1])
+    if not failed:
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, "-shared", "-o", str(tmp), *[c[-2] for c, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log += " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            failed.append("link")
+    (BUILD_DIR / "build.log").write_text(log)
+    shutil.rmtree(obj_dir, ignore_errors=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n{log}")
     os.replace(tmp, out)
     return out
 
@@ -122,26 +158,25 @@ def stream_ptr(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def check_operands(what: str, *tensors, unaligned=()) -> None:
-    """Refuse what the kernels do not take: they read contiguous bf16 on
-    one CUDA device, ``tensors`` with 16-byte loads (``unaligned`` ones
-    element by element), and they have no backward."""
+def check_operands(what: str, *tensors, unaligned=(), fp32=()) -> None:
+    """Refuse what the kernels do not take: they read contiguous tensors on
+    one CUDA device, bf16 ``tensors`` with 16-byte loads, bf16 ``unaligned``
+    ones element by element, and ``fp32`` ones (saved row statistics) as
+    float32.  Gradients are the business of the ``autograd.Function`` around
+    a wrapper, not of this check."""
     import torch
 
     dev = tensors[0].device
-    for t in (*tensors, *unaligned):
+    for t in (*tensors, *unaligned, *fp32):
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(f"{what}: every operand must be on {dev}, got {t.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{what}: the kernel takes bfloat16, got {t.dtype}")
+        want = torch.float32 if any(t is f for f in fp32) else torch.bfloat16
+        if t.dtype != want:
+            raise TypeError(f"{what}: the kernel takes {want} here, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: operands must be contiguous")
-        if t.data_ptr() % 16 and not any(t is u for u in unaligned):
+        if t.data_ptr() % 16 and any(t is a for a in tensors):
             raise ValueError(f"{what}: operands must be 16-byte aligned")
-        if torch.is_grad_enabled() and t.requires_grad:
-            raise NotImplementedError(
-                f"{what}: no backward kernel yet (ROADMAP queue 2, the train "
-                "step); run under torch.inference_mode()")
 
 
 def plain_only(what: str, t) -> bool:
@@ -153,3 +188,13 @@ def plain_only(what: str, t) -> bool:
     if t.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {t.device}")
     return False
+
+
+def needs_grad(*tensors) -> bool:
+    """True when autograd will ask for a gradient of any of ``tensors``: the
+    wrappers then go through their ``autograd.Function``, whose forward saves
+    what its backward kernel reads."""
+    import torch
+
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                           for t in tensors)

@@ -1,6 +1,6 @@
-"""LayerNorm-prologue dense layers (forward only).
+"""LayerNorm-prologue dense layers, forward and backward.
 
-Port of ``distillclip_tpu/ops/fc1_act.py``'s no-grad entry points:
+Port of ``distillclip_tpu/ops/fc1_act.py``'s LN-fused entry points:
 
 * :func:`dense_ln`      u = (LN(x)·γ+β)·W (+b)          -- K1, the qkv projection
 * :func:`dense_act_ln`  h = act((LN(x)·γ+β)·W + b)      -- K2, fc1 + GELU
@@ -12,6 +12,19 @@ the product, bias and activation in fp32 before one final rounding to x's
 dtype.  The plain version rounds the LN output to x's dtype before the
 product, as the TPU kernel does; the CUDA kernel rounds it to fp16, which
 keeps the bf16 result within its limits (see the header of dense_ln.cu).
+
+Without a gradient (serving) the lean kernels run: K1 writes u, K2 writes h
+only.  With one, each function is a ``torch.autograd.Function``:
+
+* forward: K1 also writes the rows' LN mean and rstd; K2 runs in its
+  residual mode (:func:`dense_act_ln_res`) and writes h, u, e = erf(u/√2) or
+  σ(1.702u), mean and rstd.  The JAX package recombines h from the rounded
+  (u, e) outside its kernel; here the kernel writes h from the fp32 sum, the
+  same bits as the lean K2;
+* backward: :func:`dense_ln_bwd` (``csrc/dense_ln_bwd.cu``) makes dx, the
+  normalised rows xn and dγ, dβ from du in one pass.  The GELU derivative,
+  dW = xnᵀ·du and db = Σ du stay plain PyTorch, as the JAX package leaves
+  them to XLA.
 """
 
 from __future__ import annotations
@@ -24,32 +37,76 @@ import torch
 from distillclip_tpu_torch.ops import _build
 
 _ACTS = {"gelu_exact": 1, "quick_gelu": 2}
+_INV_SQRT2 = 1.0 / math.sqrt(2.0)
+_INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
 
-def _ln_in_dtype(x, ls, lb, eps):
+def _ln_stats(x, ls, lb, eps):
+    """(LN(x)·γ+β in fp32, mean [rows], rstd [rows])."""
     x32 = x.float()
     mean = x32.mean(-1, keepdim=True)
     d = x32 - mean
     rstd = torch.rsqrt(d.square().mean(-1, keepdim=True) + eps)
-    return (d * rstd * ls.float() + lb.float()).to(x.dtype)
+    return d * rstd * ls.float() + lb.float(), mean[:, 0], rstd[:, 0]
 
 
-def _act(u: torch.Tensor, act: str) -> torch.Tensor:
+def _act_e(u: torch.Tensor, act: str) -> torch.Tensor:
+    """The activation's transcendental value e from fp32 u."""
     if act == "gelu_exact":
-        return 0.5 * u * (1.0 + torch.erf(u * (1.0 / math.sqrt(2.0))))
+        return torch.erf(u * _INV_SQRT2)
     if act == "quick_gelu":
-        return u * torch.sigmoid(1.702 * u)
+        return torch.sigmoid(1.702 * u)
     raise ValueError(f"unknown activation {act!r}")
+
+
+def _recombine(u: torch.Tensor, e: torch.Tensor, act: str) -> torch.Tensor:
+    return 0.5 * u * (1.0 + e) if act == "gelu_exact" else u * e
+
+
+def _act_grad(u: torch.Tensor, e: torch.Tensor, act: str) -> torch.Tensor:
+    """d act(u) / du from fp32 u and its saved e."""
+    if act == "gelu_exact":
+        return 0.5 * (1.0 + e) + u * torch.exp(-0.5 * u * u) * _INV_SQRT2PI
+    return e + 1.702 * u * e * (1.0 - e)
+
+
+def dense_ln_stats_plain(x, ls, lb, w, b=None, eps: float = 1e-5):
+    """Plain PyTorch version of K1 with its statistics: (u, mean, rstd)."""
+    xn, mean, rstd = _ln_stats(x, ls, lb, eps)
+    u = xn.to(x.dtype).float() @ w.float()
+    if b is not None:
+        u = u + b.float()
+    return u.to(x.dtype), mean, rstd
+
+
+def dense_act_ln_res_plain(x, ls, lb, w, b, act: str = "gelu_exact", eps: float = 1e-5):
+    """Plain PyTorch version of K2's residual mode: (h, u, e, mean, rstd),
+    with h, u and e each rounded once from the fp32 sum."""
+    xn, mean, rstd = _ln_stats(x, ls, lb, eps)
+    u = xn.to(x.dtype).float() @ w.float() + b.float()
+    e = _act_e(u, act)
+    return (_recombine(u, e, act).to(x.dtype), u.to(x.dtype), e.to(x.dtype), mean, rstd)
 
 
 def dense_ln_plain(x, ls, lb, w, b=None, eps: float = 1e-5, act: Optional[str] = None):
     """Plain PyTorch version of K1 (``act=None``) and K2."""
-    u = _ln_in_dtype(x, ls, lb, eps).float() @ w.float()
-    if b is not None:
-        u = u + b.float()
-    if act is not None:
-        u = _act(u, act)
-    return u.to(x.dtype)
+    if act is None:
+        return dense_ln_stats_plain(x, ls, lb, w, b, eps)[0]
+    return dense_act_ln_res_plain(x, ls, lb, w, b, act, eps)[0]
+
+
+def dense_ln_bwd_plain(x, ls, lb, w, du, mean, rstd):
+    """Plain PyTorch version of the backward kernel: (dx, xn in x's dtype,
+    dγ fp32, dβ fp32) from du and the saved row statistics."""
+    ls32 = ls.float()
+    xhat = (x.float() - mean[:, None]) * rstd[:, None]
+    xn = xhat * ls32 + lb.float()
+    dxn = du.float() @ w.float().t()
+    dxhat = dxn * ls32
+    m1 = dxhat.mean(-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(-1, keepdim=True)
+    dx = rstd[:, None] * (dxhat - m1 - xhat * m2)
+    return dx.to(x.dtype), xn.to(x.dtype), (dxn * xhat).sum(0), dxn.sum(0)
 
 
 def _check_shapes(what, x, ls, lb, w, b):
@@ -61,49 +118,175 @@ def _check_shapes(what, x, ls, lb, w, b):
         raise ValueError(f"{what}: LN params must be [{C}] and the bias [{N}]")
 
 
-def _launch(wrapper, x, ls, lb, w, b, eps, act_code):
-    """Launch K1 (act_code 0) or K2 and count it on ``wrapper``."""
+def _check_widths(what, smem_bytes, C, N):
+    """``smem_bytes(C)`` is the kernel's shared memory for width C."""
+    if C % 32 or N % 8:
+        raise ValueError(f"{what}: the kernel takes C % 32 == 0 and N % 8 == 0, "
+                         f"got C={C}, N={N}")
+    if smem_bytes(C) > _build.MAX_SMEM_BYTES:
+        raise ValueError(f"{what}: C={C} is too wide for the kernel's row tile")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _stats_buffers(x, stats: bool):
+    if not stats:
+        return None, None
+    return (torch.empty(x.shape[0], dtype=torch.float32, device=x.device),
+            torch.empty(x.shape[0], dtype=torch.float32, device=x.device))
+
+
+def _launch(wrapper, x, ls, lb, w, b, eps, act_code, stats=False):
+    """Launch K1 (act_code 0) or the lean K2 and count it on ``wrapper``;
+    returns (out, mean, rstd), the last two None without ``stats``."""
     what = wrapper.__name__
     _build.check_operands(what, *(t for t in (x, ls, lb, w, b) if t is not None))
     rows, C = x.shape
     N = w.shape[1]
-    if C % 32 or N % 8:
-        raise ValueError(f"{what}: the kernel takes C % 32 == 0 and N % 8 == 0, "
-                         f"got C={C}, N={N}")
     lib = _build.lib()
-    if lib.dc_dense_ln_smem_bytes(C) > _build.MAX_SMEM_BYTES:
-        raise ValueError(f"{what}: C={C} is too wide for the kernel's row tile")
+    _check_widths(what, lib.dc_dense_ln_smem_bytes, C, N)
     out = torch.empty((rows, N), dtype=x.dtype, device=x.device)
+    mean, rstd = _stats_buffers(x, stats)
     if rows == 0:
-        return out
+        return out, mean, rstd
     _build.check(lib.dc_dense_ln(x.data_ptr(), ls.data_ptr(), lb.data_ptr(), w.data_ptr(),
-                                 None if b is None else b.data_ptr(), out.data_ptr(),
+                                 _ptr(b), out.data_ptr(), _ptr(mean), _ptr(rstd),
                                  rows, C, N, float(eps), act_code, _build.stream_ptr(x)),
                  what)
     wrapper.launches += 1
-    return out
+    return out, mean, rstd
+
+
+def dense_ln_fwd(x, ls, lb, w, b=None, eps: float = 1e-5, stats: bool = False):
+    """(u, mean, rstd) by K1 on CUDA tensors (mean and rstd None without
+    ``stats``), by the plain version on the CPU."""
+    if _build.plain_only("dense_ln", x):
+        u, mean, rstd = dense_ln_stats_plain(x, ls, lb, w, b, eps)
+        return (u, mean, rstd) if stats else (u, None, None)
+    return _launch(dense_ln, x, ls, lb, w, b, eps, 0, stats)
+
+
+def dense_act_ln_res(x, ls, lb, w, b, act: str = "gelu_exact", eps: float = 1e-5):
+    """(h, u, e, mean, rstd): K2 in its residual mode on CUDA tensors,
+    :func:`dense_act_ln_res_plain` on the CPU."""
+    if _build.plain_only("dense_act_ln_res", x):
+        return dense_act_ln_res_plain(x, ls, lb, w, b, act, eps)
+    _build.check_operands("dense_act_ln_res", x, ls, lb, w, b)
+    rows, C = x.shape
+    N = w.shape[1]
+    lib = _build.lib()
+    _check_widths("dense_act_ln_res", lib.dc_dense_ln_smem_bytes, C, N)
+    h, u, e = (torch.empty((rows, N), dtype=x.dtype, device=x.device) for _ in range(3))
+    mean, rstd = _stats_buffers(x, True)
+    if rows == 0:
+        return h, u, e, mean, rstd
+    _build.check(lib.dc_dense_act_ln_res(x.data_ptr(), ls.data_ptr(), lb.data_ptr(),
+                                         w.data_ptr(), b.data_ptr(), h.data_ptr(),
+                                         u.data_ptr(), e.data_ptr(), mean.data_ptr(),
+                                         rstd.data_ptr(), rows, C, N, float(eps), _ACTS[act],
+                                         _build.stream_ptr(x)), "dense_act_ln_res")
+    dense_act_ln_res.launches += 1
+    return h, u, e, mean, rstd
+
+
+def dense_ln_bwd(x, ls, lb, w, du, mean, rstd):
+    """(dx, xn, dγ fp32, dβ fp32) of u = LN(x)·W from du: the backward
+    kernel on CUDA tensors, :func:`dense_ln_bwd_plain` on the CPU."""
+    if _build.plain_only("dense_ln_bwd", x):
+        return dense_ln_bwd_plain(x, ls, lb, w, du, mean, rstd)
+    du = du.contiguous()
+    _build.check_operands("dense_ln_bwd", x, ls, lb, w, du, fp32=(mean, rstd))
+    rows, C = x.shape
+    N = w.shape[1]
+    lib = _build.lib()
+    _check_widths("dense_ln_bwd", lib.dc_dense_ln_bwd_smem_bytes, C, N)
+    dx, xn = torch.empty_like(x), torch.empty_like(x)
+    grads = torch.zeros(2 * C, dtype=torch.float32, device=x.device)
+    if rows == 0:
+        return dx, xn, grads[:C], grads[C:]
+    partial = torch.empty((lib.dc_dense_ln_bwd_blocks(rows), 2 * C), dtype=torch.float32,
+                          device=x.device)
+    _build.check(lib.dc_dense_ln_bwd(x.data_ptr(), ls.data_ptr(), lb.data_ptr(), w.data_ptr(),
+                                     du.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                                     dx.data_ptr(), xn.data_ptr(), partial.data_ptr(),
+                                     grads.data_ptr(), rows, C, N, _build.stream_ptr(x)),
+                 "dense_ln_bwd")
+    dense_ln_bwd.launches += 1
+    return dx, xn, grads[:C], grads[C:]
+
+
+def _weight_grads(xn, du, w, has_bias: bool):
+    """dW = xnᵀ·du and db = Σ du in fp32 sums, in w's dtype: plain products,
+    outside any kernel, as in the JAX package."""
+    dw = (xn.t() @ du).to(w.dtype)
+    db = du.sum(0, dtype=torch.float32).to(w.dtype) if has_bias else None
+    return dw, db
+
+
+class _DenseLn(torch.autograd.Function):
+    """After ``_dense_ln_fwd`` / ``_dense_ln_bwd`` of the JAX package."""
+
+    @staticmethod
+    def forward(ctx, x, ls, lb, w, b, eps):
+        u, mean, rstd = dense_ln_fwd(x, ls, lb, w, b, eps, stats=True)
+        ctx.save_for_backward(x, ls, lb, w, mean, rstd)
+        ctx.has_bias = b is not None
+        return u
+
+    @staticmethod
+    def backward(ctx, du):
+        x, ls, lb, w, mean, rstd = ctx.saved_tensors
+        dx, xn, dls, dlb = dense_ln_bwd(x, ls, lb, w, du, mean, rstd)
+        dw, db = _weight_grads(xn, du, w, ctx.has_bias)
+        return dx, dls.to(ls.dtype), dlb.to(lb.dtype), dw, db, None
+
+
+class _DenseActLn(torch.autograd.Function):
+    """After ``_dense_act_ln_fwd`` / ``_dense_act_ln_bwd`` of the JAX package."""
+
+    @staticmethod
+    def forward(ctx, x, ls, lb, w, b, act, eps):
+        h, u, e, mean, rstd = dense_act_ln_res(x, ls, lb, w, b, act, eps)
+        ctx.save_for_backward(x, ls, lb, w, u, e, mean, rstd)
+        ctx.act = act
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        x, ls, lb, w, u, e, mean, rstd = ctx.saved_tensors
+        du = (dh.float() * _act_grad(u.float(), e.float(), ctx.act)).to(dh.dtype)
+        dx, xn, dls, dlb = dense_ln_bwd(x, ls, lb, w, du, mean, rstd)
+        dw, db = _weight_grads(xn, du, w, True)
+        return dx, dls.to(ls.dtype), dlb.to(lb.dtype), dw, db, None, None
 
 
 def dense_ln(x: torch.Tensor, ls: torch.Tensor, lb: torch.Tensor, w: torch.Tensor,
              b: Optional[torch.Tensor] = None, eps: float = 1e-5) -> torch.Tensor:
-    """u = LN(x; ls, lb) @ w (+ b) on 2D rows (K1)."""
+    """u = LN(x; ls, lb) @ w (+ b) on 2D rows (K1).  Differentiable in every
+    tensor argument."""
     _check_shapes("dense_ln", x, ls, lb, w, b)
-    if _build.plain_only("dense_ln", x):
-        return dense_ln_plain(x, ls, lb, w, b, eps)
-    return _launch(dense_ln, x, ls, lb, w, b, eps, 0)
+    if _build.needs_grad(x, ls, lb, w, b):
+        return _DenseLn.apply(x, ls, lb, w, b, eps)
+    return dense_ln_fwd(x, ls, lb, w, b, eps)[0]
 
 
 def dense_act_ln(x: torch.Tensor, ls: torch.Tensor, lb: torch.Tensor, w: torch.Tensor,
                  b: torch.Tensor, act: str = "gelu_exact", eps: float = 1e-5) -> torch.Tensor:
     """h = act(LN(x; ls, lb) @ w + b) on 2D rows (K2); act is
-    ``gelu_exact`` or ``quick_gelu``."""
+    ``gelu_exact`` or ``quick_gelu``.  Differentiable in every tensor argument."""
     if act not in _ACTS:
         raise ValueError(f"dense_act_ln: unknown activation {act!r}")
     _check_shapes("dense_act_ln", x, ls, lb, w, b)
+    if _build.needs_grad(x, ls, lb, w, b):
+        return _DenseActLn.apply(x, ls, lb, w, b, act, eps)
     if _build.plain_only("dense_act_ln", x):
         return dense_ln_plain(x, ls, lb, w, b, eps, act)
-    return _launch(dense_act_ln, x, ls, lb, w, b, eps, _ACTS[act])
+    return _launch(dense_act_ln, x, ls, lb, w, b, eps, _ACTS[act])[0]
 
 
 dense_ln.launches = 0
 dense_act_ln.launches = 0
+dense_act_ln_res.launches = 0
+dense_ln_bwd.launches = 0

@@ -1,8 +1,13 @@
-"""Row LayerNorm with fp32 math (forward only).
+"""Row LayerNorm with fp32 math, forward and backward.
 
 Port of ``distillclip_tpu/ops/layer_norm.py::layer_norm_rows``.  On a CUDA
-tensor it launches K4 (``csrc/layer_norm.cu``); on a CPU tensor it runs
-:func:`layer_norm_rows_plain`, the same math in plain PyTorch.
+tensor the forward launches K4 (``csrc/layer_norm.cu``), which also writes
+the rows' mean and rstd when a gradient will need them, and the backward
+launches the kernel beside it; on a CPU tensor both run the plain versions
+below, the same math in plain PyTorch.
+
+Gradients of the scale and bias leave the kernels as fp32 ``[C]`` and are
+cast to the parameters' dtype, as the JAX package casts them.
 """
 
 from __future__ import annotations
@@ -12,37 +17,123 @@ import torch
 from distillclip_tpu_torch.ops import _build
 
 
-def layer_norm_rows_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                          eps: float = 1e-5) -> torch.Tensor:
-    """y = (x - mean) * rstd * scale + bias over the last dim, in fp32."""
-    x32 = x.float()
+def _moments(x32: torch.Tensor, eps: float):
     mean = x32.mean(-1, keepdim=True)
     d = x32 - mean
     rstd = torch.rsqrt(d.square().mean(-1, keepdim=True) + eps)
-    return (d * rstd * scale.float() + bias.float()).to(x.dtype)
+    return d, mean, rstd
 
 
-def layer_norm_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                    eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm of 2D ``[rows, C]`` inputs; fp32 math, output in x's dtype."""
+def layer_norm_rows_stats_plain(x, scale, bias, eps: float = 1e-5):
+    """(y, mean, rstd): y = (x - mean) * rstd * scale + bias over the last
+    dim in fp32, y in x's dtype, mean and rstd fp32 ``[rows]``."""
+    d, mean, rstd = _moments(x.float(), eps)
+    y = (d * rstd * scale.float() + bias.float()).to(x.dtype)
+    return y, mean[:, 0], rstd[:, 0]
+
+
+def layer_norm_rows_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                          eps: float = 1e-5) -> torch.Tensor:
+    """Plain PyTorch version of K4: y only."""
+    return layer_norm_rows_stats_plain(x, scale, bias, eps)[0]
+
+
+def layer_norm_rows_bwd_plain(x, scale, g, mean, rstd):
+    """Plain PyTorch version of the backward kernel: (dx in x's dtype,
+    dscale fp32, dbias fp32) from the saved row statistics."""
+    g32, s32 = g.float(), scale.float()
+    xhat = (x.float() - mean[:, None]) * rstd[:, None]
+    gs = g32 * s32
+    m1 = gs.mean(-1, keepdim=True)
+    m2 = (gs * xhat).mean(-1, keepdim=True)
+    dx = rstd[:, None] * (gs - m1 - xhat * m2)
+    return dx.to(x.dtype), (g32 * xhat).sum(0), g32.sum(0)
+
+
+def _check_shapes(x, scale, bias):
     if x.ndim != 2 or scale.shape != (x.shape[1],) or bias.shape != (x.shape[1],):
         raise ValueError(f"layer_norm_rows: x [rows, C] with scale/bias [C], got "
                          f"{tuple(x.shape)}, {tuple(scale.shape)}, {tuple(bias.shape)}")
+
+
+def layer_norm_rows_fwd(x, scale, bias, eps: float = 1e-5, stats: bool = False):
+    """K4 on a CUDA tensor, its plain version on a CPU tensor; with
+    ``stats`` also mean and rstd (else None)."""
     if _build.plain_only("layer_norm_rows", x):
-        return layer_norm_rows_plain(x, scale, bias, eps)
+        y, mean, rstd = layer_norm_rows_stats_plain(x, scale, bias, eps)
+        return (y, mean, rstd) if stats else (y, None, None)
     _build.check_operands("layer_norm_rows", x, scale, bias)
     rows, C = x.shape
     if C % 8:
         raise ValueError(f"layer_norm_rows: C must be a multiple of 8, got {C}")
     y = torch.empty_like(x)
+    mean = rstd = None
+    if stats:
+        mean = torch.empty(rows, dtype=torch.float32, device=x.device)
+        rstd = torch.empty(rows, dtype=torch.float32, device=x.device)
     if rows == 0:
-        return y
+        return y, mean, rstd
     lib = _build.lib()
     _build.check(lib.dc_layer_norm_rows(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                                        y.data_ptr(), rows, C, float(eps),
-                                        _build.stream_ptr(x)), "layer_norm_rows")
+                                        y.data_ptr(),
+                                        None if mean is None else mean.data_ptr(),
+                                        None if rstd is None else rstd.data_ptr(),
+                                        rows, C, float(eps), _build.stream_ptr(x)),
+                 "layer_norm_rows")
     layer_norm_rows.launches += 1
-    return y
+    return y, mean, rstd
+
+
+def layer_norm_rows_bwd(x, scale, g, mean, rstd):
+    """(dx, dscale fp32, dbias fp32) of the row LayerNorm: the backward
+    kernel on CUDA tensors, :func:`layer_norm_rows_bwd_plain` on the CPU."""
+    if _build.plain_only("layer_norm_rows_bwd", x):
+        return layer_norm_rows_bwd_plain(x, scale, g, mean, rstd)
+    g = g.contiguous()
+    _build.check_operands("layer_norm_rows_bwd", x, scale, g, fp32=(mean, rstd))
+    rows, C = x.shape
+    if C % 8:
+        raise ValueError(f"layer_norm_rows_bwd: C must be a multiple of 8, got {C}")
+    dx = torch.empty_like(x)
+    grads = torch.zeros(2 * C, dtype=torch.float32, device=x.device)
+    if rows == 0:
+        return dx, grads[:C], grads[C:]
+    lib = _build.lib()
+    partial = torch.empty((lib.dc_layer_norm_rows_bwd_blocks(rows), 2 * C),
+                          dtype=torch.float32, device=x.device)
+    _build.check(lib.dc_layer_norm_rows_bwd(x.data_ptr(), scale.data_ptr(), g.data_ptr(),
+                                            mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
+                                            partial.data_ptr(), grads.data_ptr(), rows, C,
+                                            _build.stream_ptr(x)), "layer_norm_rows_bwd")
+    layer_norm_rows_bwd.launches += 1
+    return dx, grads[:C], grads[C:]
+
+
+class _LayerNormRows(torch.autograd.Function):
+    """After ``_ln_rows_fwd`` / ``_ln_rows_bwd`` of the JAX package."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        y, mean, rstd = layer_norm_rows_fwd(x, scale, bias, eps, stats=True)
+        ctx.save_for_backward(x, scale, mean, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, mean, rstd = ctx.saved_tensors
+        dx, ds, db = layer_norm_rows_bwd(x, scale, g, mean, rstd)
+        return dx, ds.to(scale.dtype), db.to(scale.dtype), None
+
+
+def layer_norm_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm of 2D ``[rows, C]`` inputs; fp32 math, output in x's dtype.
+    Differentiable in x, scale and bias."""
+    _check_shapes(x, scale, bias)
+    if _build.needs_grad(x, scale, bias):
+        return _LayerNormRows.apply(x, scale, bias, eps)
+    return layer_norm_rows_fwd(x, scale, bias, eps, stats=False)[0]
 
 
 layer_norm_rows.launches = 0
+layer_norm_rows_bwd.launches = 0

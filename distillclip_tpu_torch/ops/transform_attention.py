@@ -1,4 +1,4 @@
-"""Head-transform attention on the fused qkv projection (forward only).
+"""Head-transform attention on the fused qkv projection, forward and backward.
 
 Port of ``distillclip_tpu/ops/transform_attention.py::
 transform_attention_rows_qkv``: per sample, scores q_h·k_hᵀ, a mix across
@@ -10,6 +10,15 @@ inside each) and the result ``[B·seq, H·d]``.
 On a CUDA tensor it launches K3 (``csrc/transform_attention.cu``) at the
 true sequence length, for any head count; on a CPU tensor it runs
 :func:`transform_attention_rows_qkv_plain`.
+
+With a gradient it is a ``torch.autograd.Function``: the forward is K3 with
+its save-P flag (:func:`transform_attention_save_p`), which also stores the
+per-head softmax probabilities P ``[B, H, N, N]`` (after the softmax, before
+the ``ww`` mix) in qkv's dtype, and the backward
+(:func:`transform_attention_bwd`, ``csrc/transform_attention_bwd.cu``) makes
+the fused dqkv and the two mix gradients from qkv, the output gradient and P.
+The mix gradients leave the kernel as fp32 ``[H, H]`` and are cast to the
+parameters' dtype, as the JAX package casts them.
 """
 
 from __future__ import annotations
@@ -22,27 +31,63 @@ import torch
 from distillclip_tpu_torch.ops import _build
 
 
-def transform_attention_rows_qkv_plain(qkv: torch.Tensor, wl: torch.Tensor,
-                                       ww: torch.Tensor, *, heads: int, seq: int,
-                                       scale: float) -> torch.Tensor:
-    """The same math in fp32 PyTorch; output in qkv's dtype."""
+def _split_heads(qkv: torch.Tensor, heads: int, seq: int):
+    """q, k, v as fp32 ``[B, H, N, d]`` views of the fused rows."""
     rows, hd3 = qkv.shape
     B, d = rows // seq, hd3 // 3 // heads
     qkv5 = qkv.float().view(B, seq, 3, heads, d).permute(2, 0, 3, 1, 4)  # [3, B, H, N, d]
-    q, k, v = qkv5[0], qkv5[1], qkv5[2]
+    return qkv5[0], qkv5[1], qkv5[2]
+
+
+def transform_attention_save_p_plain(qkv: torch.Tensor, wl: torch.Tensor, ww: torch.Tensor,
+                                     *, heads: int, seq: int, scale: float):
+    """The same math in fp32 PyTorch: (o ``[B·N, H·d]``, P ``[B, H, N, N]``),
+    both in qkv's dtype."""
+    q, k, v = _split_heads(qkv, heads, seq)
     s = q @ k.transpose(-1, -2)                                     # [B, H, N, N]
     s = torch.einsum("hg,bgnm->bhnm", wl.float(), s) * scale
     p = torch.softmax(s, dim=-1)
-    p = torch.einsum("hg,bgnm->bhnm", ww.float(), p)
-    o = p @ v                                                       # [B, H, N, d]
-    return o.permute(0, 2, 1, 3).reshape(rows, heads * d).to(qkv.dtype)
+    o = torch.einsum("hg,bgnm->bhnm", ww.float(), p) @ v            # [B, H, N, d]
+    o = o.permute(0, 2, 1, 3).reshape(qkv.shape[0], -1)
+    return o.to(qkv.dtype), p.to(qkv.dtype)
 
 
-def _pick_tq(lib, seq: int, heads: int, d: int) -> int:
-    """Query rows per block: as many as fit in shared memory (at most the
-    kernel's cap), then evened out over the tiles so the last one is full."""
+def transform_attention_rows_qkv_plain(qkv: torch.Tensor, wl: torch.Tensor,
+                                       ww: torch.Tensor, *, heads: int, seq: int,
+                                       scale: float) -> torch.Tensor:
+    """Plain PyTorch version of K3: the output only."""
+    return transform_attention_save_p_plain(qkv, wl, ww, heads=heads, seq=seq,
+                                            scale=scale)[0]
+
+
+def transform_attention_bwd_plain(qkv, wl, ww, do, p, *, heads: int, seq: int, scale: float):
+    """Plain PyTorch version of the backward kernel, by its explicit formulas
+    in fp32 from the saved P: (dqkv in qkv's dtype, dwl fp32, dww fp32)."""
+    rows = qkv.shape[0]
+    q, k, v = _split_heads(qkv, heads, seq)
+    B, _, _, d = q.shape
+    wl32, ww32, p32 = wl.float(), ww.float(), p.float()
+    do4 = do.float().view(B, seq, heads, d).permute(0, 2, 1, 3)      # [B, H, N, d]
+    pm = torch.einsum("hg,bgnm->bhnm", ww32, p32)
+    dpm = do4 @ v.transpose(-1, -2)
+    dv = pm.transpose(-1, -2) @ do4
+    dww = torch.einsum("bhnm,bgnm->hg", dpm, p32)
+    dp = torch.einsum("hg,bhnm->bgnm", ww32, dpm)
+    ds2 = p32 * (dp - (p32 * dp).sum(-1, keepdim=True))
+    dwl = scale * torch.einsum("bhnm,bgnm->hg", ds2, q @ k.transpose(-1, -2))
+    ds = scale * torch.einsum("hg,bhnm->bgnm", wl32, ds2)
+    dq = ds @ k
+    dk = ds.transpose(-1, -2) @ q
+    dqkv = torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(rows, 3 * heads * d)
+    return dqkv.to(qkv.dtype), dwl, dww
+
+
+def _pick_tq(lib, smem_bytes, seq: int, heads: int, d: int) -> int:
+    """Rows per block: as many as fit in shared memory by ``smem_bytes`` (at
+    most the kernels' cap), then evened out over the tiles so the last one is
+    full."""
     tq = min(lib.dc_tf_max_tq(), seq)
-    while tq > 0 and lib.dc_tf_smem_bytes(seq, heads, d, tq) > _build.MAX_SMEM_BYTES:
+    while tq > 0 and smem_bytes(seq, heads, d, tq) > _build.MAX_SMEM_BYTES:
         tq -= 1
     if tq == 0:
         raise ValueError(f"transform_attention_rows_qkv: the score tile of {heads} heads "
@@ -51,37 +96,120 @@ def _pick_tq(lib, seq: int, heads: int, d: int) -> int:
     return -(-seq // tiles)
 
 
-def transform_attention_rows_qkv(qkv: torch.Tensor, wl: torch.Tensor, ww: torch.Tensor,
-                                 *, heads: int, seq: int,
-                                 scale: Optional[float] = None) -> torch.Tensor:
-    """Fused head-transform attention; ``scale`` defaults to d ** -0.5."""
+def _check_shapes(qkv, wl, ww, heads, seq):
     rows, hd3 = qkv.shape
     if hd3 % (3 * heads) or rows % seq or wl.shape != (heads, heads) \
             or ww.shape != (heads, heads):
         raise ValueError(f"transform_attention_rows_qkv: qkv [B*{seq}, 3*{heads}*d] and "
                          f"[{heads}, {heads}] mixes, got {tuple(qkv.shape)}, "
                          f"{tuple(wl.shape)}, {tuple(ww.shape)}")
-    d = hd3 // 3 // heads
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
-    if _build.plain_only("transform_attention_rows_qkv", qkv):
-        return transform_attention_rows_qkv_plain(qkv, wl, ww, heads=heads, seq=seq,
-                                                  scale=scale)
-    _build.check_operands("transform_attention_rows_qkv", qkv, unaligned=(wl, ww))
+    return hd3 // 3 // heads
+
+
+def _check_head_dim(d):
     if d % 8:
         raise ValueError(f"transform_attention_rows_qkv: head dim must be a multiple "
                          f"of 8, got {d}")
+
+
+def _launch_fwd(wrapper, qkv, wl, ww, heads, seq, scale, save_p: bool):
+    """K3 on CUDA tensors, with or without its save-P flag, counted on
+    ``wrapper``; returns (o, P or None)."""
+    what = wrapper.__name__
+    rows, hd3 = qkv.shape
+    d = hd3 // 3 // heads
+    _build.check_operands(what, qkv, unaligned=(wl, ww))
+    _check_head_dim(d)
     lib = _build.lib()
-    tq = _pick_tq(lib, seq, heads, d)
+    tq = _pick_tq(lib, lib.dc_tf_smem_bytes, seq, heads, d)
     out = torch.empty((rows, heads * d), dtype=qkv.dtype, device=qkv.device)
+    p = None
+    if save_p:
+        p = torch.empty((rows // seq, heads, seq, seq), dtype=qkv.dtype, device=qkv.device)
     if rows == 0:
-        return out
+        return out, p
     _build.check(lib.dc_transform_attention(qkv.data_ptr(), wl.data_ptr(), ww.data_ptr(),
-                                            out.data_ptr(), rows // seq, seq, heads, d, tq,
-                                            float(scale), _build.stream_ptr(qkv)),
-                 "transform_attention_rows_qkv")
-    transform_attention_rows_qkv.launches += 1
-    return out
+                                            out.data_ptr(), None if p is None else p.data_ptr(),
+                                            rows // seq, seq, heads, d, tq, float(scale),
+                                            _build.stream_ptr(qkv)), what)
+    wrapper.launches += 1
+    return out, p
+
+
+def transform_attention_save_p(qkv, wl, ww, *, heads: int, seq: int, scale: float):
+    """(o, P): K3 with its save-P flag on CUDA tensors,
+    :func:`transform_attention_save_p_plain` on the CPU."""
+    if _build.plain_only("transform_attention_save_p", qkv):
+        return transform_attention_save_p_plain(qkv, wl, ww, heads=heads, seq=seq, scale=scale)
+    return _launch_fwd(transform_attention_save_p, qkv, wl, ww, heads, seq, scale, True)
+
+
+def transform_attention_bwd(qkv, wl, ww, do, p, *, heads: int, seq: int, scale: float):
+    """(dqkv, dwl fp32, dww fp32) from the saved P: the backward kernels on
+    CUDA tensors, :func:`transform_attention_bwd_plain` on the CPU."""
+    if _build.plain_only("transform_attention_bwd", qkv):
+        return transform_attention_bwd_plain(qkv, wl, ww, do, p, heads=heads, seq=seq,
+                                             scale=scale)
+    do = do.contiguous()
+    _build.check_operands("transform_attention_bwd", qkv, do, unaligned=(wl, ww, p))
+    rows, hd3 = qkv.shape
+    d = hd3 // 3 // heads
+    _check_head_dim(d)
+    B = rows // seq
+    lib = _build.lib()
+    tq = _pick_tq(lib, lib.dc_tf_bwd_smem_bytes, seq, heads, d)
+    dqkv = torch.empty_like(qkv)
+    grads = torch.zeros(2 * heads * heads, dtype=torch.float32, device=qkv.device)
+    if rows > 0:
+        f32 = dict(dtype=torch.float32, device=qkv.device)
+        pm = torch.empty((B, heads, seq, seq), **f32)
+        ds = torch.empty((B, heads, seq, seq), **f32)
+        partial = torch.empty((B * -(-seq // tq), 2 * heads * heads), **f32)
+        _build.check(lib.dc_transform_attention_bwd(
+            qkv.data_ptr(), wl.data_ptr(), ww.data_ptr(), do.data_ptr(), p.data_ptr(),
+            dqkv.data_ptr(), pm.data_ptr(), ds.data_ptr(), partial.data_ptr(),
+            grads.data_ptr(), B, seq, heads, d, tq, float(scale), _build.stream_ptr(qkv)),
+            "transform_attention_bwd")
+        transform_attention_bwd.launches += 1
+    hh = heads * heads
+    return dqkv, grads[:hh].view(heads, heads), grads[hh:].view(heads, heads)
+
+
+class _TransformAttention(torch.autograd.Function):
+    """After ``_tf_flat_qkv_fwd`` / ``_tf_flat_qkv_bwd`` of the JAX package."""
+
+    @staticmethod
+    def forward(ctx, qkv, wl, ww, heads, seq, scale):
+        o, p = transform_attention_save_p(qkv, wl, ww, heads=heads, seq=seq, scale=scale)
+        ctx.save_for_backward(qkv, wl, ww, p)
+        ctx.args = (heads, seq, scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        qkv, wl, ww, p = ctx.saved_tensors
+        heads, seq, scale = ctx.args
+        dqkv, dwl, dww = transform_attention_bwd(qkv, wl, ww, do, p, heads=heads, seq=seq,
+                                                 scale=scale)
+        return dqkv, dwl.to(wl.dtype), dww.to(ww.dtype), None, None, None
+
+
+def transform_attention_rows_qkv(qkv: torch.Tensor, wl: torch.Tensor, ww: torch.Tensor,
+                                 *, heads: int, seq: int,
+                                 scale: Optional[float] = None) -> torch.Tensor:
+    """Fused head-transform attention; ``scale`` defaults to d ** -0.5.
+    Differentiable in qkv and both mixes."""
+    d = _check_shapes(qkv, wl, ww, heads, seq)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if _build.needs_grad(qkv, wl, ww):
+        return _TransformAttention.apply(qkv, wl, ww, heads, seq, scale)
+    if _build.plain_only("transform_attention_rows_qkv", qkv):
+        return transform_attention_rows_qkv_plain(qkv, wl, ww, heads=heads, seq=seq,
+                                                  scale=scale)
+    return _launch_fwd(transform_attention_rows_qkv, qkv, wl, ww, heads, seq, scale, False)[0]
 
 
 transform_attention_rows_qkv.launches = 0
+transform_attention_save_p.launches = 0
+transform_attention_bwd.launches = 0

@@ -90,6 +90,167 @@ def test_layer_norm_kernel_matches_plain(rows, C):
     _close(out, ref)
 
 
+# -- the training kernels: statistics, residuals, backward ---------------------------
+#
+# Limits: a bf16 output against fp32 as above; the fp32 reductions (dγ, dβ,
+# dconv_l, dconv_w) within 6e-3 of their largest entry; the saved P within
+# 4e-3 (bf16 of a probability); mean and rstd within 1e-5 relative.
+
+def _rel_to_max(out, ref):
+    """Largest error over the largest reference entry (0 when both are zero)."""
+    err = float((out.float() - ref.float()).abs().max())
+    return err / max(float(ref.float().abs().max()), 1e-30) if err else 0.0
+
+
+@pytest.mark.parametrize("rows,C,N", [(63, 96, 136), (65, 768, 2304), (130, 256, 520)])
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "no_bias"])
+def test_dense_ln_stats_mode_matches_lean_and_plain(rows, C, N, bias):
+    rng = np.random.default_rng(rows + C + N)
+    x, ls, lb = _bf16(rng, (rows, C), 1.0, 0.5), _bf16(rng, (C,), 0.1, 1.0), _bf16(rng, (C,), 0.1)
+    w, b = _bf16(rng, (C, N), C ** -0.5), _bf16(rng, (N,), 0.1) if bias else None
+    lean, none1, none2 = fc1_act.dense_ln_fwd(x, ls, lb, w, b)
+    u, mean, rstd = fc1_act.dense_ln_fwd(x, ls, lb, w, b, stats=True)
+    torch.cuda.synchronize()
+    assert none1 is None and none2 is None and torch.equal(u, lean)
+    _, rmean, rrstd = fc1_act.dense_ln_stats_plain(x, ls, lb, w, b)
+    torch.testing.assert_close(mean, rmean, atol=1e-6, rtol=1e-5)
+    torch.testing.assert_close(rstd, rrstd, atol=0, rtol=1e-5)
+
+
+@pytest.mark.parametrize("rows,C,N", [(63, 96, 136), (65, 768, 3072)])
+@pytest.mark.parametrize("act", ["gelu_exact", "quick_gelu"])
+def test_dense_act_ln_residual_mode_matches_lean_and_plain(rows, C, N, act):
+    rng = np.random.default_rng(rows + C + N)
+    x, ls, lb = _bf16(rng, (rows, C), 1.0, 0.5), _bf16(rng, (C,), 0.1, 1.0), _bf16(rng, (C,), 0.1)
+    w, b = _bf16(rng, (C, N), C ** -0.5), _bf16(rng, (N,), 0.1)
+    with torch.inference_mode():
+        lean = fc1_act.dense_act_ln(x, ls, lb, w, b, act)
+    h, u, e, mean, rstd = fc1_act.dense_act_ln_res(x, ls, lb, w, b, act)
+    torch.cuda.synchronize()
+    assert torch.equal(h, lean)
+    _, ru, re, rmean, rrstd = fc1_act.dense_act_ln_res_plain(
+        x.float(), ls.float(), lb.float(), w.float(), b.float(), act)
+    _close(u, ru)
+    _close(e, re)
+    torch.testing.assert_close(mean, rmean, atol=1e-6, rtol=1e-5)
+    torch.testing.assert_close(rstd, rrstd, atol=0, rtol=1e-5)
+
+
+@pytest.mark.parametrize("rows,C,N", [(1, 32, 8), (63, 96, 136), (65, 768, 2304),
+                                      (130, 256, 520), (97, 768, 3072)])
+def test_dense_ln_bwd_kernel_matches_plain(rows, C, N):
+    rng = np.random.default_rng(rows + C + N)
+    x, ls, lb = _bf16(rng, (rows, C), 1.0, 0.5), _bf16(rng, (C,), 0.1, 1.0), _bf16(rng, (C,), 0.1)
+    w, du = _bf16(rng, (C, N), N ** -0.5), _bf16(rng, (rows, N))
+    _, mean, rstd = fc1_act.dense_ln_stats_plain(x, ls, lb, w)
+    dx, xn, dls, dlb = fc1_act.dense_ln_bwd(x, ls, lb, w, du, mean, rstd)
+    rdx, rxn, rdls, rdlb = fc1_act.dense_ln_bwd_plain(
+        x.float(), ls.float(), lb.float(), w.float(), du.float(), mean, rstd)
+    _close(dx, rdx)
+    _close(xn, rxn)
+    assert dls.dtype == torch.float32 and dlb.dtype == torch.float32
+    assert _rel_to_max(dls, rdls) < 6e-3 and _rel_to_max(dlb, rdlb) < 6e-3
+
+
+@pytest.mark.parametrize("rows,C", [(1, 8), (9, 768), (256, 768), (77, 40)])
+def test_layer_norm_stats_and_bwd_kernels_match_plain(rows, C):
+    rng = np.random.default_rng(rows + C)
+    x, s, b = _bf16(rng, (rows, C), 3.0, 1.0), _bf16(rng, (C,), 0.1, 1.0), _bf16(rng, (C,), 0.1)
+    g = _bf16(rng, (rows, C))
+    lean = layer_norm.layer_norm_rows_fwd(x, s, b)[0]
+    y, mean, rstd = layer_norm.layer_norm_rows_fwd(x, s, b, stats=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y, lean)
+    _, rmean, rrstd = layer_norm.layer_norm_rows_stats_plain(x, s, b)
+    torch.testing.assert_close(mean, rmean, atol=1e-6, rtol=1e-5)
+    torch.testing.assert_close(rstd, rrstd, atol=0, rtol=1e-5)
+    dx, ds, db = layer_norm.layer_norm_rows_bwd(x, s, g, mean, rstd)
+    rdx, rds, rdb = layer_norm.layer_norm_rows_bwd_plain(x.float(), s.float(), g.float(),
+                                                         mean, rstd)
+    _close(dx, rdx)
+    assert _rel_to_max(ds, rds) < 6e-3 and _rel_to_max(db, rdb) < 6e-3
+
+
+@pytest.mark.parametrize("B,H,d,N", [(3, 1, 8, 1), (5, 4, 16, 17), (4, 24, 32, 50),
+                                     (4, 12, 64, 77), (2, 3, 8, 40), (2, 2, 8, 256),
+                                     (2, 16, 64, 256)])
+def test_transform_attention_save_p_and_bwd_match_plain(B, H, d, N):
+    rng = np.random.default_rng(B * H * N)
+    qkv, do = _bf16(rng, (B * N, 3 * H * d)), _bf16(rng, (B * N, H * d))
+    wl, ww = _bf16(rng, (H, H), H ** -0.5), _bf16(rng, (H, H), 0.5 * H ** -0.5)
+    kw = dict(heads=H, seq=N, scale=d ** -0.5)
+    with torch.inference_mode():
+        lean = ta.transform_attention_rows_qkv(qkv, wl, ww, **kw)
+    o, p = ta.transform_attention_save_p(qkv, wl, ww, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, lean) and p.shape == (B, H, N, N) and p.dtype == torch.bfloat16
+    _, rp = ta.transform_attention_save_p_plain(qkv.float(), wl.float(), ww.float(), **kw)
+    assert float((p.float() - rp).abs().max()) < 4e-3
+    dqkv, dwl, dww = ta.transform_attention_bwd(qkv, wl, ww, do, p, **kw)
+    rdqkv, rdwl, rdww = ta.transform_attention_bwd_plain(
+        qkv.float(), wl.float(), ww.float(), do.float(), p.float(), **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(dqkv.float(), rdqkv, atol=3e-2, rtol=1e-2)
+    assert dwl.dtype == torch.float32 and dww.dtype == torch.float32
+    assert _rel_to_max(dwl, rdwl) < 6e-3 and _rel_to_max(dww, rdww) < 6e-3
+
+
+def test_backward_is_deterministic():
+    """The reductions across blocks run in a fixed order: two runs give the
+    same bits."""
+    rng = np.random.default_rng(5)
+    B, H, d, N = 8, 12, 64, 77
+    qkv, do = _bf16(rng, (B * N, 3 * H * d)), _bf16(rng, (B * N, H * d))
+    wl, ww = _bf16(rng, (H, H), H ** -0.5), _bf16(rng, (H, H), H ** -0.5)
+    kw = dict(heads=H, seq=N, scale=d ** -0.5)
+    _, p = ta.transform_attention_save_p(qkv, wl, ww, **kw)
+    a = ta.transform_attention_bwd(qkv, wl, ww, do, p, **kw)
+    b = ta.transform_attention_bwd(qkv, wl, ww, do, p, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _grads(fn, args):
+    leaves = [a.detach().clone().requires_grad_() for a in args]
+    out = fn(*leaves)
+    g = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        tuple(out.shape), dtype=np.float32)).to(out.device).to(out.dtype)
+    return out, torch.autograd.grad(out, leaves, g)
+
+
+@pytest.mark.parametrize("name", ["layer_norm_rows", "dense_ln", "dense_act_ln",
+                                  "transform_attention_rows_qkv"])
+def test_autograd_functions_on_card_match_plain_autograd(name):
+    """Forward and backward of each public function on CUDA bf16 tensors
+    (the kernels) against torch.autograd through the plain version on fp32
+    copies of the same values."""
+    rng = np.random.default_rng(11)
+    rows, C, N, H, d, S = 96, 64, 3 * 4 * 16, 4, 16, 12
+    x, ls, lb = _bf16(rng, (rows, C)), _bf16(rng, (C,), 0.1, 1.0), _bf16(rng, (C,), 0.1)
+    w, b = _bf16(rng, (C, N), C ** -0.5), _bf16(rng, (N,), 0.1)
+    qkv, wl, ww = _bf16(rng, (rows, N)), _bf16(rng, (H, H), 0.5), _bf16(rng, (H, H), 0.25)
+    kw = dict(heads=H, seq=S, scale=d ** -0.5)
+    cases = {
+        "layer_norm_rows": (layer_norm.layer_norm_rows, layer_norm.layer_norm_rows_plain,
+                            (x, ls, lb)),
+        "dense_ln": (fc1_act.dense_ln, fc1_act.dense_ln_plain, (x, ls, lb, w, b)),
+        "dense_act_ln": (fc1_act.dense_act_ln,
+                         lambda *a: fc1_act.dense_ln_plain(*a, act="gelu_exact"),
+                         (x, ls, lb, w, b)),
+        "transform_attention_rows_qkv": (
+            lambda *a: ta.transform_attention_rows_qkv(*a, heads=H, seq=S),
+            lambda *a: ta.transform_attention_rows_qkv_plain(*a, **kw), (qkv, wl, ww)),
+    }
+    fn, plain, args = cases[name]
+    out, grads = _grads(fn, args)
+    ref, rgrads = _grads(plain, [a.float() for a in args])
+    torch.cuda.synchronize()
+    _close(out, ref)
+    for g, r in zip(grads, rgrads):
+        assert g.dtype == torch.bfloat16
+        assert _rel_to_max(g, r) < 2e-2
+
+
 # -- what the wrappers refuse, and what they count ---------------------------------
 
 def _ln_args(rng, rows=16, C=64, N=64):
@@ -109,8 +270,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="C % 32"):
         fc1_act.dense_ln(x[:, :48].contiguous(), ls[:48].contiguous(), lb[:48].contiguous(),
                          w[:48].contiguous(), b)
-    with pytest.raises(NotImplementedError, match="no backward kernel"):
-        fc1_act.dense_act_ln(x.requires_grad_(), ls, lb, w, b)
+    u, mean, rstd = fc1_act.dense_ln_fwd(x, ls, lb, w, b, stats=True)
+    with pytest.raises(TypeError, match="float32"):
+        fc1_act.dense_ln_bwd(x, ls, lb, w, u, mean.to(torch.bfloat16), rstd)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fc1_act.dense_ln_bwd(x, ls, lb, w, u.float(), mean, rstd)
     with pytest.raises(ValueError, match="multiple of 8"):
         ta.transform_attention_rows_qkv(_bf16(rng, (8, 3 * 2 * 12)), _bf16(rng, (2, 2)),
                                         _bf16(rng, (2, 2)), heads=2, seq=4)
@@ -133,8 +297,32 @@ def test_each_launch_counts_once():
         layer_norm.layer_norm_rows(x, ls, lb)
         layer_norm.layer_norm_rows(x, ls, lb)
     torch.cuda.synchronize()
-    assert ops.launch_counts() == {"dense_ln": 1, "dense_act_ln": 1,
-                                   "transform_attention_rows_qkv": 1, "layer_norm_rows": 2}
+    want = dict.fromkeys(ops.KERNELS, 0)
+    want.update({"dense_ln": 1, "dense_act_ln": 1, "transform_attention_rows_qkv": 1,
+                 "layer_norm_rows": 2})
+    assert ops.launch_counts() == want
+
+
+def test_backward_launches_count_once_each():
+    """One differentiable call of each public function: the forward launches
+    the statistics / residual / save-P modes, the backward its kernels."""
+    rng = np.random.default_rng(1)
+    x, ls, lb, w, b = (t.requires_grad_() for t in _ln_args(rng, N=3 * 4 * 16))
+    wl, ww = _bf16(rng, (4, 4)).requires_grad_(), _bf16(rng, (4, 4)).requires_grad_()
+    ops.reset_launch_counts()
+    qkv = fc1_act.dense_ln(x, ls, lb, w, b)
+    ctx = ta.transform_attention_rows_qkv(qkv, wl, ww, heads=4, seq=8)
+    h = fc1_act.dense_act_ln(x, ls, lb, w, b)
+    y = layer_norm.layer_norm_rows(x, ls, lb)
+    (ctx.float().sum() + h.float().sum() + y.float().sum()).backward()
+    torch.cuda.synchronize()
+    want = dict.fromkeys(ops.KERNELS, 0)
+    want.update({"dense_ln": 1, "transform_attention_save_p": 1, "dense_act_ln_res": 1,
+                 "layer_norm_rows": 1, "transform_attention_bwd": 1, "dense_ln_bwd": 2,
+                 "layer_norm_rows_bwd": 1})
+    assert ops.launch_counts() == want
+    assert all(t.grad is not None and torch.isfinite(t.grad.float()).all()
+               for t in (x, ls, lb, w, b, wl, ww))
 
 
 def test_kernels_run_on_the_current_stream():

@@ -138,12 +138,25 @@ def _op_calls():
                                          ((16, 48), 1, 0), ((48,), 1, 0), ((2, 2), 1, 0),
                                          ((2, 2), 1, 0)))
     qkv = torch.randn(10, 48, generator=torch.Generator().manual_seed(0))
+    do, p = qkv[:, :16].contiguous(), torch.full((2, 2, 5, 5), 0.2)
+    stat = torch.ones(10)
+    kw = dict(heads=2, seq=5, scale=0.5)
+    on = lambda dev, *ts: (t.to(dev) for t in ts)
     return {
-        "dense_ln": lambda dev: ops.dense_ln(*(t.to(dev) for t in (x, ls, lb, w, b))),
-        "dense_act_ln": lambda dev: ops.dense_act_ln(*(t.to(dev) for t in (x, ls, lb, w, b))),
+        "dense_ln": lambda dev: ops.dense_ln(*on(dev, x, ls, lb, w, b)),
+        "dense_act_ln": lambda dev: ops.dense_act_ln(*on(dev, x, ls, lb, w, b)),
         "transform_attention_rows_qkv": lambda dev: ops.transform_attention_rows_qkv(
-            qkv.to(dev), wl.to(dev), ww.to(dev), heads=2, seq=5),
-        "layer_norm_rows": lambda dev: ops.layer_norm_rows(*(t.to(dev) for t in (x, ls, lb))),
+            *on(dev, qkv, wl, ww), heads=2, seq=5),
+        "layer_norm_rows": lambda dev: ops.layer_norm_rows(*on(dev, x, ls, lb)),
+        "transform_attention_save_p": lambda dev: ops.transform_attention_save_p(
+            *on(dev, qkv, wl, ww), **kw)[0],
+        "transform_attention_bwd": lambda dev: ops.transform_attention_bwd(
+            *on(dev, qkv, wl, ww, do, p), **kw)[0],
+        "layer_norm_rows_bwd": lambda dev: ops.layer_norm_rows_bwd(
+            *on(dev, x, ls, x, stat, stat))[0],
+        "dense_act_ln_res": lambda dev: ops.dense_act_ln_res(*on(dev, x, ls, lb, w, b))[0],
+        "dense_ln_bwd": lambda dev: ops.dense_ln_bwd(
+            *on(dev, x, ls, lb, w, qkv, stat, stat))[0],
     }
 
 
@@ -169,7 +182,8 @@ def test_build_names_library_by_source_hash():
     assert path.name.startswith("libdistillclip_kernels_") and path.suffix == ".so"
     assert path == _build.library_path()  # stable for unchanged sources
     assert {p.name for p in _build._sources()} == {
-        "dense_ln.cu", "layer_norm.cu", "transform_attention.cu"}
+        "dense_ln.cu", "dense_ln_bwd.cu", "layer_norm.cu", "transform_attention.cu",
+        "transform_attention_bwd.cu"}
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
