@@ -10,11 +10,12 @@ phases, each of which exits non-zero on failure:
 1. the card's name and power limit (nvidia-smi);
 2. build the kernels from distillclip_tpu_torch/csrc with nvcc (one process
    per source, all at once) into build/torch_kernels/;
-3. kernel oracles: each kernel on bf16 inputs at the shapes the serving call
-   and the train step give it, and on a ragged small shape, against its plain
-   PyTorch version in fp32 on the same values (TF32 off).  The modes that also
-   write statistics, residuals or probabilities must give the same bits as
-   the lean mode for the shared output;
+3. kernel oracles: each kernel on bf16 inputs at the shapes the serving call,
+   the teacher and the train steps give it, and on a ragged small shape,
+   against its plain PyTorch version in fp32 on the same values (TF32 off).
+   The modes that also write statistics, residuals or probabilities must give
+   the same bits as the lean mode for the shared output, and every masked
+   entry of the plain attention's saved probabilities must be 0;
 4. the serving slice: both students of configs/final/l_clip.yaml at full
    width with seeded random weights, 256 uint8 images scored against 256
    token rows through LCLIPScorer.score_tokens; scores finite and in [-1, 1],
@@ -25,10 +26,19 @@ phases, each of which exits non-zero on failure:
    the same students (full width, full depth, seeded weights, seeded uint8
    images, tokens and teacher representations).  (a) 16 pairs: loss, parts and
    every parameter's gradient on the kernel path against the plain fp32 CPU
-   path on the same masters; (b) 256 pairs: 12 steps on one fixed batch, every
+   path on the same masters; (b) 256 pairs: steps on one fixed batch, every
    loss finite, the last lower than the first, parameters changed, and the
    launch counts of one step as expected; (c) ms/step, pairs/s and peak
    device memory at 256 pairs;
+5b. the teacher: a seeded ViT-B/32-architecture CLIP checkpoint (vision 768 x
+   12 layers x 12 heads, text 512 x 12 x 8, out 512) written by the port's
+   fabricator and loaded through teacher_load; both encode functions on 256
+   pairs, the first 16 against the plain fp32 CPU path, launches as expected;
+5c. the train steps that run it, phased like 5: the stage-3 step with the text
+   teacher cached and the image teacher live (the main path), the live step,
+   a step that trains through plain attention (use_transform=False students,
+   both teachers cached), and the stage-1 DistillTask step of
+   configs/final/image.yaml with its live image teacher;
 6. card numbers: each kernel's time beside its plain version's, its bound
    and, where one PyTorch call computes the same function, that call's time;
    fenced scored pairs/s at batch 256 and 1024.
@@ -53,6 +63,7 @@ import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "final" / "l_clip.yaml"
+IMAGE_CONFIG = ROOT / "configs" / "final" / "image.yaml"
 SEED = 0
 PAIRS = 256     # pairs per serving call and per train step
 DEVICE = "cuda"
@@ -84,6 +95,12 @@ SOURCES = {
                          "distillclip_tpu/ops/fc1_act.py:307"),
     "dense_ln_bwd": ("distillclip_tpu_torch/csrc/dense_ln_bwd.cu",
                      "distillclip_tpu/ops/fc1_act.py:571"),
+    "plain_attention_rows_qkv": ("distillclip_tpu_torch/csrc/plain_attention.cu",
+                                 "distillclip_tpu/ops/blockdiag_attention.py:107"),
+    "plain_attention_save_p": ("distillclip_tpu_torch/csrc/plain_attention.cu",
+                               "distillclip_tpu/ops/blockdiag_attention.py:198"),
+    "plain_attention_bwd": ("distillclip_tpu_torch/csrc/plain_attention_bwd.cu",
+                            "distillclip_tpu/ops/blockdiag_attention.py:144"),
 }
 SERVING_KERNELS = ("dense_ln", "dense_act_ln", "transform_attention_rows_qkv",
                    "layer_norm_rows")
@@ -92,8 +109,35 @@ SERVING_KERNELS = ("dense_ln", "dense_act_ln", "transform_attention_rows_qkv",
 TRAIN_STEP_LAUNCHES = {
     "dense_ln": 10, "dense_act_ln_res": 10, "transform_attention_save_p": 10,
     "transform_attention_bwd": 10, "dense_ln_bwd": 20, "layer_norm_rows": 2,
-    "layer_norm_rows_bwd": 2, "dense_act_ln": 0, "transform_attention_rows_qkv": 0,
+    "layer_norm_rows_bwd": 2,
 }
+# one teacher tower under no_grad: 12 layers of lean K1, lean K2 and plain
+# attention, and its row LayerNorms (ln_pre + ln_post; ln_final)
+TEACHER_LAYERS = 12
+IMAGE_TEACHER_LAUNCHES = {"dense_ln": 12, "dense_act_ln": 12, "plain_attention_rows_qkv": 12,
+                          "layer_norm_rows": 2}
+TEXT_TEACHER_LAUNCHES = {"dense_ln": 12, "dense_act_ln": 12, "plain_attention_rows_qkv": 12,
+                         "layer_norm_rows": 1}
+# the students without head mixes: plain attention with saved P, and its backward
+PLAIN_STEP_LAUNCHES = {
+    "dense_ln": 10, "dense_act_ln_res": 10, "plain_attention_save_p": 10,
+    "plain_attention_bwd": 10, "dense_ln_bwd": 20, "layer_norm_rows": 2,
+    "layer_norm_rows_bwd": 2,
+}
+# stage 1: the image student alone (6 logical layers, one final norm)
+IMAGE_STEP_LAUNCHES = {
+    "dense_ln": 6, "dense_act_ln_res": 6, "transform_attention_save_p": 6,
+    "transform_attention_bwd": 6, "dense_ln_bwd": 12, "layer_norm_rows": 1,
+    "layer_norm_rows_bwd": 1,
+}
+
+
+def add_counts(*parts: dict) -> dict:
+    out = {}
+    for part in parts:
+        for k, v in part.items():
+            out[k] = out.get(k, 0) + v
+    return out
 
 
 def fail(msg: str) -> None:
@@ -134,9 +178,10 @@ class Case:
     output by output; ``limits`` holds, per output, ("abs", max[, mean]) for an
     absolute limit on the error (and on its mean) or ("rel", x) for a limit on
     the largest error over the largest reference entry.  ``same`` returns the
-    lean mode's output, which ``run()[0]`` must equal bit for bit.  ``plain`` is
-    the plain version on the kernel's own bf16 inputs (timed, not compared);
-    ``library`` one PyTorch call that computes the same function, if any."""
+    lean mode's output, which ``run()[0]`` must equal bit for bit; ``also``
+    takes the outputs and returns a complaint or None.  ``plain`` is the plain
+    version on the kernel's own bf16 inputs (timed, not compared); ``library``
+    one PyTorch call that computes the same function, if any."""
 
     kernel: str
     label: str
@@ -149,6 +194,7 @@ class Case:
     peak: float = TENSOR_FLOPS
     same: Optional[Callable[[], torch.Tensor]] = None
     library: Optional[Callable[[], object]] = None
+    also: Optional[Callable[[tuple], Optional[str]]] = None
 
     def bound(self):
         by_bytes, by_ops = self.nbytes / HBM_BYTES_PER_S, self.flops / self.peak
@@ -167,7 +213,8 @@ def oracle_cases(rng):
     by up to 0.0156, so an absolute limit of 1e-2 or 8e-3 only holds while the
     outputs stay under 4, and 3e-2 while they stay under 8; the inputs below
     keep them there."""
-    from distillclip_tpu_torch.ops import fc1_act, layer_norm, transform_attention as ta
+    from distillclip_tpu_torch.ops import fc1_act, layer_norm, plain_attention as pa
+    from distillclip_tpu_torch.ops import transform_attention as ta
 
     t = lambda shape, std=1.0, mean=0.0: bf16(rng, shape, std, mean)
     cases = []
@@ -180,22 +227,25 @@ def oracle_cases(rng):
     def gemm_bytes(rows, c, n, outs):
         return 2 * (rows * c + c * n + 2 * c + n + outs * rows * n)
 
-    def dense_cases(label, rows, c, n, bias, k1=True, k2=True, w_std=0.02):
-        """K1 (with its statistics) and/or K2 (lean and residual mode) at one
-        shape, and the backward GEMM of either."""
+    def dense_cases(label, rows, c, n, bias, k1=True, k2=True, w_std=0.02,
+                    act="gelu_exact", bwd=True):
+        """K1 (with its statistics) and/or K2 (lean and residual mode, under
+        ``act``) at one shape, and the backward GEMM of either unless the
+        shape only runs without a gradient."""
         args = [t((rows, c)), t((c,), 0.1, 1.0), t((c,), 0.1), t((c, n), w_std),
                 t((n,), 0.02) if bias else None]
         du = t((rows, n))
         flops = 2.0 * rows * c * n
         stat = ("rel", 1e-5)
         stats = fc1_act.dense_ln_stats_plain(*args)[1:]
-        cases.append(Case(
-            "dense_ln_bwd", f"{label} [{rows},{n}]->{c}",
-            lambda: fc1_act.dense_ln_bwd(*args[:4], du, *stats),
-            lambda: fc1_act.dense_ln_bwd_plain(*_f32(args[:4]), du.float(), *stats),
-            (("abs", 3e-2), ("abs", 3e-2), ("rel", 6e-3), ("rel", 6e-3)),
-            lambda: fc1_act.dense_ln_bwd_plain(*args[:4], du, *stats), flops,
-            2 * (3 * rows * c + rows * n + c * n + 2 * c) + 8 * rows + 8 * c))
+        if bwd:
+            cases.append(Case(
+                "dense_ln_bwd", f"{label} [{rows},{n}]->{c}",
+                lambda: fc1_act.dense_ln_bwd(*args[:4], du, *stats),
+                lambda: fc1_act.dense_ln_bwd_plain(*_f32(args[:4]), du.float(), *stats),
+                (("abs", 3e-2), ("abs", 3e-2), ("rel", 6e-3), ("rel", 6e-3)),
+                lambda: fc1_act.dense_ln_bwd_plain(*args[:4], du, *stats), flops,
+                2 * (3 * rows * c + rows * n + c * n + 2 * c) + 8 * rows + 8 * c))
         if k1:
             cases.append(Case(
                 "dense_ln", f"{label} [{rows},{c}]->{n}, with mean/rstd",
@@ -208,25 +258,33 @@ def oracle_cases(rng):
         if not k2:
             return
         cases.append(Case(
-            "dense_act_ln", f"{label} [{rows},{c}]->{n} gelu_exact",
-            lambda: (fc1_act.dense_act_ln(*args, "gelu_exact"),),
-            lambda: (fc1_act.dense_ln_plain(*_f32(args), act="gelu_exact"),),
+            "dense_act_ln", f"{label} [{rows},{c}]->{n} {act}",
+            lambda: (fc1_act.dense_act_ln(*args, act),),
+            lambda: (fc1_act.dense_ln_plain(*_f32(args), act=act),),
             (("abs", 1e-2, 1e-3),),
-            lambda: fc1_act.dense_ln_plain(*args, act="gelu_exact"), flops,
+            lambda: fc1_act.dense_ln_plain(*args, act=act), flops,
             gemm_bytes(rows, c, n, 1)))
         cases.append(Case(
-            "dense_act_ln_res", f"{label} [{rows},{c}]->{n} gelu_exact",
-            lambda: fc1_act.dense_act_ln_res(*args, "gelu_exact"),
-            lambda: fc1_act.dense_act_ln_res_plain(*_f32(args), "gelu_exact"),
+            "dense_act_ln_res", f"{label} [{rows},{c}]->{n} {act}",
+            lambda: fc1_act.dense_act_ln_res(*args, act),
+            lambda: fc1_act.dense_act_ln_res_plain(*_f32(args), act),
             (("abs", 1e-2, 1e-3), ("abs", 1e-2, 1e-3), ("abs", 1e-2, 1e-3), stat, stat),
-            lambda: fc1_act.dense_act_ln_res_plain(*args, "gelu_exact"), flops,
+            lambda: fc1_act.dense_act_ln_res_plain(*args, act), flops,
             gemm_bytes(rows, c, n, 3) + 8 * rows,
-            same=lambda: fc1_act.dense_act_ln(*args, "gelu_exact")))
+            same=lambda: fc1_act.dense_act_ln(*args, act)))
 
     dense_cases("image qkv", img, C, 3 * C, True, k2=False)
     dense_cases("image fc1", img, C, 4 * C, True, k1=False)
     dense_cases("text qkv", txt, C, 3 * C, False, k2=False)
     dense_cases("text fc1", txt, C, 4 * C, True, k1=False)
+    # the frozen teachers (ViT-B/32 architecture: image 768 wide, text 512
+    # wide and causal at 77 tokens) run lean K1 and lean K2 under QuickGELU,
+    # without a gradient; the residual mode under QuickGELU is the plain
+    # CLIP-architecture students'
+    dense_cases("image teacher fc1", img, C, 4 * C, True, k1=False, act="quick_gelu", bwd=False)
+    dense_cases("text teacher qkv", txt, 512, 3 * 512, True, k2=False, bwd=False)
+    dense_cases("text teacher fc1", txt, 512, 4 * 512, True, k1=False, act="quick_gelu",
+                bwd=False)
     dense_cases("ragged", 130, 256, 520, True, w_std=0.05)
 
     # K3 / save-P / backward: the head mixes are drawn at std H^-1/2, so the
@@ -271,10 +329,77 @@ def oracle_cases(rng):
             5 * product + 5 * mix,
             2 * (B * N * 7 * H * d + 2 * H * H) + pbytes + 8 * H * H))
 
+    # Plain attention, its save-P mode and its backward: the teachers' shapes,
+    # the students' without head mixes, head shapes the TPU's block-diagonal
+    # kernel rejects (5 heads; d = 48), and a ragged one with a short kv_len.
+    # The library call is F.scaled_dot_product_attention on the same values as
+    # [B, H, N, d] tensors, forward and backward (kv_len has no counterpart
+    # there, so the ragged case has none).
+    for label, B, H, d, N, causal, kv in (
+            ("image teacher", PAIRS, 12, 64, 50, False, None),
+            ("text teacher", PAIRS, 8, 64, 77, True, None),
+            ("image student", PAIRS, 24, 32, 50, False, None),
+            ("text student", PAIRS, 12, 64, 77, False, None),
+            ("5 heads", 64, 5, 64, 33, False, None), ("5 heads", 64, 5, 64, 33, True, None),
+            ("d=48", 64, 4, 48, 33, False, None), ("d=48", 64, 4, 48, 33, True, None),
+            ("ragged", 64, 3, 16, 17, True, 13)):
+        # q and k at unit scale (logits of std ~1); v at 0.7, so that the first
+        # causal rows, which mix only two or three values, stay under 4 (the
+        # 8e-3 limit; the row that sees one key returns v itself, exactly)
+        qkv = torch.cat([t((B * N, 2 * H * d)), t((B * N, H * d), 0.7)], dim=1)
+        do = t((B * N, H * d))
+        kw = dict(heads=H, seq=N, scale=d ** -0.5)
+        mask = dict(causal=causal, kv_len=kv)
+        shape = (f"{label} B={B} H={H} d={d} N={N}" + (" causal" if causal else "")
+                 + (f" kv_len={kv}" if kv else ""))
+        # the (query, key) pairs this mask leaves: what the run's data needs
+        pairs = float(pa.attention_mask(N, causal, kv, "cpu").sum())
+        product = 2.0 * B * H * pairs * d
+        io, pbytes = 2 * B * N * 4 * H * d, 2 * B * H * N * N
+        q4, k4, v4 = (x.contiguous().requires_grad_()
+                      for x in qkv.view(B, N, 3, H, d).permute(2, 0, 3, 1, 4))
+        sdpa = None
+        if kv is None:      # SDPA has no key limit; is_causal is the same mask
+            sdpa = lambda q=q4, k=k4, v=v4, c=causal: F.scaled_dot_product_attention(
+                q, k, v, is_causal=c)
+        lean = lambda q=qkv, k=kw, m=mask: pa.plain_attention_rows_qkv(q, **k, **m)
+        cases.append(Case(
+            "plain_attention_rows_qkv", shape, lambda f=lean: (f(),),
+            lambda q=qkv, k=kw, m=mask: (pa.plain_attention_rows_qkv_plain(q.float(), **k, **m),),
+            (("abs", 8e-3),),
+            lambda q=qkv, k=kw, m=mask: pa.plain_attention_rows_qkv_plain(q, **k, **m),
+            2 * product, io, library=sdpa))
+        hidden = ~pa.attention_mask(N, causal, kv, DEVICE)
+        cases.append(Case(
+            "plain_attention_save_p", shape,
+            lambda q=qkv, k=kw, m=mask: pa.plain_attention_save_p(q, **k, **m),
+            lambda q=qkv, k=kw, m=mask: pa.plain_attention_save_p_plain(q.float(), **k, **m),
+            (("abs", 8e-3), ("abs", 4e-3)),
+            lambda q=qkv, k=kw, m=mask: pa.plain_attention_save_p_plain(q, **k, **m),
+            2 * product, io + pbytes, same=lean, library=sdpa,
+            also=lambda outs, h=hidden: "a masked probability is not 0"
+            if bool(outs[1][:, :, h].any()) else None))
+        p = pa.plain_attention_save_p_plain(qkv, **kw, **mask)[1]
+        sdpa_bwd = None
+        if sdpa is not None:
+            with torch.enable_grad():
+                o4 = sdpa()
+            do4 = do.view(B, N, H, d).permute(0, 2, 1, 3).contiguous()
+            sdpa_bwd = lambda o=o4, q=q4, k=k4, v=v4, g=do4: torch.autograd.grad(
+                o, (q, k, v), g, retain_graph=True)
+        cases.append(Case(
+            "plain_attention_bwd", shape,
+            lambda q=qkv, g=do, p=p, k=kw: (pa.plain_attention_bwd(q, g, p, **k),),
+            lambda q=qkv, g=do, p=p, k=kw: (pa.plain_attention_bwd_plain(
+                q.float(), g.float(), p.float(), **k),),
+            (("abs", 3e-2),),
+            lambda q=qkv, g=do, p=p, k=kw: pa.plain_attention_bwd_plain(q, g, p, **k),
+            4 * product, 2 * B * N * 7 * H * d + pbytes, library=sdpa_bwd))
+
     # K4 and its backward: rows uniform on [-sqrt(3), sqrt(3)] (unit variance),
     # so the normalised values stay within sqrt(3) and |y| within ~2.2; unit
     # Gaussian rows put ~50 of the 786k outputs past 4.
-    for rows, c in ((1024, C), (PAIRS, C), (77, 40)):
+    for rows, c in ((1024, C), (PAIRS, C), (img, C), (txt, 512), (77, 40)):
         x = rng.uniform(-3 ** 0.5, 3 ** 0.5, size=(rows, c)).astype(np.float32)
         args = [torch.from_numpy(x).to(DEVICE).to(torch.bfloat16), t((c,), 0.1, 1.0),
                 t((c,), 0.1)]
@@ -289,8 +414,8 @@ def oracle_cases(rng):
             2 * (2 * rows * c + 2 * c) + 8 * rows, FP32_FLOPS,
             same=lambda a=args: layer_norm.layer_norm_rows_fwd(*a)[0],
             library=lambda a=args, c=c: F.layer_norm(a[0], (c,), a[1], a[2], 1e-5)))
-        if rows == 1024:
-            continue    # a serving shape; the backward runs at the train step's rows
+        if rows not in (PAIRS, 77):
+            continue    # serving and teacher shapes; the backward runs at the train step's rows
         _, mean, rstd = torch.native_layer_norm(args[0], (c,), args[1], args[2], 1e-5)
         stats = layer_norm.layer_norm_rows_stats_plain(*args)[1:]
         cases.append(Case(
@@ -315,6 +440,8 @@ def check_case(case: Case) -> float:
     refs = case.ref()
     if case.same is not None and not torch.equal(outs[0], case.same()):
         fail(f"{case.kernel} {case.label}: the first output differs from the lean mode's")
+    if case.also is not None and (complaint := case.also(outs)):
+        fail(f"{case.kernel} {case.label}: {complaint}")
     worst, notes = 0.0, []
     for i, (out, ref, limit) in enumerate(zip(outs, refs, case.limits)):
         out, ref = out.float(), ref.float()
@@ -351,7 +478,9 @@ def kernel_oracles(card: str) -> dict:
         with torch.no_grad():
             err = check_case(case)
             ms, plain_ms = cuda_ms(case.run), cuda_ms(case.plain)
-            lib_ms = None if case.library is None else cuda_ms(case.library)
+            # the library calls are short and launch-bound: more launches for
+            # a steadier mean
+            lib_ms = None if case.library is None else cuda_ms(case.library, 100, 10)
         bound_ms, bound_by = case.bound()
         print(f"time {case.kernel} {case.label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms by {bound_by} ({case.flops / 1e9:.3f} GFLOP, "
@@ -465,111 +594,158 @@ def serving_slice(ops, LCLIPScorer):
     return scorer, counts
 
 
-# -- phase 5 ----------------------------------------------------------------
+# -- phases 5, 5b, 5c ---------------------------------------------------------
 
-def make_task(compute_dtype: str):
-    """The stage-3 task on the students of configs/final/l_clip.yaml, with the
-    config's losses and optimizer settings.  The config's ``load_path`` (a
-    stage-1/2 warm start) is left out: the weights are seeded."""
+def teacher_checkpoint() -> str:
+    """A seeded CLIP checkpoint of ViT-B/32's architecture (no pretrained
+    weights are in the repository), written once under build/."""
+    from distillclip_tpu_torch.tools.fabricate_teacher import make_clip_state_dict
+
+    path = ROOT / "build" / "chip_smoke" / f"clip_vit_b32_arch_seed{SEED}.pt"
+    if not path.exists():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        torch.save(make_clip_state_dict(
+            vision_width=768, vision_layers=TEACHER_LAYERS, patch_size=32,
+            image_resolution=224, text_width=512, text_layers=TEACHER_LAYERS,
+            context_length=77, vocab_size=49408, embed_dim=512, seed=SEED), str(path))
+    return str(path)
+
+
+def _config_args(path: Path) -> dict:
     import yaml
 
+    with open(path) as f:
+        return yaml.safe_load(f)["model"]["init_args"]
+
+
+def make_task(compute_dtype: str, use_transform: bool = True):
+    """The stage-3 task on the students of configs/final/l_clip.yaml, with the
+    config's losses and optimizer settings and the seeded teacher.  The
+    config's ``load_path`` (a stage-1/2 warm start) is left out: the weights
+    are seeded.  ``use_transform=False`` takes the head mixes out of both
+    students, which then train through plain attention."""
     from distillclip_tpu_torch.serving.lclip_score import build_tower
     from distillclip_tpu_torch.training import DualDistillTask
 
-    with open(CONFIG) as f:
-        args = yaml.safe_load(f)["model"]["init_args"]
+    args = _config_args(CONFIG)
+    for key in ("image_student", "text_student"):
+        args[key]["init_args"]["use_transform"] = use_transform
     return DualDistillTask(
         image_student=build_tower(args["image_student"]),
         text_student=build_tower(args["text_student"]),
         loss_control_para=args["loss_control_para"], warm_steps=args["warm_steps"],
         total_steps=args["total_steps"], weight_decay=args["weight_decay"], lr=args["lr"],
-        compute_dtype=compute_dtype)
+        teacher_name=teacher_checkpoint(), compute_dtype=compute_dtype)
 
 
-def train_batch(task, rng: np.random.Generator, n: int, device: str):
-    """tokens, uint8 images and the two teachers' cached representations
-    (fp32 ``[n, out_dim]``), at the task's sizes."""
-    out_dim = task.image_student.head.kernel.shape[1]
-    return [torch.from_numpy(a).to(device) for a in (
-        make_tokens(rng, n, task.text_student.context_length),
-        make_images(rng, n, task.image_student.img_size),
-        rng.standard_normal((n, out_dim), dtype=np.float32),
-        rng.standard_normal((n, out_dim), dtype=np.float32))]
+def make_image_task(compute_dtype: str):
+    """The stage-1 task of configs/final/image.yaml (weight-share image
+    student, out_l1 + out_cos, freeze_embed, the live image teacher)."""
+    from distillclip_tpu_torch.serving.lclip_score import build_tower
+    from distillclip_tpu_torch.training import DistillTask
+
+    args = _config_args(IMAGE_CONFIG)
+    return DistillTask(
+        student=build_tower(args["student_encoder"]),
+        loss_control_para=args["loss_control_para"], freeze_embed=args["freeze_embed"],
+        teacher_need_layers=args["teacher_need_layers"], model_type=args["model_type"],
+        warm_steps=args["warm_steps"], total_steps=args["total_steps"],
+        weight_decay=args["weight_decay"], lr=args["lr"], norm=args["norm"],
+        teacher_name=teacher_checkpoint(), compute_dtype=compute_dtype)
 
 
-def _loss_and_grads(task, params, batch):
+def train_batch(rng: np.random.Generator, n: int, device: str, reps: int = 2):
+    """tokens, uint8 images and ``reps`` cached teacher representations (the
+    text teacher's, then the image teacher's; fp32 ``[n, 512]``)."""
+    arrays = [make_tokens(rng, n), make_images(rng, n)]
+    arrays += [rng.standard_normal((n, 512), dtype=np.float32) for _ in range(2)]
+    return [torch.from_numpy(a).to(device) for a in arrays[:2 + reps]]
+
+
+# step -> (the task's loss function, make_train_step's keywords, cached
+# representations in the batch)
+DUAL_STEPS = {
+    "all-cached": ("loss_fn_cached_all", {"cached_teachers": True}, 2),
+    "text-cached": ("loss_fn_cached_text", {"cached_text_teacher": True}, 1),
+    "live": ("loss_fn", {}, 0),
+}
+
+
+def _loss_and_grads(loss_fn, params, batch):
     leaves = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
-    loss, (parts, _, _) = task.loss_fn_cached_all(leaves, *batch)
+    loss, (parts, _, _) = loss_fn(leaves, *batch)
     grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
     grads = {k: torch.zeros_like(p) if g is None else g
              for (k, p), g in zip(leaves.items(), grads)}
     return loss.detach(), {k: v.detach() for k, v in parts.items()}, grads
 
 
-def train_slice(ops, card: str) -> dict:
-    task = make_task("bfloat16")
-    state, tx = task.init_state(SEED, steps_per_epoch=1, device=DEVICE)
-    print(f"train: {len(state.params)} parameter leaves, "
-          f"{sum(v.numel() for v in state.params.values()) / 1e6:.2f} M fp32 masters", flush=True)
-
-    # (a) 16 pairs: kernel path against the plain fp32 CPU path, same masters
-    rng = np.random.default_rng(SEED + 3)
-    small = train_batch(task, rng, 16, "cpu")
-    loss, parts, grads = _loss_and_grads(task, state.params, [t.to(DEVICE) for t in small])
+def compare_with_plain(label: str, task, plain, loss_name: str, params, small) -> None:
+    """(a) 16 pairs: loss, parts and every leaf's gradient on the kernel path
+    against the plain fp32 CPU path on the same masters."""
+    loss, parts, grads = _loss_and_grads(getattr(task, loss_name), params,
+                                         [t.to(DEVICE) for t in small])
     torch.cuda.synchronize()
-    plain = make_task("float32")
-    cpu_params = {k: v.cpu() for k, v in state.params.items()}
-    ref_loss, ref_parts, ref_grads = _loss_and_grads(plain, cpu_params, small)
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    ref_loss, ref_parts, ref_grads = _loss_and_grads(getattr(plain, loss_name), cpu_params,
+                                                     small)
     err = abs(float(loss) - float(ref_loss))
     part_err = max(abs(float(parts[k]) - float(ref_parts[k])) for k in parts)
-    print(f"train (a) 16 pairs: loss {float(loss):.6f} vs plain fp32 CPU {float(ref_loss):.6f} "
-          f"(abs err {err:.3e}, parts max err {part_err:.3e}, limit 2e-2)", flush=True)
+    print(f"train {label} (a) 16 pairs: loss {float(loss):.6f} vs plain fp32 CPU "
+          f"{float(ref_loss):.6f} (abs err {err:.3e}, parts max err {part_err:.3e}, limit 2e-2)",
+          flush=True)
     if not np.isfinite(float(loss)) or err > 2e-2 or part_err > 2e-2:
-        fail("train loss disagrees with the plain path")
+        fail(f"{label}: train loss disagrees with the plain path")
     gn = float(torch.sqrt(sum(g.float().square().sum() for g in grads.values())))
     ref_gn = float(torch.sqrt(sum(g.square().sum() for g in ref_grads.values())))
     worst_name, worst_cos = None, 1.0
     for k, g in grads.items():
         g, r = g.float().cpu().flatten(), ref_grads[k].flatten()
         if not torch.isfinite(g).all():
-            fail(f"train gradient of {k} is not finite")
+            fail(f"{label}: train gradient of {k} is not finite")
         if float(r.norm()) == 0.0 and float(g.norm()) == 0.0:
             continue
         cos = float(torch.dot(g, r) / (g.norm() * r.norm()).clamp_min(1e-30))
         if cos < worst_cos:
             worst_name, worst_cos = k, cos
-    print(f"train (a) gradients: global norm {gn:.6f} vs {ref_gn:.6f} (limit 5%), lowest "
-          f"per-parameter cosine {worst_cos:.6f} at {worst_name} (limit 0.99)", flush=True)
+    print(f"train {label} (a) gradients: global norm {gn:.6f} vs {ref_gn:.6f} (limit 5%), "
+          f"lowest per-parameter cosine {worst_cos:.6f} at {worst_name} (limit 0.99)",
+          flush=True)
     if abs(gn - ref_gn) > 0.05 * ref_gn or worst_cos < 0.99:
-        fail("train gradients disagree with the plain path")
-    del plain, cpu_params, ref_grads, grads
+        fail(f"{label}: train gradients disagree with the plain path")
 
-    # (b) 256 pairs, 12 steps on one fixed batch
-    batch = train_batch(task, np.random.default_rng(SEED + 4), PAIRS, DEVICE)
-    step = task.make_train_step(tx, cached_teachers=True)
+
+def run_steps(ops, card: str, label: str, step, state, batch, expected: dict, steps: int,
+              keep_state: bool, frozen=()) -> dict:
+    """(b) ``steps`` steps on one fixed batch: losses finite and falling,
+    every trainable leaf moved, the launches of one step as expected; then (c)
+    ms/step, pairs/s and peak memory over 10 more steps, fenced by the loss
+    readback."""
     before = {k: v.clone() for k, v in state.params.items()}
+    first = state.step
     losses, counts = [], None
-    for i in range(12):
+    for _ in range(steps):
         ops.reset_launch_counts()
         state, metrics = step(state, *batch)
         if counts is None:
             counts = ops.launch_counts()
         losses.append(float(metrics["loss"]))
-    print(f"train (b) {PAIRS} pairs: launches of one step {counts}", flush=True)
-    print("train (b) losses " + " ".join(f"{x:.6f}" for x in losses), flush=True)
-    if counts != {**dict.fromkeys(ops.KERNELS, 0), **TRAIN_STEP_LAUNCHES}:
-        fail(f"launch counts of one train step differ from {TRAIN_STEP_LAUNCHES}")
+    print(f"train {label} (b) {PAIRS} pairs: launches of one step {counts}", flush=True)
+    print(f"train {label} (b) losses " + " ".join(f"{x:.6f}" for x in losses), flush=True)
+    if counts != {**dict.fromkeys(ops.KERNELS, 0), **expected}:
+        fail(f"{label}: launch counts of one train step differ from {expected}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        fail("train losses are not finite or did not fall")
-    moved = sum(not torch.equal(before[k], v) for k, v in state.params.items())
+        fail(f"{label}: train losses are not finite or did not fall")
+    still = sorted(k for k, v in state.params.items() if torch.equal(before[k], v))
     finite = all(bool(torch.isfinite(v).all()) for v in state.params.values())
-    print(f"train (b) {moved} of {len(before)} parameter leaves changed; all finite: {finite}; "
+    print(f"train {label} (b) {len(before) - len(still)} of {len(before)} parameter leaves "
+          f"changed ({len(frozen)} frozen); all finite: {finite}; "
           f"parts {({k: round(float(v), 6) for k, v in metrics.items()})}", flush=True)
-    if moved != len(before) or not finite or state.step != 12:
-        fail("train step left parameters unchanged or not finite")
+    if still != sorted(frozen) or not finite or state.step != first + steps:
+        fail(f"{label}: the train step left trainable parameters unchanged, moved frozen "
+             f"ones or made them not finite: {still}")
     del before
 
-    # (c) ms/step and pairs/s, device-resident, fenced by the loss readback
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     iters = 10
@@ -579,9 +755,94 @@ def train_slice(ops, card: str) -> dict:
     float(metrics["loss"])
     dt = (time.perf_counter() - t0) / iters
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"throughput train step {PAIRS} pairs (device-resident): {dt * 1e3:.2f} ms/step, "
-          f"{PAIRS / dt:.1f} pairs/s, peak device memory {peak:.2f} GiB [{card}]", flush=True)
-    return {"counts": counts, "task": task, "state": state, "step": step, "batch": batch}
+    print(f"throughput train step {label} {PAIRS} pairs (device-resident): {dt * 1e3:.2f} "
+          f"ms/step, {PAIRS / dt:.1f} pairs/s, peak device memory {peak:.2f} GiB [{card}]",
+          flush=True)
+    # the state (0.9 GB of masters and moments) only outlives the phase where
+    # the caller profiles it, so that a later phase's peak memory is its own
+    return {"counts": counts, "state": state if keep_state else None, "step": step,
+            "batch": batch}
+
+
+def dual_phase(ops, card: str, label: str, kind: str, task, plain, expected: dict, steps: int,
+               seed: int, keep_state: bool) -> dict:
+    """One stage-3 step, ``kind`` of ``DUAL_STEPS``, on ``task``: (a) against
+    ``plain`` where one is given, then (b) and (c)."""
+    loss_name, step_kw, reps = DUAL_STEPS[kind]
+    state, tx = task.init_state(SEED, steps_per_epoch=1, device=DEVICE)
+    print(f"train {label}: {len(state.params)} parameter leaves, "
+          f"{sum(v.numel() for v in state.params.values()) / 1e6:.2f} M fp32 masters", flush=True)
+    if plain is not None:
+        small = train_batch(np.random.default_rng(seed), 16, "cpu", reps)
+        compare_with_plain(label, task, plain, loss_name, state.params, small)
+    batch = train_batch(np.random.default_rng(seed + 1), PAIRS, DEVICE, reps)
+    return run_steps(ops, card, label, task.make_train_step(tx, **step_kw), state, batch,
+                     expected, steps, keep_state)
+
+
+def teacher_phase(ops, card: str, task, plain) -> dict:
+    """Phase 5b: both teacher encode functions at full width and depth on 256
+    pairs; the first 16 rows against the plain fp32 CPU path on the same
+    weights; launches as expected."""
+    from distillclip_tpu_torch.models.clip import cosine_logits
+
+    rng = np.random.default_rng(SEED + 5)
+    images, tokens = make_images(rng, PAIRS), make_tokens(rng, PAIRS)
+    t0 = time.perf_counter()
+    enc_image, enc_text = task.make_teacher_image_encode(DEVICE), \
+        task.make_teacher_text_encode(DEVICE)
+    print(f"teacher: ViT-B/32 architecture, seeded weights, "
+          f"{sum(p.numel() for p in task.teacher.module.parameters()) / 1e6:.2f} M parameters, "
+          f"loaded and cast in {time.perf_counter() - t0:.1f} s", flush=True)
+    counts, reps = {}, {}
+    for name, enc, x, want in (("image", enc_image, images, IMAGE_TEACHER_LAUNCHES),
+                               ("text", enc_text, tokens, TEXT_TEACHER_LAUNCHES)):
+        ops.reset_launch_counts()
+        rep = enc(x)
+        torch.cuda.synchronize()
+        counts[name] = ops.launch_counts()
+        print(f"teacher: launches of one {name} encode {counts[name]}", flush=True)
+        if counts[name] != {**dict.fromkeys(ops.KERNELS, 0), **want}:
+            fail(f"launch counts of the {name} teacher differ from {want}")
+        if rep.shape != (PAIRS, 512) or rep.dtype != torch.float32 \
+                or not torch.isfinite(rep).all():
+            fail(f"{name} teacher representations: shape {tuple(rep.shape)}, {rep.dtype}")
+        reps[name] = rep
+        ms = cuda_ms(lambda: enc(x), iters=5, warmup=1)
+        print(f"throughput teacher {name} encode {PAIRS} rows: {ms:.2f} ms, "
+              f"{PAIRS / ms * 1e3:.1f} rows/s [{card}]", flush=True)
+    ref = {"image": plain.make_teacher_image_encode("cpu")(images[:16]),
+           "text": plain.make_teacher_text_encode("cpu")(tokens[:16])}
+    for name in ("image", "text"):
+        got = reps[name][:16].cpu()
+        cos = torch.nn.functional.cosine_similarity(got, ref[name], dim=1)
+        print(f"teacher: {name} representations[:16] vs plain fp32 CPU path min row cosine "
+              f"{float(cos.min()):.6f} (limit 0.999)", flush=True)
+        if float(cos.min()) < 0.999:
+            fail(f"kernel-path {name} teacher representations disagree with the plain path")
+    err = float((cosine_logits(reps["image"][:16].cpu(), reps["text"][:16].cpu())
+                 - cosine_logits(ref["image"], ref["text"])).abs().max())
+    print(f"teacher: logits[:16, :16] vs plain fp32 CPU path max_abs_err {err:.3e} "
+          f"(limit 2e-2)", flush=True)
+    if err > 2e-2:
+        fail("kernel-path teacher logits disagree with the plain path")
+    return counts
+
+
+def image_stage_phase(ops, card: str) -> dict:
+    """The stage-1 step of configs/final/image.yaml, image teacher live."""
+    task = make_image_task("bfloat16")
+    state, tx = task.init_state(SEED, steps_per_epoch=1, device=DEVICE)
+    frozen = [k for k, m in (task._mask or {}).items() if not m]
+    print(f"train stage-1: {len(state.params)} parameter leaves, frozen by freeze_embed: "
+          f"{frozen}", flush=True)
+    tea = task.teacher.state("visual")
+    if len(frozen) != 3 or not torch.equal(state.params["student.patch_kernel"].cpu(),
+                                           tea["patch_kernel"]):
+        fail("freeze_embed did not copy and freeze the teacher's embeddings")
+    batch = [torch.from_numpy(make_images(np.random.default_rng(SEED + 8), PAIRS)).to(DEVICE)]
+    return run_steps(ops, card, "stage-1", task.make_train_step(tx), state, batch,
+                     add_counts(IMAGE_STEP_LAUNCHES, IMAGE_TEACHER_LAUNCHES), 8, False, frozen)
 
 
 # -- phase 6b ---------------------------------------------------------------
@@ -620,8 +881,10 @@ def throughput(scorer, card: str) -> None:
 PROFILE_GROUPS = (
     ("dense_ln + dense_act_ln_res (LN GEMMs forward)", ("dense_ln_kernel",)),
     ("dense_ln_bwd (LN GEMM backward)", ("dense_ln_bwd_kernel",)),
-    ("transform_attention_save_p", ("transform_attention_kernel",)),
+    ("transform_attention forward (lean / save_p)", ("transform_attention_kernel",)),
     ("transform_attention_bwd", ("tf_bwd_",)),
+    ("plain_attention forward (lean / save_p)", ("plain_attention_kernel",)),
+    ("plain_attention_bwd", ("plain_attention_bwd_kernel",)),
     ("layer_norm_rows + bwd", ("layer_norm_rows",)),
     ("reduce_partials", ("reduce_partials",)),
     ("optimizer (foreach kernels)", ("multi_tensor_apply",)),
@@ -688,22 +951,45 @@ def main() -> None:
     scale_lines(card)
     scorer, serving_counts = serving_slice(ops, LCLIPScorer)
     throughput(scorer, card)
-    train = train_slice(ops, card)
 
-    if "--profile" in sys.argv[1:]:
-        images, tokens = train["batch"][1], train["batch"][0]
+    profiling = "--profile" in sys.argv[1:]
+    task, plain = make_task("bfloat16"), make_task("float32")
+    runs = {"all-cached": dual_phase(ops, card, "all-cached", "all-cached", task, plain,
+                                     TRAIN_STEP_LAUNCHES, 8, SEED + 3, profiling)}
+    teacher_counts = teacher_phase(ops, card, task, plain)
+    runs["text-cached"] = dual_phase(
+        ops, card, "text-cached", "text-cached", task, plain,
+        add_counts(TRAIN_STEP_LAUNCHES, IMAGE_TEACHER_LAUNCHES), 12, SEED + 10, profiling)
+    runs["live"] = dual_phase(
+        ops, card, "live", "live", task, None,
+        add_counts(TRAIN_STEP_LAUNCHES, IMAGE_TEACHER_LAUNCHES, TEXT_TEACHER_LAUNCHES), 6,
+        SEED + 12, profiling)
+    del plain
+    runs["all-cached plain-attention"] = dual_phase(
+        ops, card, "all-cached plain-attention", "all-cached",
+        make_task("bfloat16", use_transform=False), make_task("float32", use_transform=False),
+        PLAIN_STEP_LAUNCHES, 6, SEED + 14, False)
+    runs["stage-1"] = image_stage_phase(ops, card)
+
+    if profiling:
+        tokens, images = runs["all-cached"]["batch"][:2]
         profile("score_tokens 256 pairs (device-resident)",
                 lambda: scorer.score_tokens(images, tokens), 5, card)
-        state = train["state"]
-        profile("train step 256 pairs",
-                lambda: train["step"](state, *train["batch"]), 5, card)
+        for label in ("all-cached", "text-cached", "live"):
+            run = runs[label]
+            profile(f"train step {label} 256 pairs",
+                    lambda r=run: r["step"](r["state"], *r["batch"]), 5, card)
 
+    paths = {"serving_call": serving_counts, "teacher_image_encode": teacher_counts["image"],
+             "teacher_text_encode": teacher_counts["text"],
+             **{f"train_step {k}": v["counts"] for k, v in runs.items()}}
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1],
-                "launches": serving_counts[name] + train["counts"][name],
-                "launches_serving_call": serving_counts[name],
-                "launches_train_step": train["counts"][name],
+                "launches": sum(c[name] for c in paths.values()),
+                "launches_by_path": {k: c[name] for k, c in paths.items()},
                 **results[name]} for name in ops.KERNELS]
+    if idle := [k["name"] for k in kernels if k["launches"] == 0]:
+        fail(f"kernels that no main-path run launched: {idle}")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,6 @@
-"""JAX student parameters -> state dicts of the port's towers, and the
-stage-3 task's parameter tree -> the port's fp32 masters.
+"""JAX parameters -> state dicts of the port's towers (students, plain CLIP
+encoders and the teacher), and the tasks' parameter trees -> the port's fp32
+masters.
 
 The port's module tree mirrors the JAX parameter tree name for name, so the
 mapping is a renaming and no value changes:
@@ -19,6 +20,11 @@ JAX (``params`` of a student tower)    port state dict
 ``blocks_{b}/mlp/fc1/*``, ``fc2/*``    ``blocks.{b}.mlp.fc1.*``, ``fc2.*``
 ``norm/{scale,bias}``, ``head/*``      ``norm.*``, ``head.*``
 =====================================  =====================================
+
+The plain CLIP encoders and the teacher (``ImageEncoder`` / ``TextEncoder``,
+trees under a ``visual`` / ``text`` scope) map the same way, with
+``transformer/resblocks_{i}/...`` becoming ``transformer.resblocks.{i}....``
+(:func:`jax_encoder_to_torch`, :func:`jax_teacher_params_to_torch`).
 
 The stage-3 task's tree ``{"student": {"image_tower": ..., "text_tower": ...}}``
 maps to ``student.image_tower.<name>`` / ``student.text_tower.<name>``
@@ -59,7 +65,15 @@ def _flatten(tree: Mapping, prefix: str = "") -> dict:
 
 def _torch_name(jax_path: str) -> str:
     name = jax_path.replace("/", ".")
-    return re.sub(r"\b(blocks|norm1|norm2)_(\d+)\b", r"\1.\2", name)
+    return re.sub(r"\b(blocks|resblocks|norm1|norm2)_(\d+)\b", r"\1.\2", name)
+
+
+def _renamed(params: Mapping) -> dict:
+    """A JAX tree (optionally under ``"params"``) as ``{port name: fp32 tensor}``."""
+    if "params" in params and isinstance(params["params"], Mapping):
+        params = params["params"]
+    return {_torch_name(k): torch.from_numpy(np.array(v, dtype=np.float32))
+            for k, v in _flatten(params).items()}
 
 
 def jax_student_to_torch(params: Mapping, tower: str) -> dict:
@@ -69,10 +83,7 @@ def jax_student_to_torch(params: Mapping, tower: str) -> dict:
     ``"text"``; the tower's own parameters must be present."""
     if tower not in _REQUIRED:
         raise ValueError(f"tower must be 'image' or 'text', got {tower!r}")
-    if "params" in params and isinstance(params["params"], Mapping):
-        params = params["params"]
-    state = {_torch_name(k): torch.from_numpy(np.array(v, dtype=np.float32))
-             for k, v in _flatten(params).items()}
+    state = _renamed(params)
     missing = [k for k in _REQUIRED[tower] if k not in state]
     other = "text" if tower == "image" else "image"
     foreign = [k for k in _REQUIRED[other] if k in state and k not in _REQUIRED[tower]]
@@ -82,11 +93,57 @@ def jax_student_to_torch(params: Mapping, tower: str) -> dict:
     return state
 
 
+def jax_encoder_to_torch(params: Mapping, tower: str) -> dict:
+    """State dict for ``ImageEncoder`` / ``TextEncoder`` (``visual.*`` /
+    ``text.*``) from the JAX encoder's params; ``tower`` is ``"image"`` or
+    ``"text"``."""
+    scope = {"image": "visual", "text": "text"}.get(tower)
+    if scope is None:
+        raise ValueError(f"tower must be 'image' or 'text', got {tower!r}")
+    state = _renamed(params)
+    foreign = sorted(k for k in state if not k.startswith(scope + "."))
+    if not state or foreign:
+        raise ValueError(f"not a JAX {tower} encoder (scope {scope!r}): keys {foreign[:4]}")
+    return state
+
+
+def jax_teacher_params_to_torch(params: Mapping) -> dict:
+    """State dict for the port's teacher from the JAX package's teacher
+    variables: ``{"image_tower": {"visual": ...}, "text_tower": {"text": ...}}``
+    for ``teacher_load(..., "all")`` (a ``CLIPModel``), or one tower's
+    ``{"visual": ...}`` / ``{"text": ...}``."""
+    state = _renamed(params)
+    scopes = ("image_tower.visual.", "text_tower.text.", "visual.", "text.")
+    foreign = sorted(k for k in state if not k.startswith(scopes))
+    if not state or foreign:
+        raise ValueError(f"not a JAX CLIP teacher tree: keys {foreign[:4]}")
+    return state
+
+
+def _tower_to_torch(params: Mapping, kind: str) -> dict:
+    """A student tower of either architecture, told apart by its scope."""
+    inner = params["params"] if "params" in params else params
+    if set(inner) == {"visual" if kind == "image" else "text"}:
+        return jax_encoder_to_torch(params, kind)
+    return jax_student_to_torch(params, kind)
+
+
+def jax_distill_params_to_torch(params: Mapping, model_type: str) -> dict:
+    """fp32 masters ``{"student.<name>": tensor}`` for ``DistillTask.init_state``
+    from the JAX one-tower task's tree ``{"student": ...}``."""
+    if set(params) != {"student"}:
+        raise ValueError(f"expected the tree {{'student': ...}}, got top-level keys "
+                         f"{sorted(params)}")
+    return {f"student.{k}": v
+            for k, v in _tower_to_torch(params["student"], model_type).items()}
+
+
 def torch_name_to_jax_path(name: str) -> str:
     """``student.image_tower.blocks.0.norm1.1.scale`` ->
     ``student/image_tower/blocks_0/norm1_1/scale``: the inverse of the
     renaming above."""
-    return re.sub(r"\b(blocks|norm1|norm2)\.(\d+)\b", r"\1_\2", name).replace(".", "/")
+    return re.sub(r"\b(blocks|resblocks|norm1|norm2)\.(\d+)\b", r"\1_\2",
+                  name).replace(".", "/")
 
 
 def jax_dual_params_to_torch(params: Mapping) -> dict:
@@ -100,6 +157,6 @@ def jax_dual_params_to_torch(params: Mapping) -> dict:
                          f"...}}}}, got top-level keys {sorted(params)}")
     out = {}
     for tower, kind in (("image_tower", "image"), ("text_tower", "text")):
-        for k, v in jax_student_to_torch(params["student"][tower], kind).items():
+        for k, v in _tower_to_torch(params["student"][tower], kind).items():
             out[f"student.{tower}.{k}"] = v
     return out

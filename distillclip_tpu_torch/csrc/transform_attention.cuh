@@ -1,5 +1,5 @@
-// Device routines shared by the head-transform attention kernels
-// (transform_attention.cu, transform_attention_bwd.cu).
+// Device routines shared by the attention kernels (transform_attention.cu,
+// transform_attention_bwd.cu, plain_attention.cu, plain_attention_bwd.cu).
 //
 // All of them work on a block's tile in shared memory: `tq` rows (at most
 // kTqMax) of one sample, all H heads, as [H, tq, N] fp32 planes, and they are
@@ -72,17 +72,19 @@ __device__ __forceinline__ void load_row_tile(const bf16* __restrict__ src, size
 }
 
 // S[g, i, j] = Xs[i, g·d ..] · Y[j, g·d ..] for the tile's tq rows i, every
-// head g and all N rows j of Y (device memory, row stride ystride).  A thread
+// head g and the first nk rows j of Y (device memory, row stride ystride);
+// the rows of S are N wide and columns past nk are left as they are.  A thread
 // takes one (g, j) row of Y against all tq tile rows at once, so each Y row
 // is read from memory once per block; four 16-byte chunks of it are in flight
 // before the first is used.
 __device__ __forceinline__ void rows_dot(const bf16* __restrict__ Xs,
                                          const bf16* __restrict__ Y, size_t ystride,
-                                         float* __restrict__ S, int N, int H, int d, int tq) {
+                                         float* __restrict__ S, int N, int nk, int H, int d,
+                                         int tq) {
   const int HD = H * d;
-  for (int item = threadIdx.x; item < H * N; item += kThreads) {
-    const int g = item / N;
-    const int j = item - g * N;
+  for (int item = threadIdx.x; item < H * nk; item += kThreads) {
+    const int g = item / nk;
+    const int j = item - g * nk;
     const bf16* yp = Y + (size_t)j * ystride + g * d;
     const bf16* xp = Xs + g * d;
     float acc[kTqMax];
@@ -116,14 +118,22 @@ __device__ __forceinline__ void rows_dot(const bf16* __restrict__ Xs,
   }
 }
 
-// out[i, col] = Σ_j P[head(col), i, j] · Y[j, col] for the tile's rows i < nq
-// and all H·d columns.  A thread takes a pair of columns (one head, since d is
-// even) against all tq tile rows at once, so each Y element is read from
-// memory once per block; eight rows of Y are in flight at a time.
+// All N rows of Y.
+__device__ __forceinline__ void rows_dot(const bf16* __restrict__ Xs,
+                                         const bf16* __restrict__ Y, size_t ystride,
+                                         float* __restrict__ S, int N, int H, int d, int tq) {
+  rows_dot(Xs, Y, ystride, S, N, N, H, d, tq);
+}
+
+// out[i, col] = Σ_{j < nk} P[head(col), i, j] · Y[j, col] for the tile's rows
+// i < nq and all H·d columns; the rows of P are N wide.  A thread takes a pair
+// of columns (one head, since d is even) against all tq tile rows at once, so
+// each Y element is read from memory once per block; eight rows of Y are in
+// flight at a time.
 __device__ __forceinline__ void plane_rows(const float* __restrict__ P,
                                            const bf16* __restrict__ Y, size_t ystride,
                                            bf16* __restrict__ out, size_t ostride,
-                                           int N, int H, int d, int tq, int nq) {
+                                           int N, int nk, int H, int d, int tq, int nq) {
   const int HD = H * d;
   const int plane = tq * N;
   for (int col = 2 * threadIdx.x; col < HD; col += 2 * kThreads) {
@@ -132,15 +142,15 @@ __device__ __forceinline__ void plane_rows(const float* __restrict__ P,
     float acc0[kTqMax], acc1[kTqMax];
 #pragma unroll
     for (int i = 0; i < kTqMax; ++i) acc0[i] = acc1[i] = 0.f;
-    for (int j0 = 0; j0 < N; j0 += 8) {
+    for (int j0 = 0; j0 < nk; j0 += 8) {
       __nv_bfloat162 yr[8];
 #pragma unroll
       for (int u = 0; u < 8; ++u)
-        yr[u] = j0 + u < N ? *reinterpret_cast<const __nv_bfloat162*>(yp + (size_t)(j0 + u) * ystride)
+        yr[u] = j0 + u < nk ? *reinterpret_cast<const __nv_bfloat162*>(yp + (size_t)(j0 + u) * ystride)
                            : __floats2bfloat162_rn(0.f, 0.f);
 #pragma unroll
       for (int u = 0; u < 8; ++u) {
-        if (j0 + u >= N) break;
+        if (j0 + u >= nk) break;
         const float v0 = __low2float(yr[u]);
         const float v1 = __high2float(yr[u]);
 #pragma unroll
@@ -159,6 +169,14 @@ __device__ __forceinline__ void plane_rows(const float* __restrict__ P,
         *reinterpret_cast<__nv_bfloat162*>(out + (size_t)i * ostride + col) =
             __floats2bfloat162_rn(acc0[i], acc1[i]);
   }
+}
+
+// All N columns of P.
+__device__ __forceinline__ void plane_rows(const float* __restrict__ P,
+                                           const bf16* __restrict__ Y, size_t ystride,
+                                           bf16* __restrict__ out, size_t ostride,
+                                           int N, int H, int d, int tq, int nq) {
+  plane_rows(P, Y, ystride, out, ostride, N, N, H, d, tq, nq);
 }
 
 }  // namespace tf

@@ -1,4 +1,5 @@
 from distillclip_tpu_torch.models.clip import CLIPModel, l2_normalize
+from distillclip_tpu_torch.models.encoders import ImageEncoder, TextEncoder
 from distillclip_tpu_torch.models.outputs import (
     CLIPOutput,
     ControlFlags,
@@ -9,14 +10,22 @@ from distillclip_tpu_torch.models.repeat_vit import (
     RepeatTextTransformer,
     RepeatVisionTransformer,
 )
+from distillclip_tpu_torch.models.teacher import teacher_load
+from distillclip_tpu_torch.models.text import TextTransformer
+from distillclip_tpu_torch.models.vit import VisionTransformer
 
 __all__ = [
     "CLIPModel",
     "CLIPOutput",
     "ControlFlags",
+    "ImageEncoder",
     "RepeatTextTransformer",
     "RepeatVisionTransformer",
+    "TextEncoder",
     "TextOutput",
+    "TextTransformer",
     "VisionOutput",
+    "VisionTransformer",
     "l2_normalize",
+    "teacher_load",
 ]

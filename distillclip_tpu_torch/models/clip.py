@@ -2,9 +2,13 @@
 
 Port of ``distillclip_tpu/models/clip.py``.  Like the reference there is no
 learnable logit scale: the i2t / t2i logits are raw cosine similarities.
+:meth:`CLIPModel.score` is the L-CLIPScore fast path: both towers' unit
+features and their cosines.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 from torch import nn
@@ -32,8 +36,9 @@ def cosine_logits(image_rep: torch.Tensor, text_rep: torch.Tensor) -> torch.Tens
 
 
 class CLIPModel(nn.Module):
-    """Dual tower wrapper: ``image_tower`` and ``text_tower`` are the port's
-    student towers, which return their pooled representation."""
+    """Dual tower wrapper.  ``image_tower`` and ``text_tower`` are weight-share
+    students, which return their pooled representation as a tensor, or plain
+    CLIP encoders, whose output containers pass through unchanged."""
 
     def __init__(self, image_tower: nn.Module, text_tower: nn.Module):
         super().__init__()
@@ -41,10 +46,12 @@ class CLIPModel(nn.Module):
         self.text_tower = text_tower
 
     def encode_image(self, images: torch.Tensor, flags: ControlFlags = ControlFlags()):
-        return VisionOutput(last_representation=self.image_tower(images, flags))
+        out = self.image_tower(images, flags)
+        return out if isinstance(out, VisionOutput) else VisionOutput(last_representation=out)
 
     def encode_text(self, tokens: torch.Tensor, flags: ControlFlags = ControlFlags()):
-        return TextOutput(last_representation=self.text_tower(tokens, flags))
+        out = self.text_tower(tokens, flags)
+        return out if isinstance(out, TextOutput) else TextOutput(last_representation=out)
 
     def forward(self, tokens: torch.Tensor, images: torch.Tensor,
                 flags: ControlFlags = ControlFlags()) -> CLIPOutput:
@@ -54,3 +61,10 @@ class CLIPModel(nn.Module):
                                text_output.last_representation)
         return CLIPOutput(visual_output=visual_output, text_output=text_output,
                           i2t_logits=logits, t2i_logits=logits.t())
+
+    def score(self, tokens: torch.Tensor,
+              images: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(image features, text features, cosine logits ``[B_img, B_txt]`` fp32)."""
+        image_feature = l2_normalize(self.encode_image(images).last_representation)
+        text_feature = l2_normalize(self.encode_text(tokens).last_representation)
+        return image_feature, text_feature, image_feature.float() @ text_feature.float().t()

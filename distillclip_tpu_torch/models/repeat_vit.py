@@ -8,7 +8,9 @@ head mixes ``conv_l`` / ``conv_w``; the qkv/proj and MLP weights are shared.
 Each repeat runs, on ``[B·N, C]`` rows at the true token count:
 
 1. norm1 + qkv              -- :func:`ops.dense_ln` (K1)
-2. head-transform attention -- :func:`ops.transform_attention_rows_qkv` (K3)
+2. head-transform attention -- :func:`ops.transform_attention_rows_qkv` (K3),
+   or, with ``use_transform=False``, plain attention without the head mixes
+   -- :func:`ops.plain_attention_rows_qkv`
 3. proj, residual add
 4. norm2 + fc1 + exact GELU -- :func:`ops.dense_act_ln` (K2)
 5. fc2, residual add
@@ -25,9 +27,8 @@ Quirks kept from the reference: the text student is bidirectional (no causal
 mask) and pools at ``argmax(tokens)``; the text qkv has no bias, the image
 qkv has one (``qkv_bias: true`` in the configs).
 
-Not ported yet, and refused rather than approximated: ``use_transform=False``
-(it needs the plain-attention kernel), iRPE, the ``ControlFlags`` taps, and
-non-zero dropout / drop-path rates in training mode (in eval mode they do
+Not ported yet, and refused rather than approximated: iRPE, the
+``ControlFlags`` taps, and non-zero dropout / drop-path rates in training mode (in eval mode they do
 nothing; the final configs set none).
 """
 
@@ -46,6 +47,7 @@ from distillclip_tpu_torch.ops import (
     dense_act_ln,
     dense_ln,
     layer_norm_rows,
+    plain_attention_rows_qkv,
     transform_attention_rows_qkv,
 )
 
@@ -64,31 +66,35 @@ class StudentLayerNorm(nn.Module):
 
 
 class MiniAttention(nn.Module):
-    """Shared qkv/proj attention with per-repeat head mixes (the
-    ``use_transform`` path); norm1 is folded into the qkv kernel."""
+    """Shared qkv/proj attention; with ``use_transform`` the per-repeat head
+    mixes ``conv_l`` / ``conv_w`` exist and mix the heads, without it the
+    attention is plain.  norm1 is folded into the qkv kernel."""
 
     def __init__(self, dim: int, num_heads: int, repeated_times: int = 1,
                  qkv_bias: bool = False, qk_scale: Optional[float] = None,
                  use_transform: bool = False, rpe_config=None):
         super().__init__()
-        if not use_transform:
-            raise NotImplementedError(
-                "MiniAttention(use_transform=False) needs the plain-attention kernel, "
-                "not ported yet (ROADMAP queue 1, item 3: the teacher towers)")
         if rpe_config is not None:
             raise NotImplementedError("iRPE is not ported yet (ROADMAP queue 1, item 10)")
         self.num_heads = num_heads
         self.scale = qk_scale or (dim // num_heads) ** -0.5
+        self.use_transform = use_transform
         self.qkv = Dense(dim, 3 * dim, bias=qkv_bias)
-        self.conv_l = nn.Parameter(torch.empty(repeated_times, num_heads, num_heads))
-        self.conv_w = nn.Parameter(torch.empty(repeated_times, num_heads, num_heads))
+        if use_transform:
+            self.conv_l = nn.Parameter(torch.empty(repeated_times, num_heads, num_heads))
+            self.conv_w = nn.Parameter(torch.empty(repeated_times, num_heads, num_heads))
         self.proj = Dense(dim, dim)
 
     def forward(self, x: torch.Tensor, repeat_id: int, seq: int,
                 norm1: StudentLayerNorm) -> torch.Tensor:
         qkv = dense_ln(x, norm1.scale, norm1.bias, self.qkv.kernel, self.qkv.bias, norm1.eps)
-        ctx = transform_attention_rows_qkv(qkv, self.conv_l[repeat_id], self.conv_w[repeat_id],
-                                           heads=self.num_heads, seq=seq, scale=self.scale)
+        if self.use_transform:
+            ctx = transform_attention_rows_qkv(
+                qkv, self.conv_l[repeat_id], self.conv_w[repeat_id], heads=self.num_heads,
+                seq=seq, scale=self.scale)
+        else:
+            ctx = plain_attention_rows_qkv(qkv, heads=self.num_heads, seq=seq,
+                                           scale=self.scale)
         return self.proj(ctx)
 
 

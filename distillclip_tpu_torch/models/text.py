@@ -1,16 +1,23 @@
-"""Token embedding and EOT pooling for the text towers.
+"""Token embedding, EOT pooling and the CLIP text transformer.
 
-Port of ``TokenEmbedding`` and ``eot_pool`` (``distillclip_tpu/models/text.py``).
+Port of ``distillclip_tpu/models/text.py``.  :class:`TextTransformer` is the
+CLIP text tower (the teacher's, or a plain student): token and positional
+embedding, the causal transformer stack, ``ln_final``, ``text_projection`` on
+every token, then the EOT pool.  It runs on ``[B·N, C]`` rows at N = the
+context length; the JAX tower pads N to a multiple of 16 and masks the pad
+keys, which is the same math.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
-from distillclip_tpu_torch.models.layers import Dense
+from distillclip_tpu_torch.models.layers import Dense, LayerNorm
+from distillclip_tpu_torch.models.outputs import ControlFlags, TextOutput
+from distillclip_tpu_torch.models.transformer import Transformer
 
 
 def eot_pool(x: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -53,3 +60,35 @@ class TokenEmbedding(nn.Module):
         if self.expand is not None:
             emb = self.expand(emb)
         return emb
+
+
+class TextTransformer(nn.Module):
+    """CLIP text tower.  Like the reference it projects every token
+    (``last_layer_output``) and pools the projected sequence at the EOT."""
+
+    def __init__(self, vocab_size: int = 49408, context_length: int = 77, width: int = 512,
+                 layers: int = 12, heads: int = 8, output_dim: int = 512,
+                 need_layers: Optional[Sequence[int]] = None, drop_prob: float = 0.0,
+                 compression_embedding: bool = False, embedding_compression_dim: int = 256):
+        super().__init__()
+        self.context_length = context_length
+        self.width = width
+        self.positional_embedding = nn.Parameter(torch.empty(context_length, width))
+        self.token_embedding = TokenEmbedding(vocab_size, width, compression_embedding,
+                                              embedding_compression_dim)
+        self.transformer = Transformer(width, layers, heads, need_layers, drop_prob)
+        self.ln_final = LayerNorm(width)
+        self.text_projection = nn.Parameter(torch.empty(width, output_dim))
+
+    def forward(self, tokens: torch.Tensor, flags: ControlFlags = ControlFlags()) -> TextOutput:
+        flags.require_default()
+        # the positional embedding's dtype is the tower's compute dtype; the
+        # vocab table stays fp32 and only the gathered rows are cast
+        x = self.token_embedding(tokens, dtype=self.positional_embedding.dtype)
+        x = x + self.positional_embedding.to(x.dtype)
+        B, N, _ = x.shape
+        rows = self.transformer(x.reshape(B * N, self.width), flags, N, causal=True)
+        projected = self.ln_final(rows) @ self.text_projection.to(rows.dtype)
+        projected = projected.view(B, N, -1)
+        return TextOutput(last_representation=eot_pool(projected, tokens),
+                          last_layer_output=projected)

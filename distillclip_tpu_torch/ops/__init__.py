@@ -4,8 +4,10 @@ Every wrapper runs its plain version for a CPU tensor and launches its CUDA
 kernel for a CUDA tensor (or raises); it adds one to its ``launches`` count
 where, and only where, it launches the kernel.  The first four serve; with a
 gradient the public functions go through ``torch.autograd.Function``s whose
-forward and backward launch the other five (and K1 / K4 in the mode that also
-writes the rows' statistics).
+forward and backward launch the next five (and K1 / K4 in the mode that also
+writes the rows' statistics).  The last three are plain attention (the CLIP
+teacher towers and every student without head mixes): forward, forward with
+saved probabilities, backward.
 """
 
 from distillclip_tpu_torch.ops.fc1_act import (
@@ -15,6 +17,11 @@ from distillclip_tpu_torch.ops.fc1_act import (
     dense_ln_bwd,
 )
 from distillclip_tpu_torch.ops.layer_norm import layer_norm_rows, layer_norm_rows_bwd
+from distillclip_tpu_torch.ops.plain_attention import (
+    plain_attention_bwd,
+    plain_attention_rows_qkv,
+    plain_attention_save_p,
+)
 from distillclip_tpu_torch.ops.transform_attention import (
     transform_attention_bwd,
     transform_attention_rows_qkv,
@@ -32,6 +39,9 @@ KERNELS = {
     "layer_norm_rows_bwd": layer_norm_rows_bwd,
     "dense_act_ln_res": dense_act_ln_res,
     "dense_ln_bwd": dense_ln_bwd,
+    "plain_attention_rows_qkv": plain_attention_rows_qkv,
+    "plain_attention_save_p": plain_attention_save_p,
+    "plain_attention_bwd": plain_attention_bwd,
 }
 
 
@@ -53,6 +63,9 @@ __all__ = [
     "launch_counts",
     "layer_norm_rows",
     "layer_norm_rows_bwd",
+    "plain_attention_bwd",
+    "plain_attention_rows_qkv",
+    "plain_attention_save_p",
     "reset_launch_counts",
     "transform_attention_bwd",
     "transform_attention_rows_qkv",

@@ -82,7 +82,8 @@ def transform_attention_bwd_plain(qkv, wl, ww, do, p, *, heads: int, seq: int, s
     return dqkv.to(qkv.dtype), dwl, dww
 
 
-def _pick_tq(lib, smem_bytes, seq: int, heads: int, d: int) -> int:
+def _pick_tq(lib, smem_bytes, seq: int, heads: int, d: int,
+             what: str = "transform_attention_rows_qkv") -> int:
     """Rows per block: as many as fit in shared memory by ``smem_bytes`` (at
     most the kernels' cap), then evened out over the tiles so the last one is
     full."""
@@ -90,8 +91,8 @@ def _pick_tq(lib, smem_bytes, seq: int, heads: int, d: int) -> int:
     while tq > 0 and smem_bytes(seq, heads, d, tq) > _build.MAX_SMEM_BYTES:
         tq -= 1
     if tq == 0:
-        raise ValueError(f"transform_attention_rows_qkv: the score tile of {heads} heads "
-                         f"x {seq} keys does not fit in one block's shared memory")
+        raise ValueError(f"{what}: the score tile of {heads} heads x {seq} keys does not "
+                         f"fit in one block's shared memory")
     tiles = -(-seq // tq)
     return -(-seq // tiles)
 
@@ -106,10 +107,9 @@ def _check_shapes(qkv, wl, ww, heads, seq):
     return hd3 // 3 // heads
 
 
-def _check_head_dim(d):
+def _check_head_dim(d, what: str = "transform_attention_rows_qkv"):
     if d % 8:
-        raise ValueError(f"transform_attention_rows_qkv: head dim must be a multiple "
-                         f"of 8, got {d}")
+        raise ValueError(f"{what}: head dim must be a multiple of 8, got {d}")
 
 
 def _launch_fwd(wrapper, qkv, wl, ww, heads, seq, scale, save_p: bool):

@@ -21,10 +21,13 @@ import yaml
 from torch import nn
 
 from distillclip_tpu_torch.models import (
+    ImageEncoder,
     RepeatTextTransformer,
     RepeatVisionTransformer,
+    TextEncoder,
     l2_normalize,
 )
+from distillclip_tpu_torch.models.transformer import clip_init_stds
 from distillclip_tpu_torch.serving.inputs import cast_to_compute, prepare_inputs
 
 # the reference's class paths, which the configs use for the students
@@ -53,11 +56,52 @@ def _trunc_normal(rng: np.random.Generator, shape, std: float) -> np.ndarray:
     return v * np.float32(std)
 
 
+def _clip_std(name: str, shape, width: int, layers: int) -> float:
+    """CLIP's init scheme for one parameter of a plain encoder."""
+    attn_std, proj_std, fc_std = clip_init_stds(width, layers)
+    if ".in_proj." in name:
+        return attn_std                      # the in-projection's weight and bias
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf == "bias":
+        return 0.0
+    if name.endswith(("out_proj.kernel", "c_proj.kernel")):
+        return proj_std
+    if name.endswith("c_fc.kernel"):
+        return fc_std
+    if leaf in ("class_embedding", "embedding"):
+        return 0.02
+    if leaf == "positional_embedding":
+        return 0.01
+    if leaf in ("patch_kernel", "proj", "text_projection"):
+        return width ** -0.5
+    return shape[0] ** -0.5                  # the compression embedding's expand
+
+
+@torch.no_grad()
+def seeded_clip_init(encoder: nn.Module, rng: np.random.Generator) -> nn.Module:
+    """Random weights for an ``ImageEncoder`` / ``TextEncoder`` from a numpy
+    generator, by CLIP's init scheme: LN scale 1, normals at the stds of
+    ``clip_init_stds`` and of the embeddings and projections."""
+    tower = encoder.visual if isinstance(encoder, ImageEncoder) else encoder.text
+    width, layers = tower.transformer.width, tower.transformer.layers
+    for name, p in encoder.named_parameters():
+        if name.endswith(".scale"):
+            v = np.ones(p.shape, np.float32)
+        else:
+            std = _clip_std(name, p.shape, width, layers)
+            v = rng.standard_normal(p.shape, dtype=np.float32) * np.float32(std)
+        p.copy_(torch.from_numpy(v))
+    return encoder
+
+
 @torch.no_grad()
 def seeded_init(module: nn.Module, rng: np.random.Generator) -> nn.Module:
-    """Random weights from a numpy generator, by the towers' init rules: LN
-    scale 1, biases 0, embedding tables N(0, 0.02), everything else a normal
-    truncated at 2σ with σ = 0.02."""
+    """Random weights from a numpy generator, by the towers' init rules.  The
+    weight-share students: LN scale 1, biases 0, embedding tables N(0, 0.02),
+    everything else a normal truncated at 2σ with σ = 0.02.  The plain CLIP
+    encoders: :func:`seeded_clip_init`."""
+    if isinstance(module, (ImageEncoder, TextEncoder)):
+        return seeded_clip_init(module, rng)
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "scale":

@@ -1,0 +1,89 @@
+"""Fabricate a CLIP-format checkpoint with random weights.
+
+For offline development, smoke runs and tests where no OpenAI checkpoint is at
+hand: a ``torch.save`` state dict with OpenAI CLIP's key names, which the
+teacher loader reads.  The same seed gives the same tensors as the JAX
+package's ``tools/fabricate_teacher.py``, so one saved file feeds both.
+
+    python -m distillclip_tpu_torch.tools.fabricate_teacher --out .cache/tiny_clip.pt \
+        --vision-width 64 --vision-layers 3 --text-width 64 --text-layers 2
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import torch
+
+
+def make_clip_state_dict(vision_width=64, vision_layers=3, patch_size=8, image_resolution=32,
+                         text_width=64, text_layers=2, context_length=77, vocab_size=49408,
+                         embed_dim=48, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g) * 0.02
+    sd = {}
+    sd["visual.conv1.weight"] = r(vision_width, 3, patch_size, patch_size)
+    sd["visual.class_embedding"] = r(vision_width)
+    n_patches = (image_resolution // patch_size) ** 2
+    sd["visual.positional_embedding"] = r(n_patches + 1, vision_width)
+    for pre in ["visual.ln_pre", "visual.ln_post"]:
+        sd[f"{pre}.weight"] = torch.ones(vision_width)
+        sd[f"{pre}.bias"] = torch.zeros(vision_width)
+
+    def block(prefix, width):
+        sd[f"{prefix}.ln_1.weight"] = torch.ones(width)
+        sd[f"{prefix}.ln_1.bias"] = torch.zeros(width)
+        sd[f"{prefix}.ln_2.weight"] = torch.ones(width)
+        sd[f"{prefix}.ln_2.bias"] = torch.zeros(width)
+        sd[f"{prefix}.attn.in_proj_weight"] = r(3 * width, width)
+        sd[f"{prefix}.attn.in_proj_bias"] = torch.zeros(3 * width)
+        sd[f"{prefix}.attn.out_proj.weight"] = r(width, width)
+        sd[f"{prefix}.attn.out_proj.bias"] = torch.zeros(width)
+        sd[f"{prefix}.mlp.c_fc.weight"] = r(4 * width, width)
+        sd[f"{prefix}.mlp.c_fc.bias"] = torch.zeros(4 * width)
+        sd[f"{prefix}.mlp.c_proj.weight"] = r(width, 4 * width)
+        sd[f"{prefix}.mlp.c_proj.bias"] = torch.zeros(width)
+
+    for i in range(vision_layers):
+        block(f"visual.transformer.resblocks.{i}", vision_width)
+    sd["visual.proj"] = r(vision_width, embed_dim)
+
+    sd["token_embedding.weight"] = r(vocab_size, text_width)
+    sd["positional_embedding"] = r(context_length, text_width)
+    for i in range(text_layers):
+        block(f"transformer.resblocks.{i}", text_width)
+    sd["ln_final.weight"] = torch.ones(text_width)
+    sd["ln_final.bias"] = torch.zeros(text_width)
+    sd["text_projection"] = r(text_width, embed_dim)
+    return sd
+
+
+def main():
+    p = argparse.ArgumentParser()
+    p.add_argument("--out", required=True)
+    p.add_argument("--vision-width", type=int, default=64)
+    p.add_argument("--vision-layers", type=int, default=3)
+    p.add_argument("--patch-size", type=int, default=8)
+    p.add_argument("--image-resolution", type=int, default=32)
+    p.add_argument("--text-width", type=int, default=64)
+    p.add_argument("--text-layers", type=int, default=2)
+    p.add_argument("--context-length", type=int, default=77)
+    p.add_argument("--vocab-size", type=int, default=49408)
+    p.add_argument("--embed-dim", type=int, default=48)
+    p.add_argument("--seed", type=int, default=0)
+    args = p.parse_args()
+
+    sd = make_clip_state_dict(
+        vision_width=args.vision_width, vision_layers=args.vision_layers,
+        patch_size=args.patch_size, image_resolution=args.image_resolution,
+        text_width=args.text_width, text_layers=args.text_layers,
+        context_length=args.context_length, vocab_size=args.vocab_size,
+        embed_dim=args.embed_dim, seed=args.seed)
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    torch.save(sd, args.out)
+    print(f"wrote {args.out} ({sum(v.numel() for v in sd.values())} params)")
+
+
+if __name__ == "__main__":
+    main()

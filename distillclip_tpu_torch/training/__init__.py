@@ -1,3 +1,4 @@
+from distillclip_tpu_torch.training.distill import DistillTask
 from distillclip_tpu_torch.training.dual import DualDistillTask, norm_last_representation
 from distillclip_tpu_torch.training.schedules import hf_cosine_with_warmup, per_epoch
 from distillclip_tpu_torch.training.train_state import (
@@ -10,6 +11,7 @@ from distillclip_tpu_torch.training.train_state import (
 
 __all__ = [
     "AdamW",
+    "DistillTask",
     "DualDistillTask",
     "TrainState",
     "cast_to_compute",

@@ -1,16 +1,24 @@
 """Dual-tower joint distillation task (stage 3: L-CLIP).
 
 Port of ``distillclip_tpu/training/dual.py::DualDistillTask``: both students
-in a :class:`CLIPModel`, the two-tower loss path, prefix freezing.  This
-slice ports the train step whose teachers are both cached
-(``make_train_step(cached_teachers=True)``): the frozen teacher's image and
-text representations arrive as per-sample constants, so the step runs the two
-students forward and backward, the losses, and AdamW on the fp32 masters.
+in a :class:`CLIPModel`, the frozen CLIP teacher, the two-tower loss path,
+prefix freezing and the embedding copy of ``freeze_embed``.  Three train
+steps, as in the JAX package:
 
-The port's task builds no teacher.  What needs one is refused by name: the
-live step and ``cached_text_teacher`` (ROADMAP queue 1, item 3), and with them
-``load_path`` (stage-1/2 checkpoints, item 7) and ``freeze_embed`` (which
-copies the teacher's embeddings).
+* the live step, ``make_train_step(tx)``: both teacher towers run in the step;
+* ``cached_text_teacher=True``: captions are fixed token rows, so the text
+  teacher's representations arrive as per-sample constants and only the image
+  teacher runs (stage-3 images are augmented).  This is the step the final
+  config trains with;
+* ``cached_teachers=True``: both teachers' representations are constants
+  (train images not augmented) and no teacher runs.
+
+The teacher is built at first use, from ``teacher_name`` (a model name or a
+checkpoint path): a task that only runs the all-cached step never loads one.
+It runs under ``torch.no_grad()`` in the compute dtype, from a copy cast once.
+
+Not ported yet, and refused by name: ``load_path`` (stage-1/2 checkpoints,
+ROADMAP queue 1 item 7) and the eval step (item 8).
 
 On one device the contrastive negatives are the batch's own; the JAX package
 gathers them over its data mesh.
@@ -30,18 +38,24 @@ from distillclip_tpu_torch.models import CLIPModel, CLIPOutput, ControlFlags
 from distillclip_tpu_torch.models.clip import cosine_logits
 from distillclip_tpu_torch.models.outputs import TextOutput, VisionOutput
 from distillclip_tpu_torch.serving.lclip_score import seeded_init
-from distillclip_tpu_torch.training.schedules import hf_cosine_with_warmup, per_epoch
+from distillclip_tpu_torch.training.task_common import (
+    FrozenTeacher,
+    adopt_params,
+    build_optimizer,
+    copy_teacher_embeddings,
+    device_of,
+    embedding_leaves,
+    make_step,
+)
 from distillclip_tpu_torch.training.train_state import (
     AdamW,
     TrainState,
     cast_to_compute,
     freeze_mask,
-    global_norm,
-    make_optimizer,
     prepare_inputs,
 )
 
-_TEACHER_ITEM = "ROADMAP queue 1, item 3 (the teacher towers)"
+_DROPOUT_ITEM = "ROADMAP queue 1, item 2: taps and dropout"
 
 
 def _unit(x: torch.Tensor) -> torch.Tensor:
@@ -89,30 +103,36 @@ class DualDistillTask:
             raise NotImplementedError(
                 "load_path (warm start from stage-1/2 checkpoints) is not ported yet "
                 "(ROADMAP queue 1, item 7: checkpoints); pass params to init_state")
-        if self.freeze_embed:
-            raise NotImplementedError(
-                f"freeze_embed copies the teacher's embeddings; the port builds no "
-                f"teacher yet ({_TEACHER_ITEM})")
         self.student = CLIPModel(image_tower=self.image_student, text_tower=self.text_student)
         self.loss_control = LossCalculator(**self.loss_control_para)
         self.flags: ControlFlags = self.loss_control.control_flags()
         self._dtype = torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
+        self.teacher = FrozenTeacher(self.teacher_name, self.download_root, "all",
+                                     self.teacher_need_layers, self._dtype)
         self._mask = None
 
     # ------------------------------------------------------------------
 
     def init_params(self, rng, device="cuda") -> Dict[str, torch.Tensor]:
         """Seeded fp32 masters ``{"student.<module path>": tensor}`` on
-        ``device``; ``rng`` is a numpy Generator or a seed."""
+        ``device``; ``rng`` is a numpy Generator or a seed.  Under
+        ``freeze_embed`` the image student starts from the teacher's patch,
+        class and positional embeddings."""
         if not isinstance(rng, np.random.Generator):
             rng = np.random.default_rng(rng)
         for tower in (self.student.image_tower, self.student.text_tower):
             seeded_init(tower, rng)
-        return {f"student.{k}": v.detach().clone().float().to(device)
-                for k, v in self.student.named_parameters()}
+        params = {f"student.{k}": v.detach().clone().float()
+                  for k, v in self.student.named_parameters()}
+        if self.freeze_embed:
+            params = self._copy_teacher_embeddings(params)
+        return {k: v.to(device) for k, v in params.items()}
 
     def _frozen_paths(self) -> List[str]:
-        return []  # only freeze_embed names exact paths, and it is refused above
+        if not self.freeze_embed:
+            return []
+        return [f"student/image_tower/{k.replace('.', '/')}"
+                for k, _ in embedding_leaves(self.image_student)]
 
     def _frozen_prefixes(self) -> List[str]:
         """``freeze_prefix`` entries as the JAX package's path prefixes."""
@@ -120,16 +140,12 @@ class DualDistillTask:
             return []
         return [f"student/{p.replace('.', '/')}" for p in self.freeze_prefix]
 
+    def _copy_teacher_embeddings(self, params: Dict[str, torch.Tensor]):
+        return copy_teacher_embeddings(params, "student.image_tower.", self.image_student,
+                                       self.teacher.state("image_tower.visual"))
+
     def make_optimizer(self, steps_per_epoch: int) -> AdamW:
-        k = max(1, int(self.accumulate_grad_batches or 1))
-        # with accumulation the optimizer counts updates, of which there are
-        # steps_per_epoch // k per epoch
-        schedule = per_epoch(
-            hf_cosine_with_warmup(self.lr, self.warm_steps, self.total_steps),
-            max(1, steps_per_epoch // k))
-        self._lr_schedule = schedule
-        return make_optimizer(schedule, weight_decay=self.weight_decay,
-                              grad_clip_norm=self.grad_clip_norm, accumulate_steps=k)
+        return build_optimizer(self, steps_per_epoch)
 
     def trainable_mask(self, params, frozen_embed: bool = False):
         frozen = self._frozen_paths() if frozen_embed else []
@@ -140,7 +156,8 @@ class DualDistillTask:
                            path_of=torch_name_to_jax_path)
 
     def init_state(self, rng, steps_per_epoch: int, params: Optional[dict] = None,
-                   device="cuda") -> Tuple[TrainState, AdamW]:
+                   device="cuda", frozen_embed: Optional[bool] = None
+                   ) -> Tuple[TrainState, AdamW]:
         """(state, optimizer).  ``params`` are fp32 masters by the port's
         names (``convert.jax_dual_params_to_torch`` makes them from a JAX
         tree); without them the towers get seeded random weights.  The torch
@@ -148,18 +165,19 @@ class DualDistillTask:
         if params is None:
             params = self.init_params(rng, device)
         else:
-            want = {f"student.{k}" for k, _ in self.student.named_parameters()}
-            if set(params) != want:
-                raise ValueError(f"params do not match the students: missing "
-                                 f"{sorted(want - set(params))}, unexpected "
-                                 f"{sorted(set(params) - want)}")
-            params = {k: torch.as_tensor(v).detach().clone().float().to(device)
-                      for k, v in params.items()}
+            params = adopt_params(self.student, params, device, "the students")
+        if frozen_embed is None:
+            frozen_embed = self.freeze_embed
         tx = self.make_optimizer(steps_per_epoch)
-        self._mask = self.trainable_mask(params)
+        self._mask = self.trainable_mask(params, frozen_embed)
         return TrainState(step=0, params=params, opt_state=tx.init(params)), tx
 
     # ------------------------------------------------------------------
+
+    def _require_deterministic(self, deterministic: bool) -> None:
+        if not deterministic:
+            raise NotImplementedError(
+                f"dropout in the train step is not ported yet ({_DROPOUT_ITEM})")
 
     def _student_forward(self, params, tokens, images) -> CLIPOutput:
         compute = {k[len("student."):]: v
@@ -168,14 +186,43 @@ class DualDistillTask:
         return torch.func.functional_call(self.student, compute,
                                           (tokens.long(), imgs, self.flags))
 
+    def _finish(self, stu_out: CLIPOutput, tea_out: CLIPOutput):
+        if self.norm:
+            stu_out = norm_last_representation(stu_out)
+            tea_out = norm_last_representation(tea_out)
+        loss, parts = self.loss_control(stu_out, tea_out, "all")
+        return loss, (parts, stu_out, tea_out)
+
+    def loss_fn(self, params, tokens, images, deterministic: bool = True):
+        """(loss, (parts, stu_out, tea_out)) with both teacher towers live."""
+        self._require_deterministic(deterministic)
+        stu_out = self._student_forward(params, tokens, images)
+        with torch.no_grad():
+            tea_out = self.teacher.compute(device_of(params))(
+                tokens.long(), prepare_inputs(images, self._dtype), self.flags)
+        return self._finish(stu_out, tea_out)
+
+    def loss_fn_cached_text(self, params, tokens, images, tea_text_rep,
+                            deterministic: bool = True):
+        """The text teacher's last representations given, the image teacher
+        live; the teacher's logits by the arithmetic of ``CLIPModel.forward``."""
+        self._require_deterministic(deterministic)
+        stu_out = self._student_forward(params, tokens, images)
+        with torch.no_grad():
+            tea_vis = self.teacher.compute(device_of(params)).encode_image(
+                prepare_inputs(images, self._dtype), self.flags)
+            text_rep = tea_text_rep.to(self._dtype)
+            logits = cosine_logits(tea_vis.last_representation, text_rep)
+        tea_out = CLIPOutput(
+            visual_output=tea_vis, text_output=TextOutput(last_representation=text_rep),
+            i2t_logits=logits, t2i_logits=logits.t())
+        return self._finish(stu_out, tea_out)
+
     def loss_fn_cached_all(self, params, tokens, images, tea_text_rep, tea_image_rep,
                            deterministic: bool = True):
-        """(loss, (parts, stu_out, tea_out)) with both teachers' last
-        representations given; the teacher's logits are their cosines."""
-        if not deterministic:
-            raise NotImplementedError(
-                "dropout in the train step is not ported yet (ROADMAP queue 1, item 2: "
-                "taps and dropout)")
+        """Both teachers' last representations given; the teacher's logits are
+        their cosines."""
+        self._require_deterministic(deterministic)
         stu_out = self._student_forward(params, tokens, images)
         text_rep = tea_text_rep.detach().to(self._dtype)
         image_rep = tea_image_rep.detach().to(self._dtype)
@@ -184,48 +231,58 @@ class DualDistillTask:
             visual_output=VisionOutput(last_representation=image_rep),
             text_output=TextOutput(last_representation=text_rep),
             i2t_logits=logits, t2i_logits=logits.t())
-        if self.norm:
-            stu_out = norm_last_representation(stu_out)
-            tea_out = norm_last_representation(tea_out)
-        loss, parts = self.loss_control(stu_out, tea_out, "all")
-        return loss, (parts, stu_out, tea_out)
+        return self._finish(stu_out, tea_out)
+
+    def make_teacher_image_encode(self, device="cuda") -> Callable:
+        """``encode(images) -> fp32 last representations`` of the image
+        teacher, for the all-cached path (only valid when the train images are
+        not augmented)."""
+        teacher = self.teacher.compute(device)
+
+        @torch.no_grad()
+        def encode(images):
+            imgs = prepare_inputs(torch.as_tensor(images).to(device), self._dtype)
+            return teacher.encode_image(imgs).last_representation.float()
+
+        return encode
+
+    def make_teacher_text_encode(self, device="cuda") -> Callable:
+        """``encode(tokens) -> fp32 last representations`` of the text
+        teacher, for building the caption caches."""
+        teacher = self.teacher.compute(device)
+
+        @torch.no_grad()
+        def encode(tokens):
+            toks = torch.as_tensor(tokens).to(device).long()
+            return teacher.encode_text(toks).last_representation.float()
+
+        return encode
 
     def make_train_step(self, tx: AdamW, deterministic: bool = True, trainable_mask=None,
                         cached_text_teacher: bool = False,
                         cached_teachers: bool = False) -> Callable:
-        """``step(state, tokens, images, tea_text_rep, tea_image_rep) ->
-        (state, metrics)`` for ``cached_teachers=True``; the metrics are 0-dim
-        tensors on the state's device (``loss``, the loss parts, and
-        ``grad_norm`` under ``log_grad_norm``).  ``trainable_mask=False`` means
-        explicitly unfrozen; None takes the mask ``init_state`` made."""
+        """``step(state, tokens, images[, tea_text_rep[, tea_image_rep]]) ->
+        (state, metrics)``: the live step takes no teacher representation,
+        ``cached_text_teacher`` the text teacher's, ``cached_teachers`` both.
+        The metrics are 0-dim tensors on the state's device (``loss``, the loss
+        parts, and ``grad_norm`` under ``log_grad_norm``).
+        ``trainable_mask=False`` means explicitly unfrozen; None takes the mask
+        ``init_state`` made."""
         if trainable_mask is None:
             trainable_mask = self._mask
         elif trainable_mask is False:
             trainable_mask = None
-        if not cached_teachers:
-            which = "cached_text_teacher" if cached_text_teacher else "the live step"
-            raise NotImplementedError(
-                f"{which} runs a teacher tower, which is not ported yet ({_TEACHER_ITEM}); "
-                f"the port trains with cached_teachers=True")
-        if self.flags.any_tap():
-            raise ValueError("cached_teachers requires a loss config without teacher "
-                             f"taps (per-layer losses); got flags {self.flags}.")
+        if cached_teachers or cached_text_teacher:
+            which = "cached_teachers" if cached_teachers else "cached_text_teacher"
+            if self.flags.any_tap():
+                raise ValueError(f"{which} requires a loss config without teacher "
+                                 f"taps (per-layer losses); got flags {self.flags}.")
+        if cached_teachers:
+            loss = self.loss_fn_cached_all
+        elif cached_text_teacher:
+            loss = self.loss_fn_cached_text
+        else:
+            loss = self.loss_fn
         self.student.train()
-
-        def step_all_cached(state: TrainState, tokens, images, tea_text_rep, tea_image_rep):
-            names = list(state.params)
-            leaves = [state.params[k].requires_grad_() for k in names]
-            loss, (parts, _, _) = self.loss_fn_cached_all(
-                dict(zip(names, leaves)), tokens, images, tea_text_rep, tea_image_rep,
-                deterministic)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-            grads = {k: torch.zeros_like(p) if g is None else g
-                     for k, p, g in zip(names, leaves, grads)}
-            for p in leaves:
-                p.requires_grad_(False)
-            metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in parts.items()}}
-            if self.log_grad_norm:
-                metrics["grad_norm"] = global_norm(grads)
-            return state.apply_gradients(grads, tx, trainable_mask), metrics
-
-        return step_all_cached
+        return make_step(lambda params, *batch: loss(params, *batch, deterministic),
+                         tx, trainable_mask, self.log_grad_norm)

@@ -1,0 +1,149 @@
+"""What the one-tower and the two-tower distillation tasks share: the frozen
+teacher, the embedding copy of ``freeze_embed``, the optimizer's schedule and
+the train step around a loss function.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from distillclip_tpu_torch.models.encoders import ImageEncoder
+from distillclip_tpu_torch.models.repeat_vit import RepeatVisionTransformer
+from distillclip_tpu_torch.models.teacher import teacher_load
+from distillclip_tpu_torch.serving.inputs import cast_to_compute as cast_module_to_compute
+from distillclip_tpu_torch.training.schedules import hf_cosine_with_warmup, per_epoch
+from distillclip_tpu_torch.training.train_state import (
+    AdamW,
+    TrainState,
+    global_norm,
+    make_optimizer,
+)
+
+
+class FrozenTeacher:
+    """The CLIP teacher, loaded at first use and never trained.
+
+    ``module`` is the fp32 teacher on the CPU (it seeds fp32 masters: the
+    embedding copy of ``freeze_embed``, the teacher warm start).
+    :meth:`compute` is its copy in the compute dtype on a device, made once per
+    device: the frozen weights never change, so nothing is cast inside a step.
+    It runs under ``torch.no_grad()``, so its kernels are the lean ones and no
+    probabilities or residuals are saved."""
+
+    def __init__(self, name: str, download_root: Optional[str], model_type: str,
+                 need_layers: Optional[Sequence[int]], dtype: torch.dtype):
+        self._load = lambda: teacher_load(name, download_root, model_type,
+                                          need_layers=need_layers, device="cpu")
+        self._dtype = dtype
+        self._module: Optional[nn.Module] = None
+        self._compute: Dict[str, nn.Module] = {}
+
+    @property
+    def module(self) -> nn.Module:
+        if self._module is None:
+            self._module = self._load()
+        return self._module
+
+    def compute(self, device) -> nn.Module:
+        key = str(torch.device(device))
+        if key not in self._compute:
+            self._compute[key] = cast_module_to_compute(
+                copy.deepcopy(self.module), self._dtype).to(device).eval()
+        return self._compute[key]
+
+    def state(self, scope: str) -> Dict[str, torch.Tensor]:
+        """The fp32 state dict under ``scope`` (``visual``, ``text``,
+        ``image_tower.visual`` ...), without the prefix."""
+        prefix = scope + "."
+        return {k[len(prefix):]: v for k, v in self.module.state_dict().items()
+                if k.startswith(prefix)}
+
+
+def embedding_leaves(image_student) -> List[Tuple[str, str]]:
+    """(student leaf, teacher leaf) of the embeddings ``freeze_embed`` copies
+    from the teacher's ``visual`` tower and freezes.  The weight-share
+    student's patch bias is not among them and stays trainable, as in the
+    reference."""
+    if isinstance(image_student, RepeatVisionTransformer):
+        return [("patch_kernel", "patch_kernel"), ("cls_token", "class_embedding"),
+                ("pos_embed", "positional_embedding")]
+    if isinstance(image_student, ImageEncoder):
+        return [(f"visual.{k}", k)
+                for k in ("patch_kernel", "class_embedding", "positional_embedding")]
+    return []
+
+
+def copy_teacher_embeddings(params: Dict[str, torch.Tensor], prefix: str, image_student,
+                            tea: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``params`` with the leaves of :func:`embedding_leaves` under ``prefix``
+    replaced by fresh copies of the teacher's (``tea`` is its ``visual`` state):
+    cls_token ``[1, 1, D]`` and pos_embed ``[1, N, D]`` take the teacher's
+    ``[D]`` and ``[N, D]``."""
+    out = dict(params)
+    for stu_leaf, tea_leaf in embedding_leaves(image_student):
+        name = prefix + stu_leaf
+        if params[name].numel() != tea[tea_leaf].numel():
+            raise ValueError(
+                "freeze_image_embedding copies the teacher's patch/cls/pos embeddings "
+                "into the student, which requires matching patch geometry: teacher "
+                f"{tea_leaf} {tuple(tea[tea_leaf].shape)} vs student "
+                f"{tuple(params[name].shape)}. Match the student's img_size/patch_size/"
+                "embed_dim to the teacher or disable freeze_embed.")
+        out[name] = tea[tea_leaf].detach().clone().reshape(params[name].shape)
+    return out
+
+
+def adopt_params(student: nn.Module, params: dict, device,
+                 what: str = "the student") -> Dict[str, torch.Tensor]:
+    """Given masters as fresh fp32 tensors on ``device``, after checking that
+    their names are those of ``student`` (``what`` in the complaint)."""
+    want = {f"student.{k}" for k, _ in student.named_parameters()}
+    if set(params) != want:
+        raise ValueError(f"params do not match {what}: missing "
+                         f"{sorted(want - set(params))}, unexpected "
+                         f"{sorted(set(params) - want)}")
+    return {k: torch.as_tensor(v).detach().clone().float().to(device)
+            for k, v in params.items()}
+
+
+def device_of(params: Dict[str, torch.Tensor]) -> torch.device:
+    return next(iter(params.values())).device
+
+
+def build_optimizer(task, steps_per_epoch: int) -> AdamW:
+    """Cosine-warmup AdamW, the schedule stepped per epoch.  With accumulation
+    the optimizer counts updates, of which there are steps_per_epoch // k per
+    epoch.  The schedule is kept on the task as ``_lr_schedule``."""
+    k = max(1, int(task.accumulate_grad_batches or 1))
+    schedule = per_epoch(hf_cosine_with_warmup(task.lr, task.warm_steps, task.total_steps),
+                         max(1, steps_per_epoch // k))
+    task._lr_schedule = schedule
+    return make_optimizer(schedule, weight_decay=task.weight_decay,
+                          grad_clip_norm=task.grad_clip_norm, accumulate_steps=k)
+
+
+def make_step(loss_fn: Callable, tx: AdamW, trainable_mask, log_grad_norm: bool) -> Callable:
+    """``step(state, *batch) -> (state, metrics)`` around ``loss_fn(params,
+    *batch) -> (loss, (parts, student out, teacher out))``.  The metrics are
+    0-dim tensors on the state's device: ``loss``, the loss parts, and
+    ``grad_norm`` under ``log_grad_norm``."""
+
+    def step(state: TrainState, *batch):
+        names = list(state.params)
+        leaves = [state.params[k].requires_grad_() for k in names]
+        loss, (parts, _, _) = loss_fn(dict(zip(names, leaves)), *batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = {k: torch.zeros_like(p) if g is None else g
+                 for k, p, g in zip(names, leaves, grads)}
+        for p in leaves:
+            p.requires_grad_(False)
+        metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in parts.items()}}
+        if log_grad_norm:
+            metrics["grad_norm"] = global_norm(grads)
+        return state.apply_gradients(grads, tx, trainable_mask), metrics
+
+    return step

@@ -16,7 +16,8 @@ import pytest
 import torch
 
 from distillclip_tpu_torch import ops
-from distillclip_tpu_torch.ops import fc1_act, layer_norm, transform_attention as ta
+from distillclip_tpu_torch.ops import fc1_act, layer_norm, plain_attention as pa
+from distillclip_tpu_torch.ops import transform_attention as ta
 
 pytestmark = pytest.mark.cuda
 
@@ -210,6 +211,104 @@ def test_backward_is_deterministic():
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+# -- plain attention: forward, saved probabilities, backward ------------------------
+
+# (B, H, d, N): the teachers' and the plain-attention students' shapes, head
+# shapes the TPU's block-diagonal kernel rejects (H=5; d=48), and the limits
+_PA_SHAPES = [(3, 1, 8, 1), (5, 4, 16, 17), (4, 12, 64, 50), (4, 8, 64, 77), (4, 24, 32, 50),
+              (3, 5, 64, 33), (3, 4, 48, 33), (2, 2, 8, 256), (2, 4, 128, 256)]
+
+
+@pytest.mark.parametrize("B,H,d,N", _PA_SHAPES)
+@pytest.mark.parametrize("causal,kv", [(False, None), (True, None), (False, "short"),
+                                       (True, "short")],
+                         ids=["full", "causal", "kv_len", "causal_kv_len"])
+def test_plain_attention_kernels_match_plain(B, H, d, N, causal, kv):
+    rng = np.random.default_rng(B * H * N + d)
+    qkv, do = _bf16(rng, (B * N, 3 * H * d)), _bf16(rng, (B * N, H * d))
+    kv_len = None if kv is None else max(1, N - 3)
+    kw = dict(heads=H, seq=N, scale=d ** -0.5)
+    mask = dict(causal=causal, kv_len=kv_len)
+    with torch.inference_mode():
+        lean = pa.plain_attention_rows_qkv(qkv, **kw, **mask)
+    o, p = pa.plain_attention_save_p(qkv, **kw, **mask)
+    torch.cuda.synchronize()
+    assert lean.shape == (B * N, H * d) and torch.equal(o, lean)
+    assert p.shape == (B, H, N, N) and p.dtype == torch.bfloat16
+    ro, rp = pa.plain_attention_save_p_plain(qkv.float(), **kw, **mask)
+    torch.testing.assert_close(o.float(), ro, atol=8e-3, rtol=1e-2)
+    assert float((p.float() - rp).abs().max()) < 4e-3
+    hidden = ~pa.attention_mask(N, causal, kv_len, p.device)
+    assert not p[:, :, hidden].any()          # masked probabilities are exact zeros
+    dqkv = pa.plain_attention_bwd(qkv, do, p, **kw)
+    rdqkv = pa.plain_attention_bwd_plain(qkv.float(), do.float(), p.float(), **kw)
+    torch.cuda.synchronize()
+    assert dqkv.dtype == torch.bfloat16 and torch.isfinite(dqkv.float()).all()
+    torch.testing.assert_close(dqkv.float(), rdqkv, atol=3e-2, rtol=1e-2)
+
+
+def test_plain_attention_backward_is_deterministic():
+    rng = np.random.default_rng(6)
+    B, H, d, N = 8, 8, 64, 77
+    qkv, do = _bf16(rng, (B * N, 3 * H * d)), _bf16(rng, (B * N, H * d))
+    kw = dict(heads=H, seq=N, scale=d ** -0.5)
+    _, p = pa.plain_attention_save_p(qkv, causal=True, **kw)
+    a = pa.plain_attention_bwd(qkv, do, p, **kw)
+    b = pa.plain_attention_bwd(qkv, do, p, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_attention_autograd_on_card_matches_plain_autograd(causal):
+    rng = np.random.default_rng(7)
+    B, H, d, N = 3, 4, 16, 19
+    qkv, g = _bf16(rng, (B * N, 3 * H * d)), _bf16(rng, (B * N, H * d))
+    leaf = qkv.detach().clone().requires_grad_()
+    ops.reset_launch_counts()
+    out = pa.plain_attention_rows_qkv(leaf, heads=H, seq=N, causal=causal)
+    (grad,) = torch.autograd.grad(out, leaf, g)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["plain_attention_save_p"] == 1 and counts["plain_attention_bwd"] == 1
+    assert counts["plain_attention_rows_qkv"] == 0
+    ref_leaf = qkv.float().cpu().requires_grad_()
+    ref = pa.plain_attention_rows_qkv(ref_leaf, heads=H, seq=N, causal=causal)
+    (ref_grad,) = torch.autograd.grad(ref, ref_leaf, g.float().cpu())
+    torch.testing.assert_close(out.float().cpu(), ref, atol=8e-3, rtol=1e-2)
+    torch.testing.assert_close(grad.float().cpu(), ref_grad, atol=3e-2, rtol=1e-2)
+
+
+def test_plain_attention_refuses_what_the_kernel_does_not_take():
+    rng = np.random.default_rng(8)
+    qkv = _bf16(rng, (2 * 8, 3 * 2 * 16))
+    with pytest.raises(TypeError):
+        pa.plain_attention_rows_qkv(qkv.float(), heads=2, seq=8)
+    with pytest.raises(ValueError):
+        pa.plain_attention_rows_qkv(_bf16(rng, (2 * 8, 3 * 2 * 12)), heads=2, seq=8)   # d % 8
+    with pytest.raises(ValueError):
+        pa.plain_attention_rows_qkv(_bf16(rng, (257, 3 * 16)), heads=2, seq=257)
+    with pytest.raises(ValueError):
+        pa.plain_attention_rows_qkv(qkv, heads=2, seq=8, kv_len=0)
+
+
+# -- the teacher's LN GEMMs: width 512, QuickGELU -------------------------------------
+
+@pytest.mark.parametrize("rows", [77, 4 * 77])
+def test_dense_ln_kernels_at_the_text_teachers_width(rows):
+    rng = np.random.default_rng(rows)
+    C = 512
+    x, ls, lb = _bf16(rng, (rows, C), 1.0, 0.5), _bf16(rng, (C,), 0.1, 1.0), _bf16(rng, (C,), 0.1)
+    for n, act in ((3 * C, None), (4 * C, "quick_gelu")):
+        w, b = _bf16(rng, (C, n), C ** -0.5), _bf16(rng, (n,), 0.1)
+        with torch.inference_mode():
+            out = (fc1_act.dense_ln(x, ls, lb, w, b) if act is None
+                   else fc1_act.dense_act_ln(x, ls, lb, w, b, act))
+            ref = fc1_act.dense_ln_plain(x.float(), ls.float(), lb.float(), w.float(),
+                                         b.float(), act=act)
+        _close(out, ref)
+
+
 def _grads(fn, args):
     leaves = [a.detach().clone().requires_grad_() for a in args]
     out = fn(*leaves)
@@ -367,3 +466,54 @@ def test_tiny_scorer_on_card_matches_plain_cpu_path(tmp_path):
     assert cos.min() > 0.999
     cos = (card.encode_tokens(tokens) * cpu.encode_tokens(tokens)).sum(axis=1)
     assert cos.min() > 0.999
+
+
+def test_tiny_teacher_and_text_cached_step_on_card_match_plain_cpu_path(tmp_path):
+    """A fabricated two-head teacher: its encode functions on the card against
+    the fp32 CPU path, and one text-cached step's loss and launch counts."""
+    from distillclip_tpu_torch.models import RepeatTextTransformer, RepeatVisionTransformer
+    from distillclip_tpu_torch.tools.fabricate_teacher import make_clip_state_dict
+    from distillclip_tpu_torch.training import DualDistillTask
+
+    path = tmp_path / "tiny_clip.pt"
+    torch.save(make_clip_state_dict(vision_width=128, vision_layers=2, patch_size=8,
+                                    image_resolution=32, text_width=128, text_layers=2,
+                                    context_length=13, vocab_size=100, embed_dim=64), str(path))
+    common = dict(out_dim=64, embed_dim=64, depth=2, num_heads=4, repeated_times=2)
+
+    def task(dtype):
+        return DualDistillTask(
+            image_student=RepeatVisionTransformer(img_size=32, patch_size=8, qkv_bias=True,
+                                                  use_transform=True, **common),
+            text_student=RepeatTextTransformer(vocab_size=100, context_length=13,
+                                               use_transform=False, **common),
+            loss_control_para={"loss_name": ["out_l1", "out_cos", "cos_diff"]},
+            teacher_name=str(path), compute_dtype=dtype)
+
+    card, cpu = task("bfloat16"), task("float32")
+    rng = np.random.default_rng(4)
+    images = rng.integers(0, 256, size=(6, 32, 32, 3), dtype=np.uint8)
+    tokens = rng.integers(1, 99, size=(6, 13))
+    tokens[:, 7] = 99
+    ops.reset_launch_counts()
+    img = card.make_teacher_image_encode("cuda")(images)
+    txt = card.make_teacher_text_encode("cuda")(tokens)
+    counts = ops.launch_counts()
+    assert counts["plain_attention_rows_qkv"] == 4 and counts["dense_act_ln"] == 4
+    assert counts["dense_ln"] == 4 and counts["layer_norm_rows"] == 3
+    cos = torch.nn.functional.cosine_similarity
+    assert cos(img.cpu(), cpu.make_teacher_image_encode("cpu")(images)).min() > 0.999
+    assert cos(txt.cpu(), cpu.make_teacher_text_encode("cpu")(tokens)).min() > 0.999
+
+    state, tx = card.init_state(0, 1, device="cuda")
+    batch = [torch.from_numpy(tokens), torch.from_numpy(images), txt.cpu()]
+    ref, _ = cpu.loss_fn_cached_text({k: v.cpu() for k, v in state.params.items()}, *batch)
+    ops.reset_launch_counts()
+    state, metrics = card.make_train_step(tx, cached_text_teacher=True)(
+        state, *(t.cuda() for t in batch))
+    counts = ops.launch_counts()
+    assert abs(float(metrics["loss"]) - float(ref)) < 2e-2
+    # image student: head-transform attention; text student: plain attention
+    assert counts["transform_attention_save_p"] == counts["transform_attention_bwd"] == 2
+    assert counts["plain_attention_save_p"] == counts["plain_attention_bwd"] == 2
+    assert counts["plain_attention_rows_qkv"] == 2          # the image teacher, no gradient

@@ -157,6 +157,11 @@ def _op_calls():
         "dense_act_ln_res": lambda dev: ops.dense_act_ln_res(*on(dev, x, ls, lb, w, b))[0],
         "dense_ln_bwd": lambda dev: ops.dense_ln_bwd(
             *on(dev, x, ls, lb, w, qkv, stat, stat))[0],
+        "plain_attention_rows_qkv": lambda dev: ops.plain_attention_rows_qkv(
+            *on(dev, qkv), heads=2, seq=5, causal=True),
+        "plain_attention_save_p": lambda dev: ops.plain_attention_save_p(
+            *on(dev, qkv), kv_len=4, **kw)[0],
+        "plain_attention_bwd": lambda dev: ops.plain_attention_bwd(*on(dev, qkv, do, p), **kw),
     }
 
 
@@ -182,8 +187,8 @@ def test_build_names_library_by_source_hash():
     assert path.name.startswith("libdistillclip_kernels_") and path.suffix == ".so"
     assert path == _build.library_path()  # stable for unchanged sources
     assert {p.name for p in _build._sources()} == {
-        "dense_ln.cu", "dense_ln_bwd.cu", "layer_norm.cu", "transform_attention.cu",
-        "transform_attention_bwd.cu"}
+        "dense_ln.cu", "dense_ln_bwd.cu", "layer_norm.cu", "plain_attention.cu",
+        "plain_attention_bwd.cu", "transform_attention.cu", "transform_attention_bwd.cu"}
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -308,8 +308,8 @@ def test_converter_accepts_nested_and_flat_trees(image_tower):
 # -- what the slice does not serve yet -------------------------------------------
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="use_transform=False"):
-        RepeatVisionTransformer(**dict(IMAGE_ARGS, use_transform=False))
+    plain = RepeatVisionTransformer(**dict(IMAGE_ARGS, use_transform=False))
+    assert not any("conv_" in k for k in plain.state_dict())     # plain attention: no mixes
     with pytest.raises(NotImplementedError, match="iRPE"):
         RepeatTextTransformer(**dict(TEXT_ARGS, rpe_config={"method": "product"}))
     tower = RepeatTextTransformer(**dict(TEXT_ARGS, drop_path_rate=0.1))
