@@ -39,6 +39,17 @@ phases, each of which exits non-zero on failure:
    a step that trains through plain attention (use_transform=False students,
    both teachers cached), and the stage-1 DistillTask step of
    configs/final/image.yaml with its live image teacher;
+5d. the tap-reading steps, each phased like 5 ((a) 16 pairs against the plain
+   fp32 CPU path, (b) steps on one batch with the launch table met, (c)
+   ms/step): stage 1 of configs/final/image.yaml with hidden_rep_mse,
+   embedding_mse and vit_kd over six teacher layers (the towers collect hidden
+   states, so attention runs on [B, H, N, d] views: the head-transform forward
+   in the student, the plain forward in the teacher), the same with a
+   use_transform=False student (plain forward and backward), the same student
+   with the attention-score and -probability losses (materialised fp32 taps,
+   no attention kernel), the value-map tap of both tower families against the
+   plain fp32 CPU towers, stage 3 live with the contrastive losses, and a
+   short stochastic phase (dropout and drop-path: seeded runs repeat);
 6. card numbers: each kernel's time beside its plain version's, its bound
    and, where one PyTorch call computes the same function, that call's time;
    fenced scored pairs/s at batch 256 and 1024.
@@ -49,6 +60,7 @@ of the kernels; the last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -101,6 +113,13 @@ SOURCES = {
                                "distillclip_tpu/ops/blockdiag_attention.py:198"),
     "plain_attention_bwd": ("distillclip_tpu_torch/csrc/plain_attention_bwd.cu",
                             "distillclip_tpu/ops/blockdiag_attention.py:144"),
+    "flash_attention_fwd": ("distillclip_tpu_torch/csrc/flash_attention.cu",
+                            "distillclip_tpu/ops/flash_attention.py:131"),
+    "flash_attention_bwd": ("distillclip_tpu_torch/csrc/flash_attention_bwd.cu",
+                            "distillclip_tpu/ops/flash_attention.py:150"),
+    "flash_transform_attention_fwd": (
+        "distillclip_tpu_torch/csrc/flash_transform_attention.cu",
+        "distillclip_tpu/ops/flash_attention.py:632"),
 }
 SERVING_KERNELS = ("dense_ln", "dense_act_ln", "transform_attention_rows_qkv",
                    "layer_norm_rows")
@@ -130,6 +149,30 @@ IMAGE_STEP_LAUNCHES = {
     "transform_attention_bwd": 6, "dense_ln_bwd": 12, "layer_norm_rows": 1,
     "layer_norm_rows_bwd": 1,
 }
+
+# stage 1 with hidden states collected (need_rep): the student's attention is
+# the head-transform forward on [B, H, N, d] views (its gradient is a plain
+# recompute, no kernel), the teacher's the plain forward with the logsumexp
+TAPPED_IMAGE_STEP_LAUNCHES = {
+    "dense_ln": 6, "dense_act_ln_res": 6, "flash_transform_attention_fwd": 6,
+    "dense_ln_bwd": 12, "layer_norm_rows": 1, "layer_norm_rows_bwd": 1,
+}
+TAPPED_IMAGE_TEACHER_LAUNCHES = {"dense_ln": 12, "dense_act_ln": 12,
+                                 "flash_attention_fwd": 12, "layer_norm_rows": 2}
+# the same with a student without head mixes: plain forward and backward
+TAPPED_PLAIN_IMAGE_STEP_LAUNCHES = {
+    "dense_ln": 6, "dense_act_ln_res": 6, "flash_attention_fwd": 6, "flash_attention_bwd": 6,
+    "dense_ln_bwd": 12, "layer_norm_rows": 1, "layer_norm_rows_bwd": 1,
+}
+# attention taps (scores, probabilities, value map) and attention dropout
+# materialise the attention in plain PyTorch: no attention kernel in either tower
+MATERIALISED_IMAGE_STEP_LAUNCHES = {
+    "dense_ln": 6, "dense_act_ln_res": 6, "dense_ln_bwd": 12, "layer_norm_rows": 1,
+    "layer_norm_rows_bwd": 1,
+}
+MATERIALISED_IMAGE_TEACHER_LAUNCHES = {"dense_ln": 12, "dense_act_ln": 12, "layer_norm_rows": 2}
+# six of the teacher's twelve layers, for the six repeats the student returns
+SIX_TEACHER_LAYERS = [0, 1, 2, 9, 10, 11]
 
 
 def add_counts(*parts: dict) -> dict:
@@ -213,8 +256,12 @@ def oracle_cases(rng):
     by up to 0.0156, so an absolute limit of 1e-2 or 8e-3 only holds while the
     outputs stay under 4, and 3e-2 while they stay under 8; the inputs below
     keep them there."""
+    import importlib
+
     from distillclip_tpu_torch.ops import fc1_act, layer_norm, plain_attention as pa
     from distillclip_tpu_torch.ops import transform_attention as ta
+    # ops.flash_attention is the public function; this is its module
+    fa = importlib.import_module("distillclip_tpu_torch.ops.flash_attention")
 
     t = lambda shape, std=1.0, mean=0.0: bf16(rng, shape, std, mean)
     cases = []
@@ -396,10 +443,86 @@ def oracle_cases(rng):
             lambda q=qkv, g=do, p=p, k=kw: pa.plain_attention_bwd_plain(q, g, p, **k),
             4 * product, 2 * B * N * 7 * H * d + pbytes, library=sdpa_bwd))
 
+    # Attention on [B, H, N, d] views with the logsumexp residual (the towers
+    # when they collect hidden states): forward, backward and the
+    # head-transform forward, at the teachers' and the students' shapes.  The
+    # main path hands the kernels strided views of the fused qkv (first, so
+    # their times stand in the JSON line); a contiguous case, a causal one and
+    # a ragged one with a short kv_len follow.  Limits as for the fused-qkv
+    # kernels: forward 8e-3 (outputs under 4), dq/dk/dv 3e-2 (under 8), the
+    # fp32 logsumexp 1e-3.  The library call is SDPA on contiguous copies.
+    for label, B, H, d, N, causal, kv, strided in (
+            ("image teacher", PAIRS, 12, 64, 50, False, None, True),
+            ("text teacher", PAIRS, 8, 64, 77, True, None, True),
+            ("image student", PAIRS, 24, 32, 50, False, None, True),
+            ("text student", PAIRS, 12, 64, 77, False, None, True),
+            ("image teacher, contiguous", PAIRS, 12, 64, 50, False, None, False),
+            ("ragged", 64, 3, 16, 17, True, 13, True),
+            ("ragged, contiguous", 64, 5, 48, 33, False, 29, False)):
+        qkv = torch.cat([t((B, N, 2, H, d)), t((B, N, 1, H, d), 0.7)], dim=2)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+        do = t((B, N, H, d)).permute(0, 2, 1, 3)       # as an output projection's gradient
+        if not strided:
+            q, k, v, do = (x.contiguous() for x in (q, k, v, do))
+        kw = dict(scale=d ** -0.5, causal=causal, kv_len=kv)
+        shape = (f"{label} B={B} H={H} d={d} N={N}" + (" causal" if causal else "")
+                 + (f" kv_len={kv}" if kv else "") + (", views of a fused qkv" if strided else ""))
+        pairs = float(pa.attention_mask(N, causal, kv, "cpu").sum())
+        product = 2.0 * B * H * pairs * d
+        tensor, lse_bytes = 2 * B * N * H * d, 4 * B * H * N
+        sdpa = sdpa_bwd = None
+        if kv is None:
+            q4, k4, v4 = (x.contiguous().requires_grad_() for x in (q, k, v))
+            sdpa = lambda q=q4, k=k4, v=v4, c=causal: F.scaled_dot_product_attention(
+                q, k, v, is_causal=c)
+            with torch.enable_grad():
+                o4 = sdpa()
+            sdpa_bwd = lambda o=o4, q=q4, k=k4, v=v4, g=do.contiguous(): torch.autograd.grad(
+                o, (q, k, v), g, retain_graph=True)
+        f32 = lambda *xs: [x.float() for x in xs]
+        cases.append(Case(
+            "flash_attention_fwd", shape,
+            lambda q=q, k=k, v=v, kw=kw: fa.flash_attention_fwd(q, k, v, **kw),
+            lambda q=q, k=k, v=v, kw=kw: fa.flash_attention_fwd_plain(*f32(q, k, v), **kw),
+            (("abs", 8e-3), ("abs", 1e-3)),
+            lambda q=q, k=k, v=v, kw=kw: fa.flash_attention_fwd_plain(q, k, v, **kw),
+            2 * product, 4 * tensor + lse_bytes, library=sdpa))
+        with torch.no_grad():
+            o, lse = fa.flash_attention_fwd_plain(q, k, v, **kw)
+            o = o.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3) if strided else o
+        cases.append(Case(
+            "flash_attention_bwd", shape,
+            lambda q=q, k=k, v=v, o=o, l=lse, g=do, kw=kw: fa.flash_attention_bwd(
+                q, k, v, o, l, g, **kw),
+            lambda q=q, k=k, v=v, o=o, l=lse, g=do, kw=kw: fa.flash_attention_bwd_plain(
+                *f32(q, k, v, o), l, g.float(), **kw),
+            (("abs", 3e-2), ("abs", 3e-2), ("abs", 3e-2)),
+            lambda q=q, k=k, v=v, o=o, l=lse, g=do, kw=kw: fa.flash_attention_bwd_plain(
+                q, k, v, o, l, g, **kw),
+            5 * product, 8 * tensor + lse_bytes, library=sdpa_bwd))
+        if "teacher" in label:
+            continue        # the teachers have no head mixes
+        # under the causal mask the first rows see one or two keys, so their
+        # output is Σ_g Ww[h, g] times v itself: Ww at half the scale keeps it under 4
+        wl, ww = t((H, H), H ** -0.5), t((H, H), H ** -0.5 * (0.5 if causal else 1.0))
+        mix = 2.0 * B * H * H * pairs
+        cases.append(Case(
+            "flash_transform_attention_fwd", shape,
+            lambda q=q, k=k, v=v, l=wl, w=ww, kw=kw: (fa.flash_transform_attention_fwd(
+                q, k, v, l, w, **kw),),
+            lambda q=q, k=k, v=v, l=wl, w=ww, kw=kw: (fa.flash_transform_attention_fwd_plain(
+                *f32(q, k, v, l, w), **kw),),
+            (("abs", 8e-3),),
+            lambda q=q, k=k, v=v, l=wl, w=ww, kw=kw: fa.flash_transform_attention_fwd_plain(
+                q, k, v, l, w, **kw),
+            2 * product + 2 * mix, 4 * tensor + 4 * H * H))
+
     # K4 and its backward: rows uniform on [-sqrt(3), sqrt(3)] (unit variance),
     # so the normalised values stay within sqrt(3) and |y| within ~2.2; unit
     # Gaussian rows put ~50 of the 786k outputs past 4.
-    for rows, c in ((1024, C), (PAIRS, C), (img, C), (txt, 512), (77, 40)):
+    # [12800, 768] is also the image student's under need_last_layer (fine_grain),
+    # and [19712, 768] the text student's: there the backward runs at those rows
+    for rows, c in ((1024, C), (PAIRS, C), (img, C), (txt, 512), (txt, C), (77, 40)):
         x = rng.uniform(-3 ** 0.5, 3 ** 0.5, size=(rows, c)).astype(np.float32)
         args = [torch.from_numpy(x).to(DEVICE).to(torch.bfloat16), t((c,), 0.1, 1.0),
                 t((c,), 0.1)]
@@ -414,8 +537,8 @@ def oracle_cases(rng):
             2 * (2 * rows * c + 2 * c) + 8 * rows, FP32_FLOPS,
             same=lambda a=args: layer_norm.layer_norm_rows_fwd(*a)[0],
             library=lambda a=args, c=c: F.layer_norm(a[0], (c,), a[1], a[2], 1e-5)))
-        if rows not in (PAIRS, 77):
-            continue    # serving and teacher shapes; the backward runs at the train step's rows
+        if (rows, c) not in ((PAIRS, C), (img, C), (txt, C), (77, 40)):
+            continue    # serving and teacher shapes; the backward runs at the train steps' rows
         _, mean, rstd = torch.native_layer_norm(args[0], (c,), args[1], args[2], 1e-5)
         stats = layer_norm.layer_norm_rows_stats_plain(*args)[1:]
         cases.append(Case(
@@ -618,12 +741,12 @@ def _config_args(path: Path) -> dict:
         return yaml.safe_load(f)["model"]["init_args"]
 
 
-def make_task(compute_dtype: str, use_transform: bool = True):
+def make_task(compute_dtype: str, use_transform: bool = True, losses: Optional[dict] = None):
     """The stage-3 task on the students of configs/final/l_clip.yaml, with the
-    config's losses and optimizer settings and the seeded teacher.  The
-    config's ``load_path`` (a stage-1/2 warm start) is left out: the weights
-    are seeded.  ``use_transform=False`` takes the head mixes out of both
-    students, which then train through plain attention."""
+    config's losses (or ``losses``) and optimizer settings and the seeded
+    teacher.  The config's ``load_path`` (a stage-1/2 warm start) is left out:
+    the weights are seeded.  ``use_transform=False`` takes the head mixes out
+    of both students, which then train through plain attention."""
     from distillclip_tpu_torch.serving.lclip_score import build_tower
     from distillclip_tpu_torch.training import DualDistillTask
 
@@ -633,24 +756,31 @@ def make_task(compute_dtype: str, use_transform: bool = True):
     return DualDistillTask(
         image_student=build_tower(args["image_student"]),
         text_student=build_tower(args["text_student"]),
-        loss_control_para=args["loss_control_para"], warm_steps=args["warm_steps"],
+        loss_control_para=losses or args["loss_control_para"], warm_steps=args["warm_steps"],
         total_steps=args["total_steps"], weight_decay=args["weight_decay"], lr=args["lr"],
         teacher_name=teacher_checkpoint(), compute_dtype=compute_dtype)
 
 
-def make_image_task(compute_dtype: str):
+def make_image_task(compute_dtype: str, losses: Optional[dict] = None,
+                    need_layers: Optional[list] = None, lr: Optional[float] = None,
+                    **student_over):
     """The stage-1 task of configs/final/image.yaml (weight-share image
-    student, out_l1 + out_cos, freeze_embed, the live image teacher)."""
+    student, out_l1 + out_cos, freeze_embed, the live image teacher), or the
+    same with other losses, teacher layers, learning rate or student
+    arguments."""
     from distillclip_tpu_torch.serving.lclip_score import build_tower
     from distillclip_tpu_torch.training import DistillTask
 
     args = _config_args(IMAGE_CONFIG)
+    args["student_encoder"]["init_args"].update(student_over)
     return DistillTask(
         student=build_tower(args["student_encoder"]),
-        loss_control_para=args["loss_control_para"], freeze_embed=args["freeze_embed"],
-        teacher_need_layers=args["teacher_need_layers"], model_type=args["model_type"],
+        loss_control_para=losses or args["loss_control_para"],
+        freeze_embed=args["freeze_embed"],
+        teacher_need_layers=need_layers or args["teacher_need_layers"],
+        model_type=args["model_type"],
         warm_steps=args["warm_steps"], total_steps=args["total_steps"],
-        weight_decay=args["weight_decay"], lr=args["lr"], norm=args["norm"],
+        weight_decay=args["weight_decay"], lr=lr or args["lr"], norm=args["norm"],
         teacher_name=teacher_checkpoint(), compute_dtype=compute_dtype)
 
 
@@ -671,24 +801,36 @@ DUAL_STEPS = {
 }
 
 
-def _loss_and_grads(loss_fn, params, batch):
+def _loss_and_grads(loss_fn, params, batch, left_out: Optional[dict] = None):
+    """``left_out`` maps a loss name to its weight in the total: the gradients
+    are those of the total without these shares."""
     leaves = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
     loss, (parts, _, _) = loss_fn(leaves, *batch)
-    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    target = loss - sum(w * parts[name] for name, w in (left_out or {}).items())
+    grads = torch.autograd.grad(target, list(leaves.values()), allow_unused=True)
     grads = {k: torch.zeros_like(p) if g is None else g
              for (k, p), g in zip(leaves.items(), grads)}
     return loss.detach(), {k: v.detach() for k, v in parts.items()}, grads
 
 
-def compare_with_plain(label: str, task, plain, loss_name: str, params, small) -> None:
+def compare_with_plain(label: str, task, plain, loss_name: str, params, small,
+                       selecting: tuple = ()) -> None:
     """(a) 16 pairs: loss, parts and every leaf's gradient on the kernel path
-    against the plain fp32 CPU path on the same masters."""
+    against the plain fp32 CPU path on the same masters.  ``selecting`` names
+    losses that pick by comparison (a max over tokens, a mined index): a pick
+    can flip between bf16 and fp32 and the gradient with it, so their values
+    are compared like every part's, and the gradients are those of the total
+    without their shares."""
+    left_out = {name: task.loss_control.percent[name] for name in selecting}
+    if left_out:
+        print(f"train {label} (a): gradients compared without the shares of {selecting}, "
+              f"which select by comparison", flush=True)
     loss, parts, grads = _loss_and_grads(getattr(task, loss_name), params,
-                                         [t.to(DEVICE) for t in small])
+                                         [t.to(DEVICE) for t in small], left_out)
     torch.cuda.synchronize()
     cpu_params = {k: v.cpu() for k, v in params.items()}
     ref_loss, ref_parts, ref_grads = _loss_and_grads(getattr(plain, loss_name), cpu_params,
-                                                     small)
+                                                     small, left_out)
     err = abs(float(loss) - float(ref_loss))
     part_err = max(abs(float(parts[k]) - float(ref_parts[k])) for k in parts)
     print(f"train {label} (a) 16 pairs: loss {float(loss):.6f} vs plain fp32 CPU "
@@ -765,7 +907,7 @@ def run_steps(ops, card: str, label: str, step, state, batch, expected: dict, st
 
 
 def dual_phase(ops, card: str, label: str, kind: str, task, plain, expected: dict, steps: int,
-               seed: int, keep_state: bool) -> dict:
+               seed: int, keep_state: bool, selecting: tuple = ()) -> dict:
     """One stage-3 step, ``kind`` of ``DUAL_STEPS``, on ``task``: (a) against
     ``plain`` where one is given, then (b) and (c)."""
     loss_name, step_kw, reps = DUAL_STEPS[kind]
@@ -774,7 +916,7 @@ def dual_phase(ops, card: str, label: str, kind: str, task, plain, expected: dic
           f"{sum(v.numel() for v in state.params.values()) / 1e6:.2f} M fp32 masters", flush=True)
     if plain is not None:
         small = train_batch(np.random.default_rng(seed), 16, "cpu", reps)
-        compare_with_plain(label, task, plain, loss_name, state.params, small)
+        compare_with_plain(label, task, plain, loss_name, state.params, small, selecting)
     batch = train_batch(np.random.default_rng(seed + 1), PAIRS, DEVICE, reps)
     return run_steps(ops, card, label, task.make_train_step(tx, **step_kw), state, batch,
                      expected, steps, keep_state)
@@ -845,6 +987,152 @@ def image_stage_phase(ops, card: str) -> dict:
                      add_counts(IMAGE_STEP_LAUNCHES, IMAGE_TEACHER_LAUNCHES), 8, False, frozen)
 
 
+# -- phase 5d: the tap-reading steps ---------------------------------------------
+
+@contextlib.contextmanager
+def seeded_vit_kd_masks(seed: int):
+    """vit_kd draws its token mask on the device it runs on, and the card's
+    generator gives other numbers than the CPU's.  Where the two paths are
+    compared, the mask is drawn on the CPU from one seed and moved."""
+    from distillclip_tpu_torch.losses import vit_kd
+
+    original = vit_kd.random_masking
+
+    def same(x, ratio, generator=None):
+        mask = original(torch.empty(x.shape, dtype=x.dtype), ratio,
+                        torch.Generator().manual_seed(seed))
+        return mask.to(x.device)
+
+    vit_kd.random_masking = same
+    try:
+        yield
+    finally:
+        vit_kd.random_masking = original
+
+
+# configs/final/image.yaml's lr of 5e-3 is tuned for out_l1 + out_cos: with
+# the per-layer losses added, eight steps on one repeated batch fall to 0.63
+# and then blow up to 1.97 at it, so the tap phases step at 1e-3
+TAPPED_LR = 1e-3
+# stage 1 over six teacher layers: label -> (losses, student arguments, launches)
+VIT_KD_PARA = {"student_dims": 768, "teacher_dims": 768}      # 49 = 7 x 7 patch tokens
+TAPPED_IMAGE_PHASES = {
+    "stage-1 tapped": (
+        {"loss_name": ["out_l1", "out_cos", "hidden_rep_mse", "embedding_mse", "vit_kd"],
+         "vit_kd_para": VIT_KD_PARA}, {},
+        add_counts(TAPPED_IMAGE_STEP_LAUNCHES, TAPPED_IMAGE_TEACHER_LAUNCHES)),
+    "stage-1 tapped plain-attention": (
+        {"loss_name": ["out_l1", "out_cos", "hidden_rep_mse", "embedding_mse", "vit_kd"],
+         "vit_kd_para": VIT_KD_PARA}, {"use_transform": False},
+        add_counts(TAPPED_PLAIN_IMAGE_STEP_LAUNCHES, TAPPED_IMAGE_TEACHER_LAUNCHES)),
+    "stage-1 attention-taps": (
+        {"loss_name": ["out_l1", "out_cos", "attention_score_mse", "attention_probs_mse",
+                       "attention_probs_kl"]}, {},
+        add_counts(MATERIALISED_IMAGE_STEP_LAUNCHES, MATERIALISED_IMAGE_TEACHER_LAUNCHES)),
+}
+# Stage 3 live with the contrastive losses.  No per-layer loss here:
+# DualDistillTask has one teacher_need_layers for both towers while the final
+# students return six and four layers, and the text student is 768 wide against
+# the teacher's 512 with no projection.  fine_grain makes the students project
+# all their tokens (need_last_layer); the teacher is unchanged.
+CONTRASTIVE_LOSSES = {
+    "loss_name": ["out_l1", "out_cos", "cos_diff", "hard_label", "soft_label", "logits_mse",
+                  "fine_grain", "smd_multi_model"],
+    "loss_scale": {"cos_diff": 0.1, "smd_multi_model": 0.01}, "temperature": 0.5}
+
+
+def tapped_image_phase(ops, card: str, label: str, steps: int, keep_state: bool) -> dict:
+    """One stage-1 step with tap losses: (a) against the plain fp32 CPU path
+    with the same vit_kd mask, then (b) and (c)."""
+    losses, student_over, expected = TAPPED_IMAGE_PHASES[label]
+    task = make_image_task("bfloat16", losses, SIX_TEACHER_LAYERS, TAPPED_LR, **student_over)
+    plain = make_image_task("float32", losses, SIX_TEACHER_LAYERS, TAPPED_LR, **student_over)
+    print(f"train {label}: lr {TAPPED_LR:g} instead of the config's (tuned for out_l1 + "
+          f"out_cos; with per-layer losses the repeated batch diverges at it)", flush=True)
+    state, tx = task.init_state(SEED, steps_per_epoch=1, device=DEVICE)
+    frozen = [k for k, m in (task._mask or {}).items() if not m]
+    aux = sorted(k for k in state.params if k.startswith("loss_aux."))
+    print(f"train {label}: flags {task.flags}, {len(state.params)} parameter leaves "
+          f"({len(aux)} of the loss's own), {len(frozen)} frozen", flush=True)
+    small = [torch.from_numpy(make_images(np.random.default_rng(SEED + 20), 16))]
+    with seeded_vit_kd_masks(SEED):
+        compare_with_plain(label, task, plain, "loss_fn", state.params, small)
+    del plain
+    batch = [torch.from_numpy(make_images(np.random.default_rng(SEED + 21), PAIRS)).to(DEVICE)]
+    return run_steps(ops, card, label, task.make_train_step(tx), state, batch, expected,
+                     steps, keep_state, frozen)
+
+
+def value_map_phase(scorer, task) -> None:
+    """The value-map tap, softmax(V·Vᵀ·scale) of the last layer, of both tower
+    families on 16 pairs: kernel-path towers on the card against the plain
+    fp32 CPU towers.  (last_value_map_kl softmaxes over the head axis and so
+    needs equal head counts, which the final students and ViT-B/32 do not
+    have; the CPU tests hold the loss.)"""
+    from distillclip_tpu_torch.models import ControlFlags
+    from distillclip_tpu_torch.serving import LCLIPScorer
+    from distillclip_tpu_torch.serving.inputs import prepare_inputs
+
+    rng = np.random.default_rng(SEED + 30)
+    images, tokens = torch.from_numpy(make_images(rng, 16)), torch.from_numpy(make_tokens(rng, 16))
+    cpu_state = lambda m: {k: v.float().cpu() for k, v in m.state_dict().items()}
+    plain = LCLIPScorer.from_config(str(CONFIG), cpu_state(scorer.image_tower),
+                                    cpu_state(scorer.text_tower), device="cpu",
+                                    dtype=torch.float32)
+    card_teacher, cpu_teacher = task.teacher.compute(DEVICE), task.teacher.module
+    flags = ControlFlags(need_value_map=True)
+    towers = (("image student", scorer.image_tower, plain.image_tower, images),
+              ("text student", scorer.text_tower, plain.text_tower, tokens),
+              ("image teacher", card_teacher.image_tower, cpu_teacher.image_tower, images),
+              ("text teacher", card_teacher.text_tower, cpu_teacher.text_tower, tokens))
+    with torch.no_grad():
+        for name, on_card, on_cpu, x in towers:
+            got = on_card(prepare_inputs(x.to(DEVICE), torch.bfloat16), flags).value_map
+            ref = on_cpu(prepare_inputs(x, torch.float32), flags).value_map
+            err = float((got.cpu() - ref).abs().max())
+            print(f"taps: {name} value map {tuple(got.shape)} {got.dtype} vs plain fp32 CPU "
+                  f"tower max_abs_err {err:.3e} (limit 2e-2); rows sum to "
+                  f"{float(got.sum(-1).mean()):.6f}", flush=True)
+            if got.dtype != torch.float32 or got.shape != ref.shape or not err <= 2e-2:
+                fail(f"the {name}'s value-map tap disagrees with the plain path")
+
+
+def dropout_phase(ops, card: str) -> dict:
+    """Stage 1 with non-zero drop_rate, attn_drop_rate and drop_path_rate in
+    training mode (deterministic=False): three steps each from seeds 7, 7 and
+    8.  Losses finite, the two runs from one seed bit-equal in losses and
+    parameters, the third different.  Attention dropout takes the materialised
+    path, so the student launches no attention kernel."""
+    rates = dict(drop_rate=0.1, attn_drop_rate=0.1, drop_path_rate=0.1)
+    batch = [torch.from_numpy(make_images(np.random.default_rng(SEED + 40), PAIRS)).to(DEVICE)]
+    runs, counts = [], None
+    for seed in (7, 7, 8):
+        task = make_image_task("bfloat16", **rates)
+        state, tx = task.init_state(SEED, steps_per_epoch=1, device=DEVICE)
+        step = task.make_train_step(tx, deterministic=False, seed=seed)
+        losses = []
+        for _ in range(3):
+            ops.reset_launch_counts()
+            state, metrics = step(state, *batch)
+            counts = ops.launch_counts()
+            losses.append(float(metrics["loss"]))
+        runs.append((losses, state.params))
+    print(f"train dropout (rates {rates}): losses by seed 7 / 7 / 8: "
+          + " / ".join(" ".join(f"{x:.6f}" for x in r[0]) for r in runs), flush=True)
+    print(f"train dropout: launches of one step {counts}", flush=True)
+    (a, pa), (b, pb), (c, _) = runs
+    same = a == b and all(torch.equal(pa[k], pb[k]) for k in pa)
+    if not all(np.isfinite(a + c)) or not same or a == c:
+        fail("the stochastic steps are not finite, do not repeat from their seed, or do "
+             "not depend on it")
+    expected = add_counts(MATERIALISED_IMAGE_STEP_LAUNCHES, IMAGE_TEACHER_LAUNCHES)
+    if counts != {**dict.fromkeys(ops.KERNELS, 0), **expected}:
+        fail(f"launch counts of one stochastic step differ from {expected}")
+    print(f"train dropout: two runs from seed 7 are bit-equal in losses and parameters; "
+          f"seed 8 differs [{card}]", flush=True)
+    return {"counts": counts}
+
+
 # -- phase 6b ---------------------------------------------------------------
 
 def throughput(scorer, card: str) -> None:
@@ -879,6 +1167,9 @@ def throughput(scorer, card: str) -> None:
 
 # device kernels by the piece of the step they belong to, first match wins
 PROFILE_GROUPS = (
+    ("flash_attention forward", ("flash_attention_fwd_kernel",)),
+    ("flash_attention_bwd", ("flash_attention_bwd_kernel",)),
+    ("flash_transform_attention forward", ("flash_transform_attention_fwd_kernel",)),
     ("dense_ln + dense_act_ln_res (LN GEMMs forward)", ("dense_ln_kernel",)),
     ("dense_ln_bwd (LN GEMM backward)", ("dense_ln_bwd_kernel",)),
     ("transform_attention forward (lean / save_p)", ("transform_attention_kernel",)),
@@ -888,6 +1179,7 @@ PROFILE_GROUPS = (
     ("layer_norm_rows + bwd", ("layer_norm_rows",)),
     ("reduce_partials", ("reduce_partials",)),
     ("optimizer (foreach kernels)", ("multi_tensor_apply",)),
+    ("library convolutions (cuDNN; vit_kd)", ("fprop", "dgrad", "wgrad", "conv", "cudnn")),
     ("library products (cuBLAS)", ("gemm", "cutlass", "nvjet", "xmma", "cublas", "splitk")),
     ("copies and memset", ("memcpy", "memset")),
 )
@@ -970,12 +1262,24 @@ def main() -> None:
         make_task("bfloat16", use_transform=False), make_task("float32", use_transform=False),
         PLAIN_STEP_LAUNCHES, 6, SEED + 14, False)
     runs["stage-1"] = image_stage_phase(ops, card)
+    for label, steps in (("stage-1 tapped", 8), ("stage-1 tapped plain-attention", 6),
+                         ("stage-1 attention-taps", 6)):
+        runs[label] = tapped_image_phase(ops, card, label, steps, profiling)
+    value_map_phase(scorer, task)
+    runs["live contrastive"] = dual_phase(
+        ops, card, "live contrastive", "live", make_task("bfloat16", losses=CONTRASTIVE_LOSSES),
+        make_task("float32", losses=CONTRASTIVE_LOSSES),
+        add_counts(TRAIN_STEP_LAUNCHES, IMAGE_TEACHER_LAUNCHES, TEXT_TEACHER_LAUNCHES), 6,
+        SEED + 16, profiling, selecting=("fine_grain", "smd_multi_model"))
+    runs["stage-1 dropout"] = dropout_phase(ops, card)
 
     if profiling:
         tokens, images = runs["all-cached"]["batch"][:2]
         profile("score_tokens 256 pairs (device-resident)",
                 lambda: scorer.score_tokens(images, tokens), 5, card)
-        for label in ("all-cached", "text-cached", "live"):
+        for label in ("all-cached", "text-cached", "live", "stage-1 tapped",
+                      "stage-1 tapped plain-attention", "stage-1 attention-taps",
+                      "live contrastive"):
             run = runs[label]
             profile(f"train step {label} 256 pairs",
                     lambda r=run: r["step"](r["state"], *r["batch"]), 5, card)

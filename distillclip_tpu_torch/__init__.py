@@ -2,6 +2,9 @@
 
 The JAX package ``distillclip_tpu`` is the reference; this package imports
 ``torch`` and never JAX.  Ported so far: L-CLIPScore serving with the two
-weight-share students (``serving.LCLIPScorer``), whose hot ops are four
-hand-written CUDA kernels (``ops``, sources in ``csrc/``).
+weight-share students (``serving.LCLIPScorer``), the frozen CLIP teacher
+(``models.teacher_load``), every tower's taps (``models.ControlFlags``), all
+distillation losses (``losses.LossCalculator``) and every train step of the
+one-tower and the two-tower tasks (``training``), dropout included.  The hot
+ops are hand-written CUDA kernels (``ops``, sources in ``csrc/``).
 """

@@ -1,9 +1,16 @@
 // Device routines shared by the attention kernels (transform_attention.cu,
-// transform_attention_bwd.cu, plain_attention.cu, plain_attention_bwd.cu).
+// transform_attention_bwd.cu, plain_attention.cu, plain_attention_bwd.cu,
+// flash_attention.cu, flash_attention_bwd.cu, flash_transform_attention.cu).
 //
 // All of them work on a block's tile in shared memory: `tq` rows (at most
 // kTqMax) of one sample, all H heads, as [H, tq, N] fp32 planes, and they are
 // called by every thread of a kThreads-wide block.
+//
+// A streamed operand is one sample's [N, H, d] values with unit stride in d:
+// row j of head g starts at Y + j·ystride + g·yhs.  The fused-qkv kernels read
+// rows of [B·N, 3·H·d] (heads side by side: yhs = d, the overloads without a
+// head stride); the [B, H, N, d] kernels pass both strides of whatever view
+// they were given.
 #pragma once
 
 #include "common.cuh"
@@ -14,6 +21,16 @@ namespace tf {
 constexpr int kTqMax = 16;
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
+
+// Element strides of a [B, H, N, d] view with unit stride in d.
+struct Strides {
+  size_t b, h, n;
+};
+
+// The i-th (batch, head, row) triple of a host array of strides.
+inline Strides strides_at(const long long* s, int i) {
+  return Strides{(size_t)s[3 * i], (size_t)s[3 * i + 1], (size_t)s[3 * i + 2]};
+}
 
 // Rows of the head mixes, padded to whole 16-byte words.
 __host__ __device__ inline int pad4(int H) { return (H + 3) & ~3; }
@@ -71,21 +88,40 @@ __device__ __forceinline__ void load_row_tile(const bf16* __restrict__ src, size
   }
 }
 
-// S[g, i, j] = Xs[i, g·d ..] · Y[j, g·d ..] for the tile's tq rows i, every
-// head g and the first nk rows j of Y (device memory, row stride ystride);
+// The same tile from a strided operand: head g of row i starts at
+// src + i·stride + g·hstride.  The tile in shared memory is [tq, H·d] as above.
+__device__ __forceinline__ void load_row_tile(const bf16* __restrict__ src, size_t stride,
+                                              size_t hstride, bf16* __restrict__ Xs, int H,
+                                              int d, int tq, int nq) {
+  const int HD = H * d;
+  const int dw = d / 8;
+  for (int idx = threadIdx.x; idx < tq * (HD / 8); idx += kThreads) {
+    const int i = idx / (HD / 8);
+    const int w = idx - i * (HD / 8);
+    const int g = w / dw;
+    const int c = (w - g * dw) * 8;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (i < nq) v = *reinterpret_cast<const uint4*>(src + (size_t)i * stride + g * hstride + c);
+    *reinterpret_cast<uint4*>(Xs + i * HD + g * d + c) = v;
+  }
+}
+
+// S[g, i, j] = Xs[i, g·d ..] · Y[j, head g] for the tile's tq rows i, every
+// head g and the first nk rows j of Y (device memory, row stride ystride,
+// head stride yhs);
 // the rows of S are N wide and columns past nk are left as they are.  A thread
 // takes one (g, j) row of Y against all tq tile rows at once, so each Y row
 // is read from memory once per block; four 16-byte chunks of it are in flight
 // before the first is used.
 __device__ __forceinline__ void rows_dot(const bf16* __restrict__ Xs,
                                          const bf16* __restrict__ Y, size_t ystride,
-                                         float* __restrict__ S, int N, int nk, int H, int d,
-                                         int tq) {
+                                         size_t yhs, float* __restrict__ S, int N, int nk,
+                                         int H, int d, int tq) {
   const int HD = H * d;
   for (int item = threadIdx.x; item < H * nk; item += kThreads) {
     const int g = item / nk;
     const int j = item - g * nk;
-    const bf16* yp = Y + (size_t)j * ystride + g * d;
+    const bf16* yp = Y + (size_t)j * ystride + g * yhs;
     const bf16* xp = Xs + g * d;
     float acc[kTqMax];
 #pragma unroll
@@ -118,6 +154,14 @@ __device__ __forceinline__ void rows_dot(const bf16* __restrict__ Xs,
   }
 }
 
+// Heads side by side in a row (yhs = d).
+__device__ __forceinline__ void rows_dot(const bf16* __restrict__ Xs,
+                                         const bf16* __restrict__ Y, size_t ystride,
+                                         float* __restrict__ S, int N, int nk, int H, int d,
+                                         int tq) {
+  rows_dot(Xs, Y, ystride, (size_t)d, S, N, nk, H, d, tq);
+}
+
 // All N rows of Y.
 __device__ __forceinline__ void rows_dot(const bf16* __restrict__ Xs,
                                          const bf16* __restrict__ Y, size_t ystride,
@@ -126,19 +170,24 @@ __device__ __forceinline__ void rows_dot(const bf16* __restrict__ Xs,
 }
 
 // out[i, col] = Σ_{j < nk} P[head(col), i, j] · Y[j, col] for the tile's rows
-// i < nq and all H·d columns; the rows of P are N wide.  A thread takes a pair
+// i < nq and all H·d columns; the rows of P are N wide.  Y and out are
+// strided like rows_dot's operand (head strides yhs, ohs).  A thread takes a pair
 // of columns (one head, since d is even) against all tq tile rows at once, so
 // each Y element is read from memory once per block; eight rows of Y are in
 // flight at a time.
 __device__ __forceinline__ void plane_rows(const float* __restrict__ P,
                                            const bf16* __restrict__ Y, size_t ystride,
-                                           bf16* __restrict__ out, size_t ostride,
-                                           int N, int nk, int H, int d, int tq, int nq) {
+                                           size_t yhs, bf16* __restrict__ out, size_t ostride,
+                                           size_t ohs, int N, int nk, int H, int d, int tq,
+                                           int nq) {
   const int HD = H * d;
   const int plane = tq * N;
   for (int col = 2 * threadIdx.x; col < HD; col += 2 * kThreads) {
-    const float* p = P + (size_t)(col / d) * plane;
-    const bf16* yp = Y + col;
+    const int g = col / d;
+    const int c = col - g * d;
+    const float* p = P + (size_t)g * plane;
+    const bf16* yp = Y + g * yhs + c;
+    bf16* op = out + g * ohs + c;
     float acc0[kTqMax], acc1[kTqMax];
 #pragma unroll
     for (int i = 0; i < kTqMax; ++i) acc0[i] = acc1[i] = 0.f;
@@ -166,9 +215,17 @@ __device__ __forceinline__ void plane_rows(const float* __restrict__ P,
 #pragma unroll
     for (int i = 0; i < kTqMax; ++i)
       if (i < nq)
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)i * ostride + col) =
+        *reinterpret_cast<__nv_bfloat162*>(op + (size_t)i * ostride) =
             __floats2bfloat162_rn(acc0[i], acc1[i]);
   }
+}
+
+// Heads side by side in a row of Y and of out.
+__device__ __forceinline__ void plane_rows(const float* __restrict__ P,
+                                           const bf16* __restrict__ Y, size_t ystride,
+                                           bf16* __restrict__ out, size_t ostride,
+                                           int N, int nk, int H, int d, int tq, int nq) {
+  plane_rows(P, Y, ystride, (size_t)d, out, ostride, (size_t)d, N, nk, H, d, tq, nq);
 }
 
 // All N columns of P.

@@ -1,9 +1,11 @@
 from distillclip_tpu_torch.models.clip import CLIPModel, l2_normalize
 from distillclip_tpu_torch.models.encoders import ImageEncoder, TextEncoder
 from distillclip_tpu_torch.models.outputs import (
+    AttentionOutput,
     CLIPOutput,
     ControlFlags,
     TextOutput,
+    TransformerOutput,
     VisionOutput,
 )
 from distillclip_tpu_torch.models.repeat_vit import (
@@ -15,6 +17,7 @@ from distillclip_tpu_torch.models.text import TextTransformer
 from distillclip_tpu_torch.models.vit import VisionTransformer
 
 __all__ = [
+    "AttentionOutput",
     "CLIPModel",
     "CLIPOutput",
     "ControlFlags",
@@ -24,6 +27,7 @@ __all__ = [
     "TextEncoder",
     "TextOutput",
     "TextTransformer",
+    "TransformerOutput",
     "VisionOutput",
     "VisionTransformer",
     "l2_normalize",

@@ -8,7 +8,7 @@ features and their cosines.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -45,18 +45,23 @@ class CLIPModel(nn.Module):
         self.image_tower = image_tower
         self.text_tower = text_tower
 
-    def encode_image(self, images: torch.Tensor, flags: ControlFlags = ControlFlags()):
-        out = self.image_tower(images, flags)
+    def encode_image(self, images: torch.Tensor, flags: ControlFlags = ControlFlags(),
+                     generator: Optional[torch.Generator] = None):
+        out = self.image_tower(images, flags, generator)
         return out if isinstance(out, VisionOutput) else VisionOutput(last_representation=out)
 
-    def encode_text(self, tokens: torch.Tensor, flags: ControlFlags = ControlFlags()):
-        out = self.text_tower(tokens, flags)
+    def encode_text(self, tokens: torch.Tensor, flags: ControlFlags = ControlFlags(),
+                    generator: Optional[torch.Generator] = None):
+        out = self.text_tower(tokens, flags, generator)
         return out if isinstance(out, TextOutput) else TextOutput(last_representation=out)
 
     def forward(self, tokens: torch.Tensor, images: torch.Tensor,
-                flags: ControlFlags = ControlFlags()) -> CLIPOutput:
-        visual_output = self.encode_image(images, flags)
-        text_output = self.encode_text(tokens, flags)
+                flags: ControlFlags = ControlFlags(),
+                generator: Optional[torch.Generator] = None) -> CLIPOutput:
+        """``generator`` feeds the towers' dropout and drop-path in training
+        mode, the image tower first."""
+        visual_output = self.encode_image(images, flags, generator)
+        text_output = self.encode_text(tokens, flags, generator)
         logits = cosine_logits(visual_output.last_representation,
                                text_output.last_representation)
         return CLIPOutput(visual_output=visual_output, text_output=text_output,

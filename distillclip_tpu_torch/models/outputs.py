@@ -1,12 +1,11 @@
 """Static switches for what a forward returns, and the output containers.
 
 Port of ``distillclip_tpu/models/outputs.py``.  :class:`ControlFlags` is the
-counterpart of the reference's ControlOutput.  The port runs only the default
-flags (no tap): the students return their pooled, projected representation,
-and :class:`VisionOutput`, :class:`TextOutput` and :class:`CLIPOutput` carry
-the fields the no-tap losses read.  The taps (embedding, attention scores and
-probabilities, value map, hidden representations, the full last layer) are
-ROADMAP queue 1, item 2.
+counterpart of the reference's ControlOutput: a frozen set of booleans, fixed
+for a whole training run, that tells every tower which taps to collect.  The
+containers hold ``None`` where a tap is off.  Per-layer collections (attention
+scores and probabilities, hidden representations) are stacked tensors with a
+leading ``layers`` axis.
 """
 
 from __future__ import annotations
@@ -16,8 +15,6 @@ from typing import Optional
 
 import torch
 
-_TAPS_ITEM = "ROADMAP queue 1, item 2 (taps and dropout)"
-
 
 @dataclasses.dataclass(frozen=True)
 class ControlFlags:
@@ -26,8 +23,9 @@ class ControlFlags:
     need_value_map: bool = False
     need_attn_prob: bool = False
     need_rep: bool = False
-    # full projected sequence; without it the towers pool first and run the
-    # final norm + head on one row per sample
+    # full projected sequence (only the fine_grain loss reads it); without it
+    # the weight-share towers pool first and run the final norm + head on one
+    # row per sample
     need_last_layer: bool = False
 
     def any_tap(self) -> bool:
@@ -35,30 +33,60 @@ class ControlFlags:
         return (self.need_emb or self.need_attn_score or self.need_value_map
                 or self.need_attn_prob or self.need_rep)
 
-    def require_default(self) -> None:
-        """Raise for any flag the port does not run yet (all of them)."""
-        on = [f.name for f in dataclasses.fields(self) if getattr(self, f.name)]
-        if on:
-            raise NotImplementedError(
-                f"ControlFlags {on}: the towers' taps are not ported yet; they come "
-                f"with {_TAPS_ITEM}")
+    def attn_tap(self) -> bool:
+        """True if the attention's inner state must be materialised."""
+        return self.need_attn_score or self.need_attn_prob or self.need_value_map
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionOutput:
+    """One attention layer's output."""
+
+    hidden: torch.Tensor
+    attention_scores: Optional[torch.Tensor] = None  # [B, H, N, N] pre-softmax (scaled)
+    attention_probs: Optional[torch.Tensor] = None   # [B, H, N, N] post-softmax
+    value_map: Optional[torch.Tensor] = None         # [B, H, N, N] softmax(V Vᵀ / sqrt(d))
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerOutput:
+    """A transformer stack's output; the per-layer tensors hold the selected
+    layers only."""
+
+    hidden: torch.Tensor
+    attention_scores: Optional[torch.Tensor] = None  # [L, B, H, N, N]
+    attention_probs: Optional[torch.Tensor] = None   # [L, B, H, N, N]
+    representations: Optional[torch.Tensor] = None   # [L, B, N, D]
+    value_map: Optional[torch.Tensor] = None         # [B, H, N, N] (last selected layer)
 
 
 @dataclasses.dataclass(frozen=True)
 class VisionOutput:
-    """Vision tower output: the cls representation ``[B, out_dim]``; the
-    tapped fields of the JAX container stay None until the taps are ported."""
+    """Vision tower output: the cls representation ``[B, out_dim]``, the
+    projected sequence ``[B, N, out_dim]`` (``[B, 1, out_dim]`` where a
+    weight-share tower pooled first; None where no tower ran), and the taps."""
 
     last_representation: torch.Tensor
     last_layer_output: Optional[torch.Tensor] = None
+    attention_scores: Optional[torch.Tensor] = None
+    attention_probs: Optional[torch.Tensor] = None
+    representations: Optional[torch.Tensor] = None
+    value_map: Optional[torch.Tensor] = None
+    embedding: Optional[torch.Tensor] = None  # [B, N, D] post-positional embeddings
 
 
 @dataclasses.dataclass(frozen=True)
 class TextOutput:
-    """Text tower output: the EOT representation ``[B, out_dim]``."""
+    """Text tower output: the EOT representation ``[B, out_dim]``, the
+    projected sequence, and the taps."""
 
     last_representation: torch.Tensor
     last_layer_output: Optional[torch.Tensor] = None
+    attention_scores: Optional[torch.Tensor] = None
+    attention_probs: Optional[torch.Tensor] = None
+    representations: Optional[torch.Tensor] = None
+    value_map: Optional[torch.Tensor] = None
+    embedding: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass(frozen=True)

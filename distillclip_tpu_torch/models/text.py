@@ -80,15 +80,20 @@ class TextTransformer(nn.Module):
         self.ln_final = LayerNorm(width)
         self.text_projection = nn.Parameter(torch.empty(width, output_dim))
 
-    def forward(self, tokens: torch.Tensor, flags: ControlFlags = ControlFlags()) -> TextOutput:
-        flags.require_default()
+    def forward(self, tokens: torch.Tensor, flags: ControlFlags = ControlFlags(),
+                generator: Optional[torch.Generator] = None) -> TextOutput:
         # the positional embedding's dtype is the tower's compute dtype; the
         # vocab table stays fp32 and only the gathered rows are cast
         x = self.token_embedding(tokens, dtype=self.positional_embedding.dtype)
         x = x + self.positional_embedding.to(x.dtype)
+        embedding = x if flags.need_emb else None
         B, N, _ = x.shape
-        rows = self.transformer(x.reshape(B * N, self.width), flags, N, causal=True)
-        projected = self.ln_final(rows) @ self.text_projection.to(rows.dtype)
+        t_out = self.transformer(x.reshape(B * N, self.width), flags, N, causal=True,
+                                 generator=generator)
+        projected = self.ln_final(t_out.hidden) @ self.text_projection.to(x.dtype)
         projected = projected.view(B, N, -1)
-        return TextOutput(last_representation=eot_pool(projected, tokens),
-                          last_layer_output=projected)
+        return TextOutput(
+            last_representation=eot_pool(projected, tokens), last_layer_output=projected,
+            attention_scores=t_out.attention_scores, attention_probs=t_out.attention_probs,
+            representations=t_out.representations, value_map=t_out.value_map,
+            embedding=embedding)

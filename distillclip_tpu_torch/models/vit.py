@@ -7,9 +7,10 @@ order is the JAX package's, so its ``patch_kernel`` drops in as it is.
 :class:`VisionTransformer` is the CLIP ViT (the teacher's image tower, or a
 plain student): patches, class and positional embedding, ``ln_pre``, the
 transformer stack, ``ln_post`` and ``proj`` on every token.  It runs on
-``[B·N, C]`` rows at the true token count; the JAX tower's padding of N to a
-multiple of 16 and its rows-mode switches are TPU layout measures and have no
-counterpart here.
+``[B·N, C]`` rows at the true token count, with or without taps (the taps are
+views or fp32 buffers beside the rows); the JAX tower's padding of N to a
+multiple of 16 and its switch between rank-3 and rows mode are TPU layout
+measures and have no counterpart here.
 """
 
 from __future__ import annotations
@@ -54,8 +55,8 @@ class VisionTransformer(nn.Module):
         self.ln_post = LayerNorm(width)
         self.proj = nn.Parameter(torch.empty(width, output_dim))
 
-    def forward(self, images: torch.Tensor, flags: ControlFlags = ControlFlags()) -> VisionOutput:
-        flags.require_default()
+    def forward(self, images: torch.Tensor, flags: ControlFlags = ControlFlags(),
+                generator: Optional[torch.Generator] = None) -> VisionOutput:
         B, H, W, _ = images.shape
         if H != self.input_resolution or W != self.input_resolution:
             raise ValueError(f"VisionTransformer(input_resolution={self.input_resolution}) "
@@ -65,8 +66,13 @@ class VisionTransformer(nn.Module):
         x = patchify(images, self.patch_size) @ self.patch_kernel.to(images.dtype)
         cls = self.class_embedding.to(x.dtype).expand(B, 1, self.width)
         x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(x.dtype)
+        embedding = x if flags.need_emb else None
         N = x.shape[1]
         rows = self.ln_pre(x.reshape(B * N, self.width))
-        rows = self.transformer(rows, flags, N)
-        projected = (self.ln_post(rows) @ self.proj.to(rows.dtype)).view(B, N, -1)
-        return VisionOutput(last_representation=projected[:, 0], last_layer_output=projected)
+        t_out = self.transformer(rows, flags, N, generator=generator)
+        projected = (self.ln_post(t_out.hidden) @ self.proj.to(rows.dtype)).view(B, N, -1)
+        return VisionOutput(
+            last_representation=projected[:, 0], last_layer_output=projected,
+            attention_scores=t_out.attention_scores, attention_probs=t_out.attention_probs,
+            representations=t_out.representations, value_map=t_out.value_map,
+            embedding=embedding)

@@ -5,9 +5,12 @@ kernel for a CUDA tensor (or raises); it adds one to its ``launches`` count
 where, and only where, it launches the kernel.  The first four serve; with a
 gradient the public functions go through ``torch.autograd.Function``s whose
 forward and backward launch the next five (and K1 / K4 in the mode that also
-writes the rows' statistics).  The last three are plain attention (the CLIP
-teacher towers and every student without head mixes): forward, forward with
-saved probabilities, backward.
+writes the rows' statistics).  The next three are plain attention on the fused
+qkv rows (the CLIP teacher towers and every student without head mixes):
+forward, forward with saved probabilities, backward.  The last three are
+attention on ``[B, H, N, d]`` views with the row logsumexp as residual (the
+towers when they collect hidden states): plain forward and backward, and the
+head-transform forward.
 """
 
 from distillclip_tpu_torch.ops.fc1_act import (
@@ -15,6 +18,13 @@ from distillclip_tpu_torch.ops.fc1_act import (
     dense_act_ln_res,
     dense_ln,
     dense_ln_bwd,
+)
+from distillclip_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_fwd,
+    flash_transform_attention_fwd,
+    reference_attention,
 )
 from distillclip_tpu_torch.ops.layer_norm import layer_norm_rows, layer_norm_rows_bwd
 from distillclip_tpu_torch.ops.plain_attention import (
@@ -42,6 +52,9 @@ KERNELS = {
     "plain_attention_rows_qkv": plain_attention_rows_qkv,
     "plain_attention_save_p": plain_attention_save_p,
     "plain_attention_bwd": plain_attention_bwd,
+    "flash_attention_fwd": flash_attention_fwd,
+    "flash_attention_bwd": flash_attention_bwd,
+    "flash_transform_attention_fwd": flash_transform_attention_fwd,
 }
 
 
@@ -60,12 +73,17 @@ __all__ = [
     "dense_act_ln_res",
     "dense_ln",
     "dense_ln_bwd",
+    "flash_attention",
+    "flash_attention_bwd",
+    "flash_attention_fwd",
+    "flash_transform_attention_fwd",
     "launch_counts",
     "layer_norm_rows",
     "layer_norm_rows_bwd",
     "plain_attention_bwd",
     "plain_attention_rows_qkv",
     "plain_attention_save_p",
+    "reference_attention",
     "reset_launch_counts",
     "transform_attention_bwd",
     "transform_attention_rows_qkv",

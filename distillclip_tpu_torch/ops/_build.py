@@ -72,6 +72,18 @@ _SIGNATURES = {
     "dc_pa_bwd_smem_bytes": (ctypes.c_longlong, [_I, _I, _I, _I]),
     # qkv, dout, probs, dqkv | batch, N, H, d, tq, scale, stream
     "dc_plain_attention_bwd": (_I, [_P] * 4 + [_I, _I, _I, _I, _I, _F, _P]),
+    "dc_fa_smem_bytes": (ctypes.c_longlong, [_I, _I, _I, _I]),
+    # q, k, v, out, lse, strides (host, 4 x 3 int64) | batch, N, H, d, tq, scale, causal,
+    # kv_len, stream
+    "dc_flash_attention_fwd": (_I, [_P] * 6 + [_I, _I, _I, _I, _I, _F, _I, _I, _P]),
+    "dc_fa_bwd_smem_bytes": (ctypes.c_longlong, [_I, _I, _I, _I]),
+    # q, k, v, o, dout, lse, dq, dk, dv, strides (host, 8 x 3 int64) | batch, N, H, d, tq,
+    # scale, causal, kv_len, stream
+    "dc_flash_attention_bwd": (_I, [_P] * 10 + [_I, _I, _I, _I, _I, _F, _I, _I, _P]),
+    "dc_fta_smem_bytes": (ctypes.c_longlong, [_I, _I, _I, _I]),
+    # q, k, v, wl, ww, out, strides (host, 4 x 3 int64) | batch, N, H, d, tq, scale, causal,
+    # kv_len, stream
+    "dc_flash_transform_attention_fwd": (_I, [_P] * 7 + [_I, _I, _I, _I, _I, _F, _I, _I, _P]),
 }
 
 # Dynamic shared memory one block may use on Hopper (232,448 bytes).

@@ -12,7 +12,13 @@ of the same modality, with
 * ``teacher_init_type``: a plain encoder student warm-started from the
   teacher's blocks; ``freeze_embed`` (image): the teacher's patch, class and
   positional embeddings copied into the student and frozen (the weight-share
-  student's patch bias stays trainable, as in the reference).
+  student's patch bias stays trainable, as in the reference);
+* tap losses (per-layer losses, ``vit_kd``): the teacher runs with the task's
+  flags and returns the taps of ``teacher_need_layers``; ``vit_kd``'s own
+  variables are masters beside the student's, as ``loss_aux.<name>``, trained
+  and decayed like any other leaf;
+* ``deterministic=False``: dropout and drop-path act in the student, drawing
+  from a generator that the step seeds once and every draw advances.
 
 The teacher is built at first use.  The eval step waits for the trainer
 (ROADMAP queue 1, item 8).
@@ -39,7 +45,10 @@ from distillclip_tpu_torch.training.task_common import (
     copy_teacher_embeddings,
     device_of,
     embedding_leaves,
+    check_projections,
     make_step,
+    split_params,
+    step_generator,
 )
 from distillclip_tpu_torch.training.train_state import (
     AdamW,
@@ -48,8 +57,6 @@ from distillclip_tpu_torch.training.train_state import (
     freeze_mask,
     prepare_inputs,
 )
-
-_DROPOUT_ITEM = "ROADMAP queue 1, item 2: taps and dropout"
 
 
 @dataclasses.dataclass
@@ -82,6 +89,7 @@ class DistillTask:
                 f"the model_type should in ['text', 'image'], but got {self.model_type}")
         self.loss_control = LossCalculator(**self.loss_control_para)
         self.flags: ControlFlags = self.loss_control.control_flags()
+        check_projections(self.student, self.flags)
         self._dtype = torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
         self.teacher = FrozenTeacher(self.teacher_name, self.download_root, self.model_type,
                                      self.teacher_need_layers, self._dtype)
@@ -100,6 +108,9 @@ class DistillTask:
         seeded_init(self.student, rng)
         params = {f"student.{k}": v.detach().clone().float()
                   for k, v in self.student.named_parameters()}
+        if self.loss_control.has_params:
+            params.update({f"loss_aux.{k}": v
+                           for k, v in self.loss_control.init_vit_kd(rng).items()})
         if self.teacher_init_type is not None:
             params = self._warm_start_from_teacher(params)
         if self.model_type == "image" and self.freeze_embed:
@@ -145,7 +156,8 @@ class DistillTask:
         if params is None:
             params = self.init_params(rng, device)
         else:
-            params = adopt_params(self.student, params, device)
+            params = adopt_params(self.student, params, device,
+                                  loss_aux=self.loss_control.vit_kd_module)
         if frozen_embed is None:
             frozen_embed = self.freeze_embed
         tx = self.make_optimizer(steps_per_epoch)
@@ -158,33 +170,37 @@ class DistillTask:
         x = prepare_inputs(inputs, self._dtype)
         return x if x.is_floating_point() else x.long()
 
-    def _student_forward(self, params, inputs, deterministic: bool):
-        if not deterministic:
-            raise NotImplementedError(
-                f"dropout in the train step is not ported yet ({_DROPOUT_ITEM})")
-        compute = {k[len("student."):]: v
-                   for k, v in cast_to_compute(params, self._dtype).items()}
+    def _student_forward(self, params, inputs, deterministic: bool, generator):
+        """(student output, prepared inputs, the loss's own variables).  The
+        student is stochastic (training mode) exactly when not deterministic."""
+        student, aux = split_params(params)
         x = self._prepare_inputs(inputs)
-        out = torch.func.functional_call(self.student, compute, (x, self.flags))
+        self.student.train(not deterministic)
+        out = torch.func.functional_call(self.student, cast_to_compute(student, self._dtype),
+                                         (x, self.flags, generator))
         if isinstance(out, torch.Tensor):        # a weight-share student's pooled rows
             out = self._out_cls(last_representation=out)
-        return out, x
+        return out, x, aux
 
-    def _finish(self, stu_out, tea_out):
+    def _finish(self, stu_out, tea_out, aux=None, generator=None):
         if self.norm:
             stu_out = dataclasses.replace(
                 stu_out, last_representation=l2_normalize(stu_out.last_representation))
             tea_out = dataclasses.replace(
                 tea_out, last_representation=l2_normalize(tea_out.last_representation))
-        loss, parts = self.loss_control(stu_out, tea_out, self.model_type)
+        loss, parts = self.loss_control(stu_out, tea_out, self.model_type,
+                                        vit_kd_variables=aux, generator=generator)
         return loss, (parts, stu_out, tea_out)
 
-    def loss_fn(self, params, inputs, deterministic: bool = True):
-        """(loss, (parts, stu_out, tea_out)) with the teacher live."""
-        stu_out, x = self._student_forward(params, inputs, deterministic)
+    def loss_fn(self, params, inputs, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        """(loss, (parts, stu_out, tea_out)) with the teacher live, run with
+        the task's flags.  ``generator`` feeds the student's dropout and
+        drop-path when not deterministic, then ``vit_kd``'s token mask."""
+        stu_out, x, aux = self._student_forward(params, inputs, deterministic, generator)
         with torch.no_grad():
             tea_out = self.teacher.compute(device_of(params))(x, self.flags)
-        return self._finish(stu_out, tea_out)
+        return self._finish(stu_out, tea_out, aux, generator)
 
     def _require_cacheable(self) -> None:
         if self.flags.any_tap():
@@ -193,11 +209,12 @@ class DistillTask:
                 f"(per-layer losses); got flags {self.flags}. Run the live "
                 "teacher for tap-dependent losses.")
 
-    def loss_fn_cached(self, params, tea_rep, inputs, deterministic: bool = True):
+    def loss_fn_cached(self, params, tea_rep, inputs, deterministic: bool = True,
+                       generator: Optional[torch.Generator] = None):
         """The teacher's last representations given."""
-        stu_out, _ = self._student_forward(params, inputs, deterministic)
+        stu_out, _, aux = self._student_forward(params, inputs, deterministic, generator)
         tea_out = self._out_cls(last_representation=tea_rep.detach().to(self._dtype))
-        return self._finish(stu_out, tea_out)
+        return self._finish(stu_out, tea_out, aux, generator)
 
     def make_teacher_encode(self, device="cuda") -> Callable:
         """``encode(inputs) -> fp32 last representations`` of the teacher, for
@@ -214,11 +231,14 @@ class DistillTask:
     # -- steps ---------------------------------------------------------------------
 
     def make_train_step(self, tx: AdamW, deterministic: bool = True, trainable_mask=None,
-                        cached_teacher: bool = False) -> Callable:
+                        cached_teacher: bool = False, seed: int = 0) -> Callable:
         """``step(state, inputs) -> (state, metrics)``, or with
         ``cached_teacher=True`` ``step(state, tea_rep, inputs)``.
-        ``trainable_mask=False`` means explicitly unfrozen (after
-        ``unfreeze_epoch``); None takes the mask ``init_state`` made."""
+        ``deterministic=False`` switches the student's dropout and drop-path
+        on; their draws and ``vit_kd``'s masks come from one generator per
+        step function, seeded with ``seed``.  ``trainable_mask=False`` means
+        explicitly unfrozen (after ``unfreeze_epoch``); None takes the mask
+        ``init_state`` made."""
         if trainable_mask is None:
             trainable_mask = self._mask
         elif trainable_mask is False:
@@ -233,6 +253,9 @@ class DistillTask:
                 raise ValueError(
                     f"teacher need_layers {tea} length != student need_layers {stu}")
         loss = self.loss_fn_cached if cached_teacher else self.loss_fn
-        self.student.train()
-        return make_step(lambda params, *batch: loss(params, *batch, deterministic),
-                         tx, trainable_mask, self.log_grad_norm)
+        random = not deterministic or self.loss_control.has_params
+        generator_for = step_generator(seed)
+        return make_step(
+            lambda params, *batch: loss(params, *batch, deterministic,
+                                        generator_for(params) if random else None),
+            tx, trainable_mask, self.log_grad_norm)

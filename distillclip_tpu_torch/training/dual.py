@@ -17,6 +17,12 @@ The teacher is built at first use, from ``teacher_name`` (a model name or a
 checkpoint path): a task that only runs the all-cached step never loads one.
 It runs under ``torch.no_grad()`` in the compute dtype, from a copy cast once.
 
+Tap losses run in the live step only: the teacher runs with the task's flags,
+one ``teacher_need_layers`` for both towers; ``vit_kd`` acts on the image tower
+(its variables are masters beside the students', as ``loss_aux.<name>``).
+``deterministic=False`` switches the students' dropout and drop-path on, drawn
+from a generator the step seeds once.
+
 Not ported yet, and refused by name: ``load_path`` (stage-1/2 checkpoints,
 ROADMAP queue 1 item 7) and the eval step (item 8).
 
@@ -45,7 +51,10 @@ from distillclip_tpu_torch.training.task_common import (
     copy_teacher_embeddings,
     device_of,
     embedding_leaves,
+    check_projections,
     make_step,
+    split_params,
+    step_generator,
 )
 from distillclip_tpu_torch.training.train_state import (
     AdamW,
@@ -54,8 +63,6 @@ from distillclip_tpu_torch.training.train_state import (
     freeze_mask,
     prepare_inputs,
 )
-
-_DROPOUT_ITEM = "ROADMAP queue 1, item 2: taps and dropout"
 
 
 def _unit(x: torch.Tensor) -> torch.Tensor:
@@ -106,6 +113,8 @@ class DualDistillTask:
         self.student = CLIPModel(image_tower=self.image_student, text_tower=self.text_student)
         self.loss_control = LossCalculator(**self.loss_control_para)
         self.flags: ControlFlags = self.loss_control.control_flags()
+        for tower in (self.image_student, self.text_student):
+            check_projections(tower, self.flags)
         self._dtype = torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
         self.teacher = FrozenTeacher(self.teacher_name, self.download_root, "all",
                                      self.teacher_need_layers, self._dtype)
@@ -124,6 +133,9 @@ class DualDistillTask:
             seeded_init(tower, rng)
         params = {f"student.{k}": v.detach().clone().float()
                   for k, v in self.student.named_parameters()}
+        if self.loss_control.has_params:
+            params.update({f"loss_aux.{k}": v
+                           for k, v in self.loss_control.init_vit_kd(rng).items()})
         if self.freeze_embed:
             params = self._copy_teacher_embeddings(params)
         return {k: v.to(device) for k, v in params.items()}
@@ -165,7 +177,8 @@ class DualDistillTask:
         if params is None:
             params = self.init_params(rng, device)
         else:
-            params = adopt_params(self.student, params, device, "the students")
+            params = adopt_params(self.student, params, device, "the students",
+                                  self.loss_control.vit_kd_module)
         if frozen_embed is None:
             frozen_embed = self.freeze_embed
         tx = self.make_optimizer(steps_per_epoch)
@@ -174,40 +187,41 @@ class DualDistillTask:
 
     # ------------------------------------------------------------------
 
-    def _require_deterministic(self, deterministic: bool) -> None:
-        if not deterministic:
-            raise NotImplementedError(
-                f"dropout in the train step is not ported yet ({_DROPOUT_ITEM})")
-
-    def _student_forward(self, params, tokens, images) -> CLIPOutput:
-        compute = {k[len("student."):]: v
-                   for k, v in cast_to_compute(params, self._dtype).items()}
+    def _student_forward(self, params, tokens, images, deterministic: bool, generator):
+        """(students' output, the loss's own variables).  The students are
+        stochastic (training mode) exactly when not deterministic."""
+        student, aux = split_params(params)
         imgs = prepare_inputs(images, self._dtype)
-        return torch.func.functional_call(self.student, compute,
-                                          (tokens.long(), imgs, self.flags))
+        self.student.train(not deterministic)
+        out = torch.func.functional_call(self.student, cast_to_compute(student, self._dtype),
+                                         (tokens.long(), imgs, self.flags, generator))
+        return out, aux
 
-    def _finish(self, stu_out: CLIPOutput, tea_out: CLIPOutput):
+    def _finish(self, stu_out: CLIPOutput, tea_out: CLIPOutput, aux=None, generator=None):
         if self.norm:
             stu_out = norm_last_representation(stu_out)
             tea_out = norm_last_representation(tea_out)
-        loss, parts = self.loss_control(stu_out, tea_out, "all")
+        loss, parts = self.loss_control(stu_out, tea_out, "all", vit_kd_variables=aux,
+                                        generator=generator)
         return loss, (parts, stu_out, tea_out)
 
-    def loss_fn(self, params, tokens, images, deterministic: bool = True):
-        """(loss, (parts, stu_out, tea_out)) with both teacher towers live."""
-        self._require_deterministic(deterministic)
-        stu_out = self._student_forward(params, tokens, images)
+    def loss_fn(self, params, tokens, images, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        """(loss, (parts, stu_out, tea_out)) with both teacher towers live, run
+        with the task's flags.  ``generator`` feeds the students' dropout and
+        drop-path when not deterministic, then ``vit_kd``'s token mask."""
+        stu_out, aux = self._student_forward(params, tokens, images, deterministic, generator)
         with torch.no_grad():
             tea_out = self.teacher.compute(device_of(params))(
                 tokens.long(), prepare_inputs(images, self._dtype), self.flags)
-        return self._finish(stu_out, tea_out)
+        return self._finish(stu_out, tea_out, aux, generator)
 
     def loss_fn_cached_text(self, params, tokens, images, tea_text_rep,
-                            deterministic: bool = True):
+                            deterministic: bool = True,
+                            generator: Optional[torch.Generator] = None):
         """The text teacher's last representations given, the image teacher
         live; the teacher's logits by the arithmetic of ``CLIPModel.forward``."""
-        self._require_deterministic(deterministic)
-        stu_out = self._student_forward(params, tokens, images)
+        stu_out, aux = self._student_forward(params, tokens, images, deterministic, generator)
         with torch.no_grad():
             tea_vis = self.teacher.compute(device_of(params)).encode_image(
                 prepare_inputs(images, self._dtype), self.flags)
@@ -216,14 +230,14 @@ class DualDistillTask:
         tea_out = CLIPOutput(
             visual_output=tea_vis, text_output=TextOutput(last_representation=text_rep),
             i2t_logits=logits, t2i_logits=logits.t())
-        return self._finish(stu_out, tea_out)
+        return self._finish(stu_out, tea_out, aux, generator)
 
     def loss_fn_cached_all(self, params, tokens, images, tea_text_rep, tea_image_rep,
-                           deterministic: bool = True):
+                           deterministic: bool = True,
+                           generator: Optional[torch.Generator] = None):
         """Both teachers' last representations given; the teacher's logits are
         their cosines."""
-        self._require_deterministic(deterministic)
-        stu_out = self._student_forward(params, tokens, images)
+        stu_out, aux = self._student_forward(params, tokens, images, deterministic, generator)
         text_rep = tea_text_rep.detach().to(self._dtype)
         image_rep = tea_image_rep.detach().to(self._dtype)
         logits = cosine_logits(image_rep, text_rep)
@@ -231,7 +245,7 @@ class DualDistillTask:
             visual_output=VisionOutput(last_representation=image_rep),
             text_output=TextOutput(last_representation=text_rep),
             i2t_logits=logits, t2i_logits=logits.t())
-        return self._finish(stu_out, tea_out)
+        return self._finish(stu_out, tea_out, aux, generator)
 
     def make_teacher_image_encode(self, device="cuda") -> Callable:
         """``encode(images) -> fp32 last representations`` of the image
@@ -260,13 +274,15 @@ class DualDistillTask:
 
     def make_train_step(self, tx: AdamW, deterministic: bool = True, trainable_mask=None,
                         cached_text_teacher: bool = False,
-                        cached_teachers: bool = False) -> Callable:
+                        cached_teachers: bool = False, seed: int = 0) -> Callable:
         """``step(state, tokens, images[, tea_text_rep[, tea_image_rep]]) ->
         (state, metrics)``: the live step takes no teacher representation,
         ``cached_text_teacher`` the text teacher's, ``cached_teachers`` both.
         The metrics are 0-dim tensors on the state's device (``loss``, the loss
         parts, and ``grad_norm`` under ``log_grad_norm``).
-        ``trainable_mask=False`` means explicitly unfrozen; None takes the mask
+        ``deterministic=False`` switches the students' dropout and drop-path
+        on; their draws and ``vit_kd``'s masks come from one generator per
+        step function, seeded with ``seed``.  ``trainable_mask=False`` means explicitly unfrozen; None takes the mask
         ``init_state`` made."""
         if trainable_mask is None:
             trainable_mask = self._mask
@@ -283,6 +299,9 @@ class DualDistillTask:
             loss = self.loss_fn_cached_text
         else:
             loss = self.loss_fn
-        self.student.train()
-        return make_step(lambda params, *batch: loss(params, *batch, deterministic),
-                         tx, trainable_mask, self.log_grad_norm)
+        random = not deterministic or self.loss_control.has_params
+        generator_for = step_generator(seed)
+        return make_step(
+            lambda params, *batch: loss(params, *batch, deterministic,
+                                        generator_for(params) if random else None),
+            tx, trainable_mask, self.log_grad_norm)

@@ -11,7 +11,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from distillclip_tpu_torch.models.encoders import ImageEncoder
+from distillclip_tpu_torch.models.encoders import ImageEncoder, TextEncoder, projections_for
 from distillclip_tpu_torch.models.repeat_vit import RepeatVisionTransformer
 from distillclip_tpu_torch.models.teacher import teacher_load
 from distillclip_tpu_torch.serving.inputs import cast_to_compute as cast_module_to_compute
@@ -97,17 +97,65 @@ def copy_teacher_embeddings(params: Dict[str, torch.Tensor], prefix: str, image_
     return out
 
 
-def adopt_params(student: nn.Module, params: dict, device,
-                 what: str = "the student") -> Dict[str, torch.Tensor]:
+LOSS_AUX = "loss_aux."
+
+
+def adopt_params(student: nn.Module, params: dict, device, what: str = "the student",
+                 loss_aux: Optional[nn.Module] = None) -> Dict[str, torch.Tensor]:
     """Given masters as fresh fp32 tensors on ``device``, after checking that
-    their names are those of ``student`` (``what`` in the complaint)."""
+    their names are those of ``student`` (``what`` in the complaint) and, for
+    a loss with parameters, of its module ``loss_aux``."""
     want = {f"student.{k}" for k, _ in student.named_parameters()}
+    if loss_aux is not None:
+        want |= {LOSS_AUX + k for k, _ in loss_aux.named_parameters()}
     if set(params) != want:
         raise ValueError(f"params do not match {what}: missing "
                          f"{sorted(want - set(params))}, unexpected "
                          f"{sorted(set(params) - want)}")
     return {k: torch.as_tensor(v).detach().clone().float().to(device)
             for k, v in params.items()}
+
+
+def split_params(params: Dict[str, torch.Tensor]):
+    """(the student's masters without their ``student.`` prefix, the loss's
+    own variables without ``loss_aux.``, or None when there are none)."""
+    student = {k[len("student."):]: v for k, v in params.items() if k.startswith("student.")}
+    aux = {k[len(LOSS_AUX):]: v for k, v in params.items() if k.startswith(LOSS_AUX)}
+    return student, aux or None
+
+
+def check_projections(tower, flags) -> None:
+    """A plain-encoder student narrower or wider than the teacher needs the
+    projection leaves the flags call for, no more and no less (the JAX package
+    creates them under exactly those flags)."""
+    if not isinstance(tower, (ImageEncoder, TextEncoder)) or not tower.is_student:
+        return
+    width = (tower.visual if isinstance(tower, ImageEncoder) else tower.text).width
+    if tower.teacher_width is None or tower.teacher_width == width:
+        return
+    want = projections_for(flags)
+    have = {"project_hidden": hasattr(tower, "hidden_projection"),
+            "project_embedding": hasattr(tower, "embedding_projection")}
+    if want != have:
+        raise ValueError(
+            f"{type(tower).__name__} student of width {width} against a teacher of width "
+            f"{tower.teacher_width}: the task's losses need {want}, the student was built "
+            f"with {have}; construct it with **projections_for(flags)")
+
+
+def step_generator(seed: int) -> Callable:
+    """``generator_for(params)``: one ``torch.Generator`` per device, seeded
+    once with ``seed`` and advanced by every draw, so a sequence of steps
+    repeats from its seed (the JAX step folds the step count into its key)."""
+    made: Dict[torch.device, torch.Generator] = {}
+
+    def generator_for(params: Dict[str, torch.Tensor]) -> torch.Generator:
+        device = device_of(params)
+        if device not in made:
+            made[device] = torch.Generator(device=device).manual_seed(seed)
+        return made[device]
+
+    return generator_for
 
 
 def device_of(params: Dict[str, torch.Tensor]) -> torch.device:

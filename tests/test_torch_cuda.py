@@ -517,3 +517,177 @@ def test_tiny_teacher_and_text_cached_step_on_card_match_plain_cpu_path(tmp_path
     assert counts["transform_attention_save_p"] == counts["transform_attention_bwd"] == 2
     assert counts["plain_attention_save_p"] == counts["plain_attention_bwd"] == 2
     assert counts["plain_attention_rows_qkv"] == 2          # the image teacher, no gradient
+
+
+# -- attention on [B, H, N, d] views with the logsumexp residual ---------------------
+
+import importlib  # noqa: E402
+
+# ``ops.flash_attention`` is the public function; this is its module
+fa = importlib.import_module("distillclip_tpu_torch.ops.flash_attention")
+
+_FA_SHAPES = [(3, 1, 8, 1), (5, 4, 16, 17), (4, 12, 64, 50), (3, 8, 64, 77), (4, 24, 32, 50),
+              (2, 5, 48, 33), (2, 2, 128, 256)]
+
+
+def _qkv_views(rng, B, H, d, N, layout):
+    """q, k, v as ``[B, H, N, d]``: contiguous tensors, or the permuted views
+    of one fused ``[B, N, 3, H, d]`` projection (v drawn at 0.7, see the
+    fused-qkv cases)."""
+    qkv = torch.cat([_bf16(rng, (B, N, 2, H, d)), _bf16(rng, (B, N, 1, H, d), 0.7)], dim=2)
+    views = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    return [t.contiguous() for t in views] if layout == "contiguous" else list(views)
+
+
+def _kv(kv, N):
+    return max(1, N - 4) if kv == "short" else None
+
+
+@pytest.mark.parametrize("B,H,d,N", _FA_SHAPES)
+@pytest.mark.parametrize("layout", ["contiguous", "fused_view"])
+@pytest.mark.parametrize("causal,kv", [(False, None), (True, None), (False, "short"),
+                                       (True, "short")],
+                         ids=["full", "causal", "kv_len", "causal_kv_len"])
+def test_flash_attention_kernels_match_plain(B, H, d, N, layout, causal, kv):
+    rng = np.random.default_rng(B * 1000 + H * 100 + d + N)
+    q, k, v = _qkv_views(rng, B, H, d, N, layout)
+    kw = dict(scale=d ** -0.5, causal=causal, kv_len=_kv(kv, N))
+    with torch.inference_mode():
+        o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        ro, rlse = fa.flash_attention_fwd_plain(q.float(), k.float(), v.float(), **kw)
+        _close(o, ro)
+        torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=1e-5)
+        assert o.stride() == (q.contiguous().stride() if layout == "contiguous"
+                              else (N * H * d, d, H * d, 1))
+        do = _bf16(rng, (B, N, H, d)).permute(0, 2, 1, 3)      # as out_proj's gradient arrives
+        grads = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        refs = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                            do.float(), **kw)
+    torch.cuda.synchronize()
+    for g, r in zip(grads, refs):
+        assert g.dtype == torch.bfloat16 and g.shape == q.shape
+        torch.testing.assert_close(g.float(), r, atol=3e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("B,H,d,N", _FA_SHAPES)
+@pytest.mark.parametrize("layout", ["contiguous", "fused_view"])
+@pytest.mark.parametrize("causal,kv", [(False, None), (True, None), (False, "short")],
+                         ids=["full", "causal", "kv_len"])
+def test_flash_transform_attention_kernel_matches_plain(B, H, d, N, layout, causal, kv):
+    rng = np.random.default_rng(B * 1000 + H * 100 + d + N + 7)
+    q, k, v = _qkv_views(rng, B, H, d, N, layout)
+    wl, ww = _bf16(rng, (2, H, H), H ** -0.5)
+    kw = dict(scale=d ** -0.5, causal=causal, kv_len=_kv(kv, N))
+    with torch.inference_mode():
+        o = fa.flash_transform_attention_fwd(q, k, v, wl, ww, **kw)
+        ref = fa.flash_transform_attention_fwd_plain(q.float(), k.float(), v.float(),
+                                                     wl.float(), ww.float(), **kw)
+    assert o.shape == q.shape
+    _close(o, ref)
+
+
+def test_flash_attention_backward_is_deterministic():
+    rng = np.random.default_rng(11)
+    q, k, v = _qkv_views(rng, 8, 12, 64, 50, "fused_view")
+    do = _bf16(rng, (8, 12, 50, 64))
+    with torch.inference_mode():
+        o, lse = fa.flash_attention_fwd(q, k, v, scale=0.125)
+        a = fa.flash_attention_bwd(q, k, v, o, lse, do, scale=0.125)
+        b = fa.flash_attention_bwd(q, k, v, o, lse, do, scale=0.125)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("transform", [False, True], ids=["plain", "head_transform"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_autograd_on_card_matches_plain_autograd(transform, causal):
+    """The public entry under a gradient, from the views of a fused qkv that
+    requires it: the gradient arrives on the fused tensor."""
+    rng = np.random.default_rng(12)
+    B, H, d, N = 4, 6, 32, 21
+    qkv = torch.cat([_bf16(rng, (B, N, 2, H, d)), _bf16(rng, (B, N, 1, H, d), 0.7)], dim=2)
+    mixes = _bf16(rng, (2, H, H), H ** -0.5)
+    do = _bf16(rng, (B, H, N, d))
+
+    def run(qkv, mixes, fn):
+        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+        ht = (mixes[0], mixes[1]) if transform else None
+        o = fn(q, k, v, causal=causal, head_transform=ht)
+        leaves = (qkv, mixes) if transform else (qkv,)
+        return o, torch.autograd.grad(o, leaves, do.to(o.dtype))
+
+    ops.reset_launch_counts()
+    o, grads = run(qkv.clone().requires_grad_(), mixes.clone().requires_grad_(),
+                   ops.flash_attention)
+    counts = ops.launch_counts()
+    if transform:
+        assert counts["flash_transform_attention_fwd"] == 1 and counts["flash_attention_bwd"] == 0
+    else:
+        assert counts["flash_attention_fwd"] == counts["flash_attention_bwd"] == 1
+    ro, rgrads = run(qkv.float().requires_grad_(), mixes.float().requires_grad_(),
+                     ops.reference_attention)
+    _close(o, ro)
+    for g, r in zip(grads, rgrads):
+        torch.testing.assert_close(g.float(), r, atol=3e-2, rtol=2e-2)
+
+
+def test_flash_attention_refuses_what_the_kernels_do_not_take():
+    rng = np.random.default_rng(13)
+    q, k, v = _qkv_views(rng, 2, 2, 16, 9, "contiguous")
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.flash_attention_fwd(q.float(), k.float(), v.float(), scale=0.25)
+    with pytest.raises(ValueError, match="N<=256"):
+        ops.flash_attention(*_qkv_views(rng, 1, 1, 8, 257, "contiguous"))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ops.flash_attention(*_qkv_views(rng, 1, 2, 12, 9, "contiguous"))
+    with pytest.raises(ValueError, match="kv_len"):
+        ops.flash_attention(q, k, v, kv_len=10)
+    with pytest.raises(ValueError, match="must be on"):
+        fa.flash_attention_fwd(q, k.cpu(), v, scale=0.25)
+    # a view the kernels cannot read in place (d transposed) is copied, not refused
+    qt = q.transpose(-1, -2).contiguous().transpose(-1, -2)
+    with torch.inference_mode():
+        a = fa.flash_attention_fwd(qt, k, v, scale=0.25)[0]
+        b = fa.flash_attention_fwd(q, k, v, scale=0.25)[0]
+    assert torch.equal(a, b)
+
+
+def test_tiny_tapped_steps_on_card_match_plain_cpu_path(tmp_path):
+    """Stage-1 steps that collect hidden states, on a fabricated two-head
+    teacher: the loss against the fp32 CPU path, and the attention kernels each
+    tower launches (the head-transform forward in a student with head mixes,
+    the plain forward and backward in one without, the plain forward in the
+    teacher; none where the attention is materialised for a tap)."""
+    from distillclip_tpu_torch.models import RepeatVisionTransformer
+    from distillclip_tpu_torch.tools.fabricate_teacher import make_clip_state_dict
+    from distillclip_tpu_torch.training import DistillTask
+
+    path = tmp_path / "tiny_clip.pt"
+    torch.save(make_clip_state_dict(vision_width=128, vision_layers=3, patch_size=8,
+                                    image_resolution=32, text_width=128, text_layers=2,
+                                    context_length=13, vocab_size=100, embed_dim=64), str(path))
+    images = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 256, size=(6, 32, 32, 3), dtype=np.uint8))
+
+    def task(dtype, use_transform, losses):
+        student = RepeatVisionTransformer(img_size=32, patch_size=8, qkv_bias=True, out_dim=64,
+                                          embed_dim=128, depth=2, num_heads=4, repeated_times=2,
+                                          use_transform=use_transform)
+        return DistillTask(student=student, loss_control_para={"loss_name": losses},
+                           teacher_name=str(path), teacher_need_layers=[0, 2],
+                           compute_dtype=dtype)
+
+    for use_transform, losses, want in (
+            (True, ["out_l1", "hidden_rep_mse"],
+             {"flash_transform_attention_fwd": 2, "flash_attention_fwd": 3}),
+            (False, ["out_l1", "hidden_rep_mse", "embedding_mse"],
+             {"flash_attention_fwd": 5, "flash_attention_bwd": 2}),
+            (True, ["out_l1", "attention_probs_kl"], {})):
+        card, cpu = task("bfloat16", use_transform, losses), task("float32", use_transform, losses)
+        state, tx = card.init_state(0, 1, device="cuda")
+        ref, _ = cpu.loss_fn({k: v.cpu() for k, v in state.params.items()}, images)
+        ops.reset_launch_counts()
+        state, metrics = card.make_train_step(tx)(state, images.cuda())
+        counts = ops.launch_counts()
+        assert abs(float(metrics["loss"]) - float(ref)) < 2e-2
+        attention = {k: v for k, v in counts.items() if "attention" in k and v}
+        assert attention == want, (losses, attention)

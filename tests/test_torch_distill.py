@@ -242,8 +242,8 @@ def test_what_the_task_refuses(ckpt_path, batch, tmp_path):
     _, pcls, args = STUDENTS[("share", "image")]
     with pytest.raises(ValueError, match="model_type"):
         DistillTask(student=pcls(**args), loss_control_para=LOSSES, model_type="all")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        DistillTask(student=pcls(**args), loss_control_para={"loss_name": ["hidden_rep_mse"]})
+    tapped = DistillTask(student=pcls(**args), loss_control_para={"loss_name": ["hidden_rep_mse"]})
+    assert tapped.flags == ControlFlags(need_rep=True)        # a per-layer loss builds
     task = DistillTask(student=pcls(**args), loss_control_para=LOSSES,
                        teacher_name=str(tmp_path / "missing.pt"), compute_dtype="float32")
     state, tx = task.init_state(0, 1, device="cpu")         # no teacher needed yet
@@ -253,9 +253,13 @@ def test_what_the_task_refuses(ckpt_path, batch, tmp_path):
     assert np.isfinite(float(metrics["loss"]))
     with pytest.raises(RuntimeError, match="not found"):
         task.make_train_step(tx)(state, torch.from_numpy(batch["image"]))
-    with pytest.raises(NotImplementedError, match="item 2"):
-        task.loss_fn_cached(state.params, torch.from_numpy(batch["tea_rep"]),
-                            torch.from_numpy(batch["image"]), deterministic=False)
+    # not deterministic with zero rates: the same step
+    sto, _ = task.loss_fn_cached(state.params, torch.from_numpy(batch["tea_rep"]),
+                                 torch.from_numpy(batch["image"]), deterministic=False,
+                                 generator=torch.Generator().manual_seed(0))
+    det, _ = task.loss_fn_cached(state.params, torch.from_numpy(batch["tea_rep"]),
+                                 torch.from_numpy(batch["image"]))
+    assert torch.equal(sto, det)
     task.flags = ControlFlags(need_rep=True)
     with pytest.raises(ValueError, match="cached_teacher requires"):
         task.make_train_step(tx, cached_teacher=True)

@@ -141,6 +141,7 @@ def _op_calls():
     do, p = qkv[:, :16].contiguous(), torch.full((2, 2, 5, 5), 0.2)
     stat = torch.ones(10)
     kw = dict(heads=2, seq=5, scale=0.5)
+    q4 = qkv.view(2, 5, 3, 2, 8).permute(2, 0, 3, 1, 4).unbind(0)     # [B, H, N, d] views
     on = lambda dev, *ts: (t.to(dev) for t in ts)
     return {
         "dense_ln": lambda dev: ops.dense_ln(*on(dev, x, ls, lb, w, b)),
@@ -162,6 +163,12 @@ def _op_calls():
         "plain_attention_save_p": lambda dev: ops.plain_attention_save_p(
             *on(dev, qkv), kv_len=4, **kw)[0],
         "plain_attention_bwd": lambda dev: ops.plain_attention_bwd(*on(dev, qkv, do, p), **kw),
+        "flash_attention_fwd": lambda dev: ops.flash_attention_fwd(
+            *on(dev, *q4), scale=0.5, causal=True)[0],
+        "flash_attention_bwd": lambda dev: ops.flash_attention_bwd(
+            *on(dev, *q4, q4[0], torch.zeros(2, 2, 5), q4[1]), scale=0.5)[0],
+        "flash_transform_attention_fwd": lambda dev: ops.flash_transform_attention_fwd(
+            *on(dev, *q4, wl, ww), scale=0.5, kv_len=4),
     }
 
 
@@ -187,7 +194,8 @@ def test_build_names_library_by_source_hash():
     assert path.name.startswith("libdistillclip_kernels_") and path.suffix == ".so"
     assert path == _build.library_path()  # stable for unchanged sources
     assert {p.name for p in _build._sources()} == {
-        "dense_ln.cu", "dense_ln_bwd.cu", "layer_norm.cu", "plain_attention.cu",
+        "dense_ln.cu", "dense_ln_bwd.cu", "flash_attention.cu", "flash_attention_bwd.cu",
+        "flash_transform_attention.cu", "layer_norm.cu", "plain_attention.cu",
         "plain_attention_bwd.cu", "transform_attention.cu", "transform_attention_bwd.cu"}
 
 

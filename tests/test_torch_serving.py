@@ -23,6 +23,7 @@ from distillclip_tpu_torch import ops
 from distillclip_tpu_torch.convert import _torch_name, jax_student_to_torch
 from distillclip_tpu_torch.models import ControlFlags, RepeatTextTransformer, RepeatVisionTransformer
 from distillclip_tpu_torch.serving import LCLIPScorer, cast_to_compute, prepare_inputs
+from distillclip_tpu_torch.serving.lclip_score import seeded_init
 
 RES, CTX, VOCAB, B = 16, 9, 64, 3
 IMAGE_ARGS = dict(img_size=RES, patch_size=8, out_dim=24, embed_dim=32, depth=4, num_heads=4,
@@ -312,9 +313,16 @@ def test_unported_paths_raise():
     assert not any("conv_" in k for k in plain.state_dict())     # plain attention: no mixes
     with pytest.raises(NotImplementedError, match="iRPE"):
         RepeatTextTransformer(**dict(TEXT_ARGS, rpe_config={"method": "product"}))
-    tower = RepeatTextTransformer(**dict(TEXT_ARGS, drop_path_rate=0.1))
+    # drop-path and the taps are served: in training mode the first changes
+    # the output, and a flag turns the pooled tensor into the output container
+    tower = seeded_init(RepeatTextTransformer(**dict(TEXT_ARGS, drop_path_rate=0.5)),
+                        np.random.default_rng(0))
     toks = torch.from_numpy(_tokens()).long()
-    with pytest.raises(NotImplementedError, match="dropout"):
-        tower.train()(toks)
-    with pytest.raises(NotImplementedError, match="ControlFlags"):
-        tower.eval()(toks, ControlFlags(need_emb=True))
+    with torch.no_grad():
+        pooled = tower.eval()(toks)
+        assert not torch.equal(tower.train()(toks, ControlFlags(),
+                                             torch.Generator().manual_seed(0)), pooled)
+        out = tower.eval()(toks, ControlFlags(need_emb=True))
+    assert torch.equal(out.last_representation, pooled)
+    assert out.embedding.shape == (len(toks), TEXT_ARGS["context_length"],
+                                   TEXT_ARGS["embed_dim"])

@@ -333,13 +333,21 @@ def test_resnet_taps_and_dropout_are_refused_by_item(tmp_path, ckpt_path):
         teacher.teacher_load(str(rn), None, "image", device="cpu")
     img = teacher.teacher_load(ckpt_path, None, "image", device="cpu")
     _, images = _batch(RES)
-    for flags in (ControlFlags(need_attn_prob=True), ControlFlags(need_value_map=True),
-                  ControlFlags(need_rep=True), ControlFlags(need_emb=True)):
-        with pytest.raises(NotImplementedError, match="item 2"):
-            img(torch.from_numpy(images), flags)
-    attn = InstrumentedAttention(64, 1, drop_prob=0.1).train()
-    with pytest.raises(NotImplementedError, match="item 2"):
-        attn(torch.zeros(8, 64), ControlFlags(), LayerNorm(64), 4)
+    # the taps and attention dropout run (tests/test_torch_taps.py holds them to JAX)
+    for flags, field in ((ControlFlags(need_attn_prob=True), "attention_probs"),
+                         (ControlFlags(need_value_map=True), "value_map"),
+                         (ControlFlags(need_rep=True), "representations"),
+                         (ControlFlags(need_emb=True), "embedding")):
+        with torch.no_grad():
+            out = img(torch.from_numpy(images), flags)
+        assert getattr(out, field) is not None and torch.isfinite(getattr(out, field)).all()
+    attn = seeded_init(InstrumentedAttention(64, 1, drop_prob=0.1),
+                       np.random.default_rng(0)).train()
+    x = torch.from_numpy(np.random.default_rng(1).normal(size=(8, 64)).astype(np.float32))
+    with torch.no_grad():
+        dropped = attn(x, ControlFlags(), LayerNorm(64), 4,
+                       generator=torch.Generator().manual_seed(0)).hidden
+        assert not torch.equal(dropped, attn.eval()(x, ControlFlags(), LayerNorm(64), 4).hidden)
     with pytest.raises(ValueError, match="not divisible"):
         InstrumentedAttention(64, 3)
     with pytest.raises(ValueError, match="expected NHWC"):

@@ -497,13 +497,14 @@ def test_seeded_init_state_is_reproducible():
     assert a.step == 0 and a.opt_state["count"] == 0 and "acc_grads" not in a.opt_state
 
 
-# -- what the slice refuses ------------------------------------------------------------
+# -- what the slice refuses, and what it no longer does -----------------------------------
 
-def test_teacher_paths_are_refused_by_item(ckpt_path):
+def test_teacher_paths_are_refused_by_item(ckpt_path, batch):
     """The steps that run a teacher build (tests/test_torch_teacher_steps.py
-    holds them to JAX); what stays refused names its ROADMAP item."""
-    task = _port_task(teacher_name=ckpt_path)
-    _, tx = task.init_state(0, 1, device="cpu")
+    holds them to JAX); what stays refused names its ROADMAP item; a step that
+    is not deterministic is taken (with zero rates it is the same step)."""
+    task = _port_task(teacher_name=ckpt_path, compute_dtype="float32")
+    state, tx = task.init_state(0, 1, device="cpu")
     assert callable(task.make_train_step(tx, cached_text_teacher=True))
     assert callable(task.make_train_step(tx))
     assert task.teacher._module is None          # built at first use, not before
@@ -511,18 +512,30 @@ def test_teacher_paths_are_refused_by_item(ckpt_path):
         _port_task(load_path={"image": "a", "text": "b"})
     frozen = _port_task(freeze_embed=True, teacher_name=ckpt_path)
     assert len(frozen._frozen_paths()) == 3
-    with pytest.raises(NotImplementedError, match="item 2"):
-        task.loss_fn(None, None, None, deterministic=False)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        task.loss_fn_cached_text(None, None, None, None, deterministic=False)
+    toks, imgs, tea_text, _ = _port_args(batch)
+    gen = torch.Generator().manual_seed(0)
+    live, _ = task.loss_fn(state.params, toks, imgs, deterministic=False, generator=gen)
+    assert torch.equal(live, task.loss_fn(state.params, toks, imgs)[0])
+    cached, _ = task.loss_fn_cached_text(state.params, toks, imgs, tea_text,
+                                         deterministic=False, generator=gen)
+    assert torch.equal(cached, task.loss_fn_cached_text(state.params, toks, imgs, tea_text)[0])
 
 
 def test_tap_and_unported_losses_are_refused_by_item():
+    """Every loss name of the JAX package builds a task with the flags its
+    losses need; an unknown name is refused as there; a tap configuration
+    cannot take a cached step."""
     args = dict(image_student=RepeatVisionTransformer(**IMAGE_ARGS),
                 text_student=RepeatTextTransformer(**TEXT_ARGS))
-    for name in ("attention_score_mse", "hidden_rep_mse", "hard_label", "vit_kd"):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            DualDistillTask(loss_control_para={"loss_name": ["out_l1", name]}, **args)
+    para = dict(student_dims=32, teacher_dims=64)
+    want = {"attention_score_mse": ControlFlags(need_attn_score=True),
+            "hidden_rep_mse": ControlFlags(need_rep=True), "hard_label": ControlFlags(),
+            "vit_kd": ControlFlags(need_rep=True)}
+    for name, flags in want.items():
+        task = DualDistillTask(loss_control_para={"loss_name": ["out_l1", name],
+                                                  "vit_kd_para": para}, **args)
+        assert task.flags == flags
+        assert task.loss_control.has_params == (name == "vit_kd")
     with pytest.raises(ValueError, match="Invalid Loss Type"):
         LossCalculator(["out_l2"])
     with pytest.raises(ValueError, match="Invalid Loss Type"):
@@ -536,16 +549,24 @@ def test_tap_and_unported_losses_are_refused_by_item():
 
 
 def test_dropout_and_taps_in_training_are_refused_by_item(batch):
+    """Dropout and taps run in training mode: a stochastic cached step with
+    zero rates is the deterministic one, a tower with a drop rate differs from
+    its eval output and repeats from its seed, and a tapped tower in training
+    mode returns its hidden states."""
     task = _port_task(compute_dtype="float32")
     state, _ = task.init_state(0, 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 2"):
-        task.loss_fn_cached_all(state.params, *_port_args(batch), deterministic=False)
-    tower = RepeatVisionTransformer(**dict(IMAGE_ARGS, drop_rate=0.1)).train()
-    with pytest.raises(NotImplementedError, match="item 2"):
-        tower(torch.from_numpy(batch["images"]))
-    with pytest.raises(NotImplementedError, match="item 2"):
-        RepeatVisionTransformer(**IMAGE_ARGS).train()(torch.from_numpy(batch["images"]),
-                                                      ControlFlags(need_rep=True))
+    sto, _ = task.loss_fn_cached_all(state.params, *_port_args(batch), deterministic=False,
+                                     generator=torch.Generator().manual_seed(0))
+    assert torch.equal(sto, task.loss_fn_cached_all(state.params, *_port_args(batch))[0])
+    images = torch.from_numpy(batch["images"])
+    tower = seeded_init(RepeatVisionTransformer(**dict(IMAGE_ARGS, drop_rate=0.1)),
+                        np.random.default_rng(0))
+    with torch.no_grad():
+        a = tower.train()(images, ControlFlags(), torch.Generator().manual_seed(1))
+        b = tower(images, ControlFlags(), torch.Generator().manual_seed(1))
+        assert torch.equal(a, b) and not torch.equal(a, tower.eval()(images))
+    out = RepeatVisionTransformer(**IMAGE_ARGS).train()(images, ControlFlags(need_rep=True))
+    assert out.representations.shape == (IMAGE_ARGS["depth"], len(images), 17, 32)
 
 
 def test_training_mode_with_zero_drop_rates_equals_eval(batch):
