@@ -50,6 +50,19 @@ phases, each of which exits non-zero on failure:
    no attention kernel), the value-map tap of both tower families against the
    plain fp32 CPU towers, stage 3 live with the contrastive losses, and a
    short stochastic phase (dropout and drop-path: seeded runs repeat);
+5e. the perf knobs (config.perf): under fc1_ln "0", fc1_ln "0" with fc1_res u,
+   fc1_res u, and tf_impl factored, the serving call and the text-cached step
+   of 5c, rebuilt under the knob: 16 pairs against the plain fp32 CPU path
+   built under the same knob, then 256 pairs with the launch table the knob
+   gives (the no-LN GEMM #12 in serving, #10 or #11 in the step, K4 and #7 for
+   every norm; factored: the default step's launches and its losses bit for
+   bit);
+5f. the score entry point: cli.main(["score", ...]) on 256 image files and
+   captions, with the teacher checkpoint and with port-format checkpoints of
+   the seeded students; one JSON line per pair, finite scores in [-1, 1],
+   equal to score_tokens on the same decoded and tokenised rows, and the
+   pairs/s of file scoring beside score_tokens (the host's decode and
+   tokenise cost);
 6. card numbers: each kernel's time beside its plain version's, its bound
    and, where one PyTorch call computes the same function, that call's time;
    fenced scored pairs/s at batch 256 and 1024.
@@ -62,7 +75,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
+import os
 import subprocess
 import sys
 import time
@@ -86,6 +101,14 @@ SOT, EOT = 49406, 49407  # CLIP's start / end of text ids
 HBM_BYTES_PER_S = 3.35e12
 TENSOR_FLOPS = 989e12
 FP32_FLOPS = 67e12
+
+def add_counts(*parts: dict) -> dict:
+    out = {}
+    for part in parts:
+        for k, v in part.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
 
 # kernel -> (source, the TPU kernel it replaces)
 SOURCES = {
@@ -120,9 +143,22 @@ SOURCES = {
     "flash_transform_attention_fwd": (
         "distillclip_tpu_torch/csrc/flash_transform_attention.cu",
         "distillclip_tpu/ops/flash_attention.py:632"),
+    "dense_act": ("distillclip_tpu_torch/csrc/dense_ln.cu",
+                  "distillclip_tpu/ops/fc1_act.py:207"),
+    "dense_act_res": ("distillclip_tpu_torch/csrc/dense_ln.cu",
+                      "distillclip_tpu/ops/fc1_act.py:71"),
+    "dense_act_u": ("distillclip_tpu_torch/csrc/dense_ln.cu",
+                    "distillclip_tpu/ops/fc1_act.py:131"),
 }
+# the head-by-head formulation (tf_impl: factored) is served by K3 / #5 / #6
+FACTORED = ("tf_factored_qkv", "distillclip_tpu/ops/transform_factored.py:392",
+            ("transform_attention_rows_qkv", "transform_attention_save_p",
+             "transform_attention_bwd"))
 SERVING_KERNELS = ("dense_ln", "dense_act_ln", "transform_attention_rows_qkv",
                    "layer_norm_rows")
+# one serving call: 10 logical layers of K1, K2 and K3, the two final norms
+SERVING_LAUNCHES = {"dense_ln": 10, "dense_act_ln": 10, "transform_attention_rows_qkv": 10,
+                    "layer_norm_rows": 2}
 # launches of one train step: 10 logical layers (6 image + 4 text), two LN
 # GEMMs and so two backward GEMMs each, and the two towers' final norm
 TRAIN_STEP_LAUNCHES = {
@@ -174,13 +210,32 @@ MATERIALISED_IMAGE_TEACHER_LAUNCHES = {"dense_ln": 12, "dense_act_ln": 12, "laye
 # six of the teacher's twelve layers, for the six repeats the student returns
 SIX_TEACHER_LAYERS = [0, 1, 2, 9, 10, 11]
 
-
-def add_counts(*parts: dict) -> dict:
-    out = {}
-    for part in parts:
-        for k, v in part.items():
-            out[k] = out.get(k, 0) + v
-    return out
+# fc1_ln "0": every norm of the 10 logical layers is K4 (#7 under a gradient)
+# beside the two final norms, qkv a plain product, fc1 the no-LN GEMM: #12
+# without a gradient, #10 (#11 under fc1_res u) with one; the image teacher's
+# 12 layers run two K4 each beside ln_pre and ln_post, and #13
+UNFUSED_SERVING_LAUNCHES = {"layer_norm_rows": 22, "dense_act": 10,
+                            "transform_attention_rows_qkv": 10}
+UNFUSED_STEP_LAUNCHES = {"layer_norm_rows": 22, "layer_norm_rows_bwd": 22, "dense_act_res": 10,
+                         "transform_attention_save_p": 10, "transform_attention_bwd": 10}
+UNFUSED_U_STEP_LAUNCHES = {**{k: v for k, v in UNFUSED_STEP_LAUNCHES.items()
+                              if k != "dense_act_res"}, "dense_act_u": 10}
+UNFUSED_IMAGE_TEACHER_LAUNCHES = {"layer_norm_rows": 26, "plain_attention_rows_qkv": 12}
+# fc1_res u with the LayerNorm fused: fc1 under a gradient is K1 with its statistics
+U_STEP_LAUNCHES = {"dense_ln": 20, "transform_attention_save_p": 10,
+                   "transform_attention_bwd": 10, "dense_ln_bwd": 20, "layer_norm_rows": 2,
+                   "layer_norm_rows_bwd": 2}
+# knob set -> (its perf section, serving launches, text-cached step launches)
+KNOB_PHASES = {
+    "fc1_ln=0": ({"fc1_ln": "0"}, UNFUSED_SERVING_LAUNCHES,
+                 add_counts(UNFUSED_STEP_LAUNCHES, UNFUSED_IMAGE_TEACHER_LAUNCHES)),
+    "fc1_ln=0 fc1_res=u": ({"fc1_ln": "0", "fc1_res": "u"}, UNFUSED_SERVING_LAUNCHES,
+                           add_counts(UNFUSED_U_STEP_LAUNCHES, UNFUSED_IMAGE_TEACHER_LAUNCHES)),
+    "fc1_res=u": ({"fc1_res": "u"}, SERVING_LAUNCHES,
+                  add_counts(U_STEP_LAUNCHES, IMAGE_TEACHER_LAUNCHES)),
+    "tf_impl=factored": ({"tf_impl": "factored"}, SERVING_LAUNCHES,
+                         add_counts(TRAIN_STEP_LAUNCHES, IMAGE_TEACHER_LAUNCHES)),
+}
 
 
 def fail(msg: str) -> None:
@@ -333,6 +388,40 @@ def oracle_cases(rng):
     dense_cases("text teacher fc1", txt, 512, 4 * 512, True, k1=False, act="quick_gelu",
                 bwd=False)
     dense_cases("ragged", 130, 256, 520, True, w_std=0.05)
+
+    # The no-LN GEMM (#12 h only, #10 h/u/e, #11 u only): under fc1_ln "0"
+    # fc1 takes norm2's output, unit-scale rows, so at W std 0.02 u has std
+    # ~0.55 and stays under 4 over the 39M-60M values (the 8e-3 limit of
+    # bf16 outputs); products of bf16 operands are exact, only the fp32 sum
+    # and the store round.  #11's library call is F.linear; #10 and #12 have
+    # none (F.linear + F.gelu is a scale line).
+    def no_ln_cases(label, rows, c, n, act="gelu_exact", u_mode=True):
+        x, w, b = t((rows, c)), t((c, n), 0.02), t((n,), 0.02)
+        flops, lim = 2.0 * rows * c * n, ("abs", 8e-3, 1e-3)
+        lean = lambda: fc1_act.dense_act(x, w, b, act)
+        cases.append(Case(
+            "dense_act", f"{label} [{rows},{c}]->{n} {act}", lambda: (lean(),),
+            lambda: (fc1_act.dense_act_plain(x.float(), w.float(), b.float(), act),), (lim,),
+            lambda: fc1_act.dense_act_plain(x, w, b, act), flops, gemm_bytes(rows, c, n, 1)))
+        cases.append(Case(
+            "dense_act_res", f"{label} [{rows},{c}]->{n} {act}",
+            lambda: fc1_act.dense_act_res(x, w, b, act),
+            lambda: fc1_act.dense_act_res_plain(x.float(), w.float(), b.float(), act),
+            (lim, lim, lim), lambda: fc1_act.dense_act_res_plain(x, w, b, act), flops,
+            gemm_bytes(rows, c, n, 3), same=lean))
+        if u_mode:
+            cases.append(Case(
+                "dense_act_u", f"{label} [{rows},{c}]->{n}",
+                lambda: (fc1_act.dense_act_u(x, w, b),),
+                lambda: (fc1_act.dense_act_u_plain(x.float(), w.float(), b.float()),), (lim,),
+                lambda: fc1_act.dense_act_u_plain(x, w, b), flops, gemm_bytes(rows, c, n, 1),
+                same=lambda: fc1_act.dense_act_res(x, w, b, act)[1],
+                library=lambda: F.linear(x, w.t(), b)))
+
+    no_ln_cases("image fc1", img, C, 4 * C)
+    no_ln_cases("text fc1", txt, C, 4 * C)
+    no_ln_cases("image fc1", img, C, 4 * C, act="quick_gelu", u_mode=False)
+    no_ln_cases("ragged", 130, 256, 520)
 
     # K3 / save-P / backward: the head mixes are drawn at std H^-1/2, so the
     # mixed logits have std ~1 and the softmax is far from uniform; at the
@@ -633,6 +722,10 @@ def scale_lines(card: str) -> None:
                   f"{cuda_ms(fwd):.4f} ms, + F.gelu {cuda_ms(lambda: F.gelu(fwd())):.4f} ms, "
                   f"backward du @ W^T + native_layer_norm_backward "
                   f"{cuda_ms(lambda: _ln_gemm_bwd(x, g, b, w, du)):.4f} ms [{card}]", flush=True)
+            if "fc1" in label:      # the no-LN GEMM's nearest composition
+                lin = lambda: F.gelu(F.linear(x, w.t(), bias))
+                print(f"scale (two calls, not one) {label}: F.linear + F.gelu "
+                      f"{cuda_ms(lin):.4f} ms [{card}]", flush=True)
     for label, B, H, d, N in (("image", PAIRS, 24, 32, 50), ("text", PAIRS, 12, 64, 77)):
         q, k, v, do = (t((B, H, N, d)).requires_grad_() for _ in range(4))
         with torch.no_grad():
@@ -890,6 +983,9 @@ def run_steps(ops, card: str, label: str, step, state, batch, expected: dict, st
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    # what is allocated when the timing starts: this step's state and batch,
+    # and what earlier phases keep (their steps' tasks and teacher copies)
+    resident = torch.cuda.memory_allocated() / 2 ** 30
     iters = 10
     t0 = time.perf_counter()
     for _ in range(iters):
@@ -898,12 +994,12 @@ def run_steps(ops, card: str, label: str, step, state, batch, expected: dict, st
     dt = (time.perf_counter() - t0) / iters
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"throughput train step {label} {PAIRS} pairs (device-resident): {dt * 1e3:.2f} "
-          f"ms/step, {PAIRS / dt:.1f} pairs/s, peak device memory {peak:.2f} GiB [{card}]",
-          flush=True)
+          f"ms/step, {PAIRS / dt:.1f} pairs/s, peak device memory {peak:.2f} GiB "
+          f"({resident:.2f} GiB allocated when the timing starts) [{card}]", flush=True)
     # the state (0.9 GB of masters and moments) only outlives the phase where
     # the caller profiles it, so that a later phase's peak memory is its own
     return {"counts": counts, "state": state if keep_state else None, "step": step,
-            "batch": batch}
+            "batch": batch, "losses": losses, "ms": dt * 1e3}
 
 
 def dual_phase(ops, card: str, label: str, kind: str, task, plain, expected: dict, steps: int,
@@ -1133,6 +1229,194 @@ def dropout_phase(ops, card: str) -> dict:
     return {"counts": counts}
 
 
+# -- phase 5e: the perf knobs ---------------------------------------------------
+
+@contextlib.contextmanager
+def perf_section(section: dict):
+    """The process environment with only ``section``'s knobs set (through
+    config.perf.apply_perf_config), restored afterwards."""
+    from distillclip_tpu_torch.config import apply_perf_config
+
+    saved = {k: v for k, v in os.environ.items() if k.startswith("DISTILLCLIP_")}
+    for k in saved:
+        del os.environ[k]
+    try:
+        yield apply_perf_config(section)
+    finally:
+        for k in [k for k in os.environ if k.startswith("DISTILLCLIP_")]:
+            del os.environ[k]
+        os.environ.update(saved)
+
+
+def knob_phase(ops, card: str, label: str, default_run: dict) -> dict:
+    """The serving call and the text-cached step built under one knob set:
+    (a) 16 pairs against the plain fp32 CPU path built under the same knobs,
+    (b) 256 pairs with the knob's launch table, (c) ms and pairs/s."""
+    from distillclip_tpu_torch.serving import LCLIPScorer
+
+    section, serving_want, step_want = KNOB_PHASES[label]
+    with perf_section(section) as effective:
+        print(f"knobs {label}: perf section {section}, effective {effective}", flush=True)
+        rng = np.random.default_rng(SEED)
+        scorer = LCLIPScorer.from_config(str(CONFIG), device=DEVICE, seed=SEED)
+        images = make_images(rng, PAIRS, scorer.image_size)
+        tokens = make_tokens(rng, PAIRS, scorer.context_length)
+        ops.reset_launch_counts()
+        scores = scorer.score_tokens(images, tokens)
+        serving_counts = ops.launch_counts()
+        print(f"knobs {label}: launches of one serving call {serving_counts}", flush=True)
+        if serving_counts != {**dict.fromkeys(ops.KERNELS, 0), **serving_want}:
+            fail(f"{label}: serving launches differ from {serving_want}")
+        if not np.isfinite(scores).all() or np.abs(scores).max() > 1.0 + 1e-5:
+            fail(f"{label}: scores not finite or outside [-1, 1]")
+        cpu_state = lambda m: {k: v.float().cpu() for k, v in m.state_dict().items()}
+        plain = LCLIPScorer.from_config(str(CONFIG), cpu_state(scorer.image_tower),
+                                        cpu_state(scorer.text_tower), device="cpu",
+                                        dtype=torch.float32)
+        err = float(np.abs(scores[:16] - plain.score_tokens(images[:16], tokens[:16])).max())
+        d_images, d_tokens = torch.from_numpy(images).to(DEVICE), torch.from_numpy(tokens).to(DEVICE)
+        ms = cuda_ms(lambda: scorer.score_tokens(d_images, d_tokens), iters=5, warmup=1)
+        print(f"knobs {label}: serving scores[:16] vs plain fp32 CPU path max_abs_err {err:.3e} "
+              f"(limit 2e-2); throughput score_tokens batch {PAIRS} (device-resident) "
+              f"{ms:.2f} ms/call, {PAIRS / ms * 1e3:.1f} pairs/s [{card}]", flush=True)
+        if err > 2e-2:
+            fail(f"{label}: kernel-path scores disagree with the plain path")
+        del scorer, plain, d_images, d_tokens
+        run = dual_phase(ops, card, f"text-cached {label}", "text-cached", make_task("bfloat16"),
+                         make_task("float32"), step_want, 6, SEED + 10, False)
+    if label == "tf_impl=factored":
+        same = run["losses"] == default_run["losses"][:len(run["losses"])]
+        print(f"knobs {label}: losses bit-equal to the default text-cached step's: {same}",
+              flush=True)
+        if not same:
+            fail(f"{label}: the factored route changed the text-cached step's losses")
+    return {"serving": serving_counts, "step": run["counts"]}
+
+
+# -- phase 5f: the score entry point -------------------------------------------
+
+CAPTION_WORDS = ("a", "the", "cat", "dog", "on", "grass", "red", "car", "two", "people",
+                 "walking", "near", "sea", "under", "blue", "sky", "with", "an", "old",
+                 "building", "bird", "tree", "sitting", "bench", "street")
+
+
+def score_inputs(n: int):
+    """``n`` seeded 320 x 240 images as JPEG files (PIL) and ``n`` captions in
+    a file, under build/chip_smoke/score; (image dir or None without PIL, the
+    captions file, the uint8 images)."""
+    root = ROOT / "build" / "chip_smoke" / "score"
+    (root / "images").mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(SEED + 50)
+    images = rng.integers(0, 256, size=(n, 240, 320, 3), dtype=np.uint8)
+    captions = [" ".join(rng.choice(CAPTION_WORDS, size=int(rng.integers(3, 12))))
+                for _ in range(n)]
+    (root / "captions.txt").write_text("\n".join(captions) + "\n")
+    try:
+        from PIL import Image
+    except ImportError:
+        return None, str(root / "captions.txt"), images
+    for i, img in enumerate(images):
+        Image.fromarray(img).save(root / "images" / f"{i:04d}.jpg", quality=90)
+    return str(root / "images"), str(root / "captions.txt"), images
+
+
+def student_checkpoint() -> str:
+    """The seeded students of configs/final/l_clip.yaml as one stage-3
+    checkpoint in the port's format."""
+    from distillclip_tpu_torch.serving import LCLIPScorer
+    from distillclip_tpu_torch.training.checkpoints import nest, save_pytree
+
+    path = ROOT / "build" / "chip_smoke" / f"l_clip_students_seed{SEED}.pt"
+    if not path.exists():
+        s = LCLIPScorer.from_config(str(CONFIG), device="cpu", dtype=torch.float32, seed=SEED)
+        masters = {f"student.{tower}.{k}": v for tower, m in (("image_tower", s.image_tower),
+                                                             ("text_tower", s.text_tower))
+                   for k, v in m.state_dict().items()}
+        save_pytree(str(path), {"params": nest(masters)})
+    return str(path)
+
+
+def score_phase(ops, card: str) -> dict:
+    """cli.main score on the card with the teacher and with student
+    checkpoints: one line per pair, finite scores in [-1, 1], equal to
+    score_tokens on the same decoded and tokenised rows, and file scoring's
+    pairs/s beside score_tokens'."""
+    from distillclip_tpu_torch import cli
+    from distillclip_tpu_torch.data import native_loader
+    from distillclip_tpu_torch.serving import LCLIPScorer
+
+    image_dir, captions_file, arrays = score_inputs(PAIRS)
+    captions = [c for c in Path(captions_file).read_text().splitlines() if c.strip()]
+    decoder = ("native/libdcloader.so" if native_loader.available()
+               else "PIL" if image_dir else "none")
+    print(f"score: image decoder: {decoder}", flush=True)
+    teacher, students = teacher_checkpoint(), student_checkpoint()
+    # kind -> (the CLI's arguments, the same scorer's, the launches of one call)
+    kinds = {"teacher": (["--teacher", teacher], dict(teacher_name=teacher),
+                         add_counts(IMAGE_TEACHER_LAUNCHES, TEXT_TEACHER_LAUNCHES)),
+             "students": (["--image-ckpt", students, "--text-ckpt", students, "-c", str(CONFIG)],
+                          dict(image_ckpt=students, text_ckpt=students, config=str(CONFIG)),
+                          SERVING_LAUNCHES)}
+    counts = {}
+    for kind, (args, scorer_args, want) in kinds.items():
+        scorer = LCLIPScorer.from_checkpoints(**scorer_args, device=DEVICE)
+        if image_dir is None:
+            print(f"score {kind}: no image decoder: cli.main is not run; score_arrays on the "
+                  f"uint8 images with the same captions", flush=True)
+            ops.reset_launch_counts()
+            got = scorer.score_arrays(arrays, captions)
+            counts[kind] = ops.launch_counts()
+            paths, decoded = None, arrays
+        else:
+            buf = io.StringIO()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["score", "--images", image_dir, "--captions", captions_file,
+                               "--device", DEVICE] + args)
+            wall = time.perf_counter() - t0
+            counts[kind] = ops.launch_counts()
+            lines = [json.loads(x) for x in buf.getvalue().splitlines() if x.startswith("{")]
+            if rc != 0 or len(lines) != PAIRS or any(
+                    set(x) != {"image", "caption", "l_clip_score"} for x in lines):
+                fail(f"score {kind}: rc {rc}, {len(lines)} lines for {PAIRS} pairs")
+            got = np.array([x["l_clip_score"] for x in lines], np.float32)
+            paths = [x["image"] for x in lines]
+            if [x["caption"] for x in lines] != captions:
+                fail(f"score {kind}: the lines' captions are not the file's, in order")
+            decoded = native_loader.decode_batch_files(paths, size=scorer.image_size)
+            print(f"score {kind}: cli.main score over {PAIRS} files in {wall:.2f} s (the "
+                  f"scorer's build and checkpoint reads included)", flush=True)
+        print(f"score {kind}: launches {counts[kind]}", flush=True)
+        if counts[kind] != {**dict.fromkeys(ops.KERNELS, 0), **want}:
+            fail(f"score {kind}: launches differ from {want}")
+        if got.shape != (PAIRS,) or not np.isfinite(got).all() or np.abs(got).max() > 1 + 1e-5:
+            fail(f"score {kind}: scores not finite or outside [-1, 1]")
+        tokens = scorer._tokenize(captions)
+        ref = scorer.score_tokens(decoded, tokens)
+        diff = float(np.abs(got - ref).max())
+        print(f"score {kind}: tokenizer {type(scorer.tokenizer).__name__}; scores vs "
+              f"score_tokens on the same rows max diff {diff:.3e} (limit 1e-6); range "
+              f"[{got.min():.4f}, {got.max():.4f}]", flush=True)
+        if diff > 1e-6:
+            fail(f"score {kind}: the entry point's scores differ from score_tokens")
+        if paths is not None:
+            scorer.score_files(paths[:8], captions[:8])          # warm-up
+            t0 = time.perf_counter()
+            scorer.score_files(paths, captions)
+            files_s = time.perf_counter() - t0
+            scorer.score_tokens(decoded, tokens)
+            t0 = time.perf_counter()
+            scorer.score_tokens(decoded, tokens)
+            tokens_s = time.perf_counter() - t0
+            print(f"throughput score {kind} {PAIRS} pairs: score_files {PAIRS / files_s:.1f} "
+                  f"pairs/s ({files_s * 1e3:.1f} ms, {decoder} decode and tokenise on the host); "
+                  f"score_tokens on the decoded fp32 rows {PAIRS / tokens_s:.1f} pairs/s "
+                  f"({tokens_s * 1e3:.1f} ms) [{card}]", flush=True)
+        del scorer
+    return counts
+
+
 # -- phase 6b ---------------------------------------------------------------
 
 def throughput(scorer, card: str) -> None:
@@ -1272,6 +1556,9 @@ def main() -> None:
         add_counts(TRAIN_STEP_LAUNCHES, IMAGE_TEACHER_LAUNCHES, TEXT_TEACHER_LAUNCHES), 6,
         SEED + 16, profiling, selecting=("fine_grain", "smd_multi_model"))
     runs["stage-1 dropout"] = dropout_phase(ops, card)
+    knob_runs = {label: knob_phase(ops, card, label, runs["text-cached"])
+                 for label in KNOB_PHASES}
+    score_counts = score_phase(ops, card)
 
     if profiling:
         tokens, images = runs["all-cached"]["batch"][:2]
@@ -1286,12 +1573,24 @@ def main() -> None:
 
     paths = {"serving_call": serving_counts, "teacher_image_encode": teacher_counts["image"],
              "teacher_text_encode": teacher_counts["text"],
-             **{f"train_step {k}": v["counts"] for k, v in runs.items()}}
+             **{f"train_step {k}": v["counts"] for k, v in runs.items()},
+             **{f"serving_call {k}": v["serving"] for k, v in knob_runs.items()},
+             **{f"train_step text-cached {k}": v["step"] for k, v in knob_runs.items()},
+             **{f"score_cli {k}": v for k, v in score_counts.items()}}
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1],
                 "launches": sum(c[name] for c in paths.values()),
                 "launches_by_path": {k: c[name] for k, c in paths.items()},
                 **results[name]} for name in ops.KERNELS]
+    name, replaces, family = FACTORED
+    factored = {k: c for k, c in paths.items() if "tf_impl=factored" in k}
+    kernels.append({
+        "name": name, "route": "cuda", "source": SOURCES[family[0]][0], "replaces": replaces,
+        "served_by": list(family),
+        "launches": sum(c[f] for c in factored.values() for f in family),
+        "launches_by_path": {k: {f: c[f] for f in family} for k, c in factored.items()},
+        **results[family[0]],
+        "max_abs_err": max(results[f]["max_abs_err"] for f in family)})
     if idle := [k["name"] for k in kernels if k["launches"] == 0]:
         fail(f"kernels that no main-path run launched: {idle}")
     print(card_line())

@@ -6,7 +6,11 @@ the step (or the teacher, once) casts them to the compute dtype.  The blocks
 run on ``[B·N, C]`` rows and fold their pre-LayerNorm into the consumer's
 kernel: ``ln_1`` + ``in_proj`` is :func:`ops.dense_ln` (K1), ``ln_2`` + ``c_fc``
 + QuickGELU is :func:`ops.dense_act_ln` (K2); ``out_proj`` and ``c_proj`` are
-plain products.  Attention takes one of three routes, as in the JAX package:
+plain products.  Under the ``fc1_ln: "0"`` perf knob (read when the block is
+built) they do not fold: ``ln_1`` and ``ln_2`` run as
+:func:`ops.layer_norm_rows` (K4), ``in_proj`` is a plain product and ``c_fc``
+a plain product with a plain QuickGELU, as the JAX package leaves them to XLA.
+Attention takes one of three routes, as in the JAX package:
 :func:`ops.plain_attention_rows_qkv` on the fused rows when nothing is tapped,
 :func:`ops.flash_attention` on ``[B, H, N, d]`` views of the fused qkv when
 the stack collects hidden states (``need_rep``), and the materialised fp32
@@ -25,6 +29,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from distillclip_tpu_torch.config.perf import perf_knobs
 from distillclip_tpu_torch.models.outputs import AttentionOutput, ControlFlags
 from distillclip_tpu_torch.ops import (
     dense_act_ln,
@@ -124,16 +129,20 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
 
 class ClipMlp(nn.Module):
     """CLIP residual-block MLP: c_fc (width -> 4·width), QuickGELU, c_proj;
-    ``ln_2`` is folded into the c_fc kernel."""
+    ``ln_2`` is folded into the c_fc kernel unless ``fc1_ln: "0"``."""
 
     def __init__(self, width: int, expansion: int = 4):
         super().__init__()
         self.c_fc = Dense(width, width * expansion)
         self.c_proj = Dense(width * expansion, width)
+        self.perf = perf_knobs()
 
     def forward(self, x: torch.Tensor, ln: LayerNorm) -> torch.Tensor:
-        h = dense_act_ln(x, ln.scale, ln.bias, self.c_fc.kernel, self.c_fc.bias,
-                         "quick_gelu", ln.eps)
+        if self.perf.ln_fusion:
+            h = dense_act_ln(x, ln.scale, ln.bias, self.c_fc.kernel, self.c_fc.bias,
+                             "quick_gelu", ln.eps, self.perf.fc1_res)
+        else:
+            h = quick_gelu(self.c_fc(ln(x)))
         return self.c_proj(h)
 
 
@@ -155,11 +164,15 @@ class InstrumentedAttention(nn.Module):
         self.drop_prob = drop_prob
         self.in_proj = Dense(width, 3 * width)
         self.out_proj = Dense(width, width)
+        self.perf = perf_knobs()
 
     def forward(self, x: torch.Tensor, flags: ControlFlags, ln: LayerNorm, seq: int,
                 causal: bool = False, kv_len: Optional[int] = None,
                 generator: Optional[torch.Generator] = None) -> AttentionOutput:
-        qkv = dense_ln(x, ln.scale, ln.bias, self.in_proj.kernel, self.in_proj.bias, ln.eps)
+        if self.perf.ln_fusion:
+            qkv = dense_ln(x, ln.scale, ln.bias, self.in_proj.kernel, self.in_proj.bias, ln.eps)
+        else:
+            qkv = self.in_proj(ln(x))
         dropout_active = self.drop_prob > 0.0 and self.training
         if not flags.attn_tap() and not dropout_active:
             if flags.need_rep:

@@ -15,7 +15,15 @@ Each repeat runs, on ``[B·N, C]`` rows at the true token count:
 4. norm2 + fc1 + exact GELU -- :func:`ops.dense_act_ln` (K2)
 5. fc2, residual add
 
-and after the last block the tower pools (the cls row, or the EOT row of
+Under the ``fc1_ln: "0"`` perf knob (``config.perf``, read when the tower is
+built) the norms are not folded: norm1 and norm2 run as
+:func:`ops.layer_norm_rows` (K4), qkv is a plain product and fc1 + GELU is
+:func:`ops.dense_act` (the GEMM without the LayerNorm prologue).  Under
+``fc1_res: u`` fc1 saves u only for its backward.  ``tf_impl: factored`` names
+the per-head formulation that K3 computes already (``ops.transform_attention``).
+The parameter names do not change.
+
+After the last block the tower pools (the cls row, or the EOT row of
 the text), normalises the pooled rows (:func:`ops.layer_norm_rows`, K4) and
 projects them with ``head``; under ``need_last_layer`` it normalises and
 projects all N rows and pools afterwards.
@@ -58,6 +66,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from distillclip_tpu_torch.config.perf import perf_knobs, require_kernels
 from distillclip_tpu_torch.models.layers import (
     Dense,
     drop_path,
@@ -75,6 +84,7 @@ from distillclip_tpu_torch.models.outputs import (
 from distillclip_tpu_torch.models.text import TokenEmbedding, eot_pool
 from distillclip_tpu_torch.models.vit import patchify
 from distillclip_tpu_torch.ops import (
+    dense_act,
     dense_act_ln,
     dense_ln,
     flash_attention,
@@ -100,7 +110,8 @@ class StudentLayerNorm(nn.Module):
 class MiniAttention(nn.Module):
     """Shared qkv/proj attention; with ``use_transform`` the per-repeat head
     mixes ``conv_l`` / ``conv_w`` exist and mix the heads, without it the
-    attention is plain.  norm1 is folded into the qkv kernel."""
+    attention is plain.  norm1 is folded into the qkv kernel unless the
+    ``fc1_ln: "0"`` knob unfuses it."""
 
     def __init__(self, dim: int, num_heads: int, repeated_times: int = 1,
                  qkv_bias: bool = False, qk_scale: Optional[float] = None,
@@ -118,6 +129,7 @@ class MiniAttention(nn.Module):
             self.conv_l = nn.Parameter(torch.empty(repeated_times, num_heads, num_heads))
             self.conv_w = nn.Parameter(torch.empty(repeated_times, num_heads, num_heads))
         self.proj = Dense(dim, dim)
+        self.perf = perf_knobs()
 
     def _project(self, ctx: torch.Tensor, generator) -> torch.Tensor:
         out = self.proj(ctx)
@@ -128,7 +140,11 @@ class MiniAttention(nn.Module):
     def forward(self, x: torch.Tensor, repeat_id: int, seq: int, norm1: StudentLayerNorm,
                 flags: ControlFlags = ControlFlags(),
                 generator: Optional[torch.Generator] = None) -> AttentionOutput:
-        qkv = dense_ln(x, norm1.scale, norm1.bias, self.qkv.kernel, self.qkv.bias, norm1.eps)
+        if self.perf.ln_fusion:
+            qkv = dense_ln(x, norm1.scale, norm1.bias, self.qkv.kernel, self.qkv.bias,
+                           norm1.eps)
+        else:
+            qkv = self.qkv(norm1(x))
         dropout_active = self.attn_drop > 0.0 and self.training
         if not flags.attn_tap() and not dropout_active:
             if flags.need_rep:
@@ -174,19 +190,24 @@ class MiniAttention(nn.Module):
 
 class Mlp(nn.Module):
     """fc1 -> exact GELU -> drop -> fc2 -> drop; norm2 is folded into the fc1
-    kernel."""
+    kernel unless the ``fc1_ln: "0"`` knob unfuses it."""
 
     def __init__(self, in_features: int, hidden_features: int, drop: float = 0.0):
         super().__init__()
         self.drop = drop
         self.fc1 = Dense(in_features, hidden_features)
         self.fc2 = Dense(hidden_features, in_features)
+        self.perf = perf_knobs()
 
     def forward(self, x: torch.Tensor, norm2: StudentLayerNorm,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         active = self.drop > 0.0 and self.training
-        h = dense_act_ln(x, norm2.scale, norm2.bias, self.fc1.kernel, self.fc1.bias,
-                         "gelu_exact", norm2.eps)
+        if self.perf.ln_fusion:
+            h = dense_act_ln(x, norm2.scale, norm2.bias, self.fc1.kernel, self.fc1.bias,
+                             "gelu_exact", norm2.eps, self.perf.fc1_res)
+        else:
+            h = dense_act(norm2(x), self.fc1.kernel, self.fc1.bias, "gelu_exact",
+                          self.perf.fc1_res)
         if active:
             h = dropout(h, self.drop, generator)
         out = self.fc2(h)
@@ -270,12 +291,15 @@ class _RepeatTower(nn.Module):
             for b in range(depth // repeated_times))
         self.norm = StudentLayerNorm(embed_dim)
         self.head = Dense(embed_dim, out_dim)
+        self.perf = perf_knobs()
 
     def _blocks_and_head(self, x: torch.Tensor, pool, flags: ControlFlags, generator):
         """x: ``[B, N, C]`` embeddings; ``pool`` picks one row per sample of a
         ``[B, N, ·]`` tensor.  The pooled tensor under the default flags, else
         the tower's output container."""
         B, N, C = x.shape
+        if x.is_cuda:
+            require_kernels(self.perf, x.device)
         embedding = x if flags.need_emb else None
         if self.drop_rate > 0.0 and self.training:
             x = dropout(x, self.drop_rate, generator)

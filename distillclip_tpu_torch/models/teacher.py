@@ -32,6 +32,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import torch
 from torch import nn
 
+from distillclip_tpu_torch.config.perf import require_module_kernels
 from distillclip_tpu_torch.models.clip import CLIPModel
 from distillclip_tpu_torch.models.encoders import ImageEncoder, TextEncoder
 
@@ -212,6 +213,7 @@ def map_text_weights(sd: Dict[str, torch.Tensor], layers: int) -> Dict[str, torc
 
 
 def _frozen(module: nn.Module, device) -> nn.Module:
+    require_module_kernels(module, device)
     return module.eval().requires_grad_(False).to(device)
 
 

@@ -16,6 +16,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from distillclip_tpu_torch.config.perf import perf_knobs, require_kernels
 from distillclip_tpu_torch.models.layers import ClipMlp, InstrumentedAttention, LayerNorm
 from distillclip_tpu_torch.models.outputs import (
     AttentionOutput,
@@ -70,6 +71,7 @@ class Transformer(nn.Module):
         self.need_layers = None if need_layers is None else tuple(need_layers)
         self.resblocks = nn.ModuleList(ResidualAttentionBlock(width, heads, drop_prob)
                                        for _ in range(layers))
+        self.perf = perf_knobs()
 
     def selected_layers(self) -> Tuple[int, ...]:
         return tuple(range(self.layers)) if self.need_layers is None else self.need_layers
@@ -79,6 +81,8 @@ class Transformer(nn.Module):
                 generator: Optional[torch.Generator] = None) -> TransformerOutput:
         """``hidden`` stays ``[B·seq, C]`` rows; ``representations`` are
         ``[L, B, seq, C]`` views of the selected layers' rows."""
+        if x.is_cuda:
+            require_kernels(self.perf, x.device)
         selected = set(self.selected_layers())
         scores, probs, reps = [], [], []
         value_map = None

@@ -10,12 +10,17 @@ qkv rows (the CLIP teacher towers and every student without head mixes):
 forward, forward with saved probabilities, backward.  The last three are
 attention on ``[B, H, N, d]`` views with the row logsumexp as residual (the
 towers when they collect hidden states): plain forward and backward, and the
-head-transform forward.
+head-transform forward.  The last three are the dense GEMM without the
+LayerNorm prologue, which the blocks run under the ``fc1_ln: "0"`` knob: h only
+(no gradient), h with the (u, e) residuals, and u only (``fc1_res: u``).
 """
 
 from distillclip_tpu_torch.ops.fc1_act import (
+    dense_act,
     dense_act_ln,
     dense_act_ln_res,
+    dense_act_res,
+    dense_act_u,
     dense_ln,
     dense_ln_bwd,
 )
@@ -55,6 +60,9 @@ KERNELS = {
     "flash_attention_fwd": flash_attention_fwd,
     "flash_attention_bwd": flash_attention_bwd,
     "flash_transform_attention_fwd": flash_transform_attention_fwd,
+    "dense_act": dense_act,
+    "dense_act_res": dense_act_res,
+    "dense_act_u": dense_act_u,
 }
 
 
@@ -69,8 +77,11 @@ def launch_counts() -> dict:
 
 __all__ = [
     "KERNELS",
+    "dense_act",
     "dense_act_ln",
     "dense_act_ln_res",
+    "dense_act_res",
+    "dense_act_u",
     "dense_ln",
     "dense_ln_bwd",
     "flash_attention",

@@ -54,6 +54,8 @@ _SIGNATURES = {
     "dc_dense_ln": (_I, [_P] * 8 + [_I, _I, _I, _F, _I, _P]),
     # x, gamma, beta, w, bias, h, u, e, mean, rstd | rows, C, N, eps, act, stream
     "dc_dense_act_ln_res": (_I, [_P] * 10 + [_I, _I, _I, _F, _I, _P]),
+    # x, w, bias, h, u, e | rows, C, N, act, res, stream
+    "dc_dense_act": (_I, [_P] * 6 + [_I] * 5 + [_P]),
     "dc_dense_ln_bwd_smem_bytes": (ctypes.c_longlong, [_I]),
     "dc_dense_ln_bwd_blocks": (_I, [_I]),
     # x, gamma, beta, w, du, mean, rstd, dx, xn, partial, dgamma_dbeta | rows, C, N, stream

@@ -1,9 +1,10 @@
-"""LayerNorm-prologue dense layers, forward and backward.
-
-Port of ``distillclip_tpu/ops/fc1_act.py``'s LN-fused entry points:
+"""The dense layers of ``distillclip_tpu/ops/fc1_act.py``, forward and backward.
 
 * :func:`dense_ln`      u = (LN(x)·γ+β)·W (+b)          -- K1, the qkv projection
 * :func:`dense_act_ln`  h = act((LN(x)·γ+β)·W + b)      -- K2, fc1 + GELU
+* :func:`dense_act`     h = act(x·W + b)                -- the no-LN mode of the
+  same GEMM (#12; #10 or #11 under a gradient), which the blocks run when the
+  ``fc1_ln: "0"`` knob unfuses their LayerNorms
 
 W is ``[C, N]`` (the Flax Dense layout, which the converter keeps).  On a
 CUDA tensor both launch the hand-written GEMM of ``csrc/dense_ln.cu``; on a
@@ -25,6 +26,19 @@ only.  With one, each function is a ``torch.autograd.Function``:
   normalised rows xn and dγ, dβ from du in one pass.  The GELU derivative,
   dW = xnᵀ·du and db = Σ du stay plain PyTorch, as the JAX package leaves
   them to XLA.
+
+With ``res="u"`` (the ``fc1_res: u`` knob) fc1 under a gradient saves u
+only: :func:`dense_act_ln` runs K1 with its statistics and :func:`dense_act`
+the no-LN mode that writes u (#11); h and e come from u in PyTorch with an
+exact erf, and the backward recomputes e from u, as the JAX package's
+``_recombine_u`` and ``_dense_act_bwd`` do.  In the default ``"ue"`` mode
+:func:`dense_act` runs the no-LN mode that writes h, u and e (#10).  The
+backward of :func:`dense_act` is the JAX package's XLA backward in PyTorch:
+dx = du·Wᵀ, dW = xᵀ·du and db = Σ du.
+
+The no-LN mode stages x and W as bf16 (not fp16: without the LayerNorm x is
+unbounded); its plain versions are :func:`dense_act_plain`,
+:func:`dense_act_res_plain` and :func:`dense_act_u_plain`.
 """
 
 from __future__ import annotations
@@ -37,6 +51,7 @@ import torch
 from distillclip_tpu_torch.ops import _build
 
 _ACTS = {"gelu_exact": 1, "quick_gelu": 2}
+_RES_MODES = ("ue", "u")
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
@@ -95,6 +110,30 @@ def dense_ln_plain(x, ls, lb, w, b=None, eps: float = 1e-5, act: Optional[str] =
     return dense_act_ln_res_plain(x, ls, lb, w, b, act, eps)[0]
 
 
+def _recombine_u(u: torch.Tensor, act: str) -> torch.Tensor:
+    """h from u alone, in u's dtype: e recomputed in fp32 (the u mode)."""
+    uf = u.float()
+    return _recombine(uf, _act_e(uf, act), act).to(u.dtype)
+
+
+def dense_act_u_plain(x, w, b):
+    """Plain PyTorch version of the no-LN mode that writes u = x·W + b (#11)."""
+    return (x.float() @ w.float() + b.float()).to(x.dtype)
+
+
+def dense_act_res_plain(x, w, b, act: str = "gelu_exact"):
+    """Plain PyTorch version of the no-LN residual mode (#10): (h, u, e), each
+    rounded once from the fp32 sum."""
+    u = x.float() @ w.float() + b.float()
+    e = _act_e(u, act)
+    return _recombine(u, e, act).to(x.dtype), u.to(x.dtype), e.to(x.dtype)
+
+
+def dense_act_plain(x, w, b, act: str = "gelu_exact"):
+    """Plain PyTorch version of the no-LN mode that writes h only (#12)."""
+    return dense_act_res_plain(x, w, b, act)[0]
+
+
 def dense_ln_bwd_plain(x, ls, lb, w, du, mean, rstd):
     """Plain PyTorch version of the backward kernel: (dx, xn in x's dtype,
     dγ fp32, dβ fp32) from du and the saved row statistics."""
@@ -125,6 +164,12 @@ def _check_widths(what, smem_bytes, C, N):
                          f"got C={C}, N={N}")
     if smem_bytes(C) > _build.MAX_SMEM_BYTES:
         raise ValueError(f"{what}: C={C} is too wide for the kernel's row tile")
+
+
+def _check_dense_shapes(what, x, w, b):
+    if x.ndim != 2 or w.ndim != 2 or w.shape[0] != x.shape[1] or b.shape != (w.shape[1],):
+        raise ValueError(f"{what}: x [rows, C], w [C, N] and b [N], got {tuple(x.shape)}, "
+                         f"{tuple(w.shape)}, {tuple(b.shape)}")
 
 
 def _ptr(t):
@@ -191,6 +236,43 @@ def dense_act_ln_res(x, ls, lb, w, b, act: str = "gelu_exact", eps: float = 1e-5
     return h, u, e, mean, rstd
 
 
+def _launch_dense_act(wrapper, x, w, b, act_code: int, res: bool):
+    """The no-LN mode on CUDA tensors, counted on ``wrapper``: h (or u with
+    act_code 0), and with ``res`` also u and e."""
+    what = wrapper.__name__
+    _build.check_operands(what, x, w, b)
+    rows, C = x.shape
+    N = w.shape[1]
+    lib = _build.lib()
+    _check_widths(what, lib.dc_dense_ln_smem_bytes, C, N)
+    outs = [torch.empty((rows, N), dtype=x.dtype, device=x.device)
+            for _ in range(3 if res else 1)]
+    if rows == 0:
+        return outs
+    h, u, e = outs if res else (outs[0], None, None)
+    _build.check(lib.dc_dense_act(x.data_ptr(), w.data_ptr(), b.data_ptr(), h.data_ptr(),
+                                  _ptr(u), _ptr(e), rows, C, N, act_code, int(res),
+                                  _build.stream_ptr(x)), what)
+    wrapper.launches += 1
+    return outs
+
+
+def dense_act_res(x, w, b, act: str = "gelu_exact"):
+    """(h, u, e) of act(x·W + b): the no-LN residual mode (#10) on CUDA
+    tensors, :func:`dense_act_res_plain` on the CPU."""
+    if _build.plain_only("dense_act_res", x):
+        return dense_act_res_plain(x, w, b, act)
+    return tuple(_launch_dense_act(dense_act_res, x, w, b, _ACTS[act], True))
+
+
+def dense_act_u(x, w, b):
+    """u = x·W + b: the no-LN mode that writes u only (#11) on CUDA tensors,
+    :func:`dense_act_u_plain` on the CPU."""
+    if _build.plain_only("dense_act_u", x):
+        return dense_act_u_plain(x, w, b)
+    return _launch_dense_act(dense_act_u, x, w, b, 0, False)[0]
+
+
 def dense_ln_bwd(x, ls, lb, w, du, mean, rstd):
     """(dx, xn, dγ fp32, dβ fp32) of u = LN(x)·W from du: the backward
     kernel on CUDA tensors, :func:`dense_ln_bwd_plain` on the CPU."""
@@ -243,12 +325,25 @@ class _DenseLn(torch.autograd.Function):
         return dx, dls.to(ls.dtype), dlb.to(lb.dtype), dw, db, None
 
 
+def _act_du(dh, u, e, act):
+    """du = dh · act'(u) in dh's dtype; e is recomputed from u when not saved."""
+    uf = u.float()
+    ef = _act_e(uf, act) if e is None else e.float()
+    return (dh.float() * _act_grad(uf, ef, act)).to(dh.dtype)
+
+
 class _DenseActLn(torch.autograd.Function):
-    """After ``_dense_act_ln_fwd`` / ``_dense_act_ln_bwd`` of the JAX package."""
+    """After ``_dense_act_ln_fwd`` / ``_dense_act_ln_bwd`` of the JAX package:
+    ``res="ue"`` saves (u, e) from K2's residual mode, ``res="u"`` saves u
+    from K1 with its statistics."""
 
     @staticmethod
-    def forward(ctx, x, ls, lb, w, b, act, eps):
-        h, u, e, mean, rstd = dense_act_ln_res(x, ls, lb, w, b, act, eps)
+    def forward(ctx, x, ls, lb, w, b, act, eps, res):
+        if res == "u":
+            u, mean, rstd = dense_ln_fwd(x, ls, lb, w, b, eps, stats=True)
+            h, e = _recombine_u(u, act), None
+        else:
+            h, u, e, mean, rstd = dense_act_ln_res(x, ls, lb, w, b, act, eps)
         ctx.save_for_backward(x, ls, lb, w, u, e, mean, rstd)
         ctx.act = act
         return h
@@ -256,10 +351,34 @@ class _DenseActLn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dh):
         x, ls, lb, w, u, e, mean, rstd = ctx.saved_tensors
-        du = (dh.float() * _act_grad(u.float(), e.float(), ctx.act)).to(dh.dtype)
+        du = _act_du(dh, u, e, ctx.act)
         dx, xn, dls, dlb = dense_ln_bwd(x, ls, lb, w, du, mean, rstd)
         dw, db = _weight_grads(xn, du, w, True)
-        return dx, dls.to(ls.dtype), dlb.to(lb.dtype), dw, db, None, None
+        return dx, dls.to(ls.dtype), dlb.to(lb.dtype), dw, db, None, None, None
+
+
+class _DenseAct(torch.autograd.Function):
+    """After ``_dense_act_fwd`` / ``_dense_act_bwd`` of the JAX package; the
+    backward is its XLA backward: dx and dW are plain products."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, act, res):
+        if res == "u":
+            u, e = dense_act_u(x, w, b), None
+            h = _recombine_u(u, act)
+        else:
+            h, u, e = dense_act_res(x, w, b, act)
+        ctx.save_for_backward(x, w, u, e)
+        ctx.act = act
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        x, w, u, e = ctx.saved_tensors
+        du = _act_du(dh, u, e, ctx.act)
+        dx = (du @ w.t()).to(x.dtype)
+        dw, db = _weight_grads(x, du, w, True)
+        return dx, dw, db, None, None
 
 
 def dense_ln(x: torch.Tensor, ls: torch.Tensor, lb: torch.Tensor, w: torch.Tensor,
@@ -272,21 +391,46 @@ def dense_ln(x: torch.Tensor, ls: torch.Tensor, lb: torch.Tensor, w: torch.Tenso
     return dense_ln_fwd(x, ls, lb, w, b, eps)[0]
 
 
-def dense_act_ln(x: torch.Tensor, ls: torch.Tensor, lb: torch.Tensor, w: torch.Tensor,
-                 b: torch.Tensor, act: str = "gelu_exact", eps: float = 1e-5) -> torch.Tensor:
-    """h = act(LN(x; ls, lb) @ w + b) on 2D rows (K2); act is
-    ``gelu_exact`` or ``quick_gelu``.  Differentiable in every tensor argument."""
+def _check_modes(what, act, res):
     if act not in _ACTS:
-        raise ValueError(f"dense_act_ln: unknown activation {act!r}")
+        raise ValueError(f"{what}: unknown activation {act!r}")
+    if res not in _RES_MODES:
+        raise ValueError(f"{what}: res must be one of {_RES_MODES}, got {res!r}")
+
+
+def dense_act_ln(x: torch.Tensor, ls: torch.Tensor, lb: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor, act: str = "gelu_exact", eps: float = 1e-5,
+                 res: str = "ue") -> torch.Tensor:
+    """h = act(LN(x; ls, lb) @ w + b) on 2D rows (K2); act is
+    ``gelu_exact`` or ``quick_gelu``; ``res`` what a gradient saves ("ue" or
+    "u").  Differentiable in every tensor argument."""
+    _check_modes("dense_act_ln", act, res)
     _check_shapes("dense_act_ln", x, ls, lb, w, b)
     if _build.needs_grad(x, ls, lb, w, b):
-        return _DenseActLn.apply(x, ls, lb, w, b, act, eps)
+        return _DenseActLn.apply(x, ls, lb, w, b, act, eps, res)
     if _build.plain_only("dense_act_ln", x):
         return dense_ln_plain(x, ls, lb, w, b, eps, act)
     return _launch(dense_act_ln, x, ls, lb, w, b, eps, _ACTS[act])[0]
 
 
+def dense_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, act: str = "gelu_exact",
+              res: str = "ue") -> torch.Tensor:
+    """h = act(x @ w + b) on 2D rows without a LayerNorm: the no-LN mode
+    writing h (#12); under a gradient (h, u, e) (#10) or, with ``res="u"``, u
+    (#11).  Differentiable in x, w and b."""
+    _check_modes("dense_act", act, res)
+    _check_dense_shapes("dense_act", x, w, b)
+    if _build.needs_grad(x, w, b):
+        return _DenseAct.apply(x, w, b, act, res)
+    if _build.plain_only("dense_act", x):
+        return dense_act_plain(x, w, b, act)
+    return _launch_dense_act(dense_act, x, w, b, _ACTS[act], False)[0]
+
+
 dense_ln.launches = 0
 dense_act_ln.launches = 0
+dense_act.launches = 0
+dense_act_res.launches = 0
+dense_act_u.launches = 0
 dense_act_ln_res.launches = 0
 dense_ln_bwd.launches = 0

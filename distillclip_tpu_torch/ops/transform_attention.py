@@ -19,6 +19,14 @@ the ``ww`` mix) in qkv's dtype, and the backward
 the fused dqkv and the two mix gradients from qkv, the output gradient and P.
 The mix gradients leave the kernel as fp32 ``[H, H]`` and are cast to the
 parameters' dtype, as the JAX package casts them.
+
+The JAX package's ``tf_impl: factored`` route
+(``ops/transform_factored.py::tf_factored_qkv``, kernel #18) computes the same
+function head by head: per-head q·kᵀ products, the two head mixes, a per-head
+softmax max.  That is how K3, #5 and #6 compute it already, at the true
+sequence length, so under that knob the port runs them unchanged; the TPU
+keeps two implementations only because its 128 × 128 matrix unit favours one
+or the other by shape.
 """
 
 from __future__ import annotations

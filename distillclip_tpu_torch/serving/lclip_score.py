@@ -1,9 +1,14 @@
-"""L-CLIPScore batch inference with the two student towers.
+"""L-CLIPScore batch inference, with the two students or the CLIP teacher.
 
 Port of ``distillclip_tpu/serving/lclip_score.py::LCLIPScorer``: encode the
-image and the caption tokens, L2-normalise both in fp32, and score each
-aligned pair by their cosine.  Images arrive NHWC as uint8 (normalised on the
-device) or as pre-normalised floats; captions arrive as token ids.
+image and the caption, L2-normalise both in fp32, and score each aligned pair
+by their cosine.  Images arrive NHWC as uint8 (normalised on the device), as
+pre-normalised floats, or as files (:meth:`LCLIPScorer.score_files`: the
+native JPEG decoder, else PIL); captions as strings (tokenised on the host by
+``data.tokenizer``) or as token ids.  The scorer is built from a config with
+seeded or converted weights (:meth:`from_config`), from stage checkpoints in
+the port's format (:meth:`from_checkpoints`), or from a CLIP teacher
+checkpoint (:meth:`from_teacher`).
 
 The JAX scorer pads each request to a batch bucket so that XLA does not
 recompile per size; eager PyTorch has no such cost, so requests run at their
@@ -13,19 +18,22 @@ own size.  Everything runs under ``torch.inference_mode()``.
 from __future__ import annotations
 
 from collections import deque
-from typing import Iterable, Iterator, Optional, Tuple
+from typing import Iterable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import yaml
 from torch import nn
 
+from distillclip_tpu_torch.config.perf import require_module_kernels
+from distillclip_tpu_torch.data.tokenizer import build_tokenizer
 from distillclip_tpu_torch.models import (
     ImageEncoder,
     RepeatTextTransformer,
     RepeatVisionTransformer,
     TextEncoder,
     l2_normalize,
+    teacher_load,
 )
 from distillclip_tpu_torch.models.transformer import clip_init_stds
 from distillclip_tpu_torch.serving.inputs import cast_to_compute, prepare_inputs
@@ -116,17 +124,41 @@ def seeded_init(module: nn.Module, rng: np.random.Generator) -> nn.Module:
     return module
 
 
+def _image_size(tower: nn.Module) -> int:
+    return tower.img_size if hasattr(tower, "img_size") else tower.visual.input_resolution
+
+
+def _text_dims(tower: nn.Module) -> Tuple[int, int]:
+    """(context length, vocabulary size) of a text tower of either family."""
+    if hasattr(tower, "context_length"):
+        return tower.context_length, tower.vocab_size
+    text = tower.text
+    return text.context_length, text.token_embedding.embed.embedding.shape[0]
+
+
+def _rep(out) -> torch.Tensor:
+    """The pooled representation: a student's tensor or an encoder's field."""
+    return out if isinstance(out, torch.Tensor) else out.last_representation
+
+
 class LCLIPScorer:
-    """Cosine L-CLIPScore of (image, caption-token) pairs on one device.
+    """Cosine L-CLIPScore of (image, caption) pairs on one device.
 
     The towers' weights are cast to ``dtype`` once (``cast_to_compute``) and
     moved to ``device`` once; requests move only their own tensors.
+    ``tokenizer`` turns captions into ids (by default :func:`data.tokenizer.
+    build_tokenizer` without a vocabulary file: the hash tokenizer).
     """
 
     def __init__(self, image_tower: nn.Module, text_tower: nn.Module, *,
-                 device="cuda", dtype: torch.dtype = torch.bfloat16):
+                 device="cuda", dtype: torch.dtype = torch.bfloat16, tokenizer=None):
         self.device = torch.device(device)
+        for tower in (image_tower, text_tower):
+            require_module_kernels(tower, self.device)
         self.dtype = dtype
+        self.image_size = _image_size(image_tower)
+        self.context_length = _text_dims(text_tower)[0]
+        self.tokenizer = tokenizer or _tokenizer(None, text_tower)
         self.image_tower = cast_to_compute(image_tower.eval(), dtype).to(self.device)
         self.text_tower = cast_to_compute(text_tower.eval(), dtype).to(self.device)
 
@@ -150,6 +182,51 @@ class LCLIPScorer:
             towers.append(tower)
         return cls(*towers, device=device, dtype=dtype)
 
+    @classmethod
+    def from_teacher(cls, teacher_name: str = "ViT-B/32", download_root: str = "./.cache",
+                     bpe_path: Optional[str] = None, device="cuda",
+                     dtype: torch.dtype = torch.bfloat16) -> "LCLIPScorer":
+        """Score with the full CLIP teacher (the reference CLIPScore baseline):
+        ``teacher_name`` is a model name (downloaded into ``download_root``
+        unless there already) or a checkpoint path."""
+        clip = teacher_load(teacher_name, download_root, "all", device="cpu")
+        return cls(clip.image_tower, clip.text_tower, device=device, dtype=dtype,
+                   tokenizer=_tokenizer(bpe_path, clip.text_tower))
+
+    @classmethod
+    def from_checkpoints(cls, image_ckpt: Optional[str] = None,
+                         text_ckpt: Optional[str] = None, config: Optional[str] = None,
+                         bpe_path: Optional[str] = None, teacher_name: str = "ViT-B/32",
+                         download_root: str = "./.cache", device="cuda",
+                         dtype: torch.dtype = torch.bfloat16) -> "LCLIPScorer":
+        """Both students from a stage-3 config's ``model.init_args`` with their
+        weights from stage checkpoints in the port's format
+        (``training.checkpoints``; a stage-3 checkpoint serves both towers).
+        Without checkpoints (None or empty strings) it is the teacher scorer;
+        student checkpoints without ``config`` raise."""
+        from distillclip_tpu_torch.training.checkpoints import restore_tower_params
+
+        image_ckpt, text_ckpt = image_ckpt or None, text_ckpt or None
+        if image_ckpt is None and text_ckpt is None:
+            return cls.from_teacher(teacher_name, download_root, bpe_path, device, dtype)
+        if config is None:
+            raise ValueError("score with student checkpoints needs --config (the stage-3 "
+                             "YAML describing the student tower architectures)")
+        if image_ckpt is None or text_ckpt is None:
+            raise ValueError("score with student checkpoints needs both --image-ckpt and "
+                             "--text-ckpt (one stage-3 checkpoint may serve both)")
+        with open(config) as f:
+            init_args = yaml.safe_load(f)["model"]["init_args"]
+        towers = []
+        for key, ckpt, scope in (("image_student", image_ckpt, "image_tower"),
+                                 ("text_student", text_ckpt, "text_tower")):
+            tower = build_tower(init_args[key])
+            tower.load_state_dict(restore_tower_params(ckpt, tower.state_dict(), tower=scope),
+                                  strict=True)
+            towers.append(tower)
+        return cls(*towers, device=device, dtype=dtype,
+                   tokenizer=_tokenizer(bpe_path, towers[1]))
+
     # -- device legs ---------------------------------------------------------
 
     def _to_device(self, x, pin: bool = False) -> torch.Tensor:
@@ -161,10 +238,10 @@ class LCLIPScorer:
         return t.to(self.device)
 
     def _image_features(self, images: torch.Tensor) -> torch.Tensor:
-        return l2_normalize(self.image_tower(prepare_inputs(images, self.dtype)).float())
+        return l2_normalize(_rep(self.image_tower(prepare_inputs(images, self.dtype))).float())
 
     def _text_features(self, tokens: torch.Tensor) -> torch.Tensor:
-        return l2_normalize(self.text_tower(tokens.long()).float())
+        return l2_normalize(_rep(self.text_tower(tokens.long())).float())
 
     def _score_on_device(self, images: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
         if len(images) != len(tokens):
@@ -226,6 +303,40 @@ class LCLIPScorer:
             done.synchronize()
         return scores.numpy().copy()
 
-    def similarity_matrix(self, images, tokens) -> np.ndarray:
+    def _tokenize(self, captions: Sequence[str]) -> np.ndarray:
+        """``[N, context_length]`` ids of the captions (host work)."""
+        return self.tokenizer.tokenize(list(captions), context_length=self.context_length)
+
+    def encode_captions(self, captions: Sequence[str]) -> np.ndarray:
+        """[N, out_dim] unit-norm fp32 features of caption strings."""
+        return self.encode_tokens(self._tokenize(captions))
+
+    def score_arrays(self, images, captions: Sequence[str]) -> np.ndarray:
+        """Per-pair cosine L-CLIPScore of aligned images and caption strings."""
+        return self.score_tokens(images, self._tokenize(captions))
+
+    def score_files(self, image_paths: Sequence[str], captions: Sequence[str]) -> np.ndarray:
+        """Per-pair score of image files and caption strings: the files are
+        decoded, resized, center-cropped and normalised on the host (the
+        native decoder, else PIL), the captions tokenised."""
+        from distillclip_tpu_torch.data import native_loader
+
+        images = native_loader.decode_batch_files([str(p) for p in image_paths],
+                                                  size=self.image_size)
+        return self.score_arrays(images, captions)
+
+    def similarity_matrix(self, images, captions: Sequence[str]) -> np.ndarray:
+        """[N_img, N_txt] cosine matrix of images against caption strings."""
+        return self._similarity_matrix_tokens(images, self._tokenize(captions))
+
+    def _similarity_matrix_tokens(self, images, tokens) -> np.ndarray:
         """[N_img, N_txt] cosine matrix of images against token rows."""
         return self.encode_images(images) @ self.encode_tokens(tokens).T
+
+
+def _tokenizer(bpe_path: Optional[str], text_tower: nn.Module):
+    """The caption tokenizer for ``text_tower``: CLIP's BPE where a
+    vocabulary file is given or ``CLIP_BPE_PATH`` names one, else the hash
+    tokenizer bounded by the tower's vocabulary."""
+    ctx, vocab = _text_dims(text_tower)
+    return build_tokenizer(bpe_path, context_length=ctx, vocab_size=vocab)

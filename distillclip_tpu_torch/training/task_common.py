@@ -11,6 +11,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from distillclip_tpu_torch.config.perf import perf_knobs, set_perf
 from distillclip_tpu_torch.models.encoders import ImageEncoder, TextEncoder, projections_for
 from distillclip_tpu_torch.models.repeat_vit import RepeatVisionTransformer
 from distillclip_tpu_torch.models.teacher import teacher_load
@@ -32,12 +33,16 @@ class FrozenTeacher:
     :meth:`compute` is its copy in the compute dtype on a device, made once per
     device: the frozen weights never change, so nothing is cast inside a step.
     It runs under ``torch.no_grad()``, so its kernels are the lean ones and no
-    probabilities or residuals are saved."""
+    probabilities or residuals are saved.  It runs under the perf knobs that
+    were set when the task was built (``config.perf``), even though it is
+    loaded later."""
 
     def __init__(self, name: str, download_root: Optional[str], model_type: str,
                  need_layers: Optional[Sequence[int]], dtype: torch.dtype):
-        self._load = lambda: teacher_load(name, download_root, model_type,
-                                          need_layers=need_layers, device="cpu")
+        self._perf = perf_knobs()
+        self._load = lambda: set_perf(teacher_load(name, download_root, model_type,
+                                                   need_layers=need_layers, device="cpu"),
+                                      self._perf)
         self._dtype = dtype
         self._module: Optional[nn.Module] = None
         self._compute: Dict[str, nn.Module] = {}

@@ -691,3 +691,76 @@ def test_tiny_tapped_steps_on_card_match_plain_cpu_path(tmp_path):
         assert abs(float(metrics["loss"]) - float(ref)) < 2e-2
         attention = {k: v for k, v in counts.items() if "attention" in k and v}
         assert attention == want, (losses, attention)
+
+
+# -- the no-LN GEMM (#10-#12) and the knobs that reach it --------------------------
+
+@pytest.mark.parametrize("rows,C,N", [(1, 32, 8), (63, 96, 136), (65, 768, 3072),
+                                      (130, 256, 520)])
+@pytest.mark.parametrize("act", ["gelu_exact", "quick_gelu"])
+def test_dense_act_kernels_match_plain(rows, C, N, act):
+    """h only (#12), h with u and e (#10) and u only (#11) against the plain
+    versions in fp32 on the same bf16 values; the residual mode's h is the lean
+    mode's bit for bit.  x at std 3 and mean 1: an activation no LayerNorm
+    bounds, which the kernel stages as bf16."""
+    rng = np.random.default_rng(rows + C + N)
+    x, w, b = _bf16(rng, (rows, C), 3.0, 1.0), _bf16(rng, (C, N), C ** -0.5 / 3), \
+        _bf16(rng, (N,), 0.1)
+    with torch.inference_mode():
+        lean = fc1_act.dense_act(x, w, b, act)
+    h, u, e = fc1_act.dense_act_res(x, w, b, act)
+    u_only = fc1_act.dense_act_u(x, w, b)
+    torch.cuda.synchronize()
+    assert torch.equal(h, lean) and torch.equal(u_only, u)
+    rh, ru, re = fc1_act.dense_act_res_plain(x.float(), w.float(), b.float(), act)
+    _close(h, rh)
+    _close(u, ru)
+    _close(e, re)
+
+
+def test_dense_act_keeps_activations_past_fp16_range():
+    """bf16 operands: a row of 1e5 (past fp16's 65504) goes through."""
+    rng = np.random.default_rng(3)
+    x, w, b = _bf16(rng, (64, 64)), _bf16(rng, (64, 64), 1e-3), _bf16(rng, (64,), 0.1)
+    x[5] = 1e5
+    u = fc1_act.dense_act_u(x, w, b)
+    torch.cuda.synchronize()
+    ref = fc1_act.dense_act_u_plain(x.float(), w.float(), b.float())
+    assert torch.isfinite(u.float()).all()
+    torch.testing.assert_close(u.float(), ref.float(), atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("res", ["ue", "u"])
+def test_dense_act_autograd_on_card_matches_plain_autograd(res):
+    """One differentiable call: #10 (or #11) forward, plain products backward,
+    against the same autograd Function on the CPU in fp32."""
+    rng = np.random.default_rng(4)
+    arrays = [_bf16(rng, (96, 128)), _bf16(rng, (128, 512), 128 ** -0.5), _bf16(rng, (512,), 0.1)]
+    cot = _bf16(rng, (96, 512))
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [(a if dev == "cuda" else a.float().cpu()).clone().requires_grad_()
+                  for a in arrays]
+        ops.reset_launch_counts()
+        out = fc1_act.dense_act(*leaves, "gelu_exact", res)
+        out.backward(cot.to(out.device, out.dtype))
+        grads[dev] = [out.detach()] + [t.grad for t in leaves]
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            want = dict.fromkeys(ops.KERNELS, 0)
+            want["dense_act_u" if res == "u" else "dense_act_res"] = 1
+            assert ops.launch_counts() == want
+    for g, r in zip(grads["cuda"], grads["cpu"]):
+        assert _rel_to_max(g.cpu(), r) < 2e-2
+
+
+def test_dense_act_refuses_what_the_kernel_does_not_take():
+    rng = np.random.default_rng(5)
+    x, w, b = _bf16(rng, (16, 64)), _bf16(rng, (64, 64)), _bf16(rng, (64,))
+    with torch.inference_mode():
+        with pytest.raises(TypeError, match="bfloat16"):
+            fc1_act.dense_act(x.float(), w.float(), b.float())
+        with pytest.raises(ValueError, match="C % 32"):
+            fc1_act.dense_act(x[:, :48].contiguous(), w[:48].contiguous(), b)
+        with pytest.raises(ValueError, match="contiguous"):
+            fc1_act.dense_act(x, w.t().contiguous().t(), b)

@@ -35,7 +35,11 @@ def test_port_files_are_found():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert {"chip_smoke.py", "tests/test_torch_cuda.py",
             "distillclip_tpu_torch/serving/lclip_score.py",
-            "distillclip_tpu_torch/ops/fc1_act.py"} <= names
+            "distillclip_tpu_torch/ops/fc1_act.py", "distillclip_tpu_torch/cli.py",
+            "distillclip_tpu_torch/config/perf.py", "distillclip_tpu_torch/config/loader.py",
+            "distillclip_tpu_torch/data/tokenizer.py", "distillclip_tpu_torch/data/transforms.py",
+            "distillclip_tpu_torch/data/native_loader.py",
+            "distillclip_tpu_torch/training/checkpoints.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

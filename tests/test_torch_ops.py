@@ -169,6 +169,9 @@ def _op_calls():
             *on(dev, *q4, q4[0], torch.zeros(2, 2, 5), q4[1]), scale=0.5)[0],
         "flash_transform_attention_fwd": lambda dev: ops.flash_transform_attention_fwd(
             *on(dev, *q4, wl, ww), scale=0.5, kv_len=4),
+        "dense_act": lambda dev: ops.dense_act(*on(dev, x, w, b)),
+        "dense_act_res": lambda dev: ops.dense_act_res(*on(dev, x, w, b), "quick_gelu")[0],
+        "dense_act_u": lambda dev: ops.dense_act_u(*on(dev, x, w, b)),
     }
 
 

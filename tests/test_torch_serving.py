@@ -181,7 +181,9 @@ def test_stream_refuses_zero_depth(bf16_scorer):
 
 def test_similarity_matrix_diagonal_is_score_tokens(bf16_scorer):
     images, tokens = _images(8), _tokens(8)
-    sim = bf16_scorer.similarity_matrix(images, tokens)
+    # the token-level form; the public similarity_matrix takes captions, as
+    # the JAX package's does (tests/test_torch_score_cli.py)
+    sim = bf16_scorer._similarity_matrix_tokens(images, tokens)
     assert sim.shape == (B, B)
     np.testing.assert_allclose(np.diagonal(sim), bf16_scorer.score_tokens(images, tokens),
                                atol=1e-6, rtol=0)
