@@ -34,7 +34,9 @@ phases, each of which exits non-zero on failure:
    12 layers x 12 heads, text 512 x 12 x 8, out 512) written by the port's
    fabricator and loaded through teacher_load; both encode functions on 256
    pairs, the first 16 against the plain fp32 CPU path, launches as expected;
-5c. the train steps that run it, phased like 5: the stage-3 step with the text
+5c. the train steps that run it, phased like 5, on students warm-started as
+   the config's load_path asks (stage checkpoints that the run writes from
+   seeded towers; the masters must equal them): the stage-3 step with the text
    teacher cached and the image teacher live (the main path), the live step,
    a step that trains through plain attention (use_transform=False students,
    both teachers cached), and the stage-1 DistillTask step of
@@ -64,8 +66,10 @@ phases, each of which exits non-zero on failure:
    pairs/s of file scoring beside score_tokens (the host's decode and
    tokenise cost);
 6. card numbers: each kernel's time beside its plain version's, its bound
-   and, where one PyTorch call computes the same function, that call's time;
-   fenced scored pairs/s at batch 256 and 1024.
+   and, where one PyTorch call computes the same function, that call's time
+   (kernel and library call: device time of calls replayed from a CUDA graph,
+   so that a wrapper's host cost does not enter it); fenced scored pairs/s at
+   batch 256 and 1024.
 
 The last two lines before the final one are the card line and a JSON object
 of the kernels; the last line is {"ok": true, "device": {...}}.
@@ -263,6 +267,33 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20) -> Optional[float]:
+    """Mean device time of fn() over ``iters`` calls captured in one CUDA
+    graph and replayed, by CUDA events: the host's cost of a call (Python,
+    argument checks, the launch itself) does not enter it, where a kernel
+    shorter than its wrapper would otherwise time the host.  None where the
+    calls cannot be captured."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+            for _ in range(iters):
+                fn()
+    except RuntimeError as err:
+        torch.cuda.synchronize()
+        print(f"graph capture failed ({str(err).splitlines()[0][:120]}); eager timing", flush=True)
+        return None
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def bf16(rng: np.random.Generator, shape, std: float = 1.0, mean: float = 0.0):
     a = rng.standard_normal(shape, dtype=np.float32) * np.float32(std) + np.float32(mean)
     return torch.from_numpy(a).to(DEVICE).to(torch.bfloat16)
@@ -279,7 +310,10 @@ class Case:
     lean mode's output, which ``run()[0]`` must equal bit for bit; ``also``
     takes the outputs and returns a complaint or None.  ``plain`` is the plain
     version on the kernel's own bf16 inputs (timed, not compared); ``library``
-    one PyTorch call that computes the same function, if any."""
+    one PyTorch call that computes the same function, if any;
+    ``library_eager`` says it runs through autograd, whose backward ops run
+    on the streams of the forward and so stay out of a graph captured on
+    another stream: it is timed eagerly."""
 
     kernel: str
     label: str
@@ -293,6 +327,7 @@ class Case:
     same: Optional[Callable[[], torch.Tensor]] = None
     library: Optional[Callable[[], object]] = None
     also: Optional[Callable[[tuple], Optional[str]]] = None
+    library_eager: bool = False
 
     def bound(self):
         by_bytes, by_ops = self.nbytes / HBM_BYTES_PER_S, self.flops / self.peak
@@ -530,7 +565,7 @@ def oracle_cases(rng):
                 q.float(), g.float(), p.float(), **k),),
             (("abs", 3e-2),),
             lambda q=qkv, g=do, p=p, k=kw: pa.plain_attention_bwd_plain(q, g, p, **k),
-            4 * product, 2 * B * N * 7 * H * d + pbytes, library=sdpa_bwd))
+            4 * product, 2 * B * N * 7 * H * d + pbytes, library=sdpa_bwd, library_eager=True))
 
     # Attention on [B, H, N, d] views with the logsumexp residual (the towers
     # when they collect hidden states): forward, backward and the
@@ -588,7 +623,7 @@ def oracle_cases(rng):
             (("abs", 3e-2), ("abs", 3e-2), ("abs", 3e-2)),
             lambda q=q, k=k, v=v, o=o, l=lse, g=do, kw=kw: fa.flash_attention_bwd_plain(
                 q, k, v, o, l, g, **kw),
-            5 * product, 8 * tensor + lse_bytes, library=sdpa_bwd))
+            5 * product, 8 * tensor + lse_bytes, library=sdpa_bwd, library_eager=True))
         if "teacher" in label:
             continue        # the teachers have no head mixes
         # under the causal mask the first rows see one or two keys, so their
@@ -689,15 +724,22 @@ def kernel_oracles(card: str) -> dict:
     for case in oracle_cases(np.random.default_rng(SEED)):
         with torch.no_grad():
             err = check_case(case)
-            ms, plain_ms = cuda_ms(case.run), cuda_ms(case.plain)
-            # the library calls are short and launch-bound: more launches for
-            # a steadier mean
-            lib_ms = None if case.library is None else cuda_ms(case.library, 100, 10)
+            # the kernel and the library call replayed from a CUDA graph (their
+            # device time), eager where a call cannot be captured; the plain
+            # version, many small launches, eager; the library calls are short:
+            # more calls for a steadier mean
+            ms = graph_ms(case.run) or cuda_ms(case.run)
+            plain_ms = cuda_ms(case.plain)
+            lib_ms = None
+            if case.library is not None:
+                lib_ms = (None if case.library_eager else graph_ms(case.library, 100)) \
+                    or cuda_ms(case.library, 100, 10)
         bound_ms, bound_by = case.bound()
         print(f"time {case.kernel} {case.label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms by {bound_by} ({case.flops / 1e9:.3f} GFLOP, "
-              f"{case.nbytes / 1e6:.3f} MB), library "
-              + ("none" if lib_ms is None else f"{lib_ms:.4f} ms") + f" [{card}]", flush=True)
+              f"{case.nbytes / 1e6:.3f} MB, {bound_ms / ms:.3f} of it), library "
+              + ("none" if lib_ms is None else f"{lib_ms:.4f} ms (kernel / library "
+                                               f"{ms / lib_ms:.2f})") + f" [{card}]", flush=True)
         r = results.setdefault(case.kernel, {
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib_ms})
@@ -834,12 +876,33 @@ def _config_args(path: Path) -> dict:
         return yaml.safe_load(f)["model"]["init_args"]
 
 
+def stage_checkpoints() -> dict:
+    """The config's ``load_path``: stage-1 and stage-2 checkpoints of the
+    students of configs/final/l_clip.yaml in the port's format, written once
+    under build/ from seeded towers (seeds SEED + 1 and SEED + 2, so that the
+    warm start differs from the task's own seeded init)."""
+    from distillclip_tpu_torch.serving.lclip_score import build_tower, seeded_init
+    from distillclip_tpu_torch.training.checkpoints import nest, save_pytree
+
+    args, paths = _config_args(CONFIG), {}
+    for i, key in enumerate(("image", "text")):
+        path = ROOT / "build" / "chip_smoke" / f"l_clip_{key}_stage_seed{SEED + 1 + i}.pt"
+        if not path.exists():
+            tower = seeded_init(build_tower(args[f"{key}_student"]),
+                                np.random.default_rng(SEED + 1 + i))
+            save_pytree(str(path), {"params": {"student": nest(tower.state_dict())}})
+        paths[key] = str(path)
+    return paths
+
+
 def make_task(compute_dtype: str, use_transform: bool = True, losses: Optional[dict] = None):
     """The stage-3 task on the students of configs/final/l_clip.yaml, with the
-    config's losses (or ``losses``) and optimizer settings and the seeded
-    teacher.  The config's ``load_path`` (a stage-1/2 warm start) is left out:
-    the weights are seeded.  ``use_transform=False`` takes the head mixes out
-    of both students, which then train through plain attention."""
+    config's losses (or ``losses``), optimizer settings and ``load_path``, the
+    latter pointed at :func:`stage_checkpoints`, and the seeded teacher.
+    ``use_transform=False`` takes the head mixes out of both students, which
+    then train through plain attention; those towers have no stage
+    checkpoints (their parameters differ), so they start from the seeded
+    init."""
     from distillclip_tpu_torch.serving.lclip_score import build_tower
     from distillclip_tpu_torch.training import DualDistillTask
 
@@ -851,7 +914,26 @@ def make_task(compute_dtype: str, use_transform: bool = True, losses: Optional[d
         text_student=build_tower(args["text_student"]),
         loss_control_para=losses or args["loss_control_para"], warm_steps=args["warm_steps"],
         total_steps=args["total_steps"], weight_decay=args["weight_decay"], lr=args["lr"],
+        load_path=stage_checkpoints() if use_transform else None,
         teacher_name=teacher_checkpoint(), compute_dtype=compute_dtype)
+
+
+def check_warm_start(task) -> None:
+    """The masters of a task built with ``load_path`` are its stage
+    checkpoints' towers, not the seeded init."""
+    from distillclip_tpu_torch.training.checkpoints import flatten, restore_pytree
+
+    params = task.init_params(SEED, "cpu")
+    for key in ("image", "text"):
+        saved = flatten(restore_pytree(task.load_path[key])["params"]["student"])
+        saved = {f"student.{key}_tower.{k}": v for k, v in saved.items()}
+        tower = {k: v for k, v in params.items() if k.startswith(f"student.{key}_tower.")}
+        if set(saved) != set(tower) or not all(torch.equal(tower[k], v.float())
+                                               for k, v in saved.items()):
+            fail(f"load_path: the {key} tower's masters are not its stage checkpoint's")
+    names = {k: Path(v).name for k, v in task.load_path.items()}
+    print(f"train: load_path {names}: both towers' masters equal the stage checkpoints' "
+          f"({sum(v.numel() for v in params.values()) / 1e6:.2f} M)", flush=True)
 
 
 def make_image_task(compute_dtype: str, losses: Optional[dict] = None,
@@ -1451,14 +1533,15 @@ def throughput(scorer, card: str) -> None:
 
 # device kernels by the piece of the step they belong to, first match wins
 PROFILE_GROUPS = (
-    ("flash_attention forward", ("flash_attention_fwd_kernel",)),
+    ("flash_attention forward (#16, tensor cores)", ("flash_attention_fwd_mma_kernel",)),
     ("flash_attention_bwd", ("flash_attention_bwd_kernel",)),
     ("flash_transform_attention forward", ("flash_transform_attention_fwd_kernel",)),
     ("dense_ln + dense_act_ln_res (LN GEMMs forward)", ("dense_ln_kernel",)),
     ("dense_ln_bwd (LN GEMM backward)", ("dense_ln_bwd_kernel",)),
     ("transform_attention forward (lean / save_p)", ("transform_attention_kernel",)),
     ("transform_attention_bwd", ("tf_bwd_",)),
-    ("plain_attention forward (lean / save_p)", ("plain_attention_kernel",)),
+    ("plain_attention forward (#13 lean / save_p, tensor cores)",
+     ("plain_attention_mma_kernel",)),
     ("plain_attention_bwd", ("plain_attention_bwd_kernel",)),
     ("layer_norm_rows + bwd", ("layer_norm_rows",)),
     ("reduce_partials", ("reduce_partials",)),
@@ -1530,6 +1613,7 @@ def main() -> None:
 
     profiling = "--profile" in sys.argv[1:]
     task, plain = make_task("bfloat16"), make_task("float32")
+    check_warm_start(task)
     runs = {"all-cached": dual_phase(ops, card, "all-cached", "all-cached", task, plain,
                                      TRAIN_STEP_LAUNCHES, 8, SEED + 3, profiling)}
     teacher_counts = teacher_phase(ops, card, task, plain)

@@ -4,9 +4,11 @@ Port of ``distillclip_tpu/data/native_loader.py::decode_batch_files``: loads
 ``native/libdcloader.so`` (threaded libjpeg decode, bilinear resize and
 center crop, CLIP normalisation; source ``native/dataloader.cc``, shared as a
 file with the JAX package) and decodes a batch of files.  Where the library
-is absent or does not load (it links ``libjpeg.so.62``), or an image is not a
-JPEG, the rows are decoded with PIL through :func:`data.transforms.
-eval_image_transform`, in the same order as the JAX package.
+is absent or does not load (it links ``libjpeg.so.62``), every file is decoded
+with PIL through :func:`data.transforms.eval_image_transform`, and a missing or
+unreadable file raises, as the JAX package's ``score_files`` does.  Rows the
+native decoder failed (a PNG) are retried with PIL, and a row PIL cannot read
+either stays zero, as in the JAX package's decoder.
 """
 
 from __future__ import annotations
@@ -62,13 +64,19 @@ def available() -> bool:
 def decode_batch_files(paths: Sequence[str], size: int = 224,
                        num_threads: int = 8) -> np.ndarray:
     """[N, size, size, 3] float32 CLIP-normalised NHWC batch of image files:
-    the native decoder, and PIL for the rows it could not decode (a PNG) or
-    for all of them without the library."""
+    the native decoder, and PIL for the rows it could not decode (a PNG).
+    Without the library every file goes through PIL, and one that cannot be
+    opened or decoded raises."""
     lib = load_library()
     n = len(paths)
-    out = np.zeros((n, size, size, 3), np.float32)
     if lib is None:
-        return _pil_batch(paths, size, out)
+        from PIL import Image
+
+        tf = eval_image_transform(size)
+        if not n:
+            return np.zeros((0, size, size, 3), np.float32)
+        return np.stack([tf(Image.open(p)) for p in paths])
+    out = np.zeros((n, size, size, 3), np.float32)
     mean = np.asarray(IMAGE_MEAN, np.float32)
     std = np.asarray(IMAGE_STD, np.float32)
     fp = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
@@ -80,11 +88,12 @@ def decode_batch_files(paths: Sequence[str], size: int = 224,
     return out
 
 
-def _pil_batch(paths, size, out, rows=None):
+def _pil_batch(paths, size, out, rows):
+    """Retry the rows the native decoder failed; a row PIL cannot read
+    either stays zero."""
     from PIL import Image
 
     tf = eval_image_transform(size)
-    rows = range(len(paths)) if rows is None else rows
     for row, p in zip(rows, paths):
         try:
             out[row] = tf(Image.open(p))

@@ -68,16 +68,14 @@ _SIGNATURES = {
     # qkv, wl, ww, dout, probs, dqkv, pm_scratch, ds_scratch, partial, dwl_dww |
     # batch, N, H, d, tq, scale, stream
     "dc_transform_attention_bwd": (_I, [_P] * 10 + [_I, _I, _I, _I, _I, _F, _P]),
-    "dc_pa_smem_bytes": (ctypes.c_longlong, [_I, _I, _I, _I]),
-    # qkv, out, probs | batch, N, H, d, tq, scale, causal, kv_len, stream
-    "dc_plain_attention": (_I, [_P] * 3 + [_I, _I, _I, _I, _I, _F, _I, _I, _P]),
+    # qkv, out, probs | batch, N, H, d, scale, causal, kv_len, stream
+    "dc_plain_attention": (_I, [_P] * 3 + [_I, _I, _I, _I, _F, _I, _I, _P]),
     "dc_pa_bwd_smem_bytes": (ctypes.c_longlong, [_I, _I, _I, _I]),
     # qkv, dout, probs, dqkv | batch, N, H, d, tq, scale, stream
     "dc_plain_attention_bwd": (_I, [_P] * 4 + [_I, _I, _I, _I, _I, _F, _P]),
-    "dc_fa_smem_bytes": (ctypes.c_longlong, [_I, _I, _I, _I]),
-    # q, k, v, out, lse, strides (host, 4 x 3 int64) | batch, N, H, d, tq, scale, causal,
+    # q, k, v, out, lse, strides (host, 4 x 3 int64) | batch, N, H, d, scale, causal,
     # kv_len, stream
-    "dc_flash_attention_fwd": (_I, [_P] * 6 + [_I, _I, _I, _I, _I, _F, _I, _I, _P]),
+    "dc_flash_attention_fwd": (_I, [_P] * 6 + [_I, _I, _I, _I, _F, _I, _I, _P]),
     "dc_fa_bwd_smem_bytes": (ctypes.c_longlong, [_I, _I, _I, _I]),
     # q, k, v, o, dout, lse, dq, dk, dv, strides (host, 8 x 3 int64) | batch, N, H, d, tq,
     # scale, causal, kv_len, stream

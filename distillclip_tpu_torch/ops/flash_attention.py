@@ -11,7 +11,9 @@ probabilities by ``Ww`` after it (the weight-share students' conv_l / conv_w).
 Three kernels, each beside its plain PyTorch version:
 
 * :func:`flash_attention_fwd` (``csrc/flash_attention.cu``): o and the row
-  logsumexp ``lse`` ``[B, H, N]`` fp32;
+  logsumexp ``lse`` ``[B, H, N]`` fp32, both products on the tensor cores
+  (the routine of ``csrc/mma_attention.cuh``, shared with the fused-qkv
+  forward of ``ops.plain_attention``);
 * :func:`flash_attention_bwd` (``csrc/flash_attention_bwd.cu``): dq, dk, dv
   from q, k, v, o, lse and do, the probabilities recomputed as
   exp(s - lse), so no ``[B, H, N, N]`` tensor exists in either direction;
@@ -160,13 +162,12 @@ def flash_attention_fwd(q, k, v, *, scale: float, causal: bool = False,
     _check_kernel_operands(what, d, q, k, v)
     q, k, v = (_kernel_view(what, t) for t in (q, k, v))
     lib = _build.lib()
-    tq = _pick_tq(lib, lib.dc_fa_smem_bytes, N, H, d, what)
     (o,) = _empty_like_layout(q)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
     if q.numel():
         _build.check(lib.dc_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            _strides(q, k, v, o), B, N, H, d, tq, float(scale), int(bool(causal)),
+            _strides(q, k, v, o), B, N, H, d, float(scale), int(bool(causal)),
             N if kv_len is None else int(kv_len), _build.stream_ptr(q)), what)
         flash_attention_fwd.launches += 1
     return o, lse

@@ -11,8 +11,10 @@ towers, of the plain CLIP-architecture students and of the weight-share
 students with ``use_transform=False``.
 
 On a CUDA tensor it launches ``csrc/plain_attention.cu`` at the true sequence
-length (any head count, ``d`` a multiple of 8 up to 128, ``seq`` up to 256); on
-a CPU tensor it runs :func:`plain_attention_rows_qkv_plain`.
+length (any head count, ``d`` a multiple of 8 up to 128, ``seq`` up to 256):
+both products on the tensor cores, one warp per 16 query rows of a head (the
+design is in ``csrc/mma_attention.cuh``).  On a CPU tensor it runs
+:func:`plain_attention_rows_qkv_plain`.
 
 With a gradient it is a ``torch.autograd.Function``: the forward is the kernel
 with its save-P flag (:func:`plain_attention_save_p`), which also stores the
@@ -118,7 +120,6 @@ def _launch_fwd(wrapper, qkv, heads, seq, scale, causal, kv_len, save_p: bool):
     _build.check_operands(what, qkv)
     _check_kernel_limits(what, seq, d)
     lib = _build.lib()
-    tq = _pick_tq(lib, lib.dc_pa_smem_bytes, seq, heads, d, what)
     out = torch.empty((rows, heads * d), dtype=qkv.dtype, device=qkv.device)
     p = None
     if save_p:
@@ -127,7 +128,7 @@ def _launch_fwd(wrapper, qkv, heads, seq, scale, causal, kv_len, save_p: bool):
         return out, p
     _build.check(lib.dc_plain_attention(qkv.data_ptr(), out.data_ptr(),
                                         None if p is None else p.data_ptr(), rows // seq,
-                                        seq, heads, d, tq, float(scale), int(bool(causal)),
+                                        seq, heads, d, float(scale), int(bool(causal)),
                                         seq if kv_len is None else int(kv_len),
                                         _build.stream_ptr(qkv)), what)
     wrapper.launches += 1

@@ -23,8 +23,11 @@ one ``teacher_need_layers`` for both towers; ``vit_kd`` acts on the image tower
 ``deterministic=False`` switches the students' dropout and drop-path on, drawn
 from a generator the step seeds once.
 
-Not ported yet, and refused by name: ``load_path`` (stage-1/2 checkpoints,
-ROADMAP queue 1 item 7) and the eval step (item 8).
+``load_path={"image": ..., "text": ...}`` warm-starts the towers from stage-1
+and stage-2 checkpoints (``training.checkpoints``), after the seeded init and
+before ``vit_kd``'s parameters and ``freeze_embed``'s copy, as in the JAX
+package.  Not ported yet: the eval step, which comes with the trainer (ROADMAP
+queue 1).
 
 On one device the contrastive negatives are the batch's own; the JAX package
 gathers them over its data mesh.
@@ -44,6 +47,7 @@ from distillclip_tpu_torch.models import CLIPModel, CLIPOutput, ControlFlags
 from distillclip_tpu_torch.models.clip import cosine_logits
 from distillclip_tpu_torch.models.outputs import TextOutput, VisionOutput
 from distillclip_tpu_torch.serving.lclip_score import seeded_init
+from distillclip_tpu_torch.training.checkpoints import restore_tower_params
 from distillclip_tpu_torch.training.task_common import (
     FrozenTeacher,
     adopt_params,
@@ -106,10 +110,6 @@ class DualDistillTask:
     accumulate_grad_batches: int = 1
 
     def __post_init__(self):
-        if self.load_path:
-            raise NotImplementedError(
-                "load_path (warm start from stage-1/2 checkpoints) is not ported yet "
-                "(ROADMAP queue 1, item 7: checkpoints); pass params to init_state")
         self.student = CLIPModel(image_tower=self.image_student, text_tower=self.text_student)
         self.loss_control = LossCalculator(**self.loss_control_para)
         self.flags: ControlFlags = self.loss_control.control_flags()
@@ -124,13 +124,16 @@ class DualDistillTask:
 
     def init_params(self, rng, device="cuda") -> Dict[str, torch.Tensor]:
         """Seeded fp32 masters ``{"student.<module path>": tensor}`` on
-        ``device``; ``rng`` is a numpy Generator or a seed.  Under
-        ``freeze_embed`` the image student starts from the teacher's patch,
-        class and positional embeddings."""
+        ``device``; ``rng`` is a numpy Generator or a seed.  With
+        ``load_path`` the towers then take their stage checkpoints' weights.
+        Under ``freeze_embed`` the image student starts from the teacher's
+        patch, class and positional embeddings."""
         if not isinstance(rng, np.random.Generator):
             rng = np.random.default_rng(rng)
         for tower in (self.student.image_tower, self.student.text_tower):
             seeded_init(tower, rng)
+        if self.load_path:
+            self._load_stage_checkpoints()
         params = {f"student.{k}": v.detach().clone().float()
                   for k, v in self.student.named_parameters()}
         if self.loss_control.has_params:
@@ -139,6 +142,18 @@ class DualDistillTask:
         if self.freeze_embed:
             params = self._copy_teacher_embeddings(params)
         return {k: v.to(device) for k, v in params.items()}
+
+    def _load_stage_checkpoints(self) -> None:
+        """Warm-start both towers from their stage-1/2 checkpoints (the
+        reference's load_weight strips the 'student.' key prefix, as
+        ``restore_tower_params`` does)."""
+        if self.load_path.get("image") is None or self.load_path.get("text") is None:
+            raise ValueError(
+                "the cpk is None! if you set the load_path parameter you "
+                "should give the image and text checkpoint path")
+        for key, tower in (("image", self.student.image_tower),
+                           ("text", self.student.text_tower)):
+            tower.load_state_dict(restore_tower_params(self.load_path[key], tower.state_dict()))
 
     def _frozen_paths(self) -> List[str]:
         if not self.freeze_embed:

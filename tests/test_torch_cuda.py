@@ -651,6 +651,51 @@ def test_flash_attention_refuses_what_the_kernels_do_not_take():
     assert torch.equal(a, b)
 
 
+# -- the tensor-core forward of #13 and #16 at the edges of its tiles ----------------
+
+# (B, H, d, N): a warp takes 16 query rows and a key block 64 keys, so N on
+# either side of 16, 64, 128 and at 256; d padded to the k-step of 16 (8, 24,
+# 40), 48 and 128; odd head counts at d = 32, where a block takes two heads
+_TILE_EDGES = [(3, 5, 32, 15), (2, 3, 8, 16), (2, 5, 32, 17), (2, 2, 24, 63), (2, 3, 40, 64),
+               (2, 2, 48, 65), (2, 1, 128, 128), (2, 3, 8, 129), (1, 2, 128, 256),
+               (2, 7, 32, 256)]
+
+
+@pytest.mark.parametrize("B,H,d,N", _TILE_EDGES)
+@pytest.mark.parametrize("causal,kv", [(False, None), (True, None), (False, "short"),
+                                       (True, "short")],
+                         ids=["full", "causal", "kv_len", "causal_kv_len"])
+def test_tensor_core_forward_at_tile_edges(B, H, d, N, causal, kv):
+    """#13 lean and save-P on the fused rows, #16 forward on their views and
+    on contiguous copies, against the plain versions in fp32: o within 8e-3,
+    P within 4e-3 with masked entries exactly 0, lse within 1e-3; lean and
+    save-P o the same bits."""
+    rng = np.random.default_rng(B * 1000 + H * 100 + d + N + 13)
+    fused = torch.cat([_bf16(rng, (B, N, 2, H, d)), _bf16(rng, (B, N, 1, H, d), 0.7)], dim=2)
+    kv_len = _kv(kv, N)
+    mask = dict(causal=causal, kv_len=kv_len)
+    qkv = fused.view(B * N, 3 * H * d)
+    kw = dict(heads=H, seq=N, scale=d ** -0.5)
+    with torch.inference_mode():
+        lean = pa.plain_attention_rows_qkv(qkv, **kw, **mask)
+        o, p = pa.plain_attention_save_p(qkv, **kw, **mask)
+        ro, rp = pa.plain_attention_save_p_plain(qkv.float(), **kw, **mask)
+        views = list(fused.permute(2, 0, 3, 1, 4).unbind(0))
+        fwd = [fa.flash_attention_fwd(*qs, scale=d ** -0.5, **mask)
+               for qs in (views, [t.contiguous() for t in views])]
+        fro, frlse = fa.flash_attention_fwd_plain(*(t.float() for t in views), scale=d ** -0.5,
+                                                  **mask)
+    torch.cuda.synchronize()
+    assert torch.equal(o, lean)
+    assert float((o.float() - ro).abs().max()) <= 8e-3
+    assert float((p.float() - rp).abs().max()) <= 4e-3
+    assert not p[:, :, ~pa.attention_mask(N, causal, kv_len, p.device)].any()
+    for fo, flse in fwd:
+        assert fo.dtype == torch.bfloat16 and torch.isfinite(fo.float()).all()
+        assert float((fo.float() - fro).abs().max()) <= 8e-3
+        assert float((flse - frlse).abs().max()) <= 1e-3
+
+
 def test_tiny_tapped_steps_on_card_match_plain_cpu_path(tmp_path):
     """Stage-1 steps that collect hidden states, on a fabricated two-head
     teacher: the loss against the fp32 CPU path, and the attention kernels each

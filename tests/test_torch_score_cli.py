@@ -7,6 +7,7 @@ scorer's.
 """
 
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -115,3 +116,27 @@ def test_similarity_matrix_takes_captions_as_in_jax(teacher_ckpt):
     np.testing.assert_allclose(np.diagonal(got), ours.score_arrays(images, caps), atol=1e-6)
     np.testing.assert_allclose(got, ours._similarity_matrix_tokens(images, ours._tokenize(caps)),
                                atol=0)
+
+
+def test_score_files_raises_on_an_unreadable_file_without_the_native_decoder(
+        monkeypatch, files, teacher_ckpt, tmp_path):
+    """With no native library (the card's machine) every file goes through
+    PIL, and a missing or corrupt file raises, as in the JAX package, instead
+    of scoring a zero image."""
+    from distillclip_tpu.data import native_loader as jax_loader
+    from distillclip_tpu_torch.data import native_loader
+
+    monkeypatch.setattr(native_loader, "load_library", lambda: None)
+    monkeypatch.setattr(jax_loader, "load_library", lambda: None)
+    ours = LCLIPScorer.from_teacher(teacher_ckpt, device="cpu")
+    ref = JaxScorer.from_teacher(teacher_ckpt)
+    good = sorted(str(p) for p in Path(files[0]).iterdir())[:3]
+    got = ours.score_files(good, CAPTIONS[:3])
+    assert got.shape == (3,) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref.score_files(good, CAPTIONS[:3]), atol=2e-2)
+    corrupt = tmp_path / "corrupt.jpg"
+    corrupt.write_bytes(b"not an image")
+    for bad in ("/nonexistent.jpg", str(corrupt)):
+        for scorer in (ours, ref):
+            with pytest.raises(OSError):
+                scorer.score_files([good[0], bad], CAPTIONS[:2])

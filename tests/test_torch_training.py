@@ -508,8 +508,6 @@ def test_teacher_paths_are_refused_by_item(ckpt_path, batch):
     assert callable(task.make_train_step(tx, cached_text_teacher=True))
     assert callable(task.make_train_step(tx))
     assert task.teacher._module is None          # built at first use, not before
-    with pytest.raises(NotImplementedError, match="item 7"):
-        _port_task(load_path={"image": "a", "text": "b"})
     frozen = _port_task(freeze_embed=True, teacher_name=ckpt_path)
     assert len(frozen._frozen_paths()) == 3
     toks, imgs, tea_text, _ = _port_args(batch)
@@ -519,6 +517,15 @@ def test_teacher_paths_are_refused_by_item(ckpt_path, batch):
     cached, _ = task.loss_fn_cached_text(state.params, toks, imgs, tea_text,
                                          deterministic=False, generator=gen)
     assert torch.equal(cached, task.loss_fn_cached_text(state.params, toks, imgs, tea_text)[0])
+
+
+def test_load_path_needs_both_checkpoints():
+    """A ``load_path`` without one of its towers raises the JAX package's
+    ValueError when the masters are made, as there."""
+    for load_path in ({"image": "a"}, {"text": "b"}, {"image": None, "text": "b"}):
+        task = _port_task(load_path=load_path)
+        with pytest.raises(ValueError, match="the cpk is None"):
+            task.init_params(0, "cpu")
 
 
 def test_tap_and_unported_losses_are_refused_by_item():
