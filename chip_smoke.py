@@ -68,7 +68,9 @@ phases, each of which exits non-zero on failure:
 6. card numbers: each kernel's time beside its plain version's, its bound
    and, where one PyTorch call computes the same function, that call's time
    (kernel and library call: device time of calls replayed from a CUDA graph,
-   so that a wrapper's host cost does not enter it); fenced scored pairs/s at
+   so that a wrapper's host cost does not enter it; a library call through
+   autograd, SDPA's backward, which a graph cannot capture: the device time of
+   its kernels from torch.profiler); fenced scored pairs/s at
    batch 256 and 1024.
 
 The last two lines before the final one are the card line and a JSON object
@@ -147,11 +149,11 @@ SOURCES = {
     "flash_transform_attention_fwd": (
         "distillclip_tpu_torch/csrc/flash_transform_attention.cu",
         "distillclip_tpu/ops/flash_attention.py:632"),
-    "dense_act": ("distillclip_tpu_torch/csrc/dense_ln.cu",
+    "dense_act": ("distillclip_tpu_torch/csrc/dense_act.cu",
                   "distillclip_tpu/ops/fc1_act.py:207"),
-    "dense_act_res": ("distillclip_tpu_torch/csrc/dense_ln.cu",
+    "dense_act_res": ("distillclip_tpu_torch/csrc/dense_act.cu",
                       "distillclip_tpu/ops/fc1_act.py:71"),
-    "dense_act_u": ("distillclip_tpu_torch/csrc/dense_ln.cu",
+    "dense_act_u": ("distillclip_tpu_torch/csrc/dense_act.cu",
                     "distillclip_tpu/ops/fc1_act.py:131"),
 }
 # the head-by-head formulation (tf_impl: factored) is served by K3 / #5 / #6
@@ -294,6 +296,36 @@ def graph_ms(fn, iters: int = 20) -> Optional[float]:
     return start.elapsed_time(end) / iters
 
 
+def device_events(prof):
+    """(name, µs) of every kernel, copy and memset a profile recorded on the
+    device."""
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us > 0 and not str(getattr(ev, "device_type", "")).endswith("CPU"):
+            yield ev.key, dev_us
+
+
+def profiled_ms(fn, iters: int = 100) -> Optional[float]:
+    """Mean device time of fn() over ``iters`` eager calls: the sum of the
+    device times of the kernels they launch, read from torch.profiler, for a
+    call that a graph cannot capture (an autograd backward, whose ops run on
+    the forward's stream).  The host's cost between the kernels does not enter
+    it.  None where the profiler records no device time."""
+    from torch.profiler import ProfilerActivity
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(us for _, us in device_events(prof))
+    return total / 1e3 / iters if total > 0 else None
+
+
 def bf16(rng: np.random.Generator, shape, std: float = 1.0, mean: float = 0.0):
     a = rng.standard_normal(shape, dtype=np.float32) * np.float32(std) + np.float32(mean)
     return torch.from_numpy(a).to(DEVICE).to(torch.bfloat16)
@@ -313,7 +345,7 @@ class Case:
     one PyTorch call that computes the same function, if any;
     ``library_eager`` says it runs through autograd, whose backward ops run
     on the streams of the forward and so stay out of a graph captured on
-    another stream: it is timed eagerly."""
+    another stream: its device time is read from the profiler."""
 
     kernel: str
     label: str
@@ -716,35 +748,57 @@ def check_case(case: Case) -> float:
     return worst
 
 
-def kernel_oracles(card: str) -> dict:
+def kernel_oracles(card: str):
     """Phases 3 and 6a: per kernel, the worst error over its shapes and, at
     its first (main-path) shape, the kernel / plain / library times and the
-    bound."""
-    results = {}
+    bound; beside them the kernel time of every case, by (kernel, label)."""
+    results, case_ms = {}, {}
     for case in oracle_cases(np.random.default_rng(SEED)):
         with torch.no_grad():
             err = check_case(case)
             # the kernel and the library call replayed from a CUDA graph (their
             # device time), eager where a call cannot be captured; the plain
             # version, many small launches, eager; the library calls are short:
-            # more calls for a steadier mean
+            # more calls for a steadier mean.  A library call through autograd
+            # is timed at the end of the run (library_device_times).
             ms = graph_ms(case.run) or cuda_ms(case.run)
             plain_ms = cuda_ms(case.plain)
             lib_ms = None
-            if case.library is not None:
-                lib_ms = (None if case.library_eager else graph_ms(case.library, 100)) \
-                    or cuda_ms(case.library, 100, 10)
+            if case.library is not None and not case.library_eager:
+                lib_ms = graph_ms(case.library, 100) or cuda_ms(case.library, 100, 10)
+        case_ms[case.kernel, case.label] = ms
         bound_ms, bound_by = case.bound()
         print(f"time {case.kernel} {case.label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms by {bound_by} ({case.flops / 1e9:.3f} GFLOP, "
               f"{case.nbytes / 1e6:.3f} MB, {bound_ms / ms:.3f} of it), library "
-              + ("none" if lib_ms is None else f"{lib_ms:.4f} ms (kernel / library "
-                                               f"{ms / lib_ms:.2f})") + f" [{card}]", flush=True)
+              + ("at the end of the run" if case.library_eager
+                 else "none" if lib_ms is None
+                 else f"{lib_ms:.4f} ms (kernel / library {ms / lib_ms:.2f})") + f" [{card}]",
+              flush=True)
         r = results.setdefault(case.kernel, {
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib_ms})
         r["max_abs_err"] = max(r["max_abs_err"], err)
-    return results
+    return results, case_ms
+
+
+def library_device_times(results: dict, case_ms: dict, card: str) -> None:
+    """The library calls that run through autograd (SDPA's backward): the
+    device time of their kernels from torch.profiler, at the cases' shapes,
+    the first into the kernel's ``library_ms``.  Measured after every step
+    timing: eager steps that run after a profiler session are slower."""
+    seen = set()
+    for case in oracle_cases(np.random.default_rng(SEED)):
+        if not case.library_eager or case.library is None:
+            continue
+        with torch.no_grad():
+            lib_ms = profiled_ms(case.library) or cuda_ms(case.library, 100, 10)
+        ms = case_ms[case.kernel, case.label]
+        print(f"time {case.kernel} {case.label}: library {lib_ms:.4f} ms, device time of its "
+              f"kernels (kernel / library {ms / lib_ms:.2f}) [{card}]", flush=True)
+        if case.kernel not in seen:
+            results[case.kernel]["library_ms"] = lib_ms
+            seen.add(case.kernel)
 
 
 def scale_lines(card: str) -> None:
@@ -1330,10 +1384,11 @@ def perf_section(section: dict):
         os.environ.update(saved)
 
 
-def knob_phase(ops, card: str, label: str, default_run: dict) -> dict:
+def knob_phase(ops, card: str, label: str, default_run: dict, keep_state: bool) -> dict:
     """The serving call and the text-cached step built under one knob set:
     (a) 16 pairs against the plain fp32 CPU path built under the same knobs,
-    (b) 256 pairs with the knob's launch table, (c) ms and pairs/s."""
+    (b) 256 pairs with the knob's launch table, (c) ms and pairs/s; the step's
+    run (its state only with ``keep_state``)."""
     from distillclip_tpu_torch.serving import LCLIPScorer
 
     section, serving_want, step_want = KNOB_PHASES[label]
@@ -1365,14 +1420,14 @@ def knob_phase(ops, card: str, label: str, default_run: dict) -> dict:
             fail(f"{label}: kernel-path scores disagree with the plain path")
         del scorer, plain, d_images, d_tokens
         run = dual_phase(ops, card, f"text-cached {label}", "text-cached", make_task("bfloat16"),
-                         make_task("float32"), step_want, 6, SEED + 10, False)
+                         make_task("float32"), step_want, 6, SEED + 10, keep_state)
     if label == "tf_impl=factored":
         same = run["losses"] == default_run["losses"][:len(run["losses"])]
         print(f"knobs {label}: losses bit-equal to the default text-cached step's: {same}",
               flush=True)
         if not same:
             fail(f"{label}: the factored route changed the text-cached step's losses")
-    return {"serving": serving_counts, "step": run["counts"]}
+    return {"serving": serving_counts, "step": run["counts"], "run": run}
 
 
 # -- phase 5f: the score entry point -------------------------------------------
@@ -1534,7 +1589,7 @@ def throughput(scorer, card: str) -> None:
 # device kernels by the piece of the step they belong to, first match wins
 PROFILE_GROUPS = (
     ("flash_attention forward (#16, tensor cores)", ("flash_attention_fwd_mma_kernel",)),
-    ("flash_attention_bwd", ("flash_attention_bwd_kernel",)),
+    ("flash_attention_bwd (#16, tensor cores)", ("flash_attention_bwd_mma_kernel",)),
     ("flash_transform_attention forward", ("flash_transform_attention_fwd_kernel",)),
     ("dense_ln + dense_act_ln_res (LN GEMMs forward)", ("dense_ln_kernel",)),
     ("dense_ln_bwd (LN GEMM backward)", ("dense_ln_bwd_kernel",)),
@@ -1547,6 +1602,7 @@ PROFILE_GROUPS = (
     ("reduce_partials", ("reduce_partials",)),
     ("optimizer (foreach kernels)", ("multi_tensor_apply",)),
     ("library convolutions (cuDNN; vit_kd)", ("fprop", "dgrad", "wgrad", "conv", "cudnn")),
+    ("dense_act (#10-#12, wgmma)", ("dense_act_wgmma_kernel",)),
     ("library products (cuBLAS)", ("gemm", "cutlass", "nvjet", "xmma", "cublas", "splitk")),
     ("copies and memset", ("memcpy", "memset")),
 )
@@ -1566,13 +1622,8 @@ def profile(label: str, fn, iters: int, card: str) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / iters
     groups = dict.fromkeys([g for g, _ in PROFILE_GROUPS] + ["elementwise and the rest"], 0.0)
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0)
-        if dev_us <= 0 or str(getattr(ev, "device_type", "")).endswith("CPU"):
-            continue
-        name = ev.key.lower()
+    for name, dev_us in device_events(prof):
+        name = name.lower()
         group = next((g for g, keys in PROFILE_GROUPS if any(k in name for k in keys)),
                      "elementwise and the rest")
         groups[group] += dev_us / 1e3 / iters
@@ -1604,7 +1655,7 @@ def main() -> None:
     print(f"build: {_build.library_path().name} in {time.perf_counter() - t0:.1f} s "
           f"(log: {_build.BUILD_DIR / 'build.log'})", flush=True)
 
-    results = kernel_oracles(card)
+    results, case_ms = kernel_oracles(card)
     if missing := sorted(set(ops.KERNELS) - set(results)):
         fail(f"kernels without an oracle case: {missing}")
     scale_lines(card)
@@ -1640,7 +1691,8 @@ def main() -> None:
         add_counts(TRAIN_STEP_LAUNCHES, IMAGE_TEACHER_LAUNCHES, TEXT_TEACHER_LAUNCHES), 6,
         SEED + 16, profiling, selecting=("fine_grain", "smd_multi_model"))
     runs["stage-1 dropout"] = dropout_phase(ops, card)
-    knob_runs = {label: knob_phase(ops, card, label, runs["text-cached"])
+    knob_runs = {label: knob_phase(ops, card, label, runs["text-cached"],
+                                   profiling and label.startswith("fc1_ln=0"))
                  for label in KNOB_PHASES}
     score_counts = score_phase(ops, card)
 
@@ -1654,6 +1706,12 @@ def main() -> None:
             run = runs[label]
             profile(f"train step {label} 256 pairs",
                     lambda r=run: r["step"](r["state"], *r["batch"]), 5, card)
+        for label in ("fc1_ln=0", "fc1_ln=0 fc1_res=u"):
+            run = knob_runs[label]["run"]
+            with perf_section(KNOB_PHASES[label][0]):
+                profile(f"train step text-cached {label} 256 pairs",
+                        lambda r=run: r["step"](r["state"], *r["batch"]), 5, card)
+    library_device_times(results, case_ms, card)
 
     paths = {"serving_call": serving_counts, "teacher_image_encode": teacher_counts["image"],
              "teacher_text_encode": teacher_counts["text"],

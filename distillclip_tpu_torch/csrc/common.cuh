@@ -56,6 +56,22 @@ __device__ __forceinline__ void store8(f16* p, const float (&f)[8]) {
   *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(h);
 }
 
+// The GEMM epilogues' activations on the fp32 sum u: act 1 exact GELU, 2
+// QuickGELU, 0 none; act_e the transcendental value e that a residual mode
+// saves beside u (erf(u/√2), sigmoid(1.702 u)).
+template <int ACT>
+__device__ __forceinline__ float activate(float u) {
+  if (ACT == 1) return 0.5f * u * (1.0f + erff(u * 0.70710678118654752f));
+  if (ACT == 2) return u / (1.0f + expf(-1.702f * u));
+  return u;
+}
+
+template <int ACT>
+__device__ __forceinline__ float act_e(float u) {
+  if (ACT == 1) return erff(u * 0.70710678118654752f);
+  return 1.0f / (1.0f + expf(-1.702f * u));
+}
+
 // out[j] = Σ_p partials[p·width + j] in ascending p: the second pass of every
 // reduction across blocks (dγ/dβ, dconv_l/dconv_w), so that the sums do not
 // depend on the order in which blocks finish.  Defined in layer_norm.cu.

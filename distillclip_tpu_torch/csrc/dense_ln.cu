@@ -1,4 +1,4 @@
-// K1, K2, K2's residual mode, and the same GEMM without the LayerNorm.
+// K1, K2 and K2's residual mode: LayerNorm-prologue GEMMs (forward).
 //
 //   K1 (act = 0):  u = (LN(x)·γ + β) · W (+ b)
 //   K2 (act = 1):  h = GELU_exact((LN(x)·γ + β) · W + b)
@@ -6,58 +6,47 @@
 //   residual mode of K2 (training): the same main loop, and the epilogue
 //      writes u and e = erf(u/√2) (act 1) or sigmoid(1.702 u) (act 2) beside
 //      h, all from the one fp32 sum, for the backward.
-//   Every LN mode also writes the rows' LN mean and rstd (fp32 [rows]) when
-//   the caller passes buffers for them; the backward kernel reads them.
-//   no-LN mode (dc_dense_act): the product of x itself, with three outputs:
-//      h = act(x·W + b) only (act 1/2), h, u and e (act 1/2, residual), or
-//      u = x·W + b only (act 0).
+//   Every mode also writes the rows' LN mean and rstd (fp32 [rows]) when the
+//   caller passes buffers for them; the backward kernel reads them.
+//   The same GEMM without the LayerNorm (#10-#12) is dense_act.cu.
 //
 // Replaces distillclip_tpu/ops/fc1_act.py:_dense_ln_kernel (K1, the
 // students' norm1 + qkv projection), :_fc1_ln_h_kernel (K2, the lean
 // no-grad norm2 + fc1 + GELU that writes h only) and :_fc1_ln_kernel (the
 // residual mode; there h = recombine(u, e) is left to XLA, here the kernel
-// writes it from the fp32 sum, bit-identical to K2's h); in the no-LN mode
-// :_fc1_h_kernel (h only, the primal of dense_act), :_fc1_kernel (u and e;
-// h again from the fp32 sum) and :_fc1_u_kernel (u only).
+// writes it from the fp32 sum, bit-identical to K2's h).
 //
 // Layouts: x [rows, C], W [C, N] row-major (the Flax Dense layout, kept by
 // the port's converter), γ, β [C], b [N], out [rows, N]; all bf16.
 // The LN runs in fp32; the product accumulates in fp32, and the bias and
 // activation are applied to the fp32 sum before the single bf16 rounding.
 //
-// Precision: in the LN modes the tensor-core operands are fp16, not bf16.
-// The TPU kernel rounds LN(x) to bf16 before its product; on the serving
-// shapes that rounding alone costs as much error as the final bf16 store
-// (mean ~5e-4 on outputs of std ~0.55), and the two together exceed a 1e-3
-// mean error against fp32.  fp16 keeps 3 more mantissa bits at the same
-// tensor-core rate: every bf16 weight with |w| in [2^-14, 65504] converts to
-// fp16 exactly (smaller ones lose < 2^-25 each), and LN(x)·γ+β is bounded by
+// Precision: the tensor-core operands are fp16, not bf16.  The TPU kernel
+// rounds LN(x) to bf16 before its product; on the serving shapes that
+// rounding alone costs as much error as the final bf16 store (mean ~5e-4 on
+// outputs of std ~0.55), and the two together exceed a 1e-3 mean error
+// against fp32.  fp16 keeps 3 more mantissa bits at the same tensor-core
+// rate: every bf16 weight with |w| in [2^-14, 65504] converts to fp16
+// exactly (smaller ones lose < 2^-25 each), and LN(x)·γ+β is bounded by
 // sqrt(C)·|γ|+|β|, far inside fp16's range for any trained LayerNorm.
-// Without the LayerNorm x is any bf16 activation, which fp16's range does not
-// hold, and there is no rounding of an fp32 LN output to avoid: the no-LN
-// mode stages x and W as the bf16 they are and runs bf16 WMMA, so its
-// products are exact and only the fp32 sum and the final store round.
 //
 // Bound on the H100: at the serving shapes (rows = B·50 or B·77, C = 768,
 // N = 2304 or 3072) the product is ~2·rows·C·N flops against ~2·rows·(C+N)
 // bytes of activations, far above the card's ~295 flop/byte balance, so the
 // tensor cores bound it once W reaches them fast enough.  Design: a block owns
 // BM = 64 rows for the whole kernel.  It normalises them once into shared
-// memory (64 × 768 fp16 = 96 KB; the no-LN mode copies them as bf16), so the
-// LN costs one read of x and no round trip through device memory, then walks
-// every BN = 256-column tile of W in BK = 64-row slices.  A slice is converted
-// to fp16 (kept bf16 without the LN) on its way into one of two
-// shared buffers: while the tensor cores run WMMA (mma.sync, fp32
+// memory (64 × 768 fp16 = 96 KB), so the LN costs one read of x and no round
+// trip through device memory, then walks every BN = 256-column tile of W in
+// BK = 64-row slices.  A slice is converted to fp16 on its way into one of two
+// shared buffers: while the tensor cores run fp16 WMMA (mma.sync, fp32
 // accumulators) on one buffer, the next slice loads into registers and is
 // stored into the other, so each slice costs one barrier and its L2 load
 // overlaps the MMAs of the slice before.  Each of the 8 warps owns a 32 × 64
 // piece of the 64 × 256 tile.  The fp32 tile goes through shared memory (the
 // slice buffers, free by then) for the bias/activation epilogue so the bf16
-// stores are 16-byte and coalesced.  wgmma, TMA and a persistent schedule are
-// later work.
+// stores are 16-byte and coalesced.  wgmma and TMA are later work here
+// (wgmma_gemm.cuh has that main loop, which the GEMM without the LN runs).
 #include <mma.h>
-
-#include <type_traits>
 
 #include "common.cuh"
 
@@ -81,13 +70,6 @@ __host__ __device__ inline size_t smem_bytes(int C) {
   return (size_t)BM * (C + kApad) * sizeof(f16) + kBsBytes;
 }
 
-template <int ACT>
-__device__ __forceinline__ float activate(float u) {
-  if (ACT == 1) return 0.5f * u * (1.0f + erff(u * 0.70710678118654752f));
-  if (ACT == 2) return u / (1.0f + expf(-1.702f * u));
-  return u;
-}
-
 // One BK x BN slice of W (rows k0.., columns n0..) into registers, zero past
 // row C or column N: 64 rows x 32 words of 8 bf16, 8 words per thread.
 __device__ __forceinline__ void load_w_slice(const bf16* __restrict__ w, int C, int N,
@@ -103,36 +85,21 @@ __device__ __forceinline__ void load_w_slice(const bf16* __restrict__ w, int C, 
   }
 }
 
-// Stores the prefetched bf16 slice as fp16 (exact for |w| in [2^-14, 65504]),
-// or as the bf16 it is for the no-LN mode.
-template <typename T>
-__device__ __forceinline__ void store_w_slice(T* Bs, const uint4 (&reg)[kWWords]) {
+// Stores the prefetched bf16 slice as fp16 (exact for |w| in [2^-14, 65504]).
+__device__ __forceinline__ void store_w_slice(f16* Bs, const uint4 (&reg)[kWWords]) {
 #pragma unroll
   for (int t = 0; t < kWWords; ++t) {
     const int idx = threadIdx.x + t * kThreads;
     const int r = idx / (BN / 8);
     const int c = (idx % (BN / 8)) * 8;
-    if constexpr (std::is_same<T, bf16>::value) {
-      *reinterpret_cast<uint4*>(Bs + r * kBld + c) = reg[t];
-    } else {
-      float f[8];
-      unpack8(reg[t], f);
-      store8(Bs + r * kBld + c, f);
-    }
+    float f[8];
+    unpack8(reg[t], f);
+    store8(Bs + r * kBld + c, f);
   }
 }
 
-// e of the residual mode: the activation's transcendental value.
-template <int ACT>
-__device__ __forceinline__ float act_e(float u) {
-  if (ACT == 1) return erff(u * 0.70710678118654752f);
-  return 1.0f / (1.0f + expf(-1.702f * u));
-}
-
-// RES: also write u and e (out_u, out_e) beside out = h.  LN: normalise the
-// rows first (fp16 operands); without it x goes to the product as it is
-// (bf16 operands; gamma, beta, mean_out and rstd_out unused).
-template <int ACT, bool RES, bool LN>
+// RES: also write u and e (out_u, out_e) beside out = h.
+template <int ACT, bool RES>
 __global__ void __launch_bounds__(kThreads)
 dense_ln_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
                 const bf16* __restrict__ beta, const bf16* __restrict__ w,
@@ -142,10 +109,9 @@ dense_ln_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
                 int rows, int C, int N, float eps) {
   using namespace nvcuda;
   extern __shared__ __align__(128) unsigned char smem[];
-  using T = typename std::conditional<LN, f16, bf16>::type;
   const int lda = C + kApad;
-  T* As = reinterpret_cast<T*>(smem);
-  T* Bs = As + (size_t)BM * lda;                   // two [BK, kBld] slices
+  f16* As = reinterpret_cast<f16*>(smem);
+  f16* Bs = As + (size_t)BM * lda;                 // two [BK, kBld] slices
   float* Cs = reinterpret_cast<float*>(Bs);        // [BM, kCld], after the k loop
 
   const int warp = threadIdx.x >> 5;
@@ -157,24 +123,11 @@ dense_ln_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
   uint4 pre[kWWords];
   load_w_slice(w, C, N, 0, 0, pre);
 
-  // ---- no-LN prologue: the tile's rows are copied in as they are, zero
-  // past the last row.
-  if constexpr (!LN) {
-    for (int idx = threadIdx.x; idx < BM * (C / 8); idx += kThreads) {
-      const int r = idx / (C / 8);
-      const int c = (idx % (C / 8)) * 8;
-      const int g = row0 + r;
-      *reinterpret_cast<uint4*>(As + (size_t)r * lda + c) =
-          g < rows ? *reinterpret_cast<const uint4*>(x + (size_t)g * C + c)
-                   : make_uint4(0, 0, 0, 0);
-    }
-  }
-
   // ---- LN prologue: warp w normalises rows w, w+8, ... of the tile.  The
   // raw bf16 row is staged in its fp16 slot (same size) and each lane
   // overwrites only the words it staged.
-  for (int r = warp; LN && r < BM; r += kThreads / 32) {
-    T* ar = As + (size_t)r * lda;
+  for (int r = warp; r < BM; r += kThreads / 32) {
+    f16* ar = As + (size_t)r * lda;
     bf16* xs = reinterpret_cast<bf16*>(ar);
     const int g = row0 + r;
     if (g >= rows) {
@@ -236,11 +189,11 @@ dense_ln_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
     for (int ks = 0; ks < nk; ++ks) {
       const int k0 = ks * BK;
       if (ks + 1 < nk) load_w_slice(w, C, N, k0 + BK, n0, pre);
-      const T* B = Bs + (ks & 1) * BK * kBld;
+      const f16* B = Bs + (ks & 1) * BK * kBld;
       const int kend = min(BK, C - k0);
       for (int kk = 0; kk < kend; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> b;
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, f16, wmma::row_major> a[2];
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, f16, wmma::row_major> b;
 #pragma unroll
         for (int i = 0; i < 2; ++i)
           wmma::load_matrix_sync(a[i], As + (size_t)(wm * 32 + i * 16) * lda + k0 + kk, lda);
@@ -296,17 +249,17 @@ dense_ln_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
   }
 }
 
-template <int ACT, bool RES, bool LN = true>
+template <int ACT, bool RES>
 int launch(const void* x, const void* gamma, const void* beta, const void* w,
            const void* bias, void* out, void* out_u, void* out_e, void* mean, void* rstd,
            int rows, int C, int N, float eps, cudaStream_t stream) {
   const size_t smem = smem_bytes(C);
-  cudaError_t err = cudaFuncSetAttribute(dense_ln_kernel<ACT, RES, LN>,
+  cudaError_t err = cudaFuncSetAttribute(dense_ln_kernel<ACT, RES>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (rows + BM - 1) / BM;
-  dense_ln_kernel<ACT, RES, LN><<<blocks, kThreads, smem, stream>>>(
+  dense_ln_kernel<ACT, RES><<<blocks, kThreads, smem, stream>>>(
       (const bf16*)x, (const bf16*)gamma, (const bf16*)beta, (const bf16*)w,
       (const bf16*)bias, (bf16*)out, (bf16*)out_u, (bf16*)out_e, (float*)mean,
       (float*)rstd, rows, C, N, eps);
@@ -358,32 +311,6 @@ DC_EXPORT int dc_dense_act_ln_res(const void* x, const void* gamma, const void* 
     case 2:
       return dc::launch<2, true>(x, gamma, beta, w, bias, h, u, e, mean, rstd, rows, C, N,
                                  eps, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// The no-LN mode: x·W + b with the same shape rules.  act 0 with res 0
-// writes u only (into h); act 1 or 2 writes h, and with res 1 also u and e.
-DC_EXPORT int dc_dense_act(const void* x, const void* w, const void* bias, void* h, void* u,
-                           void* e, int rows, int C, int N, int act, int res, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  void* no = nullptr;
-  switch (act * 2 + res) {
-    case 0:
-      return dc::launch<0, false, false>(x, no, no, w, bias, h, no, no, no, no, rows, C, N,
-                                         0.f, s);
-    case 2:
-      return dc::launch<1, false, false>(x, no, no, w, bias, h, no, no, no, no, rows, C, N,
-                                         0.f, s);
-    case 3:
-      return dc::launch<1, true, false>(x, no, no, w, bias, h, u, e, no, no, rows, C, N, 0.f,
-                                        s);
-    case 4:
-      return dc::launch<2, false, false>(x, no, no, w, bias, h, no, no, no, no, rows, C, N,
-                                         0.f, s);
-    case 5:
-      return dc::launch<2, true, false>(x, no, no, w, bias, h, u, e, no, no, rows, C, N, 0.f,
-                                        s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

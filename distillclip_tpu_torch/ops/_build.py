@@ -54,7 +54,7 @@ _SIGNATURES = {
     "dc_dense_ln": (_I, [_P] * 8 + [_I, _I, _I, _F, _I, _P]),
     # x, gamma, beta, w, bias, h, u, e, mean, rstd | rows, C, N, eps, act, stream
     "dc_dense_act_ln_res": (_I, [_P] * 10 + [_I, _I, _I, _F, _I, _P]),
-    # x, w, bias, h, u, e | rows, C, N, act, res, stream
+    # x, w, bias, h, u, e | rows, C, N, act, res, stream (dense_act.cu)
     "dc_dense_act": (_I, [_P] * 6 + [_I] * 5 + [_P]),
     "dc_dense_ln_bwd_smem_bytes": (ctypes.c_longlong, [_I]),
     "dc_dense_ln_bwd_blocks": (_I, [_I]),
@@ -76,10 +76,9 @@ _SIGNATURES = {
     # q, k, v, out, lse, strides (host, 4 x 3 int64) | batch, N, H, d, scale, causal,
     # kv_len, stream
     "dc_flash_attention_fwd": (_I, [_P] * 6 + [_I, _I, _I, _I, _F, _I, _I, _P]),
-    "dc_fa_bwd_smem_bytes": (ctypes.c_longlong, [_I, _I, _I, _I]),
-    # q, k, v, o, dout, lse, dq, dk, dv, strides (host, 8 x 3 int64) | batch, N, H, d, tq,
+    # q, k, v, o, dout, lse, dq, dk, dv, strides (host, 8 x 3 int64) | batch, N, H, d,
     # scale, causal, kv_len, stream
-    "dc_flash_attention_bwd": (_I, [_P] * 10 + [_I, _I, _I, _I, _I, _F, _I, _I, _P]),
+    "dc_flash_attention_bwd": (_I, [_P] * 10 + [_I, _I, _I, _I, _F, _I, _I, _P]),
     "dc_fta_smem_bytes": (ctypes.c_longlong, [_I, _I, _I, _I]),
     # q, k, v, wl, ww, out, strides (host, 4 x 3 int64) | batch, N, H, d, tq, scale, causal,
     # kv_len, stream

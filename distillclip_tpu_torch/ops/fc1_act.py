@@ -2,13 +2,15 @@
 
 * :func:`dense_ln`      u = (LN(x)·γ+β)·W (+b)          -- K1, the qkv projection
 * :func:`dense_act_ln`  h = act((LN(x)·γ+β)·W + b)      -- K2, fc1 + GELU
-* :func:`dense_act`     h = act(x·W + b)                -- the no-LN mode of the
-  same GEMM (#12; #10 or #11 under a gradient), which the blocks run when the
-  ``fc1_ln: "0"`` knob unfuses their LayerNorms
+* :func:`dense_act`     h = act(x·W + b)                -- the GEMM without the
+  LN, the "no-LN mode" (#12; #10 or #11 under a gradient), which the blocks run
+  when the ``fc1_ln: "0"`` knob unfuses their LayerNorms
 
 W is ``[C, N]`` (the Flax Dense layout, which the converter keeps).  On a
-CUDA tensor both launch the hand-written GEMM of ``csrc/dense_ln.cu``; on a
-CPU tensor they run the plain versions below.  Both take the LN in fp32 and
+CUDA tensor the LN GEMMs launch the hand-written kernel of
+``csrc/dense_ln.cu`` and the GEMM without the LN that of ``csrc/dense_act.cu``
+(wgmma and TMA, on the main loop of ``csrc/wgmma_gemm.cuh``); on a CPU tensor
+they run the plain versions below.  Both take the LN in fp32 and
 the product, bias and activation in fp32 before one final rounding to x's
 dtype.  The plain version rounds the LN output to x's dtype before the
 product, as the TPU kernel does; the CUDA kernel rounds it to fp16, which
@@ -36,8 +38,8 @@ exact erf, and the backward recomputes e from u, as the JAX package's
 backward of :func:`dense_act` is the JAX package's XLA backward in PyTorch:
 dx = du·Wᵀ, dW = xᵀ·du and db = Σ du.
 
-The no-LN mode stages x and W as bf16 (not fp16: without the LayerNorm x is
-unbounded); its plain versions are :func:`dense_act_plain`,
+The GEMM without the LN takes x and W as bf16 (not fp16: without the
+LayerNorm x is unbounded); its plain versions are :func:`dense_act_plain`,
 :func:`dense_act_res_plain` and :func:`dense_act_u_plain`.
 """
 
@@ -166,6 +168,10 @@ def _check_widths(what, smem_bytes, C, N):
         raise ValueError(f"{what}: C={C} is too wide for the kernel's row tile")
 
 
+# the no-LN GEMM's grid has one row of blocks per 128 rows, at most 65535 rows
+_DENSE_ACT_MAX_ROWS = 65535 * 128
+
+
 def _check_dense_shapes(what, x, w, b):
     if x.ndim != 2 or w.ndim != 2 or w.shape[0] != x.shape[1] or b.shape != (w.shape[1],):
         raise ValueError(f"{what}: x [rows, C], w [C, N] and b [N], got {tuple(x.shape)}, "
@@ -243,8 +249,13 @@ def _launch_dense_act(wrapper, x, w, b, act_code: int, res: bool):
     _build.check_operands(what, x, w, b)
     rows, C = x.shape
     N = w.shape[1]
+    if C % 32 or N % 8:
+        raise ValueError(f"{what}: the kernel takes C % 32 == 0 and N % 8 == 0, "
+                         f"got C={C}, N={N}")
+    if rows > _DENSE_ACT_MAX_ROWS:
+        raise ValueError(f"{what}: the kernel takes at most {_DENSE_ACT_MAX_ROWS} rows, "
+                         f"got {rows}")
     lib = _build.lib()
-    _check_widths(what, lib.dc_dense_ln_smem_bytes, C, N)
     outs = [torch.empty((rows, N), dtype=x.dtype, device=x.device)
             for _ in range(3 if res else 1)]
     if rows == 0:

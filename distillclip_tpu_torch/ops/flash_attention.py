@@ -17,6 +17,8 @@ Three kernels, each beside its plain PyTorch version:
 * :func:`flash_attention_bwd` (``csrc/flash_attention_bwd.cu``): dq, dk, dv
   from q, k, v, o, lse and do, the probabilities recomputed as
   exp(s - lse), so no ``[B, H, N, N]`` tensor exists in either direction;
+  every product on the tensor cores (the routine of
+  ``csrc/mma_attention_bwd.cuh``);
 * :func:`flash_transform_attention_fwd` (``csrc/flash_transform_attention.cu``):
   the head-transform forward.  Its gradient is the JAX package's: a recompute
   of the forward in plain fp32 PyTorch (outside any kernel there too).
@@ -191,13 +193,12 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float, causal: bool = Fal
     q, k, v, o, do = (_kernel_view(what, t) for t in (q, k, v, o, do))
     lse = lse.contiguous()
     lib = _build.lib()
-    tq = _pick_tq(lib, lib.dc_fa_bwd_smem_bytes, N, H, d, what)
     dq, dk, dv = _empty_like_layout(q, 3)
     if q.numel():
         _build.check(lib.dc_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _strides(q, k, v, o, do, dq, dk, dv), B, N, H, d, tq, float(scale),
+            _strides(q, k, v, o, do, dq, dk, dv), B, N, H, d, float(scale),
             int(bool(causal)), N if kv_len is None else int(kv_len), _build.stream_ptr(q)),
             what)
         flash_attention_bwd.launches += 1

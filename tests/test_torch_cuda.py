@@ -696,6 +696,34 @@ def test_tensor_core_forward_at_tile_edges(B, H, d, N, causal, kv):
         assert float((flse - frlse).abs().max()) <= 1e-3
 
 
+@pytest.mark.parametrize("B,H,d,N", _TILE_EDGES)
+@pytest.mark.parametrize("layout", ["fused_view", "contiguous"])
+@pytest.mark.parametrize("causal,kv", [(False, None), (True, None), (False, "short"),
+                                       (True, "short")],
+                         ids=["full", "causal", "kv_len", "causal_kv_len"])
+def test_tensor_core_backward_at_tile_edges(B, H, d, N, layout, causal, kv):
+    """#16 backward on the tensor cores (16-key and 16-query warp tiles, whole
+    or streamed rows at d = 128, N = 256) against the fp32 plain version: dq,
+    dk, dv within 3e-2, each in q's layout."""
+    rng = np.random.default_rng(B * 1000 + H * 100 + d + N + 16)
+    q, k, v = _qkv_views(rng, B, H, d, N, layout)
+    do = _bf16(rng, (B, N, H, d)).permute(0, 2, 1, 3)
+    if layout == "contiguous":
+        do = do.contiguous()
+    kw = dict(scale=d ** -0.5, causal=causal, kv_len=_kv(kv, N))
+    with torch.inference_mode():
+        o, lse = fa.flash_attention_fwd_plain(q, k, v, **kw)
+        grads = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        refs = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                            do.float(), **kw)
+    torch.cuda.synchronize()
+    for g, r in zip(grads, refs):
+        assert g.dtype == torch.bfloat16 and g.shape == q.shape
+        assert g.stride() == q.stride() or layout == "fused_view"
+        assert torch.isfinite(g.float()).all()
+        assert float((g.float() - r).abs().max()) <= 3e-2
+
+
 def test_tiny_tapped_steps_on_card_match_plain_cpu_path(tmp_path):
     """Stage-1 steps that collect hidden states, on a fabricated two-head
     teacher: the loss against the fp32 CPU path, and the attention kernels each
@@ -761,6 +789,39 @@ def test_dense_act_kernels_match_plain(rows, C, N, act):
     _close(h, rh)
     _close(u, ru)
     _close(e, re)
+
+
+# (rows, C, N) at the edges of the 128 x 256 x 64 tiles: N past a tile (264,
+# 520, 2056), C = 32 < BK and C = 96 (a half-filled second K-stage), rows past a
+# tile and a single row
+@pytest.mark.parametrize("rows,C,N", [(1, 64, 264), (129, 32, 520), (257, 96, 2056),
+                                      (300, 768, 264), (128, 160, 256)])
+@pytest.mark.parametrize("act", ["gelu_exact", "quick_gelu"])
+def test_dense_act_at_tile_edges(rows, C, N, act):
+    """#10, #11 and #12 on the wgmma main loop against the plain versions in
+    fp32, with u and h the same bits across the modes."""
+    rng = np.random.default_rng(rows * 7 + C + N)
+    x, w, b = _bf16(rng, (rows, C), 1.0), _bf16(rng, (C, N), C ** -0.5), _bf16(rng, (N,), 0.1)
+    with torch.inference_mode():
+        lean = fc1_act.dense_act(x, w, b, act)
+        h, u, e = fc1_act.dense_act_res(x, w, b, act)
+        u_only = fc1_act.dense_act_u(x, w, b)
+    torch.cuda.synchronize()
+    assert torch.equal(h, lean) and torch.equal(u_only, u)
+    for out, ref in zip((h, u, e), fc1_act.dense_act_res_plain(x.float(), w.float(),
+                                                               b.float(), act)):
+        assert out.shape == (rows, N)
+        _close(out, ref)
+
+
+def test_dense_act_refuses_a_misaligned_view():
+    """TMA reads 16-byte aligned rows: a view that starts 2 bytes in is refused."""
+    rng = np.random.default_rng(6)
+    flat = _bf16(rng, (64 * 64 + 1,))
+    x = flat[1:].view(64, 64)
+    w, b = _bf16(rng, (64, 64)), _bf16(rng, (64,))
+    with torch.inference_mode(), pytest.raises(ValueError, match="16-byte aligned"):
+        fc1_act.dense_act_u(x, w, b)
 
 
 def test_dense_act_keeps_activations_past_fp16_range():
