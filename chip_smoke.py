@@ -1597,7 +1597,7 @@ PROFILE_GROUPS = (
     ("transform_attention_bwd", ("tf_bwd_",)),
     ("plain_attention forward (#13 lean / save_p, tensor cores)",
      ("plain_attention_mma_kernel",)),
-    ("plain_attention_bwd", ("plain_attention_bwd_kernel",)),
+    ("plain_attention_bwd (#14, tensor cores)", ("plain_attention_bwd_mma_kernel",)),
     ("layer_norm_rows + bwd", ("layer_norm_rows",)),
     ("reduce_partials", ("reduce_partials",)),
     ("optimizer (foreach kernels)", ("multi_tensor_apply",)),
@@ -1679,7 +1679,7 @@ def main() -> None:
     runs["all-cached plain-attention"] = dual_phase(
         ops, card, "all-cached plain-attention", "all-cached",
         make_task("bfloat16", use_transform=False), make_task("float32", use_transform=False),
-        PLAIN_STEP_LAUNCHES, 6, SEED + 14, False)
+        PLAIN_STEP_LAUNCHES, 6, SEED + 14, profiling)
     runs["stage-1"] = image_stage_phase(ops, card)
     for label, steps in (("stage-1 tapped", 8), ("stage-1 tapped plain-attention", 6),
                          ("stage-1 attention-taps", 6)):
@@ -1700,7 +1700,8 @@ def main() -> None:
         tokens, images = runs["all-cached"]["batch"][:2]
         profile("score_tokens 256 pairs (device-resident)",
                 lambda: scorer.score_tokens(images, tokens), 5, card)
-        for label in ("all-cached", "text-cached", "live", "stage-1 tapped",
+        for label in ("all-cached", "text-cached", "live", "all-cached plain-attention",
+                      "stage-1 tapped",
                       "stage-1 tapped plain-attention", "stage-1 attention-taps",
                       "live contrastive"):
             run = runs[label]

@@ -17,19 +17,33 @@
 // shuffles for the two reductions and no shared memory.  The second and
 // third passes over the row re-read it from L1, where the first pass left it.
 //
-// Backward design: a block owns 32 rows.  Phase A is row-wise (a warp per row
-// reduces the two row moments into shared memory); phase B is column-wise (a
-// thread per pair of columns walks the block's rows, writes dx and keeps its
-// columns' dγ/dβ sums in registers), so nothing is summed with atomics.  The
-// TPU kernel carries dγ/dβ from one grid step to the next; here each block
-// writes an fp32 partial and reduce_partials adds them in a fixed order.
+// Backward design: one kernel launch and no other device operation (the
+// result buffers come from torch.empty); the partial sums of the blocks are
+// added by the blocks that finish last.  The Python wrapper picks the rows a
+// block takes: at least 16 (a row a warp), and no more blocks than SMs (a
+// block fills one), since every block writes a [2·C] fp32 partial that has
+// to be read again.  A block has 16 warps.  A warp owns a row at a time and
+// holds its x and g in registers (16-byte loads, 24 values a lane at C = 768)
+// with the next row's in flight: it reduces the two moments with shuffles and
+// writes dx from the same registers, so a row is read once, and adds its g·x̂
+// and g into its own slice of shared memory (in registers they would take 48
+// a lane, and 16 warps an SM leave 128).  The warps' slices leave the block
+// as one partial, added in warp order.  Then each block takes a ticket of its
+// group of 16 blocks (atomicAdd on a device counter): the one that draws the
+// group's last adds the group's partials in block order, and the one of those
+// that draws the last group ticket adds the groups' sums in group order.  So
+// no float is summed by an atomic, two runs give the same bits, and no block
+// reads more than 16 partials.  The block that draws a counter's last ticket
+// sets it back to 0 for the next launch (or graph replay); each (device,
+// stream) has its own counters, so calls on two streams do not meet.  The TPU
+// kernel carries dγ/dβ from one grid step to the next; blocks here run in no
+// order.
 #include "common.cuh"
 
 namespace dc {
 
 constexpr int kLnThreads = 256;
 constexpr int kLnRowsPerBlock = kLnThreads / 32;
-constexpr int kLnBwdRows = 32;
 
 __global__ void __launch_bounds__(kLnThreads)
 layer_norm_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
@@ -79,75 +93,229 @@ layer_norm_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamm
   }
 }
 
-// partial: [blocks, 2·C] fp32, dγ then dβ of the block's rows.
-__global__ void __launch_bounds__(kLnThreads)
+constexpr int kLnBwdThreads = 512;
+// Blocks whose partials one block adds: the last of a group adds its group's
+// partials, and the last group's adder adds the groups' sums.
+constexpr int kLnBwdGroup = 16;
+constexpr int kLnBwdMaxBlocks = kLnBwdGroup * kLnBwdGroup;
+// Ticket counters, one row per (device, stream) that calls the backward (the
+// Python wrapper assigns the rows): [0] counts groups, [1 + i] the blocks of
+// group i.  Zero when the library loads; each counter is set back to 0 by the
+// block that draws its last ticket, for the next launch (or graph replay).
+constexpr int kLnBwdSlots = 64;
+__device__ unsigned int g_ln_bwd_tickets[kLnBwdSlots][1 + kLnBwdGroup];
+
+// Column of float4 q of a warp's dγ (or dβ) sums: NCH > 0 keeps them in the
+// order (word k, half, lane), so that a warp's 16-byte accesses fall on
+// consecutive addresses; NCH == 0 in column order.
+template <int NCH>
+__device__ __forceinline__ int sum_col(int q) {
+  if (NCH == 0) return 4 * q;
+  return ((q >> 6) * 32 + (q & 31)) * 8 + ((q >> 5) & 1) * 4;
+}
+
+__device__ __forceinline__ void add4(float4& a, const float4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
+// out[j] = Σ_p partial[first + p·stride, j] over p = 0 .. n - 1 ascending,
+// 4 columns a thread.
+__device__ __forceinline__ void add_partials(const float* partial, int C2, int first,
+                                             int stride, int n, float* out) {
+  for (int j = threadIdx.x * 4; j < C2; j += blockDim.x * 4) {
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+    for (int p = 0; p < n; ++p)
+      add4(s, __ldcg(reinterpret_cast<const float4*>(
+                  partial + (size_t)(first + p * stride) * C2 + j)));
+    *reinterpret_cast<float4*>(out + j) = s;
+  }
+}
+
+// dx, and dγ/dβ through per-block partials ([gridDim.x, 2·C] fp32) added in
+// two fixed-order levels by the blocks that finish last.  A block owns rows
+// row0 .. row0 + rpb - 1; warp w takes rows row0 + w, row0 + w + warps, ...
+// NCH > 0: a lane holds 16-byte words k·32 + lane (k < NCH) of its row, of
+// the next row (prefetched) and of γ in registers (C <= 256·NCH <= 768: at
+// 1024 the registers would spill); NCH == 0:
+// any C, the row read twice.  Each warp adds its rows' g·x̂ and g into its own
+// slice of shared memory ([warps][2·Q] float4, Q = 64·NCH or C / 4).
+template <int NCH>
+__global__ void __launch_bounds__(kLnBwdThreads)
 layer_norm_rows_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
                            const bf16* __restrict__ g, const float* __restrict__ mean,
                            const float* __restrict__ rstd, bf16* __restrict__ dx,
-                           float* __restrict__ partial, int rows, int C) {
-  __shared__ float s_mean[kLnBwdRows], s_rstd[kLnBwdRows], s_m1[kLnBwdRows], s_m2[kLnBwdRows];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int row0 = blockIdx.x * kLnBwdRows;
-  const int nrows = min(kLnBwdRows, rows - row0);
+                           float* __restrict__ partial, float* __restrict__ out, int rows,
+                           int C, int rpb, int slot) {
+  extern __shared__ __align__(16) float4 sums[];
+  __shared__ unsigned int s_last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const int row0 = blockIdx.x * rpb;
+  const int row1 = min(rows, row0 + rpb);
   const float inv_c = 1.0f / (float)C;
+  const int Q = NCH > 0 ? 64 * NCH : C / 4;
+  float4* mine = sums + (size_t)warp * 2 * Q;
+  for (int q = lane; q < 2 * Q; q += 32) mine[q] = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  // phase A: the two moments of each row
-  for (int r = warp; r < nrows; r += kLnThreads / 32) {
-    const bf16* xr = x + (size_t)(row0 + r) * C;
-    const bf16* gr = g + (size_t)(row0 + r) * C;
-    const float mu = mean[row0 + r], rs = rstd[row0 + r];
-    float a1 = 0.f, a2 = 0.f;
-    for (int c = lane * 8; c < C; c += 32 * 8) {
-      float xf[8], gf[8], sf[8];
-      load8(xr + c, xf);
-      load8(gr + c, gf);
-      load8(gamma + c, sf);
+  __syncwarp();
+
+  if constexpr (NCH > 0) {
+    uint4 sw[NCH], xw[NCH], gw[NCH];
 #pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        const float gs = gf[t] * sf[t];
-        a1 += gs;
-        a2 += gs * (xf[t] - mu) * rs;
-      }
+    for (int k = 0; k < NCH; ++k) {
+      const int c = (k * 32 + lane) * 8;
+      if (c < C) sw[k] = *reinterpret_cast<const uint4*>(gamma + c);
     }
-    a1 = warp_sum(a1);
-    a2 = warp_sum(a2);
-    if (lane == 0) {
-      s_mean[r] = mu;
-      s_rstd[r] = rs;
-      s_m1[r] = a1 * inv_c;
-      s_m2[r] = a2 * inv_c;
+    auto load_row = [&](int r, uint4(&xr)[NCH], uint4(&gr)[NCH]) {
+#pragma unroll
+      for (int k = 0; k < NCH; ++k) {
+        const int c = (k * 32 + lane) * 8;
+        if (c < C) {
+          xr[k] = *reinterpret_cast<const uint4*>(x + (size_t)r * C + c);
+          gr[k] = *reinterpret_cast<const uint4*>(g + (size_t)r * C + c);
+        }
+      }
+    };
+    int r = row0 + warp;
+    float mu = 0.f, rs = 0.f;
+    if (r < row1) {
+      load_row(r, xw, gw);
+      mu = mean[r];
+      rs = rstd[r];
+    }
+    for (; r < row1; r += nw) {
+      uint4 xn[NCH], gn[NCH];
+      float mun = 0.f, rsn = 0.f;
+      if (r + nw < row1) {
+        load_row(r + nw, xn, gn);
+        mun = mean[r + nw];
+        rsn = rstd[r + nw];
+      }
+      float a1 = 0.f, a2 = 0.f;
+#pragma unroll
+      for (int k = 0; k < NCH; ++k) {
+        if ((k * 32 + lane) * 8 >= C) continue;
+        float xf[8], gf[8], sf[8];
+        unpack8(xw[k], xf);
+        unpack8(gw[k], gf);
+        unpack8(sw[k], sf);
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          const float gs = gf[t] * sf[t];
+          a1 += gs;
+          a2 += gs * (xf[t] - mu) * rs;
+        }
+      }
+      const float m1 = warp_sum(a1) * inv_c, m2 = warp_sum(a2) * inv_c;
+#pragma unroll
+      for (int k = 0; k < NCH; ++k) {
+        const int c = (k * 32 + lane) * 8;
+        if (c >= C) continue;
+        float xf[8], gf[8], sf[8], o[8], h[8];
+        unpack8(xw[k], xf);
+        unpack8(gw[k], gf);
+        unpack8(sw[k], sf);
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          h[t] = (xf[t] - mu) * rs;
+          o[t] = rs * (gf[t] * sf[t] - m1 - h[t] * m2);
+        }
+        store8(dx + (size_t)r * C + c, o);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int q = (k * 2 + half) * 32 + lane;
+          const int t = 4 * half;
+          add4(mine[q], make_float4(gf[t] * h[t], gf[t + 1] * h[t + 1], gf[t + 2] * h[t + 2],
+                                    gf[t + 3] * h[t + 3]));
+          add4(mine[Q + q], make_float4(gf[t], gf[t + 1], gf[t + 2], gf[t + 3]));
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < NCH; ++k) {
+        xw[k] = xn[k];
+        gw[k] = gn[k];
+      }
+      mu = mun;
+      rs = rsn;
+    }
+  } else {
+    float* dg = reinterpret_cast<float*>(mine);
+    float* db = dg + 4 * Q;
+    for (int r = row0 + warp; r < row1; r += nw) {
+      const bf16* xr = x + (size_t)r * C;
+      const bf16* gr = g + (size_t)r * C;
+      const float mu = mean[r], rs = rstd[r];
+      float a1 = 0.f, a2 = 0.f;
+      for (int c = lane * 8; c < C; c += 32 * 8) {
+        float xf[8], gf[8], sf[8];
+        load8(xr + c, xf);
+        load8(gr + c, gf);
+        load8(gamma + c, sf);
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          const float gs = gf[t] * sf[t];
+          a1 += gs;
+          a2 += gs * (xf[t] - mu) * rs;
+        }
+      }
+      const float m1 = warp_sum(a1) * inv_c, m2 = warp_sum(a2) * inv_c;
+      for (int c = lane * 8; c < C; c += 32 * 8) {
+        float xf[8], gf[8], sf[8], o[8];
+        load8(xr + c, xf);
+        load8(gr + c, gf);
+        load8(gamma + c, sf);
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          const float h = (xf[t] - mu) * rs;
+          o[t] = rs * (gf[t] * sf[t] - m1 - h * m2);
+          dg[c + t] += gf[t] * h;
+          db[c + t] += gf[t];
+        }
+        store8(dx + (size_t)r * C + c, o);
+      }
     }
   }
   __syncthreads();
 
-  // phase B: a pair of columns per thread, down the block's rows
-  float* part = partial + (size_t)blockIdx.x * 2 * C;
-  for (int c = 2 * threadIdx.x; c < C; c += 2 * kLnThreads) {
-    const float s0 = __bfloat162float(gamma[c]), s1 = __bfloat162float(gamma[c + 1]);
-    float dg0 = 0.f, dg1 = 0.f, db0 = 0.f, db1 = 0.f;
-    for (int r = 0; r < nrows; ++r) {
-      const size_t off = (size_t)(row0 + r) * C + c;
-      const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(x + off);
-      const __nv_bfloat162 gv = *reinterpret_cast<const __nv_bfloat162*>(g + off);
-      const float g0 = __low2float(gv), g1 = __high2float(gv);
-      const float h0 = (__low2float(xv) - s_mean[r]) * s_rstd[r];
-      const float h1 = (__high2float(xv) - s_mean[r]) * s_rstd[r];
-      const float d0 = s_rstd[r] * (g0 * s0 - s_m1[r] - h0 * s_m2[r]);
-      const float d1 = s_rstd[r] * (g1 * s1 - s_m1[r] - h1 * s_m2[r]);
-      *reinterpret_cast<__nv_bfloat162*>(dx + off) = __floats2bfloat162_rn(d0, d1);
-      dg0 += g0 * h0;
-      dg1 += g1 * h1;
-      db0 += g0;
-      db1 += g1;
-    }
-    part[c] = dg0;
-    part[c + 1] = dg1;
-    part[C + c] = db0;
-    part[C + c + 1] = db1;
+  // the block's partial: the warps' sums in warp order
+  const int C2 = 2 * C;
+  for (int q = threadIdx.x; q < 2 * Q; q += blockDim.x) {
+    const int part = q >= Q, c = sum_col<NCH>(q - part * Q);
+    if (c >= C) continue;
+    float4 s = sums[q];
+    for (int w = 1; w < nw; ++w) add4(s, sums[(size_t)w * 2 * Q + q]);
+    *reinterpret_cast<float4*>(partial + (size_t)blockIdx.x * C2 + part * C + c) = s;
   }
+  // the last block of a group adds the group's partials in block order (into
+  // the group's first row), the last of those the groups' sums in group order
+  unsigned int* tickets = g_ln_bwd_tickets[slot];
+  const int nblocks = gridDim.x, grp = blockIdx.x / kLnBwdGroup;
+  const int ngroups = (nblocks + kLnBwdGroup - 1) / kLnBwdGroup;
+  const int first = grp * kLnBwdGroup, gsize = min(kLnBwdGroup, nblocks - first);
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(&tickets[1 + grp], 1u) == (unsigned)gsize - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  add_partials(partial, C2, first, 1, gsize,
+               ngroups == 1 ? out : partial + (size_t)first * C2);
+  if (threadIdx.x == 0) tickets[1 + grp] = 0;
+  if (ngroups == 1) return;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(&tickets[0], 1u) == (unsigned)ngroups - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  add_partials(partial, C2, 0, kLnBwdGroup, ngroups, out);
+  if (threadIdx.x == 0) tickets[0] = 0;
 }
 
+// The second pass of the other kernels' reductions across blocks (#6, #9).
 __global__ void reduce_partials_kernel(const float* __restrict__ partials,
                                        float* __restrict__ out, int nparts, int width) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
@@ -180,25 +348,43 @@ DC_EXPORT int dc_layer_norm_rows(const void* x, const void* gamma, const void* b
   return (int)cudaGetLastError();
 }
 
-DC_EXPORT int dc_layer_norm_rows_bwd_blocks(int rows) {
-  return (rows + dc::kLnBwdRows - 1) / dc::kLnBwdRows;
-}
-
 // x, g, dx: [rows, C] bf16; gamma: [C] bf16; mean, rstd: [rows] fp32;
-// partial: [dc_layer_norm_rows_bwd_blocks(rows), 2·C] fp32 scratch;
-// dgamma_dbeta: [2·C] fp32 (dγ then dβ).  C % 8 == 0.
+// partial: [blocks, 2·C] fp32 scratch, blocks = max(1, ceil(rows /
+// rows_per_block)) <= 256; dgamma_dbeta: [2·C] fp32 (dγ then dβ), every
+// element written.  C % 8 == 0 and C <= dc_layer_norm_rows_bwd_max_c(); slot
+// < 64, one per (device, stream) (the Python wrapper checks all of these).
+// One kernel launch, nothing else on the device.
 DC_EXPORT int dc_layer_norm_rows_bwd(const void* x, const void* gamma, const void* g,
                                      const void* mean, const void* rstd, void* dx,
                                      void* partial, void* dgamma_dbeta, int rows, int C,
-                                     void* stream) {
-  const int blocks = dc_layer_norm_rows_bwd_blocks(rows);
-  dc::layer_norm_rows_bwd_kernel<<<blocks, dc::kLnThreads, 0, (cudaStream_t)stream>>>(
+                                     int rows_per_block, int slot, void* stream) {
+  constexpr size_t kMaxSmem = 232448;
+  const int blocks = rows > 0 ? (rows + rows_per_block - 1) / rows_per_block : 1;
+  const int nch = C <= 768 ? (C + 255) / 256 : 0;
+  const size_t per_warp = (size_t)2 * (nch > 0 ? 64 * nch : C / 4) * 4 * sizeof(float);
+  int warps = dc::kLnBwdThreads / 32;
+  while (warps > 1 && warps * per_warp > kMaxSmem) --warps;
+  const size_t smem = warps * per_warp;
+  if (smem > kMaxSmem || slot < 0 || slot >= dc::kLnBwdSlots ||
+      blocks > dc::kLnBwdMaxBlocks)
+    return (int)cudaErrorInvalidValue;
+  decltype(&dc::layer_norm_rows_bwd_kernel<0>) const kernels[] = {
+      dc::layer_norm_rows_bwd_kernel<0>, dc::layer_norm_rows_bwd_kernel<1>,
+      dc::layer_norm_rows_bwd_kernel<2>, dc::layer_norm_rows_bwd_kernel<3>};
+  const auto kernel = kernels[nch];
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks, warps * 32, smem, (cudaStream_t)stream>>>(
       (const dc::bf16*)x, (const dc::bf16*)gamma, (const dc::bf16*)g, (const float*)mean,
-      (const float*)rstd, (dc::bf16*)dx, (float*)partial, rows, C);
-  const int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  return dc::reduce_partials((const float*)partial, (float*)dgamma_dbeta, blocks, 2 * C,
-                             (cudaStream_t)stream);
+      (const float*)rstd, (dc::bf16*)dx, (float*)partial, (float*)dgamma_dbeta, rows, C,
+      rows_per_block, slot);
+  return (int)cudaGetLastError();
+}
+
+// The widest row the backward takes: one warp's dγ/dβ sums in shared memory.
+DC_EXPORT int dc_layer_norm_rows_bwd_max_c() {
+  return (int)(232448 / (2 * sizeof(float)));
 }
 
 DC_EXPORT const char* dc_error_string(int err) {

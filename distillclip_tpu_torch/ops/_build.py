@@ -46,9 +46,10 @@ _SIGNATURES = {
     "dc_error_string": (ctypes.c_char_p, [_I]),
     # x, gamma, beta, y, mean, rstd | rows, C, eps, stream
     "dc_layer_norm_rows": (_I, [_P] * 6 + [_I, _I, _F, _P]),
-    "dc_layer_norm_rows_bwd_blocks": (_I, [_I]),
-    # x, gamma, g, mean, rstd, dx, partial, dgamma_dbeta | rows, C, stream
-    "dc_layer_norm_rows_bwd": (_I, [_P] * 8 + [_I, _I, _P]),
+    "dc_layer_norm_rows_bwd_max_c": (_I, []),
+    # x, gamma, g, mean, rstd, dx, partial, dgamma_dbeta | rows, C, rows_per_block,
+    # slot, stream
+    "dc_layer_norm_rows_bwd": (_I, [_P] * 8 + [_I] * 4 + [_P]),
     "dc_dense_ln_smem_bytes": (ctypes.c_longlong, [_I]),
     # x, gamma, beta, w, bias, out, mean, rstd | rows, C, N, eps, act, stream
     "dc_dense_ln": (_I, [_P] * 8 + [_I, _I, _I, _F, _I, _P]),
@@ -70,9 +71,8 @@ _SIGNATURES = {
     "dc_transform_attention_bwd": (_I, [_P] * 10 + [_I, _I, _I, _I, _I, _F, _P]),
     # qkv, out, probs | batch, N, H, d, scale, causal, kv_len, stream
     "dc_plain_attention": (_I, [_P] * 3 + [_I, _I, _I, _I, _F, _I, _I, _P]),
-    "dc_pa_bwd_smem_bytes": (ctypes.c_longlong, [_I, _I, _I, _I]),
-    # qkv, dout, probs, dqkv | batch, N, H, d, tq, scale, stream
-    "dc_plain_attention_bwd": (_I, [_P] * 4 + [_I, _I, _I, _I, _I, _F, _P]),
+    # qkv, dout, probs, dqkv | batch, N, H, d, scale, stream
+    "dc_plain_attention_bwd": (_I, [_P] * 4 + [_I, _I, _I, _I, _F, _P]),
     # q, k, v, out, lse, strides (host, 4 x 3 int64) | batch, N, H, d, scale, causal,
     # kv_len, stream
     "dc_flash_attention_fwd": (_I, [_P] * 6 + [_I, _I, _I, _I, _F, _I, _I, _P]),

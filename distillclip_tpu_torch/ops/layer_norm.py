@@ -3,14 +3,17 @@
 Port of ``distillclip_tpu/ops/layer_norm.py::layer_norm_rows``.  On a CUDA
 tensor the forward launches K4 (``csrc/layer_norm.cu``), which also writes
 the rows' mean and rstd when a gradient will need them, and the backward
-launches the kernel beside it; on a CPU tensor both run the plain versions
-below, the same math in plain PyTorch.
+launches the kernel beside it, once: dx, dscale and dbias in one launch (the
+design is in the source); on a CPU tensor both run the plain versions below,
+the same math in plain PyTorch.
 
 Gradients of the scale and bias leave the kernels as fp32 ``[C]`` and are
 cast to the parameters' dtype, as the JAX package casts them.
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -84,27 +87,60 @@ def layer_norm_rows_fwd(x, scale, bias, eps: float = 1e-5, stats: bool = False):
     return y, mean, rstd
 
 
+# Rows of the backward's device ticket counters (csrc/layer_norm.cu,
+# kLnBwdSlots).
+_TICKET_SLOTS = 64
+# (device index, stream) -> its row of the device counters, for the process:
+# the counters live in the loaded library, one set per process and device.
+_ticket_slots: dict = {}
+_ticket_lock = threading.Lock()
+
+
+def _bwd_rows_per_block(rows: int, sms: int) -> int:
+    """Rows a block of the backward kernel takes: one a warp at least (16),
+    and no more blocks than the card has SMs (one block fills one), each of
+    which writes a ``[2·C]`` fp32 partial that the blocks finishing last add
+    up."""
+    return max(16, -(-rows // sms))
+
+
+def _ticket_slot(x) -> int:
+    """The ticket counter's slot of ``x``'s device and current stream: calls
+    on one stream run in order, so no two launches share a slot at once."""
+    key = (x.device.index, _build.stream_ptr(x))
+    with _ticket_lock:
+        if key not in _ticket_slots:
+            if len(_ticket_slots) == _TICKET_SLOTS:
+                raise RuntimeError(f"layer_norm_rows_bwd: more than {_TICKET_SLOTS} "
+                                   "(device, stream) pairs")
+            _ticket_slots[key] = len(_ticket_slots)
+        return _ticket_slots[key]
+
+
 def layer_norm_rows_bwd(x, scale, g, mean, rstd):
     """(dx, dscale fp32, dbias fp32) of the row LayerNorm: the backward
-    kernel on CUDA tensors, :func:`layer_norm_rows_bwd_plain` on the CPU."""
+    kernel on CUDA tensors (one launch), :func:`layer_norm_rows_bwd_plain` on
+    the CPU."""
     if _build.plain_only("layer_norm_rows_bwd", x):
         return layer_norm_rows_bwd_plain(x, scale, g, mean, rstd)
     g = g.contiguous()
     _build.check_operands("layer_norm_rows_bwd", x, scale, g, fp32=(mean, rstd))
     rows, C = x.shape
-    if C % 8:
-        raise ValueError(f"layer_norm_rows_bwd: C must be a multiple of 8, got {C}")
-    dx = torch.empty_like(x)
-    grads = torch.zeros(2 * C, dtype=torch.float32, device=x.device)
-    if rows == 0:
-        return dx, grads[:C], grads[C:]
     lib = _build.lib()
-    partial = torch.empty((lib.dc_layer_norm_rows_bwd_blocks(rows), 2 * C),
-                          dtype=torch.float32, device=x.device)
+    if C % 8 or C > lib.dc_layer_norm_rows_bwd_max_c():
+        raise ValueError(f"layer_norm_rows_bwd: C must be a multiple of 8 up to "
+                         f"{lib.dc_layer_norm_rows_bwd_max_c()}, got {C}")
+    dx = torch.empty_like(x)
+    grads = torch.empty(2 * C, dtype=torch.float32, device=x.device)
+    rpb = _bwd_rows_per_block(rows, torch.cuda.get_device_properties(x.device)
+                              .multi_processor_count)
+    partial = torch.empty((max(1, -(-rows // rpb)), 2 * C), dtype=torch.float32,
+                          device=x.device)
     _build.check(lib.dc_layer_norm_rows_bwd(x.data_ptr(), scale.data_ptr(), g.data_ptr(),
                                             mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
-                                            partial.data_ptr(), grads.data_ptr(), rows, C,
-                                            _build.stream_ptr(x)), "layer_norm_rows_bwd")
+                                            partial.data_ptr(), grads.data_ptr(), rows, C, rpb,
+                                            _ticket_slot(x), _build.stream_ptr(x)),
+                 "layer_norm_rows_bwd")
     layer_norm_rows_bwd.launches += 1
     return dx, grads[:C], grads[C:]
 

@@ -20,9 +20,11 @@ With a gradient it is a ``torch.autograd.Function``: the forward is the kernel
 with its save-P flag (:func:`plain_attention_save_p`), which also stores the
 probabilities P ``[B, H, N, N]`` in qkv's dtype, and the backward
 (:func:`plain_attention_bwd`, ``csrc/plain_attention_bwd.cu``) makes the fused
-dqkv from qkv, the output gradient and P.  A masked key is a skipped column:
-its probability is an exact 0 in P (the plain version masks with -inf, which
-gives the same 0), and the backward, which takes no mask, relies on that.
+dqkv from qkv, the output gradient and P, its four products on the tensor
+cores as well (the routines of ``csrc/mma_attention_bwd.cuh``).  A masked key
+is a skipped column: its probability is an exact 0 in P (the plain version
+masks with -inf, which gives the same 0), and the backward, which takes no
+mask, relies on that.
 """
 
 from __future__ import annotations
@@ -33,11 +35,7 @@ from typing import Optional
 import torch
 
 from distillclip_tpu_torch.ops import _build
-from distillclip_tpu_torch.ops.transform_attention import (
-    _check_head_dim,
-    _pick_tq,
-    _split_heads,
-)
+from distillclip_tpu_torch.ops.transform_attention import _check_head_dim, _split_heads
 
 MAX_SEQ = 256
 MAX_HEAD_DIM = 128
@@ -161,13 +159,11 @@ def plain_attention_bwd(qkv, do, p, *, heads: int, seq: int, scale: float):
         raise ValueError(f"plain_attention_bwd: do [{rows}, {heads * d}] and P "
                          f"[{B}, {heads}, {seq}, {seq}], got {tuple(do.shape)}, "
                          f"{tuple(p.shape)}")
-    lib = _build.lib()
-    tq = _pick_tq(lib, lib.dc_pa_bwd_smem_bytes, seq, heads, d, "plain_attention_bwd")
     dqkv = torch.empty_like(qkv)
     if rows > 0:
-        _build.check(lib.dc_plain_attention_bwd(
+        _build.check(_build.lib().dc_plain_attention_bwd(
             qkv.data_ptr(), do.data_ptr(), p.data_ptr(), dqkv.data_ptr(), B, seq, heads, d,
-            tq, float(scale), _build.stream_ptr(qkv)), "plain_attention_bwd")
+            float(scale), _build.stream_ptr(qkv)), "plain_attention_bwd")
         plain_attention_bwd.launches += 1
     return dqkv
 

@@ -724,6 +724,77 @@ def test_tensor_core_backward_at_tile_edges(B, H, d, N, layout, causal, kv):
         assert float((g.float() - r).abs().max()) <= 3e-2
 
 
+# (B, H, d, N) of the fused-qkv backward: every N of {1, 15, 16, 17, 50, 77,
+# 256} with every d of {8, 16, 32, 48, 64, 128} at three heads (a block takes
+# ceil(64 / d) heads, so groups come out ragged; d >= 64 at N = 256 streams
+# row chunks), the head-transform kernels' long shapes and #15's head shapes
+_PA_BWD_EDGES = ([(2, 3, d, N) for N in (1, 15, 16, 17, 50, 77, 256)
+                  for d in (8, 16, 32, 48, 64, 128)]
+                 + [(2, 2, 8, 256), (2, 16, 64, 256), (3, 5, 64, 33), (3, 4, 48, 33)])
+
+
+@pytest.mark.parametrize("B,H,d,N", _PA_BWD_EDGES)
+@pytest.mark.parametrize("causal,kv", [(False, None), (True, None), (False, "short"),
+                                       (True, "short")],
+                         ids=["full", "causal", "kv_len", "causal_kv_len"])
+def test_plain_attention_backward_at_tile_edges(B, H, d, N, causal, kv):
+    """#14 on the tensor cores from the save-P kernel's P (exact zeros at
+    masked keys) against the fp32 plain version on the same P: dqkv within
+    3e-2."""
+    rng = np.random.default_rng(B * 1000 + H * 100 + d + N + 14)
+    qkv = torch.cat([_bf16(rng, (B * N, 2 * H * d)), _bf16(rng, (B * N, H * d), 0.7)], dim=1)
+    do = _bf16(rng, (B * N, H * d))
+    kw = dict(heads=H, seq=N, scale=d ** -0.5)
+    _, p = pa.plain_attention_save_p(qkv, **kw, causal=causal, kv_len=_kv(kv, N))
+    dqkv = pa.plain_attention_bwd(qkv, do, p, **kw)
+    ref = pa.plain_attention_bwd_plain(qkv.float(), do.float(), p.float(), **kw)
+    torch.cuda.synchronize()
+    assert dqkv.dtype == torch.bfloat16 and dqkv.shape == qkv.shape
+    assert torch.isfinite(dqkv.float()).all()
+    assert float((dqkv.float() - ref).abs().max()) <= 3e-2
+
+
+def _ln_bwd_inputs(rng, rows, C=768):
+    x = torch.from_numpy(rng.uniform(-3 ** 0.5, 3 ** 0.5, size=(rows, C)).astype(np.float32))
+    x, s, b = x.cuda().to(torch.bfloat16), _bf16(rng, (C,), 0.1, 1.0), _bf16(rng, (C,), 0.1)
+    _, mean, rstd = layer_norm.layer_norm_rows_stats_plain(x, s, b)
+    return x, s, _bf16(rng, (rows, C)), mean, rstd
+
+
+@pytest.mark.parametrize("rows,C", [(1, 768), (2, 768), (255, 768), (257, 768), (12800, 768),
+                                    (300, 1024), (40, 4096)])
+def test_layer_norm_bwd_at_row_counts(rows, C):
+    """#7 in one launch (rows a block from the row count, the blocks that
+    finish last adding the partials; rows in registers up to C = 768, read
+    twice above) against the plain version: dx within 3e-2, dscale and dbias
+    within 6e-3 of their largest entry."""
+    x, s, g, mean, rstd = _ln_bwd_inputs(np.random.default_rng(rows + C), rows, C)
+    ops.reset_launch_counts()
+    dx, ds, db = layer_norm.layer_norm_rows_bwd(x, s, g, mean, rstd)
+    rdx, rds, rdb = layer_norm.layer_norm_rows_bwd_plain(x.float(), s.float(), g.float(),
+                                                         mean, rstd)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["layer_norm_rows_bwd"] == 1
+    assert dx.dtype == torch.bfloat16 and float((dx.float() - rdx).abs().max()) <= 3e-2
+    assert ds.dtype == torch.float32 and db.dtype == torch.float32
+    assert _rel_to_max(ds, rds) < 6e-3 and _rel_to_max(db, rdb) < 6e-3
+
+
+@pytest.mark.parametrize("rows", [256, 19712])
+def test_layer_norm_bwd_is_deterministic(rows):
+    """The partials are added in block order by whichever block finishes
+    last: two runs give the same bits, and a third on another stream too."""
+    x, s, g, mean, rstd = _ln_bwd_inputs(np.random.default_rng(rows + 7), rows)
+    a = layer_norm.layer_norm_rows_bwd(x, s, g, mean, rstd)
+    b = layer_norm.layer_norm_rows_bwd(x, s, g, mean, rstd)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        c = layer_norm.layer_norm_rows_bwd(x, s, g, mean, rstd)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) and torch.equal(u, w) for u, v, w in zip(a, b, c))
+
+
 def test_tiny_tapped_steps_on_card_match_plain_cpu_path(tmp_path):
     """Stage-1 steps that collect hidden states, on a fabricated two-head
     teacher: the loss against the fp32 CPU path, and the attention kernels each
