@@ -1,0 +1,171 @@
+#!/usr/bin/env python3
+"""Side-by-side timings of checkouts of the port, in one run on one card.
+
+    python3 chip_ab.py ROOT [ROOT ...]
+
+ROOT is the root of a checkout of this repository (``.`` for this one).  In
+a fresh Python process per checkout, in the order given and then in the
+reverse order, the script imports ``distillclip_tpu_torch`` from ROOT (its
+kernels built under ROOT/build/, as ``chip_smoke.py`` builds them) and prints
+lines ``ab <ROOT's name> <what>: ...`` that end with the card's name and power
+limit:
+
+- ``tf_bwd``: ``transform_attention_bwd`` (#6) at the two students' shapes
+  (B=256; 24 heads of 32 at 50 tokens, 12 of 64 at 77), device ms per call
+  over 20 calls replayed from one CUDA graph;
+- ``reduce_partials``: device ms per call of the kernels named
+  ``reduce_partials`` (the fixed-order sums of per-block partials) in
+  ``dense_ln_bwd`` (#9) at its four main-path shapes and in #6 at both
+  shapes, from ``torch.profiler`` over 20 eager calls;
+- ``k4 host``: µs per eager ``layer_norm_rows`` call at [256, 768] (the
+  serving call's final norms), host clock over 2000 calls, five times;
+- ``serving``: ms per ``score_tokens`` call of the final students at batch
+  256, device-resident, host clock (the numpy readback fences), five rounds
+  of five calls.
+
+Compare two checkouts only within one run: the card's power limit and the
+host's load move every number between runs.  Needs one CUDA card and nvcc.
+"""
+
+from __future__ import annotations
+
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+
+def _card() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    return out.splitlines()[0]
+
+
+def _graph_ms(torch, fn, iters: int = 20) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _kernel_ms(torch, fn, key: str, iters: int = 20) -> float:
+    """Device ms per call of the kernels whose name holds ``key``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for ev in prof.key_averages():
+        if key in ev.key and not str(getattr(ev, "device_type", "")).endswith("CPU"):
+            us += getattr(ev, "self_device_time_total", None) or ev.self_cuda_time_total
+    return us / 1e3 / iters
+
+
+def one(root: Path) -> None:
+    """The measurements of one checkout, in this process."""
+    sys.path.insert(0, str(root))
+    import torch
+
+    from distillclip_tpu_torch.ops import fc1_act, layer_norm
+    from distillclip_tpu_torch.ops import transform_attention as ta
+    from distillclip_tpu_torch.serving import LCLIPScorer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card, tag = _card(), f"ab {root.resolve().name}"
+    rng = np.random.default_rng(0)
+
+    def t(shape, std=1.0, mean=0.0):
+        a = rng.standard_normal(shape, dtype=np.float32) * np.float32(std) + np.float32(mean)
+        return torch.from_numpy(a).cuda().to(torch.bfloat16)
+
+    tf, red = [], []
+    for B, H, d, N in ((256, 24, 32, 50), (256, 12, 64, 77)):
+        qkv, do = t((B * N, 3 * H * d)), t((B * N, H * d))
+        wl, ww = t((H, H), H ** -0.5), t((H, H), H ** -0.5)
+        kw = dict(heads=H, seq=N, scale=d ** -0.5)
+        p = ta.transform_attention_save_p(qkv, wl, ww, **kw)[1]
+        fn = lambda: ta.transform_attention_bwd(qkv, wl, ww, do, p, **kw)
+        tf.append(f"H={H} d={d} N={N} {_graph_ms(torch, fn):.4f}")
+        red.append(f"#6 H={H} {_kernel_ms(torch, fn, 'reduce_partials'):.4f}")
+    print(f"{tag} tf_bwd ms: {'; '.join(tf)} [{card}]", flush=True)
+
+    for rows in (12800, 19712):
+        for n in (2304, 3072):
+            x, du = t((rows, 768)), t((rows, n))
+            g, b, w = t((768,), 0.1, 1.0), t((768,), 0.1), t((768, n), 0.02)
+            _, mean, rstd = fc1_act.dense_ln_stats_plain(x, g, b, w, None)
+            fn = lambda: fc1_act.dense_ln_bwd(x, g, b, w, du, mean, rstd)
+            red.append(f"#9 [{rows},{n}] {_kernel_ms(torch, fn, 'reduce_partials'):.4f}")
+    print(f"{tag} reduce_partials ms: {'; '.join(red)} [{card}]", flush=True)
+
+    x, g, b = t((256, 768)), t((768,), 0.1, 1.0), t((768,), 0.1)
+    with torch.inference_mode():
+        host = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2000):
+                layer_norm.layer_norm_rows(x, g, b)
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) / 2000 * 1e6)
+    host = host[1:]
+    print(f"{tag} k4 host us/call [256,768]: {' '.join(f'{u:.2f}' for u in host)} median "
+          f"{statistics.median(host):.2f} [{card}]", flush=True)
+
+    scorer = LCLIPScorer.from_config(str(root / "configs" / "final" / "l_clip.yaml"),
+                                     device="cuda", seed=0)
+    images = torch.from_numpy(rng.integers(0, 256, size=(256, 224, 224, 3), dtype=np.uint8))
+    tokens = np.zeros((256, 77), np.int64)
+    tokens[:, 0], tokens[:, 1:20], tokens[:, 20] = 49406, rng.integers(1, 49406, (256, 19)), 49407
+    images, tokens = images.cuda(), torch.from_numpy(tokens).cuda()
+    for _ in range(2):
+        scorer.score_tokens(images, tokens)
+    rounds = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(5):
+            scorer.score_tokens(images, tokens)
+        rounds.append((time.perf_counter() - t0) / 5 * 1e3)
+    print(f"{tag} serving 256 device-resident ms/call: {' '.join(f'{m:.3f}' for m in rounds)} "
+          f"median {statistics.median(rounds):.3f} [{card}]", flush=True)
+
+
+def main() -> None:
+    args = sys.argv[1:]
+    if args[:1] == ["--one"]:
+        one(Path(args[1]))
+        return
+    if not args:
+        sys.exit(__doc__)
+    rc = 0
+    for root in args + args[::-1]:
+        proc = subprocess.run([sys.executable, __file__, "--one", root], text=True,
+                              capture_output=True)
+        print(proc.stdout, end="", flush=True)
+        if proc.returncode:
+            print(f"ab {root}: exit {proc.returncode}\n{proc.stderr[-3000:]}", flush=True)
+            rc = 1
+    sys.exit(rc)
+
+
+if __name__ == "__main__":
+    main()

@@ -9,7 +9,9 @@ phases, each of which exits non-zero on failure:
 
 1. the card's name and power limit (nvidia-smi);
 2. build the kernels from distillclip_tpu_torch/csrc with nvcc (one process
-   per source, all at once) into build/torch_kernels/;
+   per source, all at once) into build/torch_kernels/, and print the
+   registers and spill bytes (nvcc -Xptxas -v, in the build log) of each
+   instance of PTXAS_KERNELS;
 3. kernel oracles: each kernel on bf16 inputs at the shapes the serving call,
    the teacher and the train steps give it, and on a ragged small shape,
    against its plain PyTorch version in fp32 on the same values (TF32 off).
@@ -244,6 +246,13 @@ KNOB_PHASES = {
 }
 
 
+# kernels whose registers and spills (nvcc -Xptxas -v, in the build log) the
+# run prints: the two redesigned last (K4; #6's row, dq/dk and column kernels
+# and the partials' reduction, which #9 shares)
+PTXAS_KERNELS = ("layer_norm_rows_kernel", "tf_bwd_rows_kernel", "tf_bwd_qk_kernel",
+                 "tf_bwd_cols_kernel", "reduce_partials_kernel")
+
+
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
@@ -254,6 +263,27 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     return out.splitlines()[0]
+
+
+def ptxas_lines(log: Path) -> None:
+    """One line per instance of PTXAS_KERNELS from the build log: registers a
+    thread and spill bytes (ptxas prints the entry function, its spill line,
+    then its register count)."""
+    import re
+
+    name, spills = None, ""
+    for line in log.read_text().splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            name, spills = None, ""
+            for kernel in PTXAS_KERNELS:
+                if (k := re.search(kernel + r"(I(?:Li\d+E)+E)?", m.group(1))):
+                    args = re.findall(r"Li(\d+)E", k.group(1) or "")
+                    name = kernel + (f"<{', '.join(args)}>" if args else "")
+        elif name and "spill stores" in line:
+            spills = line.strip()
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            print(f"ptxas {name}: {m.group(1)} registers; {spills}", flush=True)
+            name = None
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -1599,7 +1629,7 @@ PROFILE_GROUPS = (
      ("plain_attention_mma_kernel",)),
     ("plain_attention_bwd (#14, tensor cores)", ("plain_attention_bwd_mma_kernel",)),
     ("layer_norm_rows + bwd", ("layer_norm_rows",)),
-    ("reduce_partials", ("reduce_partials",)),
+    ("reduce_partials (#6, #9)", ("reduce_partials",)),
     ("optimizer (foreach kernels)", ("multi_tensor_apply",)),
     ("library convolutions (cuDNN; vit_kd)", ("fprop", "dgrad", "wgrad", "conv", "cudnn")),
     ("dense_act (#10-#12, wgmma)", ("dense_act_wgmma_kernel",)),
@@ -1654,6 +1684,8 @@ def main() -> None:
     _build.lib()
     print(f"build: {_build.library_path().name} in {time.perf_counter() - t0:.1f} s "
           f"(log: {_build.BUILD_DIR / 'build.log'})", flush=True)
+    if (_build.BUILD_DIR / "build.log").exists():
+        ptxas_lines(_build.BUILD_DIR / "build.log")
 
     results, case_ms = kernel_oracles(card)
     if missing := sorted(set(ops.KERNELS) - set(results)):

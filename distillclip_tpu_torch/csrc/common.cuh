@@ -72,8 +72,8 @@ __device__ __forceinline__ float act_e(float u) {
   return 1.0f / (1.0f + expf(-1.702f * u));
 }
 
-// out[j] = Σ_p partials[p·width + j] in ascending p: the second pass of the
-// reductions across blocks of #6 and #9 (dconv_l/dconv_w, dγ/dβ), so that the
+// out[j] = Σ_p partials[p·width + j] in a fixed order: the second pass of #9's
+// reduction across blocks (dγ/dβ) and of #6's (dconv_l / dconv_w), so that the
 // sums do not depend on the order in which blocks finish.  Defined in
 // layer_norm.cu.
 int reduce_partials(const float* partials, float* out, int nparts, int width,

@@ -3,7 +3,7 @@
 // Forward replaces distillclip_tpu/ops/layer_norm.py:_ln_fwd_kernel (the
 // Pallas forward behind layer_norm_rows); backward replaces :_ln_bwd_kernel.
 // On the serving and training paths they normalise the pooled [B, C] rows of
-// the students' final `norm`.
+// the students' final `norm`, and under fc1_ln "0" every norm of the towers.
 //
 // Forward:   y = (x - mean) · rstd · γ + β, and (for the backward) mean and
 //            rstd as fp32 [rows] when the caller passes buffers for them.
@@ -13,9 +13,23 @@
 //
 // Bound on the H100: bytes.  Each row is read from device memory once and
 // written once (C = 768 bf16 values, 1.5 KB); the arithmetic is a few
-// operations per value.  Forward design: one warp per row, 16-byte loads, warp
-// shuffles for the two reductions and no shared memory.  The second and
-// third passes over the row re-read it from L1, where the first pass left it.
+// operations per value.
+//
+// Forward design: a warp owns a row at a time and reads it once, as 16-byte
+// words held in registers (NCH = C / 256 words a lane up to C = 768, lane l
+// holding words k·32 + l, the layout of the backward below); the mean and then
+// the variance come from those registers in two passes (no E[x²] − mean²), y
+// is written from them.  γ and β stay in registers, as 16-byte words, for
+// every row the warp takes, and the next row's words are loaded before the
+// current row is reduced, so a warp always has a row in flight.  A warp takes
+// rows w, w + W, w + 2W, ... (W warps in the grid), and the Python wrapper
+// picks W and the block size from the row count: at most as many warps as the
+// card holds at once, so that the all-rows calls run one full wave in which
+// every warp takes the same number of rows, and blocks of two warps for calls
+// too small to fill the card, so that they spread over as many SMs as
+// possible.  C past 768 (NCH = 0) reads the row in 16-byte words from L1 on
+// each pass.  The lean and the statistics modes run the same arithmetic, so y
+// is the same bits in both.
 //
 // Backward design: one kernel launch and no other device operation (the
 // result buffers come from torch.empty); the partial sums of the blocks are
@@ -42,55 +56,130 @@
 
 namespace dc {
 
+// Forward: at most 8 warps a block, and registers for 3 such blocks an SM
+// (2 at C > 512, whose three words a lane of x, the next x, γ and β spill at 3).
 constexpr int kLnThreads = 256;
-constexpr int kLnRowsPerBlock = kLnThreads / 32;
+constexpr int ln_min_blocks(int nch) { return nch == 3 ? 2 : 3; }
 
-__global__ void __launch_bounds__(kLnThreads)
+// A lane's words k·32 + lane (k < NCH) of a row, zero past C.
+template <int NCH>
+__device__ __forceinline__ void load_row_words(const bf16* __restrict__ row, int C, int lane,
+                                               uint4 (&w)[NCH]) {
+#pragma unroll
+  for (int k = 0; k < NCH; ++k) {
+    const int c = (k * 32 + lane) * 8;
+    w[k] = c < C ? *reinterpret_cast<const uint4*>(row + c) : make_uint4(0, 0, 0, 0);
+  }
+}
+
+// NCH > 0: C <= 256·NCH, rows in registers; NCH == 0: any C % 8 == 0.
+template <int NCH>
+__global__ void __launch_bounds__(kLnThreads, ln_min_blocks(NCH))
 layer_norm_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
                        const bf16* __restrict__ beta, bf16* __restrict__ y,
                        float* __restrict__ mean_out, float* __restrict__ rstd_out,
                        int rows, int C, float eps) {
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kLnRowsPerBlock + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const bf16* xr = x + (size_t)row * C;
-  bf16* yr = y + (size_t)row * C;
+  const int nwarps = gridDim.x * (blockDim.x >> 5);
+  int r = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (r >= rows) return;
   const float inv_c = 1.0f / (float)C;
 
-  float s = 0.f;
-  for (int c = lane * 8; c < C; c += 32 * 8) {
-    float f[8];
-    load8(xr + c, f);
+  if constexpr (NCH > 0) {
+    uint4 gw[NCH], bw[NCH], xw[NCH];
+    load_row_words<NCH>(gamma, C, lane, gw);
+    load_row_words<NCH>(beta, C, lane, bw);
+    load_row_words<NCH>(x + (size_t)r * C, C, lane, xw);
+    for (; r < rows; r += nwarps) {
+      uint4 xn[NCH];
+      if (r + nwarps < rows) load_row_words<NCH>(x + (size_t)(r + nwarps) * C, C, lane, xn);
+      float s = 0.f;
 #pragma unroll
-    for (int t = 0; t < 8; ++t) s += f[t];
-  }
-  const float mean = warp_sum(s) * inv_c;
-
-  float v = 0.f;
-  for (int c = lane * 8; c < C; c += 32 * 8) {
-    float f[8];
-    load8(xr + c, f);
+      for (int k = 0; k < NCH; ++k) {
+        float f[8];
+        unpack8(xw[k], f);
 #pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const float d = f[t] - mean;
-      v += d * d;
+        for (int t = 0; t < 8; ++t) s += f[t];
+      }
+      const float mean = warp_sum(s) * inv_c;
+      float v = 0.f;
+#pragma unroll
+      for (int k = 0; k < NCH; ++k) {
+        if ((k * 32 + lane) * 8 >= C) continue;
+        float f[8];
+        unpack8(xw[k], f);
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          const float d = f[t] - mean;
+          v += d * d;
+        }
+      }
+      const float rstd = rsqrtf(warp_sum(v) * inv_c + eps);
+      if (mean_out != nullptr && lane == 0) {
+        mean_out[r] = mean;
+        rstd_out[r] = rstd;
+      }
+#pragma unroll
+      for (int k = 0; k < NCH; ++k) {
+        const int c = (k * 32 + lane) * 8;
+        if (c >= C) continue;
+        float f[8], g[8], b[8];
+        unpack8(xw[k], f);
+        unpack8(gw[k], g);
+        unpack8(bw[k], b);
+#pragma unroll
+        for (int t = 0; t < 8; ++t) f[t] = (f[t] - mean) * rstd * g[t] + b[t];
+        store8(y + (size_t)r * C + c, f);
+      }
+#pragma unroll
+      for (int k = 0; k < NCH; ++k) xw[k] = xn[k];
+    }
+  } else {
+    for (; r < rows; r += nwarps) {
+      const bf16* xr = x + (size_t)r * C;
+      bf16* yr = y + (size_t)r * C;
+      float s = 0.f;
+      for (int c = lane * 8; c < C; c += 32 * 8) {
+        float f[8];
+        load8(xr + c, f);
+#pragma unroll
+        for (int t = 0; t < 8; ++t) s += f[t];
+      }
+      const float mean = warp_sum(s) * inv_c;
+      float v = 0.f;
+      for (int c = lane * 8; c < C; c += 32 * 8) {
+        float f[8];
+        load8(xr + c, f);
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          const float d = f[t] - mean;
+          v += d * d;
+        }
+      }
+      const float rstd = rsqrtf(warp_sum(v) * inv_c + eps);
+      if (mean_out != nullptr && lane == 0) {
+        mean_out[r] = mean;
+        rstd_out[r] = rstd;
+      }
+      for (int c = lane * 8; c < C; c += 32 * 8) {
+        float f[8], g[8], b[8];
+        load8(xr + c, f);
+        load8(gamma + c, g);
+        load8(beta + c, b);
+#pragma unroll
+        for (int t = 0; t < 8; ++t) f[t] = (f[t] - mean) * rstd * g[t] + b[t];
+        store8(yr + c, f);
+      }
     }
   }
-  const float rstd = rsqrtf(warp_sum(v) * inv_c + eps);
-  if (mean_out != nullptr && lane == 0) {
-    mean_out[row] = mean;
-    rstd_out[row] = rstd;
-  }
+}
 
-  for (int c = lane * 8; c < C; c += 32 * 8) {
-    float f[8], g[8], b[8];
-    load8(xr + c, f);
-    load8(gamma + c, g);
-    load8(beta + c, b);
-#pragma unroll
-    for (int t = 0; t < 8; ++t) f[t] = (f[t] - mean) * rstd * g[t] + b[t];
-    store8(yr + c, f);
-  }
+// The forward's instance for rows of C values.
+inline decltype(&layer_norm_rows_kernel<0>) layer_norm_rows_instance(int C) {
+  decltype(&layer_norm_rows_kernel<0>) const kernels[] = {
+      layer_norm_rows_kernel<0>, layer_norm_rows_kernel<1>, layer_norm_rows_kernel<2>,
+      layer_norm_rows_kernel<3>};
+  return kernels[C <= 768 ? (C + 255) / 256 : 0];
 }
 
 constexpr int kLnBwdThreads = 512;
@@ -315,21 +404,36 @@ layer_norm_rows_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ 
   if (threadIdx.x == 0) tickets[0] = 0;
 }
 
-// The second pass of the other kernels' reductions across blocks (#6, #9).
-__global__ void reduce_partials_kernel(const float* __restrict__ partials,
-                                       float* __restrict__ out, int nparts, int width) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= width) return;
+// The second pass of #9's reduction across blocks, and #6's: a block of
+// kReduceWarps warps takes 32 columns, warp w the parts p ≡ w (mod
+// kReduceWarps) in ascending order, then the warps' sums are added in warp
+// order.  No atomics: the same bits every run.
+constexpr int kReduceWarps = 16;
+
+__global__ void __launch_bounds__(kReduceWarps * 32)
+reduce_partials_kernel(const float* __restrict__ partials, float* __restrict__ out, int nparts,
+                       int width) {
+  __shared__ float sums[kReduceWarps][32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int j = blockIdx.x * 32 + lane;
   float s = 0.f;
-  for (int p = 0; p < nparts; ++p) s += partials[(size_t)p * width + j];
-  out[j] = s;
+  if (j < width) {
+#pragma unroll 8
+    for (int p = warp; p < nparts; p += kReduceWarps) s += __ldg(partials + (size_t)p * width + j);
+  }
+  sums[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && j < width) {
+    float t = 0.f;
+    for (int w = 0; w < kReduceWarps; ++w) t += sums[w][lane];
+    out[j] = t;
+  }
 }
 
 int reduce_partials(const float* partials, float* out, int nparts, int width,
                     cudaStream_t stream) {
-  const int threads = 128;
-  reduce_partials_kernel<<<(width + threads - 1) / threads, threads, 0, stream>>>(
-      partials, out, nparts, width);
+  reduce_partials_kernel<<<(width + 31) / 32, kReduceWarps * 32, 0, stream>>>(partials, out,
+                                                                             nparts, width);
   return (int)cudaGetLastError();
 }
 
@@ -337,15 +441,28 @@ int reduce_partials(const float* partials, float* out, int nparts, int width,
 
 // x, y: [rows, C] bf16; gamma, beta: [C] bf16; mean, rstd: [rows] fp32, both
 // NULL for the lean forward; C % 8 == 0 (checked by the Python wrapper, which
-// also checks contiguity and devices).
+// also checks contiguity and devices).  `blocks` blocks of `threads` (a
+// multiple of 32, at most 256) threads: warp w of the grid takes rows w, w + W,
+// ... (W warps in all); the wrapper picks both from the row count.
 DC_EXPORT int dc_layer_norm_rows(const void* x, const void* gamma, const void* beta,
                                  void* y, void* mean, void* rstd, int rows, int C,
-                                 float eps, void* stream) {
-  const int blocks = (rows + dc::kLnRowsPerBlock - 1) / dc::kLnRowsPerBlock;
-  dc::layer_norm_rows_kernel<<<blocks, dc::kLnThreads, 0, (cudaStream_t)stream>>>(
+                                 float eps, int threads, int blocks, void* stream) {
+  if (threads < 32 || threads > dc::kLnThreads || threads % 32 || blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  dc::layer_norm_rows_instance(C)<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const dc::bf16*)x, (const dc::bf16*)gamma, (const dc::bf16*)beta, (dc::bf16*)y,
       (float*)mean, (float*)rstd, rows, C, eps);
   return (int)cudaGetLastError();
+}
+
+// Warps of the forward's instance for rows of C values that one SM holds at
+// once in blocks of 256 threads (registers and the block limit).
+DC_EXPORT int dc_layer_norm_rows_warps_per_sm(int C) {
+  int blocks = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, dc::layer_norm_rows_instance(C), dc::kLnThreads, 0);
+  if (err != cudaSuccess) return -(int)err;
+  return blocks * dc::kLnThreads / 32;
 }
 
 // x, g, dx: [rows, C] bf16; gamma: [C] bf16; mean, rstd: [rows] fp32;

@@ -1,6 +1,7 @@
 // Plain attention backward on the tensor cores: the device routine of
 // flash_attention_bwd.cu (#16 backward), written so that the fused-qkv
-// backward (#14, plain_attention_bwd.cu) can take it up.
+// backward (#14, plain_attention_bwd.cu) and the head-transform backward
+// (#6, transform_attention_bwd.cu) can take up its routines.
 //
 // Per sample b, head h, from q, k, v, O, dO (bf16) and the forward's row
 // logsumexp lse (fp32):
@@ -105,7 +106,9 @@ using mma_attn::pack2;
 using mma_attn::split2;
 
 // Rows row0 .. row0 + nrows - 1 of heads h0 .. h0 + Gb - 1 of a [B, H, N, d]
-// view into planes of `plane` elements (row stride LD); zero past N and d.
+// view into planes of `plane` elements (row stride LD); zero past N and d.  A
+// row's Gb·2KS 16-byte words are padded to 1 << sh slots, so that a slot's
+// row and word come from shifts, not divisions.
 template <int KS>
 __device__ __forceinline__ void stage(bf16* dst, size_t plane, const bf16* __restrict__ src,
                                       Strides st, int b, int h0, int Gb, int row0, int nrows,
@@ -113,9 +116,11 @@ __device__ __forceinline__ void stage(bf16* dst, size_t plane, const bf16* __res
   constexpr int LD = 16 * KS + 8;
   constexpr int CW = 2 * KS;      // 16-byte words of a staged row
   const int per_row = Gb * CW;
-  for (int idx = threadIdx.x; idx < nrows * per_row; idx += blockDim.x) {
-    const int j = idx / per_row;
-    const int w = idx - j * per_row;
+  int sh = 0;
+  while ((1 << sh) < per_row) ++sh;
+  for (int f = threadIdx.x; f < nrows << sh; f += blockDim.x) {
+    const int j = f >> sh, w = f & ((1 << sh) - 1);
+    if (w >= per_row) continue;
     const int g = w / CW;
     const int c = (w - g * CW) * 8;
     bf16* p = dst + g * plane + (size_t)j * LD + c;
@@ -174,6 +179,52 @@ __device__ __forceinline__ void ab_step(float (&acc)[2 * KS][4], const float (&x
     mma_bf16(acc[2 * dt], lo, bv[0], bv[1]);
     mma_bf16(acc[2 * dt + 1], hi, bv[2], bv[3]);
     mma_bf16(acc[2 * dt + 1], lo, bv[2], bv[3]);
+  }
+}
+
+// The 16 x 16 tile at rows r, columns c of a staged bf16 plane (row stride
+// ld), e.g. P (queries x keys), as an A fragment ...
+__device__ __forceinline__ void p_frag(uint32_t (&a)[4], const bf16* P, int ld, int r, int c,
+                                       int lane) {
+  ldsm_x4(a, P + (size_t)(r + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + c + (lane >> 4) * 8);
+}
+
+// ... and as the A fragment of its transpose Pᵀ (keys x queries).
+__device__ __forceinline__ void pt_frag(uint32_t (&a)[4], const bf16* P, int ld, int r, int c,
+                                        int lane) {
+  ldsm_x4_trans(a, P + (size_t)(r + (lane & 7) + (lane >> 4) * 8) * ld + c +
+                       ((lane >> 3) & 1) * 8);
+}
+
+// The fp32 values of an A fragment in the layout of the two C fragments of
+// its columns 0-7 (x[0]) and 8-15 (x[1]).
+__device__ __forceinline__ void frag_values(const uint32_t (&a)[4], float (&x)[2][4]) {
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const uint32_t w = a[2 * n + r];
+      x[n][2 * r] = __uint_as_float(w << 16);
+      x[n][2 * r + 1] = __uint_as_float(w & 0xffff0000u);
+    }
+  }
+}
+
+// acc[16 x 16KS] += A · (rows 16·st .. 16·st + 15 of a staged plane), A a
+// ready bf16 fragment: one product (the saved P needs no lo part; an
+// operand held as bf16 hi + lo enters as two calls).
+template <int KS>
+__device__ __forceinline__ void ab_frag(float (&acc)[2 * KS][4], const uint32_t (&a)[4],
+                                        const bf16* plane, int st, int lane) {
+  constexpr int LD = 16 * KS + 8;
+  const bf16* row = plane + (size_t)(st * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                    (lane >> 4) * 8;
+#pragma unroll
+  for (int dt = 0; dt < KS; ++dt) {
+    uint32_t bv[4];
+    ldsm_x4_trans(bv, row + dt * 16);
+    mma_bf16(acc[2 * dt], a, bv[0], bv[1]);
+    mma_bf16(acc[2 * dt + 1], a, bv[2], bv[3]);
   }
 }
 

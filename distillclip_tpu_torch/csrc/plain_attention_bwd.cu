@@ -66,15 +66,16 @@ namespace {
 
 using mma_attn::kMaxSmem;
 using mma_attn::kMaxWarps;
-using mma_attn::ldsm_x4;
-using mma_attn::ldsm_x4_trans;
-using mma_attn::mma_bf16;
 using mma_attn::pad16;
 using mma_attn::quad_sum;
 using mma_attn::row_ld;
 using mma_attn::Strides;
+using mma_attn_bwd::ab_frag;
 using mma_attn_bwd::ab_step;
+using mma_attn_bwd::frag_values;
+using mma_attn_bwd::p_frag;
 using mma_attn_bwd::Plan;
+using mma_attn_bwd::pt_frag;
 using mma_attn_bwd::scores_from_planes;
 using mma_attn_bwd::stage;
 using mma_attn_bwd::store_rows;
@@ -170,51 +171,6 @@ __device__ __forceinline__ void stage_p_cols(bf16* dst, size_t plane, int ld,
     const unsigned short* row = src + (((size_t)b * H + h0 + g) * N + r) * N + col0;
     unsigned short* o = out + g * plane + (size_t)r * ld;
     for (int j = lane; j < ncols; j += 32) o[j] = r < N && col0 + j < N ? row[j] : 0;
-  }
-}
-
-// The 16 x 16 tile at rows r, columns c of a staged P plane (row stride ld)
-// as the A fragment of P (queries x keys) ...
-__device__ __forceinline__ void p_frag(uint32_t (&a)[4], const bf16* P, int ld, int r, int c,
-                                       int lane) {
-  ldsm_x4(a, P + (size_t)(r + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + c + (lane >> 4) * 8);
-}
-
-// ... and as the A fragment of its transpose Pᵀ (keys x queries).
-__device__ __forceinline__ void pt_frag(uint32_t (&a)[4], const bf16* P, int ld, int r, int c,
-                                        int lane) {
-  ldsm_x4_trans(a, P + (size_t)(r + (lane & 7) + (lane >> 4) * 8) * ld + c +
-                       ((lane >> 3) & 1) * 8);
-}
-
-// The fp32 values of an A fragment in the layout of the two C fragments of
-// its columns 0-7 (x[0]) and 8-15 (x[1]).
-__device__ __forceinline__ void frag_values(const uint32_t (&a)[4], float (&x)[2][4]) {
-#pragma unroll
-  for (int n = 0; n < 2; ++n) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const uint32_t w = a[2 * n + r];
-      x[n][2 * r] = __uint_as_float(w << 16);
-      x[n][2 * r + 1] = __uint_as_float(w & 0xffff0000u);
-    }
-  }
-}
-
-// acc[16 x 16KS] += A · (rows 16·st .. 16·st + 15 of a staged plane), A a
-// ready bf16 fragment (one product: the saved P needs no lo part).
-template <int KS>
-__device__ __forceinline__ void ab_frag(float (&acc)[2 * KS][4], const uint32_t (&a)[4],
-                                        const bf16* plane, int st, int lane) {
-  constexpr int LD = 16 * KS + 8;
-  const bf16* row = plane + (size_t)(st * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                    (lane >> 4) * 8;
-#pragma unroll
-  for (int dt = 0; dt < KS; ++dt) {
-    uint32_t bv[4];
-    ldsm_x4_trans(bv, row + dt * 16);
-    mma_bf16(acc[2 * dt], a, bv[0], bv[1]);
-    mma_bf16(acc[2 * dt + 1], a, bv[2], bv[3]);
   }
 }
 

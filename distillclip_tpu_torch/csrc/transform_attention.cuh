@@ -1,6 +1,5 @@
-// Device routines shared by the attention kernels (transform_attention.cu,
-// transform_attention_bwd.cu, plain_attention.cu, plain_attention_bwd.cu,
-// flash_attention.cu, flash_attention_bwd.cu, flash_transform_attention.cu).
+// Device routines shared by the head-transform attention forwards
+// (transform_attention.cu, flash_transform_attention.cu).
 //
 // All of them work on a block's tile in shared memory: `tq` rows (at most
 // kTqMax) of one sample, all H heads, as [H, tq, N] fp32 planes, and they are

@@ -44,8 +44,9 @@ _F = ctypes.c_float
 # ctypes does not cut them to 32-bit ints.
 _SIGNATURES = {
     "dc_error_string": (ctypes.c_char_p, [_I]),
-    # x, gamma, beta, y, mean, rstd | rows, C, eps, stream
-    "dc_layer_norm_rows": (_I, [_P] * 6 + [_I, _I, _F, _P]),
+    # x, gamma, beta, y, mean, rstd | rows, C, eps, threads, blocks, stream
+    "dc_layer_norm_rows": (_I, [_P] * 6 + [_I, _I, _F, _I, _I, _P]),
+    "dc_layer_norm_rows_warps_per_sm": (_I, [_I]),
     "dc_layer_norm_rows_bwd_max_c": (_I, []),
     # x, gamma, g, mean, rstd, dx, partial, dgamma_dbeta | rows, C, rows_per_block,
     # slot, stream
@@ -65,10 +66,10 @@ _SIGNATURES = {
     "dc_tf_max_tq": (_I, []),
     # qkv, wl, ww, out, probs | batch, N, H, d, tq, scale, stream
     "dc_transform_attention": (_I, [_P] * 5 + [_I, _I, _I, _I, _I, _F, _P]),
-    "dc_tf_bwd_smem_bytes": (ctypes.c_longlong, [_I, _I, _I, _I]),
-    # qkv, wl, ww, dout, probs, dqkv, pm_scratch, ds_scratch, partial, dwl_dww |
-    # batch, N, H, d, tq, scale, stream
-    "dc_transform_attention_bwd": (_I, [_P] * 10 + [_I, _I, _I, _I, _I, _F, _P]),
+    "dc_tf_bwd_smem_bytes": (ctypes.c_longlong, [_I, _I, _I]),
+    # qkv, wl, ww, dout, probs, dqkv, ds_hi, ds_lo, partial, dwl_dww |
+    # batch, N, H, d, scale, stream
+    "dc_transform_attention_bwd": (_I, [_P] * 10 + [_I, _I, _I, _I, _F, _P]),
     # qkv, out, probs | batch, N, H, d, scale, causal, kv_len, stream
     "dc_plain_attention": (_I, [_P] * 3 + [_I, _I, _I, _I, _F, _I, _I, _P]),
     # qkv, dout, probs, dqkv | batch, N, H, d, scale, stream

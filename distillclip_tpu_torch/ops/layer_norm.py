@@ -2,7 +2,8 @@
 
 Port of ``distillclip_tpu/ops/layer_norm.py::layer_norm_rows``.  On a CUDA
 tensor the forward launches K4 (``csrc/layer_norm.cu``), which also writes
-the rows' mean and rstd when a gradient will need them, and the backward
+the rows' mean and rstd when a gradient will need them, on a grid this module
+picks from the row count (:func:`_fwd_grid`), and the backward
 launches the kernel beside it, once: dx, dscale and dbias in one launch (the
 design is in the source); on a CPU tensor both run the plain versions below,
 the same math in plain PyTorch.
@@ -59,6 +60,26 @@ def _check_shapes(x, scale, bias):
                          f"{tuple(x.shape)}, {tuple(scale.shape)}, {tuple(bias.shape)}")
 
 
+# Warps a block of the forward: two for calls too small to fill the card,
+# eight (the kernel's most) otherwise.
+_SMALL_BLOCK_WARPS, _BLOCK_WARPS = 2, 8
+# (device index, rows, C) -> (threads, blocks) of the forward, per process:
+# worked out once, since a call's host cost counts at [256, C].
+_fwd_grids: dict = {}
+
+
+def _fwd_grid(rows: int, sms: int, warps_per_sm: int) -> tuple[int, int]:
+    """(threads, blocks) of the forward: warp w of the grid takes rows w,
+    w + W, ... (W warps).  Each warp takes k = ceil(rows / (warps the card
+    holds at once)) rows, so that the grid is one wave in which the warps take
+    k or k - 1 rows; a grid of W = ceil(rows / k) warps that would fill under
+    eight of them an SM runs two warps a block, spread over more SMs."""
+    k = -(-rows // (sms * warps_per_sm))
+    warps = -(-rows // k)
+    per_block = _SMALL_BLOCK_WARPS if warps < _BLOCK_WARPS * sms else _BLOCK_WARPS
+    return 32 * per_block, -(-warps // per_block)
+
+
 def layer_norm_rows_fwd(x, scale, bias, eps: float = 1e-5, stats: bool = False):
     """K4 on a CUDA tensor, its plain version on a CPU tensor; with
     ``stats`` also mean and rstd (else None)."""
@@ -77,11 +98,21 @@ def layer_norm_rows_fwd(x, scale, bias, eps: float = 1e-5, stats: bool = False):
     if rows == 0:
         return y, mean, rstd
     lib = _build.lib()
+    key = (x.device.index, rows, C)
+    if key not in _fwd_grids:
+        warps = lib.dc_layer_norm_rows_warps_per_sm(C)     # -(CUDA error) on failure
+        _build.check(max(0, -warps), "layer_norm_rows")
+        if warps == 0:
+            raise RuntimeError("layer_norm_rows: no block of the kernel fits an SM")
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        _fwd_grids[key] = _fwd_grid(rows, sms, warps)
+    threads, blocks = _fwd_grids[key]
     _build.check(lib.dc_layer_norm_rows(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
                                         y.data_ptr(),
                                         None if mean is None else mean.data_ptr(),
                                         None if rstd is None else rstd.data_ptr(),
-                                        rows, C, float(eps), _build.stream_ptr(x)),
+                                        rows, C, float(eps), threads, blocks,
+                                        _build.stream_ptr(x)),
                  "layer_norm_rows")
     layer_norm_rows.launches += 1
     return y, mean, rstd

@@ -9,7 +9,10 @@ inside each) and the result ``[B·seq, H·d]``.
 
 On a CUDA tensor it launches K3 (``csrc/transform_attention.cu``) at the
 true sequence length, for any head count; on a CPU tensor it runs
-:func:`transform_attention_rows_qkv_plain`.
+:func:`transform_attention_rows_qkv_plain`.  With a gradient it takes fewer
+shapes, those of the backward's kernels (head dim up to 64, at most 24 heads,
+16 with a head dim past 32, up to 256 tokens), and refuses the others in the
+forward, before anything runs.
 
 With a gradient it is a ``torch.autograd.Function``: the forward is K3 with
 its save-P flag (:func:`transform_attention_save_p`), which also stores the
@@ -120,15 +123,28 @@ def _check_head_dim(d, what: str = "transform_attention_rows_qkv"):
         raise ValueError(f"{what}: head dim must be a multiple of 8, got {d}")
 
 
+def _check_bwd_shape(lib, seq, heads, d, what: str):
+    """Raise unless the backward's kernels take (seq, heads, d): they hold
+    every head of a 16 x 16 tile in one block."""
+    smem = lib.dc_tf_bwd_smem_bytes(seq, heads, d)
+    if smem < 0 or smem > _build.MAX_SMEM_BYTES:
+        raise ValueError(f"{what}: {heads} heads of {d} at {seq} tokens do not fit the "
+                         f"backward's kernels (d up to 64, at most 24 heads, 16 with d > 32, "
+                         f"up to 256 tokens)")
+
+
 def _launch_fwd(wrapper, qkv, wl, ww, heads, seq, scale, save_p: bool):
     """K3 on CUDA tensors, with or without its save-P flag, counted on
-    ``wrapper``; returns (o, P or None)."""
+    ``wrapper``; returns (o, P or None).  The save-P forward exists for the
+    backward, so it refuses what the backward would refuse, before it runs."""
     what = wrapper.__name__
     rows, hd3 = qkv.shape
     d = hd3 // 3 // heads
     _build.check_operands(what, qkv, unaligned=(wl, ww))
     _check_head_dim(d)
     lib = _build.lib()
+    if save_p:
+        _check_bwd_shape(lib, seq, heads, d, what)
     tq = _pick_tq(lib, lib.dc_tf_smem_bytes, seq, heads, d)
     out = torch.empty((rows, heads * d), dtype=qkv.dtype, device=qkv.device)
     p = None
@@ -154,7 +170,9 @@ def transform_attention_save_p(qkv, wl, ww, *, heads: int, seq: int, scale: floa
 
 def transform_attention_bwd(qkv, wl, ww, do, p, *, heads: int, seq: int, scale: float):
     """(dqkv, dwl fp32, dww fp32) from the saved P: the backward kernels on
-    CUDA tensors, :func:`transform_attention_bwd_plain` on the CPU."""
+    CUDA tensors (a row kernel, a dq kernel, a column kernel and the reduction
+    of the mix gradients' partials, one wrapper launch),
+    :func:`transform_attention_bwd_plain` on the CPU."""
     if _build.plain_only("transform_attention_bwd", qkv):
         return transform_attention_bwd_plain(qkv, wl, ww, do, p, heads=heads, seq=seq,
                                              scale=scale)
@@ -162,21 +180,24 @@ def transform_attention_bwd(qkv, wl, ww, do, p, *, heads: int, seq: int, scale: 
     _build.check_operands("transform_attention_bwd", qkv, do, unaligned=(wl, ww, p))
     rows, hd3 = qkv.shape
     d = hd3 // 3 // heads
-    _check_head_dim(d)
+    _check_head_dim(d, "transform_attention_bwd")
     B = rows // seq
     lib = _build.lib()
-    tq = _pick_tq(lib, lib.dc_tf_bwd_smem_bytes, seq, heads, d)
+    _check_bwd_shape(lib, seq, heads, d, "transform_attention_bwd")
+    if p.data_ptr() % 16:
+        raise ValueError("transform_attention_bwd: P must be 16-byte aligned (the kernels "
+                         "copy its rows as the 16-byte words that hold them)")
     dqkv = torch.empty_like(qkv)
     grads = torch.zeros(2 * heads * heads, dtype=torch.float32, device=qkv.device)
     if rows > 0:
-        f32 = dict(dtype=torch.float32, device=qkv.device)
-        pm = torch.empty((B, heads, seq, seq), **f32)
-        ds = torch.empty((B, heads, seq, seq), **f32)
-        partial = torch.empty((B * -(-seq // tq), 2 * heads * heads), **f32)
+        padded = -(-seq // 16) * 16
+        ds = torch.empty((2, B, heads, seq, padded), dtype=qkv.dtype, device=qkv.device)
+        partial = torch.empty((B * padded // 16, 2 * heads * heads), dtype=torch.float32,
+                              device=qkv.device)
         _build.check(lib.dc_transform_attention_bwd(
             qkv.data_ptr(), wl.data_ptr(), ww.data_ptr(), do.data_ptr(), p.data_ptr(),
-            dqkv.data_ptr(), pm.data_ptr(), ds.data_ptr(), partial.data_ptr(),
-            grads.data_ptr(), B, seq, heads, d, tq, float(scale), _build.stream_ptr(qkv)),
+            dqkv.data_ptr(), ds[0].data_ptr(), ds[1].data_ptr(), partial.data_ptr(),
+            grads.data_ptr(), B, seq, heads, d, float(scale), _build.stream_ptr(qkv)),
             "transform_attention_bwd")
         transform_attention_bwd.launches += 1
     hh = heads * heads

@@ -211,6 +211,75 @@ def test_backward_is_deterministic():
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+@pytest.mark.parametrize("N", [50, 77, 17])
+@pytest.mark.parametrize("H,d", [(24, 32), (12, 64), (20, 32)],
+                         ids=["image heads", "text heads", "two heads a warp"])
+def test_transform_attention_bwd_at_tile_edges(H, d, N):
+    """#6 on the tensor cores at the students' head shapes, at 20 heads (two
+    a warp, the last pair half empty), and at sequence lengths that leave a
+    ragged last tile of 16 rows (and keys): one launch, dqkv within 3e-2 of
+    the fp32 plain version, the mix gradients within 6e-3 of their largest
+    entry."""
+    rng = np.random.default_rng(H * d + N)
+    B = 3
+    qkv, do = _bf16(rng, (B * N, 3 * H * d)), _bf16(rng, (B * N, H * d))
+    wl, ww = _bf16(rng, (H, H), H ** -0.5), _bf16(rng, (H, H), H ** -0.5)
+    kw = dict(heads=H, seq=N, scale=d ** -0.5)
+    _, p = ta.transform_attention_save_p_plain(qkv, wl, ww, **kw)
+    ops.reset_launch_counts()
+    dqkv, dwl, dww = ta.transform_attention_bwd(qkv, wl, ww, do, p, **kw)
+    rdqkv, rdwl, rdww = ta.transform_attention_bwd_plain(
+        qkv.float(), wl.float(), ww.float(), do.float(), p.float(), **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["transform_attention_bwd"] == 1
+    assert dqkv.dtype == torch.bfloat16 and torch.isfinite(dqkv.float()).all()
+    assert float((dqkv.float() - rdqkv).abs().max()) <= 3e-2
+    assert _rel_to_max(dwl, rdwl) < 6e-3 and _rel_to_max(dww, rdww) < 6e-3
+
+
+def test_transform_attention_bwd_is_deterministic_at_the_image_heads():
+    """24 heads (two a warp in the mixes' M and K): two runs, the same bits."""
+    rng = np.random.default_rng(6)
+    B, H, d, N = 8, 24, 32, 50
+    qkv, do = _bf16(rng, (B * N, 3 * H * d)), _bf16(rng, (B * N, H * d))
+    wl, ww = _bf16(rng, (H, H), H ** -0.5), _bf16(rng, (H, H), H ** -0.5)
+    kw = dict(heads=H, seq=N, scale=d ** -0.5)
+    _, p = ta.transform_attention_save_p(qkv, wl, ww, **kw)
+    a = ta.transform_attention_bwd(qkv, wl, ww, do, p, **kw)
+    b = ta.transform_attention_bwd(qkv, wl, ww, do, p, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_transform_attention_bwd_refuses_heads_it_does_not_take():
+    rng = np.random.default_rng(7)
+    for H, d in ((25, 8), (17, 48), (2, 72)):
+        qkv, do = _bf16(rng, (8, 3 * H * d)), _bf16(rng, (8, H * d))
+        w = _bf16(rng, (H, H))
+        p = torch.zeros((1, H, 8, 8), dtype=torch.bfloat16, device="cuda")
+        with pytest.raises(ValueError, match="do not fit"):
+            ta.transform_attention_bwd(qkv, w, w, do, p, heads=H, seq=8, scale=1.0)
+
+
+def test_training_forward_refuses_what_the_backward_does_not_take():
+    """The save-P forward, alone or under autograd, refuses a head shape
+    that #6 would refuse, before it launches; the lean forward takes it."""
+    rng = np.random.default_rng(8)
+    for H, d in ((25, 8), (17, 48), (2, 72)):
+        qkv, w = _bf16(rng, (8, 3 * H * d)), _bf16(rng, (H, H))
+        kw = dict(heads=H, seq=8, scale=1.0)
+        ops.reset_launch_counts()
+        with pytest.raises(ValueError, match="do not fit"):
+            ta.transform_attention_save_p(qkv, w, w, **kw)
+        with pytest.raises(ValueError, match="do not fit"):
+            ta.transform_attention_rows_qkv(qkv.requires_grad_(), w, w, **kw)
+        assert ops.launch_counts()["transform_attention_save_p"] == 0
+        with torch.inference_mode():
+            o = ta.transform_attention_rows_qkv(qkv.detach(), w, w, **kw)
+        _close(o, ta.transform_attention_rows_qkv_plain(qkv.detach().float(), w.float(),
+                                                        w.float(), **kw))
+
+
 # -- plain attention: forward, saved probabilities, backward ------------------------
 
 # (B, H, d, N): the teachers' and the plain-attention students' shapes, head
@@ -752,6 +821,32 @@ def test_plain_attention_backward_at_tile_edges(B, H, d, N, causal, kv):
     assert dqkv.dtype == torch.bfloat16 and dqkv.shape == qkv.shape
     assert torch.isfinite(dqkv.float()).all()
     assert float((dqkv.float() - ref).abs().max()) <= 3e-2
+
+
+@pytest.mark.parametrize("rows,C", [(1, 768), (3, 768), (255, 768), (256, 768), (257, 768),
+                                    (1024, 768), (1025, 768), (12800, 768), (19712, 768),
+                                    (333, 512), (19712, 512), (77, 40), (5000, 40),
+                                    (1000, 1024)])
+def test_layer_norm_fwd_at_row_counts(rows, C):
+    """K4 on the grid its wrapper picks from the row count (two-warp blocks
+    where the call cannot fill the card, one wave of eight-warp blocks in which
+    every warp takes the same number of rows otherwise; a row in registers up
+    to C = 768, read from L1 above), with rows that leave the last warp and
+    block short: y within 1e-2 of the plain version in fp32, mean and rstd
+    within 1e-5 relative, and the lean mode's y the same bits; one launch
+    each."""
+    rng = np.random.default_rng(rows + C)
+    x, s, b = _bf16(rng, (rows, C), 3.0, 1.0), _bf16(rng, (C,), 0.1, 1.0), _bf16(rng, (C,), 0.1)
+    ops.reset_launch_counts()
+    lean = layer_norm.layer_norm_rows_fwd(x, s, b)[0]
+    y, mean, rstd = layer_norm.layer_norm_rows_fwd(x, s, b, stats=True)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["layer_norm_rows"] == 2
+    assert torch.equal(y, lean)
+    ref, rmean, rrstd = layer_norm.layer_norm_rows_stats_plain(x.float(), s.float(), b.float())
+    _close(y, ref)
+    torch.testing.assert_close(mean, rmean, atol=1e-6, rtol=1e-5)
+    torch.testing.assert_close(rstd, rrstd, atol=0, rtol=1e-5)
 
 
 def _ln_bwd_inputs(rng, rows, C=768):

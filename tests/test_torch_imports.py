@@ -1,5 +1,5 @@
-"""The PyTorch port, chip_smoke.py and the on-card tests (which run where
-there is no JAX) import neither JAX, Flax nor the JAX package.
+"""The PyTorch port, chip_smoke.py, chip_ab.py and the on-card tests (which
+run where there is no JAX) import neither JAX, Flax nor the JAX package.
 
 The check is static (an AST scan of every module): the test process itself
 has JAX loaded, so ``sys.modules`` cannot tell what the port would import on
@@ -13,7 +13,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "distillclip_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"]
+    ROOT / "chip_smoke.py", ROOT / "chip_ab.py", ROOT / "tests" / "test_torch_cuda.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "distillclip_tpu")
 
 
@@ -33,7 +33,7 @@ def _forbidden(module: str) -> bool:
 
 def test_port_files_are_found():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
-    assert {"chip_smoke.py", "tests/test_torch_cuda.py",
+    assert {"chip_smoke.py", "chip_ab.py", "tests/test_torch_cuda.py",
             "distillclip_tpu_torch/serving/lclip_score.py",
             "distillclip_tpu_torch/ops/fc1_act.py", "distillclip_tpu_torch/cli.py",
             "distillclip_tpu_torch/config/perf.py", "distillclip_tpu_torch/config/loader.py",
