@@ -10,6 +10,13 @@ kernels built under ROOT/build/, as ``chip_smoke.py`` builds them) and prints
 lines ``ab <ROOT's name> <what>: ...`` that end with the card's name and power
 limit:
 
+- ``k1``: ``dense_ln`` with its statistics (K1, as a train step runs it) at
+  the image and text qkv ([12800, 768] and [19712, 768] -> 2304), the text
+  teacher's qkv ([19712, 512] -> 1536) and the fc1 of ``fc1_res: u`` ([12800,
+  768] and [19712, 768] -> 3072), device ms per call over 20 calls replayed
+  from one CUDA graph;
+- ``dln_bwd``: ``dense_ln_bwd`` (#9) at its four main-path shapes (image and
+  text rows, qkv and fc1), the same way;
 - ``tf_bwd``: ``transform_attention_bwd`` (#6) at the two students' shapes
   (B=256; 24 heads of 32 at 50 tokens, 12 of 64 at 77), device ms per call
   over 20 calls replayed from one CUDA graph;
@@ -21,7 +28,13 @@ limit:
   serving call's final norms), host clock over 2000 calls, five times;
 - ``serving``: ms per ``score_tokens`` call of the final students at batch
   256, device-resident, host clock (the numpy readback fences), five rounds
-  of five calls.
+  of five calls;
+- ``step``: ms per train step at 256 pairs of the text-cached stage-3 step
+  (the main path) and of the same step under ``fc1_ln: "0"`` (which runs
+  neither K1 nor #9), built by the checkout's own ``chip_smoke.py``
+  (``make_task``, its seeded teacher and stage checkpoints under
+  ROOT/build/chip_smoke/), host clock fenced by the loss readback, three
+  rounds of five steps after three warm-up steps.
 
 Compare two checkouts only within one run: the card's power limit and the
 host's load move every number between runs.  Needs one CUDA card and nvcc.
@@ -97,6 +110,21 @@ def one(root: Path) -> None:
         a = rng.standard_normal(shape, dtype=np.float32) * np.float32(std) + np.float32(mean)
         return torch.from_numpy(a).cuda().to(torch.bfloat16)
 
+    k1, dlb = [], []
+    for rows, c, n in ((12800, 768, 2304), (19712, 768, 2304), (19712, 512, 1536),
+                       (12800, 768, 3072), (19712, 768, 3072)):
+        x, g, b, w, bias = t((rows, c)), t((c,), 0.1, 1.0), t((c,), 0.1), t((c, n), 0.02), \
+            t((n,), 0.02)
+        fn = lambda: fc1_act.dense_ln_fwd(x, g, b, w, bias, stats=True)
+        k1.append(f"[{rows},{c}]->{n} {_graph_ms(torch, fn):.4f}")
+        if c == 768:
+            du = t((rows, n))
+            _, mean, rstd = fn()
+            fn = lambda: fc1_act.dense_ln_bwd(x, g, b, w, du, mean, rstd)
+            dlb.append(f"[{rows},{n}]->{c} {_graph_ms(torch, fn):.4f}")
+    print(f"{tag} k1 ms: {'; '.join(k1)} [{card}]", flush=True)
+    print(f"{tag} dln_bwd ms: {'; '.join(dlb)} [{card}]", flush=True)
+
     tf, red = [], []
     for B, H, d, N in ((256, 24, 32, 50), (256, 12, 64, 77)):
         qkv, do = t((B * N, 3 * H * d)), t((B * N, H * d))
@@ -147,6 +175,29 @@ def one(root: Path) -> None:
         rounds.append((time.perf_counter() - t0) / 5 * 1e3)
     print(f"{tag} serving 256 device-resident ms/call: {' '.join(f'{m:.3f}' for m in rounds)} "
           f"median {statistics.median(rounds):.3f} [{card}]", flush=True)
+    del scorer, images, tokens
+
+    import chip_smoke as cs     # the checkout's own, first on the path
+
+    for label, section in (("text-cached", {}), ('text-cached fc1_ln "0"', {"fc1_ln": "0"})):
+        with cs.perf_section(section):
+            task = cs.make_task("bfloat16")
+            state, tx = task.init_state(cs.SEED, steps_per_epoch=1, device="cuda")
+            step = task.make_train_step(tx, cached_text_teacher=True)
+            batch = cs.train_batch(np.random.default_rng(cs.SEED + 11), 256, "cuda", 1)
+            for _ in range(3):
+                state, metrics = step(state, *batch)
+            float(metrics["loss"])
+            rounds = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    state, metrics = step(state, *batch)
+                float(metrics["loss"])
+                rounds.append((time.perf_counter() - t0) / 5 * 1e3)
+        print(f"{tag} step {label} 256 pairs ms/step: {' '.join(f'{m:.3f}' for m in rounds)} "
+              f"median {statistics.median(rounds):.3f} [{card}]", flush=True)
+        del task, state, tx, step, batch
 
 
 def main() -> None:

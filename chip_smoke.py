@@ -11,7 +11,8 @@ phases, each of which exits non-zero on failure:
 2. build the kernels from distillclip_tpu_torch/csrc with nvcc (one process
    per source, all at once) into build/torch_kernels/, and print the
    registers and spill bytes (nvcc -Xptxas -v, in the build log) of each
-   instance of PTXAS_KERNELS;
+   instance of PTXAS_KERNELS, and how many of #9's thread-block clusters (one
+   block per 256 columns of C) the card holds at once at C = 768;
 3. kernel oracles: each kernel on bf16 inputs at the shapes the serving call,
    the teacher and the train steps give it, and on a ragged small shape,
    against its plain PyTorch version in fp32 on the same values (TF32 off).
@@ -120,7 +121,7 @@ def add_counts(*parts: dict) -> dict:
 
 # kernel -> (source, the TPU kernel it replaces)
 SOURCES = {
-    "dense_ln": ("distillclip_tpu_torch/csrc/dense_ln.cu",
+    "dense_ln": ("distillclip_tpu_torch/csrc/dense_ln_wgmma.cu",
                  "distillclip_tpu/ops/fc1_act.py:419"),
     "dense_act_ln": ("distillclip_tpu_torch/csrc/dense_ln.cu",
                      "distillclip_tpu/ops/fc1_act.py:521"),
@@ -247,10 +248,12 @@ KNOB_PHASES = {
 
 
 # kernels whose registers and spills (nvcc -Xptxas -v, in the build log) the
-# run prints: the two redesigned last (K4; #6's row, dq/dk and column kernels
-# and the partials' reduction, which #9 shares)
-PTXAS_KERNELS = ("layer_norm_rows_kernel", "tf_bwd_rows_kernel", "tf_bwd_qk_kernel",
-                 "tf_bwd_cols_kernel", "reduce_partials_kernel")
+# run prints: K1 (its statistics launch and its product), #9 and the no-LN
+# GEMM on the wgmma main loop, K4, #6's row, dq/dk and column kernels, and
+# the partials' reduction that #6 and #9 share
+PTXAS_KERNELS = ("dense_ln_wgmma_kernel", "ln_stats_w16_kernel", "dense_ln_bwd_wgmma_kernel",
+                 "dense_act_wgmma_kernel", "layer_norm_rows_kernel", "tf_bwd_rows_kernel",
+                 "tf_bwd_qk_kernel", "tf_bwd_cols_kernel", "reduce_partials_kernel")
 
 
 def fail(msg: str) -> None:
@@ -276,14 +279,27 @@ def ptxas_lines(log: Path) -> None:
         if m := re.search(r"Compiling entry function '(\w+)'", line):
             name, spills = None, ""
             for kernel in PTXAS_KERNELS:
-                if (k := re.search(kernel + r"(I(?:Li\d+E)+E)?", m.group(1))):
-                    args = re.findall(r"Li(\d+)E", k.group(1) or "")
+                if (k := re.search(kernel + r"(I(?:L[a-z]\d+E)+E)?", m.group(1))):
+                    args = re.findall(r"L[a-z](\d+)E", k.group(1) or "")
                     name = kernel + (f"<{', '.join(args)}>" if args else "")
         elif name and "spill stores" in line:
             spills = line.strip()
         elif name and (m := re.search(r"Used (\d+) registers", line)):
             print(f"ptxas {name}: {m.group(1)} registers; {spills}", flush=True)
             name = None
+
+
+def cluster_line(lib, card: str) -> None:
+    """#9's cluster at the students' width: its blocks (one per 256 columns of
+    C) and how many such clusters the card holds at once."""
+    C = 768
+    blocks = -(-C // 256)
+    n = lib.dc_dense_ln_bwd_max_clusters(C)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"cluster dense_ln_bwd C={C}: {blocks} blocks a cluster, at most {n} clusters at "
+          f"once ({max(n, 0) * blocks} of {sms} SMs) [{card}]", flush=True)
+    if n < 1:
+        fail(f"dense_ln_bwd: no cluster of {blocks} blocks fits the card ({n})")
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -1621,8 +1637,10 @@ PROFILE_GROUPS = (
     ("flash_attention forward (#16, tensor cores)", ("flash_attention_fwd_mma_kernel",)),
     ("flash_attention_bwd (#16, tensor cores)", ("flash_attention_bwd_mma_kernel",)),
     ("flash_transform_attention forward", ("flash_transform_attention_fwd_kernel",)),
-    ("dense_ln + dense_act_ln_res (LN GEMMs forward)", ("dense_ln_kernel",)),
-    ("dense_ln_bwd (LN GEMM backward)", ("dense_ln_bwd_kernel",)),
+    ("K1 dense_ln (wgmma; its statistics launch with W's fp16 copy)",
+     ("dense_ln_wgmma_kernel", "ln_stats_w16_kernel")),
+    ("K2 / #8 dense_act_ln + dense_act_ln_res (LN GEMMs forward)", ("dense_ln_kernel",)),
+    ("#9 dense_ln_bwd (wgmma, clusters along C)", ("dense_ln_bwd_wgmma_kernel",)),
     ("transform_attention forward (lean / save_p)", ("transform_attention_kernel",)),
     ("transform_attention_bwd", ("tf_bwd_",)),
     ("plain_attention forward (#13 lean / save_p, tensor cores)",
@@ -1686,6 +1704,7 @@ def main() -> None:
           f"(log: {_build.BUILD_DIR / 'build.log'})", flush=True)
     if (_build.BUILD_DIR / "build.log").exists():
         ptxas_lines(_build.BUILD_DIR / "build.log")
+    cluster_line(_build.lib(), card)
 
     results, case_ms = kernel_oracles(card)
     if missing := sorted(set(ops.KERNELS) - set(results)):

@@ -79,6 +79,12 @@ __device__ __forceinline__ float act_e(float u) {
 int reduce_partials(const float* partials, float* out, int nparts, int width,
                     cudaStream_t stream);
 
+// K1's first launch (defined in layer_norm.cu): the rows' LayerNorm mean and
+// rstd (fp32 [rows]) of x [rows, C] bf16, and w16 = fp16(w), w bf16 of
+// w_elems elements (a multiple of 8), for the product of dense_ln_wgmma.cu.
+int ln_stats_w16(const void* x, float* mean, float* rstd, int rows, int C, float eps,
+                 const void* w, void* w16, long long w_elems, cudaStream_t stream);
+
 }  // namespace dc
 
 DC_EXPORT const char* dc_error_string(int err);

@@ -18,10 +18,11 @@
 // the product is 60.4 GFLOP against 103 MB (0.061 ms at 989 TFLOP/s).  The
 // main loop is wgmma_gemm.cuh's: output tiles of 128 x 256, a four-stage TMA
 // ring with 128-byte swizzle, one producer and two consumer warpgroups issuing
-// wgmma m64n256k16.  The epilogue adds the bias and applies the activation to
-// the sums in registers, writes each output tile as bf16 into the free ring,
-// and stores it as 16-byte words along rows.  h is recombined from e in both
-// modes (0.5 u (1 + e), or u e), so the lean and the residual h agree.
+// wgmma m64n256k16.  The epilogue (wg::epilogue_store, shared with K1) adds
+// the bias and applies the activation to the sums in registers, writes each
+// output tile as bf16 into the free ring, and stores it as 16-byte words
+// along rows.  h is recombined from e in both modes (0.5 u (1 + e), or u e),
+// so the lean and the residual h agree.
 #include "wgmma_gemm.cuh"
 
 namespace dc {
@@ -36,53 +37,16 @@ dense_act_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
                        bf16* __restrict__ out_e, int rows, int C, int N) {
   const int n0 = blockIdx.x * wg::BN;
   const int m0 = blockIdx.y * wg::BM;
+  const wg::Ring ring = wg::ring_init();
+  if (threadIdx.x < 128) {
+    wg::producer_regs();
+    if (threadIdx.x == 0) wg::produce<false>(ring, &tx, &tw, m0, n0, C);
+    return;
+  }
+  wg::consumer_regs();
   float d[128];
-  if (!wg::gemm_tile(&tx, &tw, m0, n0, C, d)) return;
-
-  const int t = threadIdx.x - 128;            // consumer threads 0 .. 255
-  const int cw = t >> 7, ti = t & 127;        // warpgroup, thread in it
-  const int lane = t & 31;
-  const int ra = ((t >> 5) & 3) * 16 + (lane >> 2);   // rows ra, ra + 8 of the slice
-  bf16* bu = wg::epilogue_buffer(0, cw);
-  bf16* be = wg::epilogue_buffer(1, cw);
-  bf16* bh = wg::epilogue_buffer(RES ? 2 : 0, cw);
-#pragma unroll
-  for (int j = 0; j < wg::BN / 8; ++j) {
-    const int c = 8 * j + 2 * (lane & 3);
-    // past N the sums are zeros (TMA) and the columns are not stored
-    float b0 = 0.f, b1 = 0.f;
-    if (n0 + c < N) {
-      const __nv_bfloat162 bb = *reinterpret_cast<const __nv_bfloat162*>(bias + n0 + c);
-      b0 = __low2float(bb);
-      b1 = __high2float(bb);
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int at = wg::epilogue_index(ra + 8 * r, c);
-      const float u0 = d[4 * j + 2 * r] + b0, u1 = d[4 * j + 2 * r + 1] + b1;
-      if (ACT == 0) {
-        *reinterpret_cast<__nv_bfloat162*>(bh + at) = __floats2bfloat162_rn(u0, u1);
-        continue;
-      }
-      const float e0 = act_e<ACT>(u0), e1 = act_e<ACT>(u1);
-      // h = 0.5 u (1 + erf(u/√2)) or u σ(1.702 u), from e in both modes
-      const float h0 = ACT == 1 ? 0.5f * u0 * (1.0f + e0) : u0 * e0;
-      const float h1 = ACT == 1 ? 0.5f * u1 * (1.0f + e1) : u1 * e1;
-      if (RES) {
-        *reinterpret_cast<__nv_bfloat162*>(bu + at) = __floats2bfloat162_rn(u0, u1);
-        *reinterpret_cast<__nv_bfloat162*>(be + at) = __floats2bfloat162_rn(e0, e1);
-      }
-      *reinterpret_cast<__nv_bfloat162*>(bh + at) = __floats2bfloat162_rn(h0, h1);
-    }
-  }
-  // the warpgroup's slices are written
-  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + cw) : "memory");
-  const int m0w = m0 + 64 * cw;
-  wg::store_slice(bh, out, m0w, n0, rows, N, ti);
-  if (RES) {
-    wg::store_slice(bu, out_u, m0w, n0, rows, N, ti);
-    wg::store_slice(be, out_e, m0w, n0, rows, N, ti);
-  }
+  wg::consume<false>(ring, threadIdx.x / 128 - 1, C, d);
+  wg::epilogue_store<ACT, RES>(d, bias, out, out_u, out_e, m0, n0, rows, N);
 }
 
 template <int ACT, bool RES>

@@ -1,6 +1,6 @@
-// K1, K2 and K2's residual mode: LayerNorm-prologue GEMMs (forward).
+// K2 and K2's residual mode (#8): LayerNorm-prologue GEMMs with an activation
+// (forward).  K1 (no activation) runs dense_ln_wgmma.cu.
 //
-//   K1 (act = 0):  u = (LN(x)·γ + β) · W (+ b)
 //   K2 (act = 1):  h = GELU_exact((LN(x)·γ + β) · W + b)
 //      (act = 2):  h = QuickGELU(...) = u · sigmoid(1.702 u)
 //   residual mode of K2 (training): the same main loop, and the epilogue
@@ -10,8 +10,7 @@
 //   caller passes buffers for them; the backward kernel reads them.
 //   The same GEMM without the LayerNorm (#10-#12) is dense_act.cu.
 //
-// Replaces distillclip_tpu/ops/fc1_act.py:_dense_ln_kernel (K1, the
-// students' norm1 + qkv projection), :_fc1_ln_h_kernel (K2, the lean
+// Replaces distillclip_tpu/ops/fc1_act.py:_fc1_ln_h_kernel (K2, the lean
 // no-grad norm2 + fc1 + GELU that writes h only) and :_fc1_ln_kernel (the
 // residual mode; there h = recombine(u, e) is left to XLA, here the kernel
 // writes it from the fp32 sum, bit-identical to K2's h).
@@ -44,8 +43,8 @@
 // overlaps the MMAs of the slice before.  Each of the 8 warps owns a 32 × 64
 // piece of the 64 × 256 tile.  The fp32 tile goes through shared memory (the
 // slice buffers, free by then) for the bias/activation epilogue so the bf16
-// stores are 16-byte and coalesced.  wgmma and TMA are later work here
-// (wgmma_gemm.cuh has that main loop, which the GEMM without the LN runs).
+// stores are 16-byte and coalesced.  wgmma and TMA are later work here:
+// dense_ln_wgmma.cu's kernel takes the epilogue as a template parameter.
 #include <mma.h>
 
 #include "common.cuh"
@@ -274,9 +273,8 @@ int launch(const void* x, const void* gamma, const void* beta, const void* w,
 // tile does not fit in the 232,448 bytes a Hopper block may use.
 DC_EXPORT long long dc_dense_ln_smem_bytes(int C) { return (long long)dc::smem_bytes(C); }
 
-// bias may be NULL (the text tower's qkv has none).  act: 0 none (K1),
-// 1 exact GELU, 2 QuickGELU (K2).  mean and rstd ([rows] fp32) are both NULL
-// or both buffers to fill.  Requires C % 32 == 0 and N % 8 == 0.
+// The lean K2: act 1 exact GELU, 2 QuickGELU.  mean and rstd ([rows] fp32)
+// are both NULL or both buffers to fill.  Requires C % 32 == 0 and N % 8 == 0.
 DC_EXPORT int dc_dense_ln(const void* x, const void* gamma, const void* beta,
                           const void* w, const void* bias, void* out, void* mean,
                           void* rstd, int rows, int C, int N, float eps, int act,
@@ -284,9 +282,6 @@ DC_EXPORT int dc_dense_ln(const void* x, const void* gamma, const void* beta,
   cudaStream_t s = (cudaStream_t)stream;
   void* no = nullptr;
   switch (act) {
-    case 0:
-      return dc::launch<0, false>(x, gamma, beta, w, bias, out, no, no, mean, rstd, rows, C,
-                                  N, eps, s);
     case 1:
       return dc::launch<1, false>(x, gamma, beta, w, bias, out, no, no, mean, rstd, rows, C,
                                   N, eps, s);

@@ -1,0 +1,267 @@
+// K1 on wgmma and TMA: u = (LN(x)·γ + β) · W (+ b), and the rows' LN mean and
+// rstd (fp32 [rows]) for the backward.
+//
+// Replaces distillclip_tpu/ops/fc1_act.py:_dense_ln_kernel (the students'
+// norm1 + qkv projection, and the teachers' ln_1 + qkv; K1 with its
+// statistics also serves fc1 under the fc1_res "u" knob).  K2 and its
+// residual mode (#8) still run dense_ln.cu; the kernel here is one template
+// whose epilogue (wg::epilogue_store<ACT, RES>) is a parameter, so that they
+// can take this main loop up.
+//
+// Layouts: x [rows, C], W [C, N] row-major (the Flax Dense layout, kept by the
+// port's converter), γ, β [C], b [N], u [rows, N]; all bf16.  mean, rstd
+// [rows] fp32, written in every mode (into the caller's scratch in the lean
+// one), so that the lean and the statistics modes run the same launches and
+// give the same bits.
+//
+// Bound on the H100: operations.  At the image qkv (rows 12800, C 768, N
+// 2304) the product is 45.3 GFLOP against 82 MB (0.046 ms at 989 TFLOP/s).
+//
+// Design, two launches:
+// 1. ln_stats_w16 (layer_norm.cu): the rows' mean and rstd, K4's design
+//    without y (a warp a row, read once into registers); in blocks of the same
+//    launch, W converted to an fp16 copy (3.5 MB in and out at qkv).  A GEMM
+//    block owns 128 rows but one 256-column tile of N, so statistics computed
+//    in the GEMM would be computed again by each of the N / 256 column blocks.
+// 2. The product on wgmma_gemm.cuh's ring: 128 x 256 output tiles, 64 deep,
+//    four TMA stages with 128-byte swizzle, one producer warpgroup and two
+//    consumers.  TMA brings the raw bf16 x tile and the fp16 W slice.  Each
+//    consumer thread loads its A fragment of each 16-deep step from the
+//    swizzled x tile (ldmatrix), normalises it in fp32 with its two rows'
+//    mean and rstd (fixed for the whole K loop, in registers) and the γ, β
+//    of its columns (staged once in shared memory as fp32), rounds it to fp16
+//    and issues wgmma m64n256k16 with A from registers and B = W16 from
+//    shared memory (MN-major), a stage's four as one group.  The next
+//    stage's four fragments are made while a group runs (two stages of
+//    fragments, 32 registers); a stage is released when its group has
+//    completed.  The epilogue adds the
+//    bias to the fp32 sums and rounds once to bf16 (dense_act.cu's act-0
+//    epilogue: 16-byte row stores through the freed ring).
+//
+// Precision, the constraint that decides the operand type: wgmma takes A and
+// B of one type.  The TPU kernel rounds LN(x) to bf16 before its product;
+// with the final bf16 store that exceeds a 1e-3 mean error against fp32 at
+// the qkv width (tests/test_torch_dense_ln_rounding.py: about 1.0e-3 at C =
+// 768, N = 2304, for rows of mean 0.5 and of mean 4).  fp16 keeps 3 more
+// mantissa bits at the same tensor-core rate: LN(x)·γ + β is bounded by
+// sqrt(C)·|γ| + |β|, far inside fp16's range, and every bf16 weight with |w|
+// in [2^-14, 65504] converts to fp16 exactly (smaller ones lose < 2^-25 each).
+// The same test (run as a script with 2048 rows) puts this route (fp16 A and
+// W, fp32 sums, one bf16 store) at a mean error of 6.45e-4 and a largest
+// error of 7.98e-3, against the limits 1e-3 and 1e-2; bf16 A as hi + lo (two
+// products a step), which leaves little but the store's rounding, reads
+// 6.32e-4 and 7.81e-3 for twice the tensor-core work.  The LN runs as (x - mean)·rstd·γ + β, never as a fold of
+// mean into a column sum of W, whose error grows with |mean| / std of a row.
+#include "wgmma_gemm.cuh"
+
+namespace dc {
+
+namespace {
+
+using wg::BK;
+using wg::BM;
+using wg::BN;
+
+// γ and β as fp32, one float4 {γ_c, γ_c+1, β_c, β_c+1} per even column c,
+// zero past C up to the K loop's padded depth.
+__host__ __device__ inline int gb_pairs(int C) { return (C + BK - 1) / BK * BK / 2; }
+
+__host__ __device__ inline size_t k1_smem_bytes(int C) {
+  return wg::kSmemBytes + (size_t)gb_pairs(C) * sizeof(float4);
+}
+
+// Two bf16 of one row (a register of an A fragment) normalised and rounded to
+// an fp16 pair: lo is the smaller column.
+__device__ __forceinline__ uint32_t ln_pair(uint32_t v, float mean, float rstd, float g0,
+                                            float g1, float b0, float b1) {
+  const float lo = (__uint_as_float(v << 16) - mean) * rstd * g0 + b0;
+  const float hi = (__uint_as_float(v & 0xffff0000u) - mean) * rstd * g1 + b1;
+  const __half2 h = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// The A fragment (m16n8k16 layout, the warp's 16 rows) of the 16-deep step
+// kk of the x tile at `tile`, normalised.  `row_off` is the byte offset of
+// this lane's ldmatrix row in the tile, `sw` that row's swizzle (row % 8),
+// `half` which 8 columns the lane addresses; `col` the fragment's first
+// column of x (c = col, col + 1 in a[0], a[1]; col + 8, col + 9 in a[2],
+// a[3]); rows r and r + 8 in a[0], a[2] and a[1], a[3].
+__device__ __forceinline__ void ln_fragment(const unsigned char* tile, int row_off, int sw,
+                                            int half, int kk, int col, const float4* gb,
+                                            const float (&mean)[2], const float (&rstd)[2],
+                                            uint32_t (&a)[4]) {
+  const uint32_t addr = wg::smem_u32(tile + row_off + (((2 * kk + half) ^ sw) << 4));
+  uint32_t x[4];
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(x[0]), "=r"(x[1]), "=r"(x[2]), "=r"(x[3])
+               : "r"(addr)
+               : "memory");
+  const float4 g0 = gb[col >> 1], g1 = gb[(col >> 1) + 4];
+  a[0] = ln_pair(x[0], mean[0], rstd[0], g0.x, g0.y, g0.z, g0.w);
+  a[1] = ln_pair(x[1], mean[1], rstd[1], g0.x, g0.y, g0.z, g0.w);
+  a[2] = ln_pair(x[2], mean[0], rstd[0], g1.x, g1.y, g1.z, g1.w);
+  a[3] = ln_pair(x[3], mean[1], rstd[1], g1.x, g1.y, g1.z, g1.w);
+}
+
+// Keep a stage's fragment registers as they are up to here: a wgmma that
+// reads them runs on after it is issued, until a wait_group says it has
+// completed.
+__device__ __forceinline__ void hold(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[k][i])::"memory");
+}
+
+// Where a consumer thread's fragments come from in a stage's x tile.
+struct FragPlace {
+  int row_off;   // byte offset of this lane's ldmatrix row in the tile
+  int sw;        // that row's swizzle (row % 8)
+  int half;      // which 8 columns of a 16-deep step the lane addresses
+  int q2;        // the first of the lane's two columns in a fragment
+};
+
+// The four A fragments of stage kt (its x tile in ring slot kt % STAGES).
+__device__ __forceinline__ void ln_stage(const wg::Ring& ring, const FragPlace& at, int kt,
+                                         const float4* gb, const float (&mean)[2],
+                                         const float (&rstd)[2], uint32_t (&a)[4][4]) {
+  const unsigned char* tile = ring.base + (kt % wg::STAGES) * wg::kStageBytes;
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    ln_fragment(tile, at.row_off, at.sw, at.half, kk, kt * BK + 16 * kk + at.q2, gb, mean, rstd,
+                a[kk]);
+}
+
+// One stage of the K loop with its fragments in a[P]: issue its four wgmma
+// as one group; once the stage before has completed, release that stage and
+// make the next stage's fragments in a[P ^ 1] while this group runs.
+template <int P>
+__device__ __forceinline__ void ln_step(const wg::Ring& ring, const FragPlace& at, int kt,
+                                        int nk, const float4* gb, const float (&mean)[2],
+                                        const float (&rstd)[2], uint32_t (&a)[2][4][4],
+                                        float (&d)[128]) {
+  const unsigned char* b = ring.base + (kt % wg::STAGES) * wg::kStageBytes + wg::kABytes;
+  wg::fence_sums(d);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    // B: 8-row (k) groups 1024 bytes apart, 64-column boxes 8 KB apart, k16 =
+    // two groups on
+    wg::wgmma_m64n256k16_rs_f16(d, a[P][kk], wg::desc(b + kk * 2048, wg::kBBox, 1024));
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+  hold(a[P ^ 1]);
+  if (kt > 0) wg::mbar_arrive(&ring.empty[(kt - 1) % wg::STAGES]);
+  if (kt + 1 < nk) {
+    wg::mbar_wait(&ring.full[(kt + 1) % wg::STAGES], ((kt + 1) / wg::STAGES) & 1);
+    ln_stage(ring, at, kt + 1, gb, mean, rstd, a[P ^ 1]);
+  }
+}
+
+// Consumer warpgroup cw: its 64 rows of the tile over K = C, A normalised in
+// registers, B = W16 from the ring.
+__device__ __forceinline__ void ln_consume(const wg::Ring& ring, int cw, int C,
+                                           const float4* gb, const float (&mean)[2],
+                                           const float (&rstd)[2], float (&d)[128]) {
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  // ldmatrix: lanes 0-15 give rows 0-15 of the warp's 16 at a step's first 8
+  // columns, lanes 16-31 the same rows at the next 8
+  const int lrow = 16 * warp + (lane & 15);
+  const FragPlace at{cw * (64 * BK * 2) + lrow * 128, lrow & 7, lane >> 4, 2 * (lane & 3)};
+#pragma unroll
+  for (int i = 0; i < 128; ++i) d[i] = 0.f;
+  const int nk = (C + BK - 1) / BK;
+  uint32_t a[2][4][4] = {};
+  wg::mbar_wait(&ring.full[0], 0);
+  ln_stage(ring, at, 0, gb, mean, rstd, a[0]);
+  for (int kt = 0; kt < nk; kt += 2) {
+    ln_step<0>(ring, at, kt, nk, gb, mean, rstd, a, d);
+    if (kt + 1 < nk) ln_step<1>(ring, at, kt + 1, nk, gb, mean, rstd, a, d);
+  }
+  wg::end_mainloop(d);
+  hold(a[0]);   // read by the last groups, which end_mainloop waited for
+  hold(a[1]);
+}
+
+template <int ACT, bool RES>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+dense_ln_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                      const __grid_constant__ CUtensorMap tw, const bf16* __restrict__ gamma,
+                      const bf16* __restrict__ beta, const float* __restrict__ mean,
+                      const float* __restrict__ rstd, const bf16* __restrict__ bias,
+                      bf16* __restrict__ out, bf16* __restrict__ out_u,
+                      bf16* __restrict__ out_e, int rows, int C, int N) {
+  const int n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * BM;
+  const wg::Ring ring = wg::ring_init();
+  if (threadIdx.x < 128) {
+    wg::producer_regs();
+    if (threadIdx.x == 0) wg::produce<false>(ring, &tx, &tw, m0, n0, C);
+    return;
+  }
+  wg::consumer_regs();
+  const int t = threadIdx.x - 128, cw = t >> 7, lane = t & 31;
+  // γ and β into shared memory while the first stages load
+  float4* gb = reinterpret_cast<float4*>(wg::after_ring());
+  for (int i = t; i < gb_pairs(C); i += 256) {
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (2 * i < C) {
+      const __nv_bfloat162 g = *reinterpret_cast<const __nv_bfloat162*>(gamma + 2 * i);
+      const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(beta + 2 * i);
+      v = make_float4(__low2float(g), __high2float(g), __low2float(b), __high2float(b));
+    }
+    gb[i] = v;
+  }
+  // this thread's rows of the accumulator and of its A fragments
+  const int g0 = m0 + 64 * cw + 16 * ((t >> 5) & 3) + (lane >> 2);
+  float mu[2], rs[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool in = g0 + 8 * r < rows;     // past rows x is TMA's zeros
+    mu[r] = in ? mean[g0 + 8 * r] : 0.f;
+    rs[r] = in ? rstd[g0 + 8 * r] : 0.f;
+  }
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");     // gb is written
+  float d[128];
+  ln_consume(ring, cw, C, gb, mu, rs, d);
+  wg::epilogue_store<ACT, RES>(d, bias, out, out_u, out_e, m0, n0, rows, N);
+}
+
+}  // namespace
+
+}  // namespace dc
+
+// Shared memory of the product's block for width C; the wrapper refuses a C
+// whose γ/β staging does not fit beside the ring.
+DC_EXPORT long long dc_dense_ln_wgmma_smem_bytes(int C) { return (long long)dc::k1_smem_bytes(C); }
+
+// K1: u [rows, N] = (LN(x)·γ + β)·W (+ b) and mean, rstd [rows] fp32.  x
+// [rows, C], w [C, N], gamma, beta [C], bias [N] (or NULL), u: bf16, 16-byte
+// aligned; w16 [C, N] fp16 scratch; C % 32 == 0, N % 8 == 0, 1 <= rows <=
+// 65535·128 (the Python wrapper checks these).  Two launches: the
+// statistics (with W's fp16 copy), then the product.
+DC_EXPORT int dc_dense_ln_wgmma(const void* x, const void* gamma, const void* beta,
+                                const void* w, void* w16, const void* bias, void* out,
+                                void* mean, void* rstd, int rows, int C, int N, float eps,
+                                void* stream) {
+  using namespace dc;
+  cudaStream_t s = (cudaStream_t)stream;
+  int err = ln_stats_w16(x, (float*)mean, (float*)rstd, rows, C, eps, w, w16,
+                         (long long)C * N, s);
+  if (err != 0) return err;
+  CUtensorMap tx, tw;
+  if (!wg::make_tensor_map(&tx, x, C, rows, BK, BM) ||
+      !wg::make_tensor_map(&tw, w16, N, C, 64, BK, CU_TENSOR_MAP_DATA_TYPE_FLOAT16))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = dense_ln_wgmma_kernel<0, false>;
+  const size_t smem = k1_smem_bytes(C);
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((N + BN - 1) / BN, (rows + BM - 1) / BM);
+  kernel<<<grid, wg::kThreads, smem, s>>>(tx, tw, (const bf16*)gamma, (const bf16*)beta,
+                                          (const float*)mean, (const float*)rstd,
+                                          (const bf16*)bias, (bf16*)out, nullptr, nullptr, rows,
+                                          C, N);
+  return (int)cudaGetLastError();
+}

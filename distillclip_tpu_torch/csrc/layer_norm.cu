@@ -52,6 +52,8 @@
 // stream) has its own counters, so calls on two streams do not meet.  The TPU
 // kernel carries dγ/dβ from one grid step to the next; blocks here run in no
 // order.
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace dc {
@@ -70,6 +72,60 @@ __device__ __forceinline__ void load_row_words(const bf16* __restrict__ row, int
     const int c = (k * 32 + lane) * 8;
     w[k] = c < C ? *reinterpret_cast<const uint4*>(row + c) : make_uint4(0, 0, 0, 0);
   }
+}
+
+// A row's mean and rstd from a lane's words of it (load_row_words): the mean,
+// then the variance about it, both in fp32 from the registers.
+template <int NCH>
+__device__ __forceinline__ void row_moments(const uint4 (&xw)[NCH], int C, int lane,
+                                            float inv_c, float eps, float& mean, float& rstd) {
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < NCH; ++k) {
+    float f[8];
+    unpack8(xw[k], f);
+#pragma unroll
+    for (int t = 0; t < 8; ++t) s += f[t];
+  }
+  mean = warp_sum(s) * inv_c;
+  float v = 0.f;
+#pragma unroll
+  for (int k = 0; k < NCH; ++k) {
+    if ((k * 32 + lane) * 8 >= C) continue;
+    float f[8];
+    unpack8(xw[k], f);
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const float d = f[t] - mean;
+      v += d * d;
+    }
+  }
+  rstd = rsqrtf(warp_sum(v) * inv_c + eps);
+}
+
+// The same for a row of any width, read from L1 on each pass.
+__device__ __forceinline__ void row_moments_l1(const bf16* __restrict__ xr, int C, int lane,
+                                               float inv_c, float eps, float& mean,
+                                               float& rstd) {
+  float s = 0.f;
+  for (int c = lane * 8; c < C; c += 32 * 8) {
+    float f[8];
+    load8(xr + c, f);
+#pragma unroll
+    for (int t = 0; t < 8; ++t) s += f[t];
+  }
+  mean = warp_sum(s) * inv_c;
+  float v = 0.f;
+  for (int c = lane * 8; c < C; c += 32 * 8) {
+    float f[8];
+    load8(xr + c, f);
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const float d = f[t] - mean;
+      v += d * d;
+    }
+  }
+  rstd = rsqrtf(warp_sum(v) * inv_c + eps);
 }
 
 // NCH > 0: C <= 256·NCH, rows in registers; NCH == 0: any C % 8 == 0.
@@ -93,28 +149,8 @@ layer_norm_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamm
     for (; r < rows; r += nwarps) {
       uint4 xn[NCH];
       if (r + nwarps < rows) load_row_words<NCH>(x + (size_t)(r + nwarps) * C, C, lane, xn);
-      float s = 0.f;
-#pragma unroll
-      for (int k = 0; k < NCH; ++k) {
-        float f[8];
-        unpack8(xw[k], f);
-#pragma unroll
-        for (int t = 0; t < 8; ++t) s += f[t];
-      }
-      const float mean = warp_sum(s) * inv_c;
-      float v = 0.f;
-#pragma unroll
-      for (int k = 0; k < NCH; ++k) {
-        if ((k * 32 + lane) * 8 >= C) continue;
-        float f[8];
-        unpack8(xw[k], f);
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          const float d = f[t] - mean;
-          v += d * d;
-        }
-      }
-      const float rstd = rsqrtf(warp_sum(v) * inv_c + eps);
+      float mean, rstd;
+      row_moments<NCH>(xw, C, lane, inv_c, eps, mean, rstd);
       if (mean_out != nullptr && lane == 0) {
         mean_out[r] = mean;
         rstd_out[r] = rstd;
@@ -138,25 +174,8 @@ layer_norm_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamm
     for (; r < rows; r += nwarps) {
       const bf16* xr = x + (size_t)r * C;
       bf16* yr = y + (size_t)r * C;
-      float s = 0.f;
-      for (int c = lane * 8; c < C; c += 32 * 8) {
-        float f[8];
-        load8(xr + c, f);
-#pragma unroll
-        for (int t = 0; t < 8; ++t) s += f[t];
-      }
-      const float mean = warp_sum(s) * inv_c;
-      float v = 0.f;
-      for (int c = lane * 8; c < C; c += 32 * 8) {
-        float f[8];
-        load8(xr + c, f);
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          const float d = f[t] - mean;
-          v += d * d;
-        }
-      }
-      const float rstd = rsqrtf(warp_sum(v) * inv_c + eps);
+      float mean, rstd;
+      row_moments_l1(xr, C, lane, inv_c, eps, mean, rstd);
       if (mean_out != nullptr && lane == 0) {
         mean_out[r] = mean;
         rstd_out[r] = rstd;
@@ -180,6 +199,84 @@ inline decltype(&layer_norm_rows_kernel<0>) layer_norm_rows_instance(int C) {
       layer_norm_rows_kernel<0>, layer_norm_rows_kernel<1>, layer_norm_rows_kernel<2>,
       layer_norm_rows_kernel<3>};
   return kernels[C <= 768 ? (C + 255) / 256 : 0];
+}
+
+// K1's first launch (dense_ln_wgmma.cu): the rows' mean and rstd as the
+// forward above computes them (a warp a row, read once into registers, the
+// next row in flight), without y; and, in the blocks past `stat_blocks`, W
+// converted to the fp16 copy that K1's product reads (w_words 16-byte words).
+template <int NCH>
+__global__ void __launch_bounds__(kLnThreads, ln_min_blocks(NCH))
+ln_stats_w16_kernel(const bf16* __restrict__ x, float* __restrict__ mean_out,
+                    float* __restrict__ rstd_out, int rows, int C, float eps, int stat_blocks,
+                    const bf16* __restrict__ w, f16* __restrict__ w16, long long w_words) {
+  if ((int)blockIdx.x >= stat_blocks) {
+    const long long step = (long long)(gridDim.x - stat_blocks) * kLnThreads;
+    for (long long i = (long long)(blockIdx.x - stat_blocks) * kLnThreads + threadIdx.x;
+         i < w_words; i += step) {
+      float f[8];
+      unpack8(reinterpret_cast<const uint4*>(w)[i], f);
+      store8(w16 + 8 * i, f);
+    }
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  const int nwarps = stat_blocks * (kLnThreads >> 5);
+  int r = blockIdx.x * (kLnThreads >> 5) + (threadIdx.x >> 5);
+  if (r >= rows) return;
+  const float inv_c = 1.0f / (float)C;
+  float mean, rstd;
+  if constexpr (NCH > 0) {
+    uint4 xw[NCH];
+    load_row_words<NCH>(x + (size_t)r * C, C, lane, xw);
+    for (; r < rows; r += nwarps) {
+      uint4 xn[NCH];
+      if (r + nwarps < rows) load_row_words<NCH>(x + (size_t)(r + nwarps) * C, C, lane, xn);
+      row_moments<NCH>(xw, C, lane, inv_c, eps, mean, rstd);
+      if (lane == 0) {
+        mean_out[r] = mean;
+        rstd_out[r] = rstd;
+      }
+#pragma unroll
+      for (int k = 0; k < NCH; ++k) xw[k] = xn[k];
+    }
+  } else {
+    for (; r < rows; r += nwarps) {
+      row_moments_l1(x + (size_t)r * C, C, lane, inv_c, eps, mean, rstd);
+      if (lane == 0) {
+        mean_out[r] = mean;
+        rstd_out[r] = rstd;
+      }
+    }
+  }
+}
+
+int ln_stats_w16(const void* x, float* mean, float* rstd, int rows, int C, float eps,
+                 const void* w, void* w16, long long w_elems, cudaStream_t stream) {
+  const int nch = C <= 768 ? (C + 255) / 256 : 0;
+  decltype(&ln_stats_w16_kernel<0>) const kernels[] = {
+      ln_stats_w16_kernel<0>, ln_stats_w16_kernel<1>, ln_stats_w16_kernel<2>,
+      ln_stats_w16_kernel<3>};
+  // one wave of statistics warps at most: the SMs and the instance's blocks
+  // an SM, asked once per instance
+  static int sms = 0, per_sm[4] = {0, 0, 0, 0};
+  cudaError_t err = cudaSuccess;
+  if (sms == 0) {
+    int dev = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess && per_sm[nch] == 0)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[nch], kernels[nch], kLnThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  const int warps = kLnThreads / 32;
+  const int stat_blocks = std::max(1, std::min((rows + warps - 1) / warps, sms * per_sm[nch]));
+  const long long words = w_elems / 8;
+  const int conv_blocks =
+      (int)std::min<long long>((words + kLnThreads - 1) / kLnThreads, 2LL * sms);
+  kernels[nch]<<<stat_blocks + conv_blocks, kLnThreads, 0, stream>>>(
+      (const bf16*)x, mean, rstd, rows, C, eps, stat_blocks, (const bf16*)w, (f16*)w16, words);
+  return (int)cudaGetLastError();
 }
 
 constexpr int kLnBwdThreads = 512;

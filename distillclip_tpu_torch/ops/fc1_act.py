@@ -7,14 +7,16 @@
   when the ``fc1_ln: "0"`` knob unfuses their LayerNorms
 
 W is ``[C, N]`` (the Flax Dense layout, which the converter keeps).  On a
-CUDA tensor the LN GEMMs launch the hand-written kernel of
-``csrc/dense_ln.cu`` and the GEMM without the LN that of ``csrc/dense_act.cu``
-(wgmma and TMA, on the main loop of ``csrc/wgmma_gemm.cuh``); on a CPU tensor
-they run the plain versions below.  Both take the LN in fp32 and
-the product, bias and activation in fp32 before one final rounding to x's
-dtype.  The plain version rounds the LN output to x's dtype before the
-product, as the TPU kernel does; the CUDA kernel rounds it to fp16, which
-keeps the bf16 result within its limits (see the header of dense_ln.cu).
+CUDA tensor K1 launches the hand-written kernels of ``csrc/dense_ln_wgmma.cu``
+(the rows' statistics with W's fp16 copy, then the product on wgmma and TMA,
+the main loop of ``csrc/wgmma_gemm.cuh``, with LN(x) made in registers), K2
+that of ``csrc/dense_ln.cu`` and the GEMM without the LN that of
+``csrc/dense_act.cu`` (wgmma and TMA); on a CPU tensor they run the plain
+versions below.  All take the LN in fp32 and the product, bias and
+activation in fp32 before one final rounding to x's dtype.  The plain
+version rounds the LN output to x's dtype before the product, as the TPU
+kernel does; the CUDA kernels round it to fp16, which keeps the bf16 result
+within its limits (see the header of dense_ln_wgmma.cu).
 
 Without a gradient (serving) the lean kernels run: K1 writes u, K2 writes h
 only.  With one, each function is a ``torch.autograd.Function``:
@@ -24,8 +26,9 @@ only.  With one, each function is a ``torch.autograd.Function``:
   σ(1.702u), mean and rstd.  The JAX package recombines h from the rounded
   (u, e) outside its kernel; here the kernel writes h from the fp32 sum, the
   same bits as the lean K2;
-* backward: :func:`dense_ln_bwd` (``csrc/dense_ln_bwd.cu``) makes dx, the
-  normalised rows xn and dγ, dβ from du in one pass.  The GELU derivative,
+* backward: :func:`dense_ln_bwd` (``csrc/dense_ln_bwd.cu``: wgmma and TMA,
+  one thread-block cluster along C per 128 rows) makes dx, the normalised
+  rows xn and dγ, dβ from du in one pass.  The GELU derivative,
   dW = xnᵀ·du and db = Σ du stay plain PyTorch, as the JAX package leaves
   them to XLA.
 
@@ -159,17 +162,22 @@ def _check_shapes(what, x, ls, lb, w, b):
         raise ValueError(f"{what}: LN params must be [{C}] and the bias [{N}]")
 
 
-def _check_widths(what, smem_bytes, C, N):
-    """``smem_bytes(C)`` is the kernel's shared memory for width C."""
+def _check_widths(what, C, N, too_wide: bool, rows: int = 0):
+    """Refuse widths the kernel does not take: ``too_wide`` says C is more
+    than its tiles hold; ``rows`` are checked against the grid of a wgmma
+    kernel, which has a row of blocks per 128 rows."""
     if C % 32 or N % 8:
         raise ValueError(f"{what}: the kernel takes C % 32 == 0 and N % 8 == 0, "
                          f"got C={C}, N={N}")
-    if smem_bytes(C) > _build.MAX_SMEM_BYTES:
+    if too_wide:
         raise ValueError(f"{what}: C={C} is too wide for the kernel's row tile")
+    if rows > _WGMMA_MAX_ROWS:
+        raise ValueError(f"{what}: the kernel takes at most {_WGMMA_MAX_ROWS} rows, "
+                         f"got {rows}")
 
 
-# the no-LN GEMM's grid has one row of blocks per 128 rows, at most 65535 rows
-_DENSE_ACT_MAX_ROWS = 65535 * 128
+# the wgmma GEMMs' grid has one row of blocks per 128 rows, at most 65535
+_WGMMA_MAX_ROWS = 65535 * 128
 
 
 def _check_dense_shapes(what, x, w, b):
@@ -182,41 +190,36 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _stats_buffers(x, stats: bool):
-    if not stats:
-        return None, None
+def _stats_buffers(x):
     return (torch.empty(x.shape[0], dtype=torch.float32, device=x.device),
             torch.empty(x.shape[0], dtype=torch.float32, device=x.device))
 
 
-def _launch(wrapper, x, ls, lb, w, b, eps, act_code, stats=False):
-    """Launch K1 (act_code 0) or the lean K2 and count it on ``wrapper``;
-    returns (out, mean, rstd), the last two None without ``stats``."""
-    what = wrapper.__name__
-    _build.check_operands(what, *(t for t in (x, ls, lb, w, b) if t is not None))
-    rows, C = x.shape
-    N = w.shape[1]
-    lib = _build.lib()
-    _check_widths(what, lib.dc_dense_ln_smem_bytes, C, N)
-    out = torch.empty((rows, N), dtype=x.dtype, device=x.device)
-    mean, rstd = _stats_buffers(x, stats)
-    if rows == 0:
-        return out, mean, rstd
-    _build.check(lib.dc_dense_ln(x.data_ptr(), ls.data_ptr(), lb.data_ptr(), w.data_ptr(),
-                                 _ptr(b), out.data_ptr(), _ptr(mean), _ptr(rstd),
-                                 rows, C, N, float(eps), act_code, _build.stream_ptr(x)),
-                 what)
-    wrapper.launches += 1
-    return out, mean, rstd
-
-
 def dense_ln_fwd(x, ls, lb, w, b=None, eps: float = 1e-5, stats: bool = False):
     """(u, mean, rstd) by K1 on CUDA tensors (mean and rstd None without
-    ``stats``), by the plain version on the CPU."""
+    ``stats``), by the plain version on the CPU.  The kernel writes the
+    statistics in both modes (into scratch without ``stats``), so that both
+    run the same launches and give the same u."""
     if _build.plain_only("dense_ln", x):
         u, mean, rstd = dense_ln_stats_plain(x, ls, lb, w, b, eps)
         return (u, mean, rstd) if stats else (u, None, None)
-    return _launch(dense_ln, x, ls, lb, w, b, eps, 0, stats)
+    _build.check_operands("dense_ln", *(t for t in (x, ls, lb, w, b) if t is not None))
+    rows, C = x.shape
+    N = w.shape[1]
+    lib = _build.lib()
+    _check_widths("dense_ln", C, N, lib.dc_dense_ln_wgmma_smem_bytes(C) > _build.MAX_SMEM_BYTES,
+                  rows)
+    out = torch.empty((rows, N), dtype=x.dtype, device=x.device)
+    mean, rstd = _stats_buffers(x)
+    if rows:
+        w16 = torch.empty((C, N), dtype=torch.float16, device=x.device)
+        _build.check(lib.dc_dense_ln_wgmma(x.data_ptr(), ls.data_ptr(), lb.data_ptr(),
+                                           w.data_ptr(), w16.data_ptr(), _ptr(b),
+                                           out.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                                           rows, C, N, float(eps), _build.stream_ptr(x)),
+                     "dense_ln")
+        dense_ln.launches += 1
+    return (out, mean, rstd) if stats else (out, None, None)
 
 
 def dense_act_ln_res(x, ls, lb, w, b, act: str = "gelu_exact", eps: float = 1e-5):
@@ -228,9 +231,10 @@ def dense_act_ln_res(x, ls, lb, w, b, act: str = "gelu_exact", eps: float = 1e-5
     rows, C = x.shape
     N = w.shape[1]
     lib = _build.lib()
-    _check_widths("dense_act_ln_res", lib.dc_dense_ln_smem_bytes, C, N)
+    _check_widths("dense_act_ln_res", C, N,
+                  lib.dc_dense_ln_smem_bytes(C) > _build.MAX_SMEM_BYTES)
     h, u, e = (torch.empty((rows, N), dtype=x.dtype, device=x.device) for _ in range(3))
-    mean, rstd = _stats_buffers(x, True)
+    mean, rstd = _stats_buffers(x)
     if rows == 0:
         return h, u, e, mean, rstd
     _build.check(lib.dc_dense_act_ln_res(x.data_ptr(), ls.data_ptr(), lb.data_ptr(),
@@ -249,12 +253,7 @@ def _launch_dense_act(wrapper, x, w, b, act_code: int, res: bool):
     _build.check_operands(what, x, w, b)
     rows, C = x.shape
     N = w.shape[1]
-    if C % 32 or N % 8:
-        raise ValueError(f"{what}: the kernel takes C % 32 == 0 and N % 8 == 0, "
-                         f"got C={C}, N={N}")
-    if rows > _DENSE_ACT_MAX_ROWS:
-        raise ValueError(f"{what}: the kernel takes at most {_DENSE_ACT_MAX_ROWS} rows, "
-                         f"got {rows}")
+    _check_widths(what, C, N, False, rows)
     lib = _build.lib()
     outs = [torch.empty((rows, N), dtype=x.dtype, device=x.device)
             for _ in range(3 if res else 1)]
@@ -294,7 +293,7 @@ def dense_ln_bwd(x, ls, lb, w, du, mean, rstd):
     rows, C = x.shape
     N = w.shape[1]
     lib = _build.lib()
-    _check_widths("dense_ln_bwd", lib.dc_dense_ln_bwd_smem_bytes, C, N)
+    _check_widths("dense_ln_bwd", C, N, C > lib.dc_dense_ln_bwd_max_c(), rows)
     dx, xn = torch.empty_like(x), torch.empty_like(x)
     grads = torch.zeros(2 * C, dtype=torch.float32, device=x.device)
     if rows == 0:
@@ -421,7 +420,19 @@ def dense_act_ln(x: torch.Tensor, ls: torch.Tensor, lb: torch.Tensor, w: torch.T
         return _DenseActLn.apply(x, ls, lb, w, b, act, eps, res)
     if _build.plain_only("dense_act_ln", x):
         return dense_ln_plain(x, ls, lb, w, b, eps, act)
-    return _launch(dense_act_ln, x, ls, lb, w, b, eps, _ACTS[act])[0]
+    _build.check_operands("dense_act_ln", x, ls, lb, w, b)
+    rows, C = x.shape
+    N = w.shape[1]
+    lib = _build.lib()
+    _check_widths("dense_act_ln", C, N, lib.dc_dense_ln_smem_bytes(C) > _build.MAX_SMEM_BYTES)
+    out = torch.empty((rows, N), dtype=x.dtype, device=x.device)
+    if rows:
+        _build.check(lib.dc_dense_ln(x.data_ptr(), ls.data_ptr(), lb.data_ptr(), w.data_ptr(),
+                                     b.data_ptr(), out.data_ptr(), None, None, rows, C, N,
+                                     float(eps), _ACTS[act], _build.stream_ptr(x)),
+                     "dense_act_ln")
+        dense_act_ln.launches += 1
+    return out
 
 
 def dense_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, act: str = "gelu_exact",

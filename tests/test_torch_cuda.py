@@ -1036,3 +1036,77 @@ def test_dense_act_refuses_what_the_kernel_does_not_take():
             fc1_act.dense_act(x[:, :48].contiguous(), w[:48].contiguous(), b)
         with pytest.raises(ValueError, match="contiguous"):
             fc1_act.dense_act(x, w.t().contiguous().t(), b)
+
+
+# -- K1 and #9 on wgmma: stage, tile and cluster edges ------------------------------
+#
+# K1 takes C in steps of 64 (a C of 32 or 96 ends in a half-filled stage); #9
+# runs a cluster of ceil(C/256) blocks along C (1 to 8 here); both tile rows
+# by 128 and N by 256.
+
+@pytest.mark.parametrize("C", [32, 96, 256, 512, 768, 1024])
+@pytest.mark.parametrize("rows,N", [(1, 8), (130, 264), (257, 520)])
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "no_bias"])
+def test_dense_ln_at_stage_and_tile_edges(C, rows, N, bias):
+    rng = np.random.default_rng(rows + C + N)
+    x, ls, lb = _bf16(rng, (rows, C), 1.0, 0.5), _bf16(rng, (C,), 0.1, 1.0), _bf16(rng, (C,), 0.1)
+    w, b = _bf16(rng, (C, N), C ** -0.5), _bf16(rng, (N,), 0.1) if bias else None
+    lean, _, _ = fc1_act.dense_ln_fwd(x, ls, lb, w, b)
+    u, mean, rstd = fc1_act.dense_ln_fwd(x, ls, lb, w, b, stats=True)
+    torch.cuda.synchronize()
+    assert torch.equal(u, lean)
+    ref, rmean, rrstd = fc1_act.dense_ln_stats_plain(
+        x.float(), ls.float(), lb.float(), w.float(), None if b is None else b.float())
+    _close(u, ref)
+    torch.testing.assert_close(mean, rmean, atol=1e-6, rtol=1e-5)
+    torch.testing.assert_close(rstd, rrstd, atol=0, rtol=1e-5)
+
+
+@pytest.mark.parametrize("C", [32, 256, 512, 768, 1024, 1152, 2048])
+@pytest.mark.parametrize("rows,N", [(1, 8), (130, 264), (257, 2304)])
+def test_dense_ln_bwd_at_cluster_and_tile_edges(C, rows, N):
+    rng = np.random.default_rng(rows + C + N)
+    x, ls, lb = _bf16(rng, (rows, C), 1.0, 0.5), _bf16(rng, (C,), 0.1, 1.0), _bf16(rng, (C,), 0.1)
+    w, du = _bf16(rng, (C, N), N ** -0.5), _bf16(rng, (rows, N))
+    _, mean, rstd = fc1_act.dense_ln_stats_plain(x, ls, lb, w)
+    dx, xn, dls, dlb = fc1_act.dense_ln_bwd(x, ls, lb, w, du, mean, rstd)
+    rdx, rxn, rdls, rdlb = fc1_act.dense_ln_bwd_plain(
+        x.float(), ls.float(), lb.float(), w.float(), du.float(), mean, rstd)
+    _close(dx, rdx)
+    _close(xn, rxn)
+    assert _rel_to_max(dls, rdls) < 6e-3 and _rel_to_max(dlb, rdlb) < 6e-3
+
+
+@pytest.mark.parametrize("rows,C,N", [(12800, 768, 2304), (1000, 1024, 520)])
+def test_dense_ln_bwd_is_deterministic(rows, C, N):
+    """The row moments add the cluster's partials in rank order and dγ/dβ the
+    bands' partials in band order: two calls give the same bits."""
+    rng = np.random.default_rng(rows)
+    x, ls, lb = _bf16(rng, (rows, C)), _bf16(rng, (C,), 0.1, 1.0), _bf16(rng, (C,), 0.1)
+    w, du = _bf16(rng, (C, N), 0.02), _bf16(rng, (rows, N))
+    _, mean, rstd = fc1_act.dense_ln_stats_plain(x, ls, lb, w)
+    a = fc1_act.dense_ln_bwd(x, ls, lb, w, du, mean, rstd)
+    b = fc1_act.dense_ln_bwd(x, ls, lb, w, du, mean, rstd)
+    torch.cuda.synchronize()
+    assert all(torch.equal(p, q) for p, q in zip(a, b))
+
+
+def test_dense_ln_bwd_refuses_a_row_wider_than_its_largest_cluster():
+    from distillclip_tpu_torch.ops import _build
+
+    rng = np.random.default_rng(3)
+    C = _build.lib().dc_dense_ln_bwd_max_c() + 32
+    x, ls, lb = _bf16(rng, (4, C)), _bf16(rng, (C,)), _bf16(rng, (C,))
+    w, du = _bf16(rng, (C, 8)), _bf16(rng, (4, 8))
+    mean = torch.zeros(4, device="cuda")
+    with pytest.raises(ValueError, match="too wide"):
+        fc1_act.dense_ln_bwd(x, ls, lb, w, du, mean, mean)
+    # K1 takes the width (its tiles hold 64 columns of C at a time)
+    _close(fc1_act.dense_ln(x, ls, lb, w), fc1_act.dense_ln_plain(
+        x.float(), ls.float(), lb.float(), w.float()))
+
+
+def test_dense_ln_bwd_clusters_fit_the_card():
+    from distillclip_tpu_torch.ops import _build
+
+    assert _build.lib().dc_dense_ln_bwd_max_clusters(768) >= 1
