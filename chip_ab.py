@@ -17,6 +17,13 @@ limit:
   from one CUDA graph;
 - ``dln_bwd``: ``dense_ln_bwd`` (#9) at its four main-path shapes (image and
   text rows, qkv and fc1), the same way;
+- ``k2``: lean ``dense_act_ln`` (K2, as the teachers and serving run it) and
+  ``dense_act_ln_res`` (#8, as a train step runs it) at the fc1 of the image
+  and text students (exact GELU) and of the image and text teachers
+  (QuickGELU): [12800, 768] and [19712, 768] -> 3072, [12800, 768] -> 3072,
+  [19712, 512] -> 2048; beside each the PyTorch composition that does the
+  same work (``chip_smoke.ln_gemm_act``: ``native_layer_norm``, ``addmm``,
+  the activation; #8's also e), the same way;
 - ``tf_bwd``: ``transform_attention_bwd`` (#6) at the two students' shapes
   (B=256; 24 heads of 32 at 50 tokens, 12 of 64 at 77), device ms per call
   over 20 calls replayed from one CUDA graph;
@@ -93,6 +100,19 @@ def _kernel_ms(torch, fn, key: str, iters: int = 20) -> float:
     return us / 1e3 / iters
 
 
+def _own_chip_smoke():
+    """The chip_smoke.py beside this script (not the checkout's), for the
+    PyTorch compositions that every checkout is timed against."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_of_chip_ab", Path(__file__).resolve().with_name("chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module       # for its dataclasses
+    spec.loader.exec_module(module)
+    return module
+
+
 def one(root: Path) -> None:
     """The measurements of one checkout, in this process."""
     sys.path.insert(0, str(root))
@@ -101,6 +121,8 @@ def one(root: Path) -> None:
     from distillclip_tpu_torch.ops import fc1_act, layer_norm
     from distillclip_tpu_torch.ops import transform_attention as ta
     from distillclip_tpu_torch.serving import LCLIPScorer
+
+    ln_gemm_act = _own_chip_smoke().ln_gemm_act
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card, tag = _card(), f"ab {root.resolve().name}"
@@ -124,6 +146,20 @@ def one(root: Path) -> None:
             dlb.append(f"[{rows},{n}]->{c} {_graph_ms(torch, fn):.4f}")
     print(f"{tag} k1 ms: {'; '.join(k1)} [{card}]", flush=True)
     print(f"{tag} dln_bwd ms: {'; '.join(dlb)} [{card}]", flush=True)
+
+    k2 = []
+    for rows, c, act in ((12800, 768, "gelu_exact"), (19712, 768, "gelu_exact"),
+                         (12800, 768, "quick_gelu"), (19712, 512, "quick_gelu")):
+        n = 4 * c
+        args = (t((rows, c)), t((c,), 0.1, 1.0), t((c,), 0.1), t((c, n), 0.02), t((n,), 0.02))
+        times = [_graph_ms(torch, fn) for fn in (
+            lambda: fc1_act.dense_act_ln(*args, act),
+            lambda: fc1_act.dense_act_ln_res(*args, act),
+            lambda: ln_gemm_act(*args, act),
+            lambda: ln_gemm_act(*args, act, res=True))]
+        k2.append(f"[{rows},{c}]->{n} {act} K2 {times[0]:.4f} #8 {times[1]:.4f} "
+                  f"(compositions {times[2]:.4f}, {times[3]:.4f})")
+    print(f"{tag} k2 ms: {'; '.join(k2)} [{card}]", flush=True)
 
     tf, red = [], []
     for B, H, d, N in ((256, 24, 32, 50), (256, 12, 64, 77)):

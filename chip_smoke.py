@@ -70,6 +70,8 @@ phases, each of which exits non-zero on failure:
    tokenise cost);
 6. card numbers: each kernel's time beside its plain version's, its bound
    and, where one PyTorch call computes the same function, that call's time
+   (for K2 and #8, which no one call matches, the PyTorch composition that
+   does their work)
    (kernel and library call: device time of calls replayed from a CUDA graph,
    so that a wrapper's host cost does not enter it; a library call through
    autograd, SDPA's backward, which a graph cannot capture: the device time of
@@ -123,7 +125,7 @@ def add_counts(*parts: dict) -> dict:
 SOURCES = {
     "dense_ln": ("distillclip_tpu_torch/csrc/dense_ln_wgmma.cu",
                  "distillclip_tpu/ops/fc1_act.py:419"),
-    "dense_act_ln": ("distillclip_tpu_torch/csrc/dense_ln.cu",
+    "dense_act_ln": ("distillclip_tpu_torch/csrc/dense_ln_wgmma.cu",
                      "distillclip_tpu/ops/fc1_act.py:521"),
     "transform_attention_rows_qkv": ("distillclip_tpu_torch/csrc/transform_attention.cu",
                                      "distillclip_tpu/ops/transform_attention.py:118"),
@@ -135,7 +137,7 @@ SOURCES = {
                                 "distillclip_tpu/ops/transform_attention.py:224"),
     "layer_norm_rows_bwd": ("distillclip_tpu_torch/csrc/layer_norm.cu",
                             "distillclip_tpu/ops/layer_norm.py:63"),
-    "dense_act_ln_res": ("distillclip_tpu_torch/csrc/dense_ln.cu",
+    "dense_act_ln_res": ("distillclip_tpu_torch/csrc/dense_ln_wgmma.cu",
                          "distillclip_tpu/ops/fc1_act.py:307"),
     "dense_ln_bwd": ("distillclip_tpu_torch/csrc/dense_ln_bwd.cu",
                      "distillclip_tpu/ops/fc1_act.py:571"),
@@ -248,9 +250,10 @@ KNOB_PHASES = {
 
 
 # kernels whose registers and spills (nvcc -Xptxas -v, in the build log) the
-# run prints: K1 (its statistics launch and its product), #9 and the no-LN
-# GEMM on the wgmma main loop, K4, #6's row, dq/dk and column kernels, and
-# the partials' reduction that #6 and #9 share
+# run prints: the LN GEMM (its statistics launch, and its product in every
+# instance: K1 <0, 0>, K2 <1|2, 0>, #8 <1|2, 1>), #9 and the no-LN GEMM on the
+# wgmma main loop, K4, #6's row, dq/dk and column kernels, and the partials'
+# reduction that #6 and #9 share
 PTXAS_KERNELS = ("dense_ln_wgmma_kernel", "ln_stats_w16_kernel", "dense_ln_bwd_wgmma_kernel",
                  "dense_act_wgmma_kernel", "layer_norm_rows_kernel", "tf_bwd_rows_kernel",
                  "tf_bwd_qk_kernel", "tf_bwd_cols_kernel", "reduce_partials_kernel")
@@ -391,7 +394,10 @@ class Case:
     one PyTorch call that computes the same function, if any;
     ``library_eager`` says it runs through autograd, whose backward ops run
     on the streams of the forward and so stay out of a graph captured on
-    another stream: its device time is read from the profiler."""
+    another stream: its device time is read from the profiler.
+    ``composition`` is a few PyTorch calls that do the same work where no
+    one call does (timed beside the kernel, not in the JSON line's
+    ``library_ms``)."""
 
     kernel: str
     label: str
@@ -406,6 +412,7 @@ class Case:
     library: Optional[Callable[[], object]] = None
     also: Optional[Callable[[tuple], Optional[str]]] = None
     library_eager: bool = False
+    composition: Optional[Callable[[], object]] = None
 
     def bound(self):
         by_bytes, by_ops = self.nbytes / HBM_BYTES_PER_S, self.flops / self.peak
@@ -414,6 +421,21 @@ class Case:
 
 def _f32(ts):
     return [None if t is None else t.float() for t in ts]
+
+
+def ln_gemm_act(x, g, b, w, bias, act, res=False):
+    """K2's work in PyTorch's own kernels on bf16: native_layer_norm (with
+    the rows' mean and rstd), the product with the bias, the activation;
+    with ``res`` #8's, whose e is also returned: (h, u, e, mean, rstd)."""
+    y, mean, rstd = torch.native_layer_norm(x, (x.shape[1],), g, b, 1e-5)
+    u = torch.addmm(bias, y, w)
+    if act == "gelu_exact":
+        h = F.gelu(u)
+        e = torch.erf(u * 0.7071067811865476) if res else None
+    else:
+        e = torch.sigmoid(1.702 * u)
+        h = u * e
+    return (h, u, e, mean, rstd) if res else h
 
 
 def oracle_cases(rng):
@@ -478,7 +500,7 @@ def oracle_cases(rng):
             lambda: (fc1_act.dense_ln_plain(*_f32(args), act=act),),
             (("abs", 1e-2, 1e-3),),
             lambda: fc1_act.dense_ln_plain(*args, act=act), flops,
-            gemm_bytes(rows, c, n, 1)))
+            gemm_bytes(rows, c, n, 1), composition=lambda: ln_gemm_act(*args, act)))
         cases.append(Case(
             "dense_act_ln_res", f"{label} [{rows},{c}]->{n} {act}",
             lambda: fc1_act.dense_act_ln_res(*args, act),
@@ -486,7 +508,8 @@ def oracle_cases(rng):
             (("abs", 1e-2, 1e-3), ("abs", 1e-2, 1e-3), ("abs", 1e-2, 1e-3), stat, stat),
             lambda: fc1_act.dense_act_ln_res_plain(*args, act), flops,
             gemm_bytes(rows, c, n, 3) + 8 * rows,
-            same=lambda: fc1_act.dense_act_ln(*args, act)))
+            same=lambda: fc1_act.dense_act_ln(*args, act),
+            composition=lambda: ln_gemm_act(*args, act, res=True)))
 
     dense_cases("image qkv", img, C, 3 * C, True, k2=False)
     dense_cases("image fc1", img, C, 4 * C, True, k1=False)
@@ -812,6 +835,10 @@ def kernel_oracles(card: str):
             lib_ms = None
             if case.library is not None and not case.library_eager:
                 lib_ms = graph_ms(case.library, 100) or cuda_ms(case.library, 100, 10)
+            comp = ""
+            if case.composition is not None:
+                comp_ms = graph_ms(case.composition) or cuda_ms(case.composition)
+                comp = f", composition {comp_ms:.4f} ms (kernel / composition {ms / comp_ms:.2f})"
         case_ms[case.kernel, case.label] = ms
         bound_ms, bound_by = case.bound()
         print(f"time {case.kernel} {case.label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -819,8 +846,8 @@ def kernel_oracles(card: str):
               f"{case.nbytes / 1e6:.3f} MB, {bound_ms / ms:.3f} of it), library "
               + ("at the end of the run" if case.library_eager
                  else "none" if lib_ms is None
-                 else f"{lib_ms:.4f} ms (kernel / library {ms / lib_ms:.2f})") + f" [{card}]",
-              flush=True)
+                 else f"{lib_ms:.4f} ms (kernel / library {ms / lib_ms:.2f})") + comp
+              + f" [{card}]", flush=True)
         r = results.setdefault(case.kernel, {
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib_ms})
@@ -1637,9 +1664,11 @@ PROFILE_GROUPS = (
     ("flash_attention forward (#16, tensor cores)", ("flash_attention_fwd_mma_kernel",)),
     ("flash_attention_bwd (#16, tensor cores)", ("flash_attention_bwd_mma_kernel",)),
     ("flash_transform_attention forward", ("flash_transform_attention_fwd_kernel",)),
-    ("K1 dense_ln (wgmma; its statistics launch with W's fp16 copy)",
-     ("dense_ln_wgmma_kernel", "ln_stats_w16_kernel")),
-    ("K2 / #8 dense_act_ln + dense_act_ln_res (LN GEMMs forward)", ("dense_ln_kernel",)),
+    # one kernel template: K2 / #8 are its activation instances, K1 act 0
+    ("K2 / #8 dense_act_ln + dense_act_ln_res (wgmma, activation epilogue)",
+     ("dense_ln_wgmma_kernel<1", "dense_ln_wgmma_kernel<2")),
+    ("K1 dense_ln (wgmma)", ("dense_ln_wgmma_kernel",)),
+    ("ln_stats_w16 (statistics and W's fp16 copy for K1, K2 and #8)", ("ln_stats_w16_kernel",)),
     ("#9 dense_ln_bwd (wgmma, clusters along C)", ("dense_ln_bwd_wgmma_kernel",)),
     ("transform_attention forward (lean / save_p)", ("transform_attention_kernel",)),
     ("transform_attention_bwd", ("tf_bwd_",)),

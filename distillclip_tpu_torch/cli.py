@@ -13,7 +13,7 @@ paired with the non-empty lines of ``--captions``.  Without student
 checkpoints it scores with the teacher (``--teacher``, a model name or a
 checkpoint path).  It runs on the card unless ``--device cpu``; one line on
 standard error says which tokenizer and which image decoder ran.  ``fit``,
-``validate`` and ``lr_find`` wait for the trainer (ROADMAP queue 1, item 8).
+``validate`` and ``lr_find`` wait for the trainer (ROADMAP queue 1: the trainer).
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ import os
 import sys
 from typing import List, Optional
 
-_TRAINER_ITEM = "ROADMAP queue 1, item 8: the trainer and its CLI commands"
+_TRAINER_ITEM = "ROADMAP queue 1: the trainer, the eval steps and the CLI's commands"
 
 
 def cmd_score(args) -> int:

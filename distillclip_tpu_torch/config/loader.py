@@ -5,7 +5,7 @@ schema is ``{model, data, trainer, perf}``, repeated ``-c`` files merge in
 order (a later file wins; lists are replaced whole), and a run writes the
 merged config beside its results.  The towers of a config are built by
 ``serving.lclip_score.build_tower``; building a task, a data module and a
-trainer from a config waits for the trainer (ROADMAP queue 1, item 8).
+trainer from a config waits for the trainer (ROADMAP queue 1: the trainer).
 """
 
 from __future__ import annotations

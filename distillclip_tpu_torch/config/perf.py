@@ -63,7 +63,7 @@ PERF_KNOBS = (
     "true_n_max_rows",  # TPU true-N row ceiling
 )
 
-NO_KERNEL_ITEM = ("ROADMAP queue 1, item 8: the port keeps only the perf knobs that mean "
+NO_KERNEL_ITEM = ("ROADMAP queue 1, do not port: the port keeps only the perf knobs that mean "
                   "something on the H100, and every path of the port runs its kernels")
 
 

@@ -18,11 +18,11 @@
 // the product is 60.4 GFLOP against 103 MB (0.061 ms at 989 TFLOP/s).  The
 // main loop is wgmma_gemm.cuh's: output tiles of 128 x 256, a four-stage TMA
 // ring with 128-byte swizzle, one producer and two consumer warpgroups issuing
-// wgmma m64n256k16.  The epilogue (wg::epilogue_store, shared with K1) adds
-// the bias and applies the activation to the sums in registers, writes each
-// output tile as bf16 into the free ring, and stores it as 16-byte words
-// along rows.  h is recombined from e in both modes (0.5 u (1 + e), or u e),
-// so the lean and the residual h agree.
+// wgmma m64n256k16.  The epilogue (wg::epilogue_store, shared with K1, K2
+// and #8) adds the bias and applies the activation to the sums in registers,
+// writes each output tile as bf16 into the free ring, and stores it as
+// 16-byte words along rows.  h comes out of the same operations in both
+// modes (common.cuh's activate), so the lean and the residual h agree.
 #include "wgmma_gemm.cuh"
 
 namespace dc {

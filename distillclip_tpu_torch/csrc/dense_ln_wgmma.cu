@@ -1,21 +1,30 @@
-// K1 on wgmma and TMA: u = (LN(x)·γ + β) · W (+ b), and the rows' LN mean and
-// rstd (fp32 [rows]) for the backward.
+// The LN GEMMs on wgmma and TMA, one kernel template for K1, K2 and #8:
+//   K1 (act 0):            u = (LN(x)·γ + β) · W (+ b)
+//   K2 (act 1 / 2):        h = act((LN(x)·γ + β) · W + b), exact GELU or
+//                          QuickGELU, h only
+//   #8 (act 1 / 2, RES):   h, and beside it u and e = erf(u/√2) or σ(1.702 u)
+// and, in every mode, the rows' LN mean and rstd (fp32 [rows]) for the
+// backward.
 //
-// Replaces distillclip_tpu/ops/fc1_act.py:_dense_ln_kernel (the students'
+// Replaces distillclip_tpu/ops/fc1_act.py:_dense_ln_kernel (K1: the students'
 // norm1 + qkv projection, and the teachers' ln_1 + qkv; K1 with its
-// statistics also serves fc1 under the fc1_res "u" knob).  K2 and its
-// residual mode (#8) still run dense_ln.cu; the kernel here is one template
-// whose epilogue (wg::epilogue_store<ACT, RES>) is a parameter, so that they
-// can take this main loop up.
+// statistics also serves fc1 under the fc1_res "u" knob), :_fc1_ln_h_kernel
+// (K2: the lean norm2 + fc1 + activation of the frozen teachers and of
+// serving) and :_fc1_ln_kernel (#8: the same under a gradient, with u, e,
+// mean and rstd saved; the JAX package recombines h from the rounded (u, e)
+// outside its kernel, here the epilogue writes it from the fp32 sum, the
+// same bits as K2's h).
 //
 // Layouts: x [rows, C], W [C, N] row-major (the Flax Dense layout, kept by the
-// port's converter), γ, β [C], b [N], u [rows, N]; all bf16.  mean, rstd
-// [rows] fp32, written in every mode (into the caller's scratch in the lean
-// one), so that the lean and the statistics modes run the same launches and
-// give the same bits.
+// port's converter), γ, β [C], b [N], h, u, e [rows, N]; all bf16.  mean,
+// rstd [rows] fp32, written in every mode (into the caller's scratch in the
+// lean ones), so that the lean and the statistics or residual modes run the
+// same launches and give the same bits.
 //
-// Bound on the H100: operations.  At the image qkv (rows 12800, C 768, N
-// 2304) the product is 45.3 GFLOP against 82 MB (0.046 ms at 989 TFLOP/s).
+// Bound on the H100: operations, except #8, which writes three outputs.  At
+// the image qkv (rows 12800, C 768, N 2304) the product is 45.3 GFLOP against
+// 82 MB (0.046 ms at 989 TFLOP/s); at the image fc1 (N 3072) 60.4 GFLOP
+// against 103 MB for K2 (0.061 ms) and 260 MB for #8 (0.078 ms at 3.35 TB/s).
 //
 // Design, two launches:
 // 1. ln_stats_w16 (layer_norm.cu): the rows' mean and rstd, K4's design
@@ -29,14 +38,17 @@
 //    consumer thread loads its A fragment of each 16-deep step from the
 //    swizzled x tile (ldmatrix), normalises it in fp32 with its two rows'
 //    mean and rstd (fixed for the whole K loop, in registers) and the γ, β
-//    of its columns (staged once in shared memory as fp32), rounds it to fp16
-//    and issues wgmma m64n256k16 with A from registers and B = W16 from
-//    shared memory (MN-major), a stage's four as one group.  The next
-//    stage's four fragments are made while a group runs (two stages of
+//    of its columns (staged once in shared memory as their bf16 bits, a
+//    fragment's four columns in one 16-byte word), two fp32 FMAs an element,
+//    rounds it to fp16 and issues wgmma m64n256k16 with A from registers and
+//    B = W16 from shared memory (MN-major), a stage's four as one group.  The
+//    next stage's four fragments are made while a group runs (two stages of
 //    fragments, 32 registers); a stage is released when its group has
-//    completed.  The epilogue adds the
-//    bias to the fp32 sums and rounds once to bf16 (dense_act.cu's act-0
-//    epilogue: 16-byte row stores through the freed ring).
+//    completed.  The epilogue is dense_act.cu's (wg::epilogue_store<ACT,
+//    RES>): bias and activation on the fp32 sums, one bf16 rounding of each
+//    output, written as 64 x 256 slices into the freed ring (three a
+//    warpgroup with RES, which fill it; γ/β sit past it) and stored as
+//    16-byte words along rows.
 //
 // Precision, the constraint that decides the operand type: wgmma takes A and
 // B of one type.  The TPU kernel rounds LN(x) to bf16 before its product;
@@ -50,8 +62,15 @@
 // W, fp32 sums, one bf16 store) at a mean error of 6.45e-4 and a largest
 // error of 7.98e-3, against the limits 1e-3 and 1e-2; bf16 A as hi + lo (two
 // products a step), which leaves little but the store's rounding, reads
-// 6.32e-4 and 7.81e-3 for twice the tensor-core work.  The LN runs as (x - mean)·rstd·γ + β, never as a fold of
-// mean into a column sum of W, whose error grows with |mean| / std of a row.
+// 6.32e-4 and 7.81e-3 for twice the tensor-core work.  The LN runs as
+// ((x - mean)·rstd)·γ + β, never as a fold of mean into a column sum of W,
+// whose error grows with |mean| / std of a row.  (x - mean)·rstd is formed
+// in fp32 as x·rstd - mean·rstd (an off-centre row loses |mean|·rstd·2^-24,
+// far below fp16's 2^-11), and the whole of ((x - mean)·rstd)·γ + β is
+// rounded once.  γ and β applied in fp16 after an fp16 rounding of
+// (x - mean)·rstd would take a third of the operations off a fragment, at
+// the price of a second rounding of A: 1e-5 more mean error, and unit-scale
+// outputs that cancel drift past 1e-2.
 #include "wgmma_gemm.cuh"
 
 namespace dc {
@@ -62,20 +81,24 @@ using wg::BK;
 using wg::BM;
 using wg::BN;
 
-// γ and β as fp32, one float4 {γ_c, γ_c+1, β_c, β_c+1} per even column c,
-// zero past C up to the K loop's padded depth.
-__host__ __device__ inline int gb_pairs(int C) { return (C + BK - 1) / BK * BK / 2; }
+// γ and β as bf16 pairs, zero past C up to the K loop's padded depth: slot
+// 4g + j (g a 16-column group, j < 4) holds {γ, β} of columns 16g + 2j, + 1
+// and of columns 16g + 2j + 8, + 9, the four columns of a fragment's lane.
+__host__ __device__ inline int gb_slots(int C) { return (C + BK - 1) / BK * BK / 4; }
 
 __host__ __device__ inline size_t k1_smem_bytes(int C) {
-  return wg::kSmemBytes + (size_t)gb_pairs(C) * sizeof(float4);
+  return wg::kSmemBytes + (size_t)gb_slots(C) * sizeof(uint4);
 }
 
-// Two bf16 of one row (a register of an A fragment) normalised and rounded to
-// an fp16 pair: lo is the smaller column.
-__device__ __forceinline__ uint32_t ln_pair(uint32_t v, float mean, float rstd, float g0,
-                                            float g1, float b0, float b1) {
-  const float lo = (__uint_as_float(v << 16) - mean) * rstd * g0 + b0;
-  const float hi = (__uint_as_float(v & 0xffff0000u) - mean) * rstd * g1 + b1;
+// Two bf16 of one row (a register of an A fragment) normalised (nmr is
+// -mean·rstd), scaled and shifted by the bf16 pairs γ2, β2 of their columns
+// and rounded to an fp16 pair: lo is the smaller column.
+__device__ __forceinline__ uint32_t ln_pair(uint32_t v, float nmr, float rstd, uint32_t g2,
+                                            uint32_t b2) {
+  const float lo = fmaf(fmaf(__uint_as_float(v << 16), rstd, nmr), __uint_as_float(g2 << 16),
+                        __uint_as_float(b2 << 16));
+  const float hi = fmaf(fmaf(__uint_as_float(v & 0xffff0000u), rstd, nmr),
+                        __uint_as_float(g2 & 0xffff0000u), __uint_as_float(b2 & 0xffff0000u));
   const __half2 h = __floats2half2_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
 }
@@ -87,8 +110,8 @@ __device__ __forceinline__ uint32_t ln_pair(uint32_t v, float mean, float rstd, 
 // column of x (c = col, col + 1 in a[0], a[1]; col + 8, col + 9 in a[2],
 // a[3]); rows r and r + 8 in a[0], a[2] and a[1], a[3].
 __device__ __forceinline__ void ln_fragment(const unsigned char* tile, int row_off, int sw,
-                                            int half, int kk, int col, const float4* gb,
-                                            const float (&mean)[2], const float (&rstd)[2],
+                                            int half, int kk, int col, const uint4* gb,
+                                            const float (&nmr)[2], const float (&rstd)[2],
                                             uint32_t (&a)[4]) {
   const uint32_t addr = wg::smem_u32(tile + row_off + (((2 * kk + half) ^ sw) << 4));
   uint32_t x[4];
@@ -96,11 +119,11 @@ __device__ __forceinline__ void ln_fragment(const unsigned char* tile, int row_o
                : "=r"(x[0]), "=r"(x[1]), "=r"(x[2]), "=r"(x[3])
                : "r"(addr)
                : "memory");
-  const float4 g0 = gb[col >> 1], g1 = gb[(col >> 1) + 4];
-  a[0] = ln_pair(x[0], mean[0], rstd[0], g0.x, g0.y, g0.z, g0.w);
-  a[1] = ln_pair(x[1], mean[1], rstd[1], g0.x, g0.y, g0.z, g0.w);
-  a[2] = ln_pair(x[2], mean[0], rstd[0], g1.x, g1.y, g1.z, g1.w);
-  a[3] = ln_pair(x[3], mean[1], rstd[1], g1.x, g1.y, g1.z, g1.w);
+  const uint4 g = gb[((col >> 4) << 2) | ((col >> 1) & 3)];   // its four columns' γ, β
+  a[0] = ln_pair(x[0], nmr[0], rstd[0], g.x, g.y);
+  a[1] = ln_pair(x[1], nmr[1], rstd[1], g.x, g.y);
+  a[2] = ln_pair(x[2], nmr[0], rstd[0], g.z, g.w);
+  a[3] = ln_pair(x[3], nmr[1], rstd[1], g.z, g.w);
 }
 
 // Keep a stage's fragment registers as they are up to here: a wgmma that
@@ -123,12 +146,12 @@ struct FragPlace {
 
 // The four A fragments of stage kt (its x tile in ring slot kt % STAGES).
 __device__ __forceinline__ void ln_stage(const wg::Ring& ring, const FragPlace& at, int kt,
-                                         const float4* gb, const float (&mean)[2],
+                                         const uint4* gb, const float (&nmr)[2],
                                          const float (&rstd)[2], uint32_t (&a)[4][4]) {
   const unsigned char* tile = ring.base + (kt % wg::STAGES) * wg::kStageBytes;
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk)
-    ln_fragment(tile, at.row_off, at.sw, at.half, kk, kt * BK + 16 * kk + at.q2, gb, mean, rstd,
+    ln_fragment(tile, at.row_off, at.sw, at.half, kk, kt * BK + 16 * kk + at.q2, gb, nmr, rstd,
                 a[kk]);
 }
 
@@ -137,7 +160,7 @@ __device__ __forceinline__ void ln_stage(const wg::Ring& ring, const FragPlace& 
 // make the next stage's fragments in a[P ^ 1] while this group runs.
 template <int P>
 __device__ __forceinline__ void ln_step(const wg::Ring& ring, const FragPlace& at, int kt,
-                                        int nk, const float4* gb, const float (&mean)[2],
+                                        int nk, const uint4* gb, const float (&nmr)[2],
                                         const float (&rstd)[2], uint32_t (&a)[2][4][4],
                                         float (&d)[128]) {
   const unsigned char* b = ring.base + (kt % wg::STAGES) * wg::kStageBytes + wg::kABytes;
@@ -154,14 +177,14 @@ __device__ __forceinline__ void ln_step(const wg::Ring& ring, const FragPlace& a
   if (kt > 0) wg::mbar_arrive(&ring.empty[(kt - 1) % wg::STAGES]);
   if (kt + 1 < nk) {
     wg::mbar_wait(&ring.full[(kt + 1) % wg::STAGES], ((kt + 1) / wg::STAGES) & 1);
-    ln_stage(ring, at, kt + 1, gb, mean, rstd, a[P ^ 1]);
+    ln_stage(ring, at, kt + 1, gb, nmr, rstd, a[P ^ 1]);
   }
 }
 
 // Consumer warpgroup cw: its 64 rows of the tile over K = C, A normalised in
 // registers, B = W16 from the ring.
 __device__ __forceinline__ void ln_consume(const wg::Ring& ring, int cw, int C,
-                                           const float4* gb, const float (&mean)[2],
+                                           const uint4* gb, const float (&nmr)[2],
                                            const float (&rstd)[2], float (&d)[128]) {
   const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
   // ldmatrix: lanes 0-15 give rows 0-15 of the warp's 16 at a step's first 8
@@ -173,10 +196,10 @@ __device__ __forceinline__ void ln_consume(const wg::Ring& ring, int cw, int C,
   const int nk = (C + BK - 1) / BK;
   uint32_t a[2][4][4] = {};
   wg::mbar_wait(&ring.full[0], 0);
-  ln_stage(ring, at, 0, gb, mean, rstd, a[0]);
+  ln_stage(ring, at, 0, gb, nmr, rstd, a[0]);
   for (int kt = 0; kt < nk; kt += 2) {
-    ln_step<0>(ring, at, kt, nk, gb, mean, rstd, a, d);
-    if (kt + 1 < nk) ln_step<1>(ring, at, kt + 1, nk, gb, mean, rstd, a, d);
+    ln_step<0>(ring, at, kt, nk, gb, nmr, rstd, a, d);
+    if (kt + 1 < nk) ln_step<1>(ring, at, kt + 1, nk, gb, nmr, rstd, a, d);
   }
   wg::end_mainloop(d);
   hold(a[0]);   // read by the last groups, which end_mainloop waited for
@@ -202,29 +225,50 @@ dense_ln_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
   wg::consumer_regs();
   const int t = threadIdx.x - 128, cw = t >> 7, lane = t & 31;
   // γ and β into shared memory while the first stages load
-  float4* gb = reinterpret_cast<float4*>(wg::after_ring());
-  for (int i = t; i < gb_pairs(C); i += 256) {
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (2 * i < C) {
-      const __nv_bfloat162 g = *reinterpret_cast<const __nv_bfloat162*>(gamma + 2 * i);
-      const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(beta + 2 * i);
-      v = make_float4(__low2float(g), __high2float(g), __low2float(b), __high2float(b));
+  uint4* gb = reinterpret_cast<uint4*>(wg::after_ring());
+  for (int i = t; i < gb_slots(C); i += 256) {
+    const int p = (i >> 2) * 8 + (i & 3);
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int c = 2 * (p + 4 * k);
+      if (c < C) {
+        w[2 * k] = *reinterpret_cast<const uint32_t*>(gamma + c);
+        w[2 * k + 1] = *reinterpret_cast<const uint32_t*>(beta + c);
+      }
     }
-    gb[i] = v;
+    gb[i] = make_uint4(w[0], w[1], w[2], w[3]);
   }
   // this thread's rows of the accumulator and of its A fragments
   const int g0 = m0 + 64 * cw + 16 * ((t >> 5) & 3) + (lane >> 2);
-  float mu[2], rs[2];
+  float nmr[2], rs[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const bool in = g0 + 8 * r < rows;     // past rows x is TMA's zeros
-    mu[r] = in ? mean[g0 + 8 * r] : 0.f;
     rs[r] = in ? rstd[g0 + 8 * r] : 0.f;
+    nmr[r] = in ? -mean[g0 + 8 * r] * rs[r] : 0.f;
   }
   asm volatile("bar.sync 1, 256;\n" ::: "memory");     // gb is written
   float d[128];
-  ln_consume(ring, cw, C, gb, mu, rs, d);
+  ln_consume(ring, cw, C, gb, nmr, rs, d);
   wg::epilogue_store<ACT, RES>(d, bias, out, out_u, out_e, m0, n0, rows, N);
+}
+
+template <int ACT, bool RES>
+int launch(const CUtensorMap& tx, const CUtensorMap& tw, const void* gamma, const void* beta,
+           const void* mean, const void* rstd, const void* bias, void* out, void* out_u,
+           void* out_e, int rows, int C, int N, cudaStream_t s) {
+  auto kernel = dense_ln_wgmma_kernel<ACT, RES>;
+  const size_t smem = k1_smem_bytes(C);
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((N + BN - 1) / BN, (rows + BM - 1) / BM);
+  kernel<<<grid, wg::kThreads, smem, s>>>(tx, tw, (const bf16*)gamma, (const bf16*)beta,
+                                          (const float*)mean, (const float*)rstd,
+                                          (const bf16*)bias, (bf16*)out, (bf16*)out_u,
+                                          (bf16*)out_e, rows, C, N);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -235,16 +279,20 @@ dense_ln_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
 // whose γ/β staging does not fit beside the ring.
 DC_EXPORT long long dc_dense_ln_wgmma_smem_bytes(int C) { return (long long)dc::k1_smem_bytes(C); }
 
-// K1: u [rows, N] = (LN(x)·γ + β)·W (+ b) and mean, rstd [rows] fp32.  x
-// [rows, C], w [C, N], gamma, beta [C], bias [N] (or NULL), u: bf16, 16-byte
-// aligned; w16 [C, N] fp16 scratch; C % 32 == 0, N % 8 == 0, 1 <= rows <=
-// 65535·128 (the Python wrapper checks these).  Two launches: the
-// statistics (with W's fp16 copy), then the product.
+// The LN GEMM: out [rows, N] = u = (LN(x)·γ + β)·W (+ b) with act 0 (K1), h =
+// act(u) with act 1 (exact GELU) or 2 (QuickGELU) (K2), and with res 1 (act 1
+// or 2 only, #8) also u and e into out_u and out_e; mean, rstd [rows] fp32 in
+// every mode.  x [rows, C], w [C, N], gamma, beta [C], bias [N] (NULL only with
+// act 0), outputs: bf16, 16-byte aligned; w16 [C, N] fp16 scratch; C % 32 ==
+// 0, N % 8 == 0, 1 <= rows <= 65535·128 (the Python wrapper checks these).
+// Two launches: the statistics (with W's fp16 copy), then the product.
 DC_EXPORT int dc_dense_ln_wgmma(const void* x, const void* gamma, const void* beta,
                                 const void* w, void* w16, const void* bias, void* out,
-                                void* mean, void* rstd, int rows, int C, int N, float eps,
-                                void* stream) {
+                                void* out_u, void* out_e, void* mean, void* rstd, int rows,
+                                int C, int N, float eps, int act, int res, void* stream) {
   using namespace dc;
+  if (act < 0 || act > 2 || res < 0 || res > 1 || (act == 0 && res))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   int err = ln_stats_w16(x, (float*)mean, (float*)rstd, rows, C, eps, w, w16,
                          (long long)C * N, s);
@@ -253,15 +301,16 @@ DC_EXPORT int dc_dense_ln_wgmma(const void* x, const void* gamma, const void* be
   if (!wg::make_tensor_map(&tx, x, C, rows, BK, BM) ||
       !wg::make_tensor_map(&tw, w16, N, C, 64, BK, CU_TENSOR_MAP_DATA_TYPE_FLOAT16))
     return (int)cudaErrorInvalidValue;
-  auto kernel = dense_ln_wgmma_kernel<0, false>;
-  const size_t smem = k1_smem_bytes(C);
-  cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((N + BN - 1) / BN, (rows + BM - 1) / BM);
-  kernel<<<grid, wg::kThreads, smem, s>>>(tx, tw, (const bf16*)gamma, (const bf16*)beta,
-                                          (const float*)mean, (const float*)rstd,
-                                          (const bf16*)bias, (bf16*)out, nullptr, nullptr, rows,
-                                          C, N);
-  return (int)cudaGetLastError();
+  switch (act * 2 + res) {
+    case 0: return launch<0, false>(tx, tw, gamma, beta, mean, rstd, bias, out, out_u, out_e,
+                                    rows, C, N, s);
+    case 2: return launch<1, false>(tx, tw, gamma, beta, mean, rstd, bias, out, out_u, out_e,
+                                    rows, C, N, s);
+    case 3: return launch<1, true>(tx, tw, gamma, beta, mean, rstd, bias, out, out_u, out_e,
+                                   rows, C, N, s);
+    case 4: return launch<2, false>(tx, tw, gamma, beta, mean, rstd, bias, out, out_u, out_e,
+                                    rows, C, N, s);
+    default: return launch<2, true>(tx, tw, gamma, beta, mean, rstd, bias, out, out_u, out_e,
+                                    rows, C, N, s);
+  }
 }

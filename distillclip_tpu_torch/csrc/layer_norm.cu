@@ -201,10 +201,11 @@ inline decltype(&layer_norm_rows_kernel<0>) layer_norm_rows_instance(int C) {
   return kernels[C <= 768 ? (C + 255) / 256 : 0];
 }
 
-// K1's first launch (dense_ln_wgmma.cu): the rows' mean and rstd as the
-// forward above computes them (a warp a row, read once into registers, the
-// next row in flight), without y; and, in the blocks past `stat_blocks`, W
-// converted to the fp16 copy that K1's product reads (w_words 16-byte words).
+// The first launch of the LN GEMMs K1, K2 and #8 (dense_ln_wgmma.cu): the
+// rows' mean and rstd as the forward above computes them (a warp a row, read
+// once into registers, the next row in flight), without y; and, in the blocks
+// past `stat_blocks`, W converted to the fp16 copy that their product reads
+// (w_words 16-byte words).
 template <int NCH>
 __global__ void __launch_bounds__(kLnThreads, ln_min_blocks(NCH))
 ln_stats_w16_kernel(const bf16* __restrict__ x, float* __restrict__ mean_out,

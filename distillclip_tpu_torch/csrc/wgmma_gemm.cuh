@@ -1,7 +1,7 @@
 // A GEMM main loop on Hopper's wgmma and TMA: D[rows, N] = X[rows, K] · B
 // with fp32 sums, one BM x BN output tile per block, for a kernel that brings
 // its own epilogue.  Its users: dense_act.cu (#10-#12), dense_ln_wgmma.cu (K1,
-// with the LayerNorm applied to the A fragments in registers) and
+// K2 and #8, with the LayerNorm applied to the A fragments in registers) and
 // dense_ln_bwd.cu (#9, B K-major, its row sums across a thread-block cluster).
 //
 // Layouts: X row-major (K contiguous: a K-major A operand).  B is either
@@ -360,10 +360,10 @@ __device__ __forceinline__ void store_slice(const bf16* buf, bf16* __restrict__ 
 }
 
 // The GEMMs' epilogue on a consumer's sums: bias (with act 0, none where
-// bias is NULL) and activation on the fp32 sum u, then one bf16 rounding of each output:
-// act 0 writes u into out; act 1 (exact GELU) or 2 (QuickGELU) writes h =
-// 0.5 u (1 + e) or u e into out, with e = erf(u/√2) or σ(1.702 u), and with
-// RES also u and e into out_u and out_e.
+// bias is NULL) and activation on the fp32 sum u, then one bf16 rounding of
+// each output: act 0 writes u into out; act 1 (exact GELU) or 2 (QuickGELU)
+// writes h = 0.5 u (1 + e) or u e into out, with e = erf(u/√2) or σ(1.702 u)
+// (common.cuh's activate), and with RES also u and e into out_u and out_e.
 template <int ACT, bool RES>
 __device__ __forceinline__ void epilogue_store(const float (&d)[128],
                                                const bf16* __restrict__ bias,
@@ -397,10 +397,8 @@ __device__ __forceinline__ void epilogue_store(const float (&d)[128],
         *reinterpret_cast<__nv_bfloat162*>(bh + at) = __floats2bfloat162_rn(u0, u1);
         continue;
       }
-      const float e0 = act_e<ACT>(u0), e1 = act_e<ACT>(u1);
-      // h = 0.5 u (1 + erf(u/√2)) or u σ(1.702 u), from e in both modes
-      const float h0 = ACT == 1 ? 0.5f * u0 * (1.0f + e0) : u0 * e0;
-      const float h1 = ACT == 1 ? 0.5f * u1 * (1.0f + e1) : u1 * e1;
+      float e0, e1;
+      const float h0 = activate<ACT, RES>(u0, e0), h1 = activate<ACT, RES>(u1, e1);
       if (RES) {
         *reinterpret_cast<__nv_bfloat162*>(bu + at) = __floats2bfloat162_rn(u0, u1);
         *reinterpret_cast<__nv_bfloat162*>(be + at) = __floats2bfloat162_rn(e0, e1);

@@ -5,7 +5,8 @@ Port of the eval part of ``distillclip_tpu/data/transforms.py`` (the
 reference's torchvision stack, data/component/ms_coco.py:23-27), on PIL, to
 HWC float32 numpy (the NHWC layout the towers take).  PIL is imported where
 an image is transformed, so the module imports without it.  The train-time
-transforms (RandAugment) wait for the data glue (ROADMAP queue 1, item 9).
+transforms (RandAugment) wait for the data path (ROADMAP queue 1: real datasets
+and multi-GPU).
 """
 
 from __future__ import annotations

@@ -119,7 +119,8 @@ class MiniAttention(nn.Module):
                  use_transform: bool = False, rpe_config=None):
         super().__init__()
         if rpe_config is not None:
-            raise NotImplementedError("iRPE is not ported yet (ROADMAP queue 1, item 10)")
+            raise NotImplementedError("iRPE is not ported yet (ROADMAP queue 1: models off the "
+                                      "main path)")
         self.num_heads = num_heads
         self.scale = qk_scale or (dim // num_heads) ** -0.5
         self.attn_drop, self.proj_drop = attn_drop, proj_drop

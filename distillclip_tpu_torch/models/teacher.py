@@ -49,7 +49,7 @@ MODELS = {
     "ViT-L/14@336px": "https://openaipublic.azureedge.net/clip/models/3035c92b350959924f9f00213499208652fc7ea050643e8b385c2dac08641f02/ViT-L-14-336px.pt",
 }
 
-_RESNET_ITEM = "ROADMAP queue 1, item 10 (models off the main path)"
+_RESNET_ITEM = "ROADMAP queue 1: models off the main path"
 
 
 def available_models() -> List[str]:

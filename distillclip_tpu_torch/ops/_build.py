@@ -51,14 +51,10 @@ _SIGNATURES = {
     # x, gamma, g, mean, rstd, dx, partial, dgamma_dbeta | rows, C, rows_per_block,
     # slot, stream
     "dc_layer_norm_rows_bwd": (_I, [_P] * 8 + [_I] * 4 + [_P]),
-    "dc_dense_ln_smem_bytes": (ctypes.c_longlong, [_I]),
-    # x, gamma, beta, w, bias, out, mean, rstd | rows, C, N, eps, act, stream
-    "dc_dense_ln": (_I, [_P] * 8 + [_I, _I, _I, _F, _I, _P]),
     "dc_dense_ln_wgmma_smem_bytes": (ctypes.c_longlong, [_I]),
-    # x, gamma, beta, w, w16, bias, out, mean, rstd | rows, C, N, eps, stream
-    "dc_dense_ln_wgmma": (_I, [_P] * 9 + [_I, _I, _I, _F, _P]),
-    # x, gamma, beta, w, bias, h, u, e, mean, rstd | rows, C, N, eps, act, stream
-    "dc_dense_act_ln_res": (_I, [_P] * 10 + [_I, _I, _I, _F, _I, _P]),
+    # x, gamma, beta, w, w16, bias, out, out_u, out_e, mean, rstd | rows, C, N, eps,
+    # act, res, stream (dense_ln_wgmma.cu: K1, K2, #8)
+    "dc_dense_ln_wgmma": (_I, [_P] * 11 + [_I, _I, _I, _F, _I, _I, _P]),
     # x, w, bias, h, u, e | rows, C, N, act, res, stream (dense_act.cu)
     "dc_dense_act": (_I, [_P] * 6 + [_I] * 5 + [_P]),
     "dc_dense_ln_bwd_max_c": (_I, []),

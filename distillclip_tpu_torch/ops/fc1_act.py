@@ -7,25 +7,28 @@
   when the ``fc1_ln: "0"`` knob unfuses their LayerNorms
 
 W is ``[C, N]`` (the Flax Dense layout, which the converter keeps).  On a
-CUDA tensor K1 launches the hand-written kernels of ``csrc/dense_ln_wgmma.cu``
-(the rows' statistics with W's fp16 copy, then the product on wgmma and TMA,
-the main loop of ``csrc/wgmma_gemm.cuh``, with LN(x) made in registers), K2
-that of ``csrc/dense_ln.cu`` and the GEMM without the LN that of
-``csrc/dense_act.cu`` (wgmma and TMA); on a CPU tensor they run the plain
-versions below.  All take the LN in fp32 and the product, bias and
-activation in fp32 before one final rounding to x's dtype.  The plain
-version rounds the LN output to x's dtype before the product, as the TPU
-kernel does; the CUDA kernels round it to fp16, which keeps the bf16 result
-within its limits (see the header of dense_ln_wgmma.cu).
+CUDA tensor K1, K2 and K2's residual mode (#8) launch the hand-written
+kernels of ``csrc/dense_ln_wgmma.cu`` (the rows' statistics with W's fp16
+copy, then the product on wgmma and TMA, the main loop of
+``csrc/wgmma_gemm.cuh``, with LN(x) made in registers and the activation in
+the epilogue), and the GEMM without the LN that of ``csrc/dense_act.cu``
+(wgmma and TMA); on a CPU tensor they run the plain versions below.  All
+take the LN in fp32 and the product, bias and activation in fp32 before one
+final rounding to x's dtype.  The plain version rounds the LN output to x's
+dtype before the product, as the TPU kernel does; the CUDA kernels round it
+to fp16, which keeps the bf16 result within its limits (see the header of
+dense_ln_wgmma.cu).
 
-Without a gradient (serving) the lean kernels run: K1 writes u, K2 writes h
-only.  With one, each function is a ``torch.autograd.Function``:
+Without a gradient (serving, the frozen teachers) the lean modes run: K1
+writes u, K2 writes h only.  With one, each function is a
+``torch.autograd.Function``:
 
-* forward: K1 also writes the rows' LN mean and rstd; K2 runs in its
+* forward: K1 also keeps the rows' LN mean and rstd; K2 runs in its
   residual mode (:func:`dense_act_ln_res`) and writes h, u, e = erf(u/√2) or
   σ(1.702u), mean and rstd.  The JAX package recombines h from the rounded
   (u, e) outside its kernel; here the kernel writes h from the fp32 sum, the
-  same bits as the lean K2;
+  same bits as the lean K2 (every mode writes mean and rstd, into scratch in
+  the lean ones, so all run the same launches);
 * backward: :func:`dense_ln_bwd` (``csrc/dense_ln_bwd.cu``: wgmma and TMA,
   one thread-block cluster along C per 128 rows) makes dx, the normalised
   rows xn and dγ, dβ from du in one pass.  The GELU derivative,
@@ -162,7 +165,7 @@ def _check_shapes(what, x, ls, lb, w, b):
         raise ValueError(f"{what}: LN params must be [{C}] and the bias [{N}]")
 
 
-def _check_widths(what, C, N, too_wide: bool, rows: int = 0):
+def _check_widths(what, C, N, too_wide: bool, rows: int):
     """Refuse widths the kernel does not take: ``too_wide`` says C is more
     than its tiles hold; ``rows`` are checked against the grid of a wgmma
     kernel, which has a row of blocks per 128 rows."""
@@ -195,55 +198,50 @@ def _stats_buffers(x):
             torch.empty(x.shape[0], dtype=torch.float32, device=x.device))
 
 
-def dense_ln_fwd(x, ls, lb, w, b=None, eps: float = 1e-5, stats: bool = False):
-    """(u, mean, rstd) by K1 on CUDA tensors (mean and rstd None without
-    ``stats``), by the plain version on the CPU.  The kernel writes the
-    statistics in both modes (into scratch without ``stats``), so that both
-    run the same launches and give the same u."""
-    if _build.plain_only("dense_ln", x):
-        u, mean, rstd = dense_ln_stats_plain(x, ls, lb, w, b, eps)
-        return (u, mean, rstd) if stats else (u, None, None)
-    _build.check_operands("dense_ln", *(t for t in (x, ls, lb, w, b) if t is not None))
+def _launch_dense_ln(wrapper, x, ls, lb, w, b, eps, act_code: int = 0, res: bool = False):
+    """The LN GEMM on CUDA tensors, counted on ``wrapper``: (out, u, e, mean,
+    rstd), out being u with act_code 0 (K1) and h otherwise (K2), u and e
+    None unless ``res`` (#8).  The kernel writes mean and rstd in every mode,
+    so that every mode runs the same launches and gives the same out."""
+    what = wrapper.__name__
+    if act_code and b is None:
+        raise ValueError(f"{what}: the activation's GEMM takes a bias")
+    _build.check_operands(what, *(t for t in (x, ls, lb, w, b) if t is not None))
     rows, C = x.shape
     N = w.shape[1]
     lib = _build.lib()
-    _check_widths("dense_ln", C, N, lib.dc_dense_ln_wgmma_smem_bytes(C) > _build.MAX_SMEM_BYTES,
+    _check_widths(what, C, N, lib.dc_dense_ln_wgmma_smem_bytes(C) > _build.MAX_SMEM_BYTES,
                   rows)
     out = torch.empty((rows, N), dtype=x.dtype, device=x.device)
+    u, e = (torch.empty_like(out), torch.empty_like(out)) if res else (None, None)
     mean, rstd = _stats_buffers(x)
     if rows:
         w16 = torch.empty((C, N), dtype=torch.float16, device=x.device)
         _build.check(lib.dc_dense_ln_wgmma(x.data_ptr(), ls.data_ptr(), lb.data_ptr(),
                                            w.data_ptr(), w16.data_ptr(), _ptr(b),
-                                           out.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-                                           rows, C, N, float(eps), _build.stream_ptr(x)),
-                     "dense_ln")
-        dense_ln.launches += 1
-    return (out, mean, rstd) if stats else (out, None, None)
+                                           out.data_ptr(), _ptr(u), _ptr(e), mean.data_ptr(),
+                                           rstd.data_ptr(), rows, C, N, float(eps), act_code,
+                                           int(res), _build.stream_ptr(x)), what)
+        wrapper.launches += 1
+    return out, u, e, mean, rstd
+
+
+def dense_ln_fwd(x, ls, lb, w, b=None, eps: float = 1e-5, stats: bool = False):
+    """(u, mean, rstd) by K1 on CUDA tensors (mean and rstd None without
+    ``stats``), by the plain version on the CPU."""
+    if _build.plain_only("dense_ln", x):
+        u, mean, rstd = dense_ln_stats_plain(x, ls, lb, w, b, eps)
+    else:
+        u, _, _, mean, rstd = _launch_dense_ln(dense_ln, x, ls, lb, w, b, eps)
+    return (u, mean, rstd) if stats else (u, None, None)
 
 
 def dense_act_ln_res(x, ls, lb, w, b, act: str = "gelu_exact", eps: float = 1e-5):
-    """(h, u, e, mean, rstd): K2 in its residual mode on CUDA tensors,
+    """(h, u, e, mean, rstd): K2 in its residual mode (#8) on CUDA tensors,
     :func:`dense_act_ln_res_plain` on the CPU."""
     if _build.plain_only("dense_act_ln_res", x):
         return dense_act_ln_res_plain(x, ls, lb, w, b, act, eps)
-    _build.check_operands("dense_act_ln_res", x, ls, lb, w, b)
-    rows, C = x.shape
-    N = w.shape[1]
-    lib = _build.lib()
-    _check_widths("dense_act_ln_res", C, N,
-                  lib.dc_dense_ln_smem_bytes(C) > _build.MAX_SMEM_BYTES)
-    h, u, e = (torch.empty((rows, N), dtype=x.dtype, device=x.device) for _ in range(3))
-    mean, rstd = _stats_buffers(x)
-    if rows == 0:
-        return h, u, e, mean, rstd
-    _build.check(lib.dc_dense_act_ln_res(x.data_ptr(), ls.data_ptr(), lb.data_ptr(),
-                                         w.data_ptr(), b.data_ptr(), h.data_ptr(),
-                                         u.data_ptr(), e.data_ptr(), mean.data_ptr(),
-                                         rstd.data_ptr(), rows, C, N, float(eps), _ACTS[act],
-                                         _build.stream_ptr(x)), "dense_act_ln_res")
-    dense_act_ln_res.launches += 1
-    return h, u, e, mean, rstd
+    return _launch_dense_ln(dense_act_ln_res, x, ls, lb, w, b, eps, _ACTS[act], True)
 
 
 def _launch_dense_act(wrapper, x, w, b, act_code: int, res: bool):
@@ -420,19 +418,7 @@ def dense_act_ln(x: torch.Tensor, ls: torch.Tensor, lb: torch.Tensor, w: torch.T
         return _DenseActLn.apply(x, ls, lb, w, b, act, eps, res)
     if _build.plain_only("dense_act_ln", x):
         return dense_ln_plain(x, ls, lb, w, b, eps, act)
-    _build.check_operands("dense_act_ln", x, ls, lb, w, b)
-    rows, C = x.shape
-    N = w.shape[1]
-    lib = _build.lib()
-    _check_widths("dense_act_ln", C, N, lib.dc_dense_ln_smem_bytes(C) > _build.MAX_SMEM_BYTES)
-    out = torch.empty((rows, N), dtype=x.dtype, device=x.device)
-    if rows:
-        _build.check(lib.dc_dense_ln(x.data_ptr(), ls.data_ptr(), lb.data_ptr(), w.data_ptr(),
-                                     b.data_ptr(), out.data_ptr(), None, None, rows, C, N,
-                                     float(eps), _ACTS[act], _build.stream_ptr(x)),
-                     "dense_act_ln")
-        dense_act_ln.launches += 1
-    return out
+    return _launch_dense_ln(dense_act_ln, x, ls, lb, w, b, eps, _ACTS[act])[0]
 
 
 def dense_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, act: str = "gelu_exact",

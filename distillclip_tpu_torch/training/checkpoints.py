@@ -12,7 +12,7 @@ where a tower tree nests the tower's state dict on its dotted names
 A JAX checkpoint crosses in a process that has both packages: the JAX
 package's ``restore_pytree``, then ``convert.jax_*_to_torch``, then
 :func:`save_pytree` here.  The port reads no Orbax.  The retention policy
-(``CheckpointManager``) waits for the trainer (ROADMAP queue 1, item 8).
+(``CheckpointManager``) waits for the trainer (ROADMAP queue 1: the trainer).
 """
 
 from __future__ import annotations

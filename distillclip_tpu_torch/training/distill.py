@@ -21,7 +21,7 @@ of the same modality, with
   from a generator that the step seeds once and every draw advances.
 
 The teacher is built at first use.  The eval step waits for the trainer
-(ROADMAP queue 1, item 8).
+(ROADMAP queue 1: the trainer).
 """
 
 from __future__ import annotations

@@ -1062,6 +1062,52 @@ def test_dense_ln_at_stage_and_tile_edges(C, rows, N, bias):
     torch.testing.assert_close(rstd, rrstd, atol=0, rtol=1e-5)
 
 
+# K2 and #8 run K1's kernel with an activation epilogue: C past the row tile
+# of the kernel they replaced (1536, 2048), N of 8 and N % 256 != 0, one row
+# and ragged rows, under both activations.
+
+@pytest.mark.parametrize("C", [32, 96, 768, 1536, 2048])
+@pytest.mark.parametrize("rows,N", [(1, 8), (130, 264), (257, 520)])
+@pytest.mark.parametrize("act", ["gelu_exact", "quick_gelu"])
+def test_dense_act_ln_at_stage_and_tile_edges(C, rows, N, act):
+    """Lean K2's h is #8's h bit for bit, two calls of #8 give the same bits,
+    and every output holds against the plain version in fp32."""
+    rng = np.random.default_rng(rows + C + N)
+    x, ls, lb = _bf16(rng, (rows, C), 1.0, 0.5), _bf16(rng, (C,), 0.1, 1.0), _bf16(rng, (C,), 0.1)
+    w, b = _bf16(rng, (C, N), C ** -0.5), _bf16(rng, (N,), 0.1)
+    with torch.inference_mode():
+        lean = fc1_act.dense_act_ln(x, ls, lb, w, b, act)
+    outs = fc1_act.dense_act_ln_res(x, ls, lb, w, b, act)
+    again = fc1_act.dense_act_ln_res(x, ls, lb, w, b, act)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], lean)
+    assert all(torch.equal(p, q) for p, q in zip(outs, again))
+    h, u, e, mean, rstd = outs
+    rh, ru, re, rmean, rrstd = fc1_act.dense_act_ln_res_plain(
+        x.float(), ls.float(), lb.float(), w.float(), b.float(), act)
+    for out, ref in ((h, rh), (u, ru), (e, re)):
+        assert out.shape == (rows, N)
+        _close(out, ref)
+    torch.testing.assert_close(mean, rmean, atol=1e-6, rtol=1e-5)
+    torch.testing.assert_close(rstd, rrstd, atol=0, rtol=1e-5)
+
+
+def test_dense_act_ln_takes_rows_as_wide_as_its_staging_holds():
+    """γ/β staged beside the ring as fp16 take C up to 8640; one step of 32
+    past it is refused before anything is launched."""
+    rng = np.random.default_rng(4)
+    for C in (8640, 8672):
+        x, ls, lb = _bf16(rng, (3, C), 1.0, 0.5), _bf16(rng, (C,), 0.1, 1.0), _bf16(rng, (C,), 0.1)
+        w, b = _bf16(rng, (C, 8), C ** -0.5), _bf16(rng, (8,), 0.1)
+        if C == 8672:
+            with pytest.raises(ValueError, match="too wide"):
+                fc1_act.dense_act_ln_res(x, ls, lb, w, b)
+            continue
+        h = fc1_act.dense_act_ln_res(x, ls, lb, w, b, "quick_gelu")[0]
+        _close(h, fc1_act.dense_ln_plain(x.float(), ls.float(), lb.float(), w.float(),
+                                         b.float(), act="quick_gelu"))
+
+
 @pytest.mark.parametrize("C", [32, 256, 512, 768, 1024, 1152, 2048])
 @pytest.mark.parametrize("rows,N", [(1, 8), (130, 264), (257, 2304)])
 def test_dense_ln_bwd_at_cluster_and_tile_edges(C, rows, N):

@@ -9,7 +9,8 @@ one bf16 store of u, at the qkv width (C = 768, N = 2304), for rows of mean
 before any rounding, so it costs nothing here):
 
 * the TPU kernel's: LN(x) rounded to bf16, W bf16;
-* (a) LN(x) and W rounded to fp16 (W converts exactly for |w| >= 2^-14);
+* (a) LN(x) and W rounded to fp16 (W converts exactly for |w| >= 2^-14),
+  LN(x) as the kernel forms it (:func:`kernel_ln_operand`);
 * (b) LN(x) as bf16 hi + lo, two products a 16-deep step, W bf16.
 
 The limit of u against fp32 is ("abs", 1e-2, 1e-3): the largest error and its
@@ -64,13 +65,24 @@ def _ln(x, ls, lb, eps=1e-5):
     return d * rstd[:, None] * ls.float() + lb.float(), mean, rstd
 
 
+def kernel_ln_operand(x, ls, lb, eps=1e-5):
+    """(A, mean, rstd): the kernels' fp16 operand LN(x)·γ + β in fp32 (its
+    values are fp16's): t = x·rstd - mean·rstd and t·γ + β in fp32, rounded
+    once to fp16."""
+    x32 = x.float()
+    mean = x32.mean(-1)
+    rstd = torch.rsqrt((x32 - mean[:, None]).square().mean(-1) + eps)
+    t = torch.addcmul((-mean * rstd)[:, None], x32, rstd[:, None])
+    return (t * ls.float() + lb.float()).half().float(), mean, rstd
+
+
 def k1_arithmetic(x, ls, lb, w, b, route="fp16"):
     """u in bf16 and the fp32 mean, rstd of K1 under an operand route:
     ``"fp16"`` (the kernel's), ``"bf16"`` (the TPU kernel's) or ``"hilo"``."""
     a, mean, rstd = _ln(x, ls, lb)
     w32 = w.float()
     if route == "fp16":
-        prod = a.half().float() @ w.half().float()
+        prod = kernel_ln_operand(x, ls, lb)[0] @ w.half().float()
     elif route == "bf16":
         prod = a.to(torch.bfloat16).float() @ w32
     else:

@@ -197,7 +197,7 @@ def test_build_names_library_by_source_hash():
     assert path.name.startswith("libdistillclip_kernels_") and path.suffix == ".so"
     assert path == _build.library_path()  # stable for unchanged sources
     assert {p.name for p in _build._sources()} == {
-        "dense_act.cu", "dense_ln.cu", "dense_ln_bwd.cu", "dense_ln_wgmma.cu", "flash_attention.cu",
+        "dense_act.cu", "dense_ln_bwd.cu", "dense_ln_wgmma.cu", "flash_attention.cu",
         "flash_attention_bwd.cu", "flash_transform_attention.cu", "layer_norm.cu",
         "plain_attention.cu", "plain_attention_bwd.cu", "transform_attention.cu",
         "transform_attention_bwd.cu"}

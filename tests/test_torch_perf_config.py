@@ -136,7 +136,7 @@ def test_no_kernel_knobs_raise_for_a_cuda_build_request(clean_env, knob, tmp_pat
     from distillclip_tpu_torch.models import teacher_load
 
     apply_perf_config(knob)
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+    with pytest.raises(NotImplementedError, match="queue 1, do not port"):
         require_kernels(perf_knobs(), "cuda")
     require_kernels(perf_knobs(), "cpu")
     cfg = os.path.join(os.path.dirname(__file__), "..", "configs", "final", "l_clip.yaml")

@@ -100,7 +100,7 @@ def test_score_needs_images_and_captions(capsys, teacher_ckpt):
 
 @pytest.mark.parametrize("command", ["fit", "validate", "lr_find"])
 def test_trainer_commands_wait_for_the_trainer(command):
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+    with pytest.raises(NotImplementedError, match="queue 1: the trainer"):
         cli.main([command, "-c", "x.yaml"])
 
 

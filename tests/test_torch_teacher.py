@@ -329,7 +329,7 @@ def test_init_layers_with_teacher_refuses_bad_arguments(ckpt_path):
 def test_resnet_taps_and_dropout_are_refused_by_item(tmp_path, ckpt_path):
     rn = tmp_path / "rn.pt"
     torch.save(jax_fabricate.make_rn_state_dict(), str(rn))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="queue 1: models off the main path"):
         teacher.teacher_load(str(rn), None, "image", device="cpu")
     img = teacher.teacher_load(ckpt_path, None, "image", device="cpu")
     _, images = _batch(RES)
