@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Side-by-side timings of checkouts of the port, in one run on one card.
 
-    python3 chip_ab.py ROOT [ROOT ...]
+    python3 chip_ab.py [--only SECTION[,SECTION ...]] ROOT [ROOT ...]
 
 ROOT is the root of a checkout of this repository (``.`` for this one).  In
 a fresh Python process per checkout, in the order given and then in the
 reverse order, the script imports ``distillclip_tpu_torch`` from ROOT (its
 kernels built under ROOT/build/, as ``chip_smoke.py`` builds them) and prints
 lines ``ab <ROOT's name> <what>: ...`` that end with the card's name and power
-limit:
+limit (with ``--only``, only the sections named):
 
 - ``k1``: ``dense_ln`` with its statistics (K1, as a train step runs it) at
   the image and text qkv ([12800, 768] and [19712, 768] -> 2304), the text
@@ -24,6 +24,13 @@ limit:
   [19712, 512] -> 2048; beside each the PyTorch composition that does the
   same work (``chip_smoke.ln_gemm_act``: ``native_layer_norm``, ``addmm``,
   the activation; #8's also e), the same way;
+- ``tf_fwd``: lean ``transform_attention_rows_qkv`` (K3, as serving runs it)
+  and ``transform_attention_save_p`` (#5, as a train step runs it) at the two
+  students' shapes (B=256; 24 heads of 32 at 50 tokens, 12 of 64 at 77),
+  beside the PyTorch composition that does the same work
+  (``chip_smoke.tf_composition``: bf16 ``matmul``, ``einsum`` mixes,
+  ``softmax``, ``matmul``), device ms per call over 20 calls replayed from one
+  CUDA graph;
 - ``tf_bwd``: ``transform_attention_bwd`` (#6) at the two students' shapes
   (B=256; 24 heads of 32 at 50 tokens, 12 of 64 at 77), device ms per call
   over 20 calls replayed from one CUDA graph;
@@ -113,8 +120,13 @@ def _own_chip_smoke():
     return module
 
 
-def one(root: Path) -> None:
-    """The measurements of one checkout, in this process."""
+SECTIONS = ("k1", "dln_bwd", "k2", "tf_fwd", "tf_bwd", "reduce_partials", "k4", "serving",
+            "step")
+
+
+def one(root: Path, only: tuple[str, ...] = SECTIONS) -> None:
+    """The measurements of one checkout, in this process: the sections in
+    ``only``."""
     sys.path.insert(0, str(root))
     import torch
 
@@ -122,7 +134,8 @@ def one(root: Path) -> None:
     from distillclip_tpu_torch.ops import transform_attention as ta
     from distillclip_tpu_torch.serving import LCLIPScorer
 
-    ln_gemm_act = _own_chip_smoke().ln_gemm_act
+    own = _own_chip_smoke()
+    ln_gemm_act, tf_composition = own.ln_gemm_act, own.tf_composition
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card, tag = _card(), f"ab {root.resolve().name}"
@@ -133,7 +146,7 @@ def one(root: Path) -> None:
         return torch.from_numpy(a).cuda().to(torch.bfloat16)
 
     k1, dlb = [], []
-    for rows, c, n in ((12800, 768, 2304), (19712, 768, 2304), (19712, 512, 1536),
+    for rows, c, n in () if {"k1", "dln_bwd"}.isdisjoint(only) else ((12800, 768, 2304), (19712, 768, 2304), (19712, 512, 1536),
                        (12800, 768, 3072), (19712, 768, 3072)):
         x, g, b, w, bias = t((rows, c)), t((c,), 0.1, 1.0), t((c,), 0.1), t((c, n), 0.02), \
             t((n,), 0.02)
@@ -144,11 +157,13 @@ def one(root: Path) -> None:
             _, mean, rstd = fn()
             fn = lambda: fc1_act.dense_ln_bwd(x, g, b, w, du, mean, rstd)
             dlb.append(f"[{rows},{n}]->{c} {_graph_ms(torch, fn):.4f}")
-    print(f"{tag} k1 ms: {'; '.join(k1)} [{card}]", flush=True)
-    print(f"{tag} dln_bwd ms: {'; '.join(dlb)} [{card}]", flush=True)
+    if "k1" in only:
+        print(f"{tag} k1 ms: {'; '.join(k1)} [{card}]", flush=True)
+    if "dln_bwd" in only:
+        print(f"{tag} dln_bwd ms: {'; '.join(dlb)} [{card}]", flush=True)
 
     k2 = []
-    for rows, c, act in ((12800, 768, "gelu_exact"), (19712, 768, "gelu_exact"),
+    for rows, c, act in () if "k2" not in only else ((12800, 768, "gelu_exact"), (19712, 768, "gelu_exact"),
                          (12800, 768, "quick_gelu"), (19712, 512, "quick_gelu")):
         n = 4 * c
         args = (t((rows, c)), t((c,), 0.1, 1.0), t((c,), 0.1), t((c, n), 0.02), t((n,), 0.02))
@@ -159,10 +174,26 @@ def one(root: Path) -> None:
             lambda: ln_gemm_act(*args, act, res=True))]
         k2.append(f"[{rows},{c}]->{n} {act} K2 {times[0]:.4f} #8 {times[1]:.4f} "
                   f"(compositions {times[2]:.4f}, {times[3]:.4f})")
-    print(f"{tag} k2 ms: {'; '.join(k2)} [{card}]", flush=True)
+    if k2:
+        print(f"{tag} k2 ms: {'; '.join(k2)} [{card}]", flush=True)
+
+    tff = []
+    for B, H, d, N in () if "tf_fwd" not in only else ((256, 24, 32, 50), (256, 12, 64, 77)):
+        qkv, wl, ww = t((B * N, 3 * H * d)), t((H, H), H ** -0.5), t((H, H), H ** -0.5)
+        kw = dict(heads=H, seq=N, scale=d ** -0.5)
+        with torch.inference_mode():
+            times = [_graph_ms(torch, fn) for fn in (
+                lambda: ta.transform_attention_rows_qkv(qkv, wl, ww, **kw),
+                lambda: ta.transform_attention_save_p(qkv, wl, ww, **kw),
+                lambda: tf_composition(qkv, wl, ww, **kw))]
+        tff.append(f"H={H} d={d} N={N} K3 {times[0]:.4f} #5 {times[1]:.4f} "
+                   f"(composition {times[2]:.4f})")
+    if tff:
+        print(f"{tag} tf_fwd ms: {'; '.join(tff)} [{card}]", flush=True)
 
     tf, red = [], []
-    for B, H, d, N in ((256, 24, 32, 50), (256, 12, 64, 77)):
+    tf_shapes = ((256, 24, 32, 50), (256, 12, 64, 77))
+    for B, H, d, N in () if {"tf_bwd", "reduce_partials"}.isdisjoint(only) else tf_shapes:
         qkv, do = t((B * N, 3 * H * d)), t((B * N, H * d))
         wl, ww = t((H, H), H ** -0.5), t((H, H), H ** -0.5)
         kw = dict(heads=H, seq=N, scale=d ** -0.5)
@@ -170,17 +201,27 @@ def one(root: Path) -> None:
         fn = lambda: ta.transform_attention_bwd(qkv, wl, ww, do, p, **kw)
         tf.append(f"H={H} d={d} N={N} {_graph_ms(torch, fn):.4f}")
         red.append(f"#6 H={H} {_kernel_ms(torch, fn, 'reduce_partials'):.4f}")
-    print(f"{tag} tf_bwd ms: {'; '.join(tf)} [{card}]", flush=True)
+    if "tf_bwd" in only:
+        print(f"{tag} tf_bwd ms: {'; '.join(tf)} [{card}]", flush=True)
 
-    for rows in (12800, 19712):
+    for rows in () if "reduce_partials" not in only else (12800, 19712):
         for n in (2304, 3072):
             x, du = t((rows, 768)), t((rows, n))
             g, b, w = t((768,), 0.1, 1.0), t((768,), 0.1), t((768, n), 0.02)
             _, mean, rstd = fc1_act.dense_ln_stats_plain(x, g, b, w, None)
             fn = lambda: fc1_act.dense_ln_bwd(x, g, b, w, du, mean, rstd)
             red.append(f"#9 [{rows},{n}] {_kernel_ms(torch, fn, 'reduce_partials'):.4f}")
-    print(f"{tag} reduce_partials ms: {'; '.join(red)} [{card}]", flush=True)
+    if "reduce_partials" in only:
+        print(f"{tag} reduce_partials ms: {'; '.join(red)} [{card}]", flush=True)
+    if "k4" in only:
+        k4_host(torch, layer_norm, t, tag, card)
+    if "serving" in only:
+        serving(torch, LCLIPScorer, root, rng, tag, card)
+    if "step" in only:
+        steps(root, tag, card)
 
+
+def k4_host(torch, layer_norm, t, tag: str, card: str) -> None:
     x, g, b = t((256, 768)), t((768,), 0.1, 1.0), t((768,), 0.1)
     with torch.inference_mode():
         host = []
@@ -195,6 +236,8 @@ def one(root: Path) -> None:
     print(f"{tag} k4 host us/call [256,768]: {' '.join(f'{u:.2f}' for u in host)} median "
           f"{statistics.median(host):.2f} [{card}]", flush=True)
 
+
+def serving(torch, LCLIPScorer, root: Path, rng, tag: str, card: str) -> None:
     scorer = LCLIPScorer.from_config(str(root / "configs" / "final" / "l_clip.yaml"),
                                      device="cuda", seed=0)
     images = torch.from_numpy(rng.integers(0, 256, size=(256, 224, 224, 3), dtype=np.uint8))
@@ -211,8 +254,9 @@ def one(root: Path) -> None:
         rounds.append((time.perf_counter() - t0) / 5 * 1e3)
     print(f"{tag} serving 256 device-resident ms/call: {' '.join(f'{m:.3f}' for m in rounds)} "
           f"median {statistics.median(rounds):.3f} [{card}]", flush=True)
-    del scorer, images, tokens
 
+
+def steps(root: Path, tag: str, card: str) -> None:
     import chip_smoke as cs     # the checkout's own, first on the path
 
     for label, section in (("text-cached", {}), ('text-cached fc1_ln "0"', {"fc1_ln": "0"})):
@@ -238,15 +282,21 @@ def one(root: Path) -> None:
 
 def main() -> None:
     args = sys.argv[1:]
+    only = SECTIONS
+    if args[:1] == ["--only"] and len(args) > 1:
+        only = tuple(args[1].split(","))
+        if unknown := set(only) - set(SECTIONS):
+            sys.exit(f"unknown sections {sorted(unknown)}; the sections: {', '.join(SECTIONS)}")
+        args = args[2:]
     if args[:1] == ["--one"]:
-        one(Path(args[1]))
+        one(Path(args[1]), only)
         return
     if not args:
         sys.exit(__doc__)
     rc = 0
     for root in args + args[::-1]:
-        proc = subprocess.run([sys.executable, __file__, "--one", root], text=True,
-                              capture_output=True)
+        proc = subprocess.run([sys.executable, __file__, "--only", ",".join(only), "--one", root],
+                              text=True, capture_output=True)
         print(proc.stdout, end="", flush=True)
         if proc.returncode:
             print(f"ab {root}: exit {proc.returncode}\n{proc.stderr[-3000:]}", flush=True)

@@ -70,8 +70,8 @@ phases, each of which exits non-zero on failure:
    tokenise cost);
 6. card numbers: each kernel's time beside its plain version's, its bound
    and, where one PyTorch call computes the same function, that call's time
-   (for K2 and #8, which no one call matches, the PyTorch composition that
-   does their work)
+   (for K2, #8, K3 and #5, which no one call matches, the PyTorch composition
+   that does their work)
    (kernel and library call: device time of calls replayed from a CUDA graph,
    so that a wrapper's host cost does not enter it; a library call through
    autograd, SDPA's backward, which a graph cannot capture: the device time of
@@ -127,11 +127,13 @@ SOURCES = {
                  "distillclip_tpu/ops/fc1_act.py:419"),
     "dense_act_ln": ("distillclip_tpu_torch/csrc/dense_ln_wgmma.cu",
                      "distillclip_tpu/ops/fc1_act.py:521"),
-    "transform_attention_rows_qkv": ("distillclip_tpu_torch/csrc/transform_attention.cu",
+    "transform_attention_rows_qkv": ("distillclip_tpu_torch/csrc/transform_attention_mma.cu",
                                      "distillclip_tpu/ops/transform_attention.py:118"),
+    "transform_attention_rows_qkv_wide": ("distillclip_tpu_torch/csrc/transform_attention.cu",
+                                          "distillclip_tpu/ops/transform_attention.py:118"),
     "layer_norm_rows": ("distillclip_tpu_torch/csrc/layer_norm.cu",
                         "distillclip_tpu/ops/layer_norm.py:50"),
-    "transform_attention_save_p": ("distillclip_tpu_torch/csrc/transform_attention.cu",
+    "transform_attention_save_p": ("distillclip_tpu_torch/csrc/transform_attention_mma.cu",
                                    "distillclip_tpu/ops/transform_attention.py:467"),
     "transform_attention_bwd": ("distillclip_tpu_torch/csrc/transform_attention_bwd.cu",
                                 "distillclip_tpu/ops/transform_attention.py:224"),
@@ -170,6 +172,10 @@ SERVING_KERNELS = ("dense_ln", "dense_act_ln", "transform_attention_rows_qkv",
 # one serving call: 10 logical layers of K1, K2 and K3, the two final norms
 SERVING_LAUNCHES = {"dense_ln": 10, "dense_act_ln": 10, "transform_attention_rows_qkv": 10,
                     "layer_norm_rows": 2}
+# K3's second route, the CUDA-core kernel, serves head shapes past the
+# tensor-core kernel's, which no config of the repository has: no main-path run
+# launches it (its oracle case holds it against its plain version)
+OFF_MAIN_PATH = ("transform_attention_rows_qkv_wide",)
 # launches of one train step: 10 logical layers (6 image + 4 text), two LN
 # GEMMs and so two backward GEMMs each, and the two towers' final norm
 TRAIN_STEP_LAUNCHES = {
@@ -252,11 +258,13 @@ KNOB_PHASES = {
 # kernels whose registers and spills (nvcc -Xptxas -v, in the build log) the
 # run prints: the LN GEMM (its statistics launch, and its product in every
 # instance: K1 <0, 0>, K2 <1|2, 0>, #8 <1|2, 1>), #9 and the no-LN GEMM on the
-# wgmma main loop, K4, #6's row, dq/dk and column kernels, and the partials'
-# reduction that #6 and #9 share
+# wgmma main loop, K4, K3 / #5 on the tensor cores (tf_fwd_mma_kernel<KS, HPW,
+# NH, ND>) and K3's CUDA-core route, #6's row, dq/dk and column kernels, and
+# the partials' reduction that #6 and #9 share
 PTXAS_KERNELS = ("dense_ln_wgmma_kernel", "ln_stats_w16_kernel", "dense_ln_bwd_wgmma_kernel",
-                 "dense_act_wgmma_kernel", "layer_norm_rows_kernel", "tf_bwd_rows_kernel",
-                 "tf_bwd_qk_kernel", "tf_bwd_cols_kernel", "reduce_partials_kernel")
+                 "dense_act_wgmma_kernel", "layer_norm_rows_kernel", "tf_fwd_mma_kernel",
+                 "transform_attention_kernel", "tf_bwd_rows_kernel", "tf_bwd_qk_kernel",
+                 "tf_bwd_cols_kernel", "reduce_partials_kernel")
 
 
 def fail(msg: str) -> None:
@@ -438,6 +446,18 @@ def ln_gemm_act(x, g, b, w, bias, act, res=False):
     return (h, u, e, mean, rstd) if res else h
 
 
+def tf_composition(qkv, wl, ww, heads, seq, scale):
+    """K3's work in PyTorch's own kernels on bf16: q·kᵀ by matmul, the two
+    head mixes by einsum, the softmax, P'·v by matmul; (O [B·N, H·d], P).
+    No one call computes the function (SDPA has no head mixes)."""
+    rows = qkv.shape[0]
+    q, k, v = qkv.view(rows // seq, seq, 3, heads, -1).permute(2, 0, 3, 1, 4)
+    p = torch.softmax(torch.einsum("hg,bgnm->bhnm", wl, q @ k.transpose(-1, -2)) * scale,
+                      dim=-1)
+    o = torch.einsum("hg,bgnm->bhnm", ww, p) @ v
+    return o.permute(0, 2, 1, 3).reshape(rows, -1), p
+
+
 def oracle_cases(rng):
     """The cases, main-path shapes first for each kernel (the first case of a
     kernel gives its times in the JSON line).
@@ -572,6 +592,7 @@ def oracle_cases(rng):
         io = 2 * (B * N * 4 * H * d + 2 * H * H)
         pbytes = 2 * B * H * N * N
         lean = lambda q=qkv, l=wl, w=ww, k=kw: ta.transform_attention_rows_qkv(q, l, w, **k)
+        comp = lambda q=qkv, l=wl, w=ww, k=kw: tf_composition(q, l, w, **k)
         cases.append(Case(
             "transform_attention_rows_qkv", shape,
             lambda f=lean: (f(),),
@@ -579,7 +600,7 @@ def oracle_cases(rng):
                 q.float(), l.float(), w.float(), **k),),
             (("abs", 8e-3),),
             lambda q=qkv, l=wl, w=ww, k=kw: ta.transform_attention_rows_qkv_plain(q, l, w, **k),
-            2 * product + 2 * mix, io))
+            2 * product + 2 * mix, io, composition=comp))
         cases.append(Case(
             "transform_attention_save_p", shape,
             lambda q=qkv, l=wl, w=ww, k=kw: ta.transform_attention_save_p(q, l, w, **k),
@@ -587,7 +608,7 @@ def oracle_cases(rng):
                 q.float(), l.float(), w.float(), **k),
             (("abs", 8e-3), ("abs", 4e-3)),
             lambda q=qkv, l=wl, w=ww, k=kw: ta.transform_attention_save_p_plain(q, l, w, **k),
-            2 * product + 2 * mix, io + pbytes, same=lean))
+            2 * product + 2 * mix, io + pbytes, same=lean, composition=comp))
         p = ta.transform_attention_save_p_plain(qkv, wl, ww, **kw)[1]
         cases.append(Case(
             "transform_attention_bwd", shape,
@@ -600,6 +621,20 @@ def oracle_cases(rng):
                 q, l, w, g, p, **k),
             5 * product + 5 * mix,
             2 * (B * N * 7 * H * d + 2 * H * H) + pbytes + 8 * H * H))
+    # K3's second route, the CUDA-core kernel, at a head shape past the
+    # tensor-core kernel's (H > 24), the students' N and width
+    B, H, d, N = PAIRS, 32, 32, 50
+    qkv, wl, ww = t((B * N, 3 * H * d)), t((H, H), H ** -0.5), t((H, H), H ** -0.5)
+    kw = dict(heads=H, seq=N, scale=d ** -0.5)
+    cases.append(Case(
+        "transform_attention_rows_qkv_wide", f"B={B} H={H} d={d} N={N}",
+        lambda q=qkv, l=wl, w=ww, k=kw: (ta.transform_attention_rows_qkv_wide(q, l, w, **k),),
+        lambda q=qkv, l=wl, w=ww, k=kw: (ta.transform_attention_rows_qkv_plain(
+            q.float(), l.float(), w.float(), **k),),
+        (("abs", 8e-3),),
+        lambda q=qkv, l=wl, w=ww, k=kw: ta.transform_attention_rows_qkv_plain(q, l, w, **k),
+        4.0 * B * H * N * N * (d + H), 2 * (B * N * 4 * H * d + 2 * H * H),
+        composition=lambda q=qkv, l=wl, w=ww, k=kw: tf_composition(q, l, w, **k)))
 
     # Plain attention, its save-P mode and its backward: the teachers' shapes,
     # the students' without head mixes, head shapes the TPU's block-diagonal
@@ -1670,7 +1705,9 @@ PROFILE_GROUPS = (
     ("K1 dense_ln (wgmma)", ("dense_ln_wgmma_kernel",)),
     ("ln_stats_w16 (statistics and W's fp16 copy for K1, K2 and #8)", ("ln_stats_w16_kernel",)),
     ("#9 dense_ln_bwd (wgmma, clusters along C)", ("dense_ln_bwd_wgmma_kernel",)),
-    ("transform_attention forward (lean / save_p)", ("transform_attention_kernel",)),
+    ("K3 / #5 transform_attention forward (lean / save_p, tensor cores)",
+     ("tf_fwd_mma_kernel",)),
+    ("K3 CUDA-core route (heads past the tensor-core kernel)", ("transform_attention_kernel",)),
     ("transform_attention_bwd", ("tf_bwd_",)),
     ("plain_attention forward (#13 lean / save_p, tensor cores)",
      ("plain_attention_mma_kernel",)),
@@ -1794,7 +1831,8 @@ def main() -> None:
                         lambda r=run: r["step"](r["state"], *r["batch"]), 5, card)
     library_device_times(results, case_ms, card)
 
-    paths = {"serving_call": serving_counts, "teacher_image_encode": teacher_counts["image"],
+    paths = {"serving_call": serving_counts,
+             "teacher_image_encode": teacher_counts["image"],
              "teacher_text_encode": teacher_counts["text"],
              **{f"train_step {k}": v["counts"] for k, v in runs.items()},
              **{f"serving_call {k}": v["serving"] for k, v in knob_runs.items()},
@@ -1814,7 +1852,8 @@ def main() -> None:
         "launches_by_path": {k: {f: c[f] for f in family} for k, c in factored.items()},
         **results[family[0]],
         "max_abs_err": max(results[f]["max_abs_err"] for f in family)})
-    if idle := [k["name"] for k in kernels if k["launches"] == 0]:
+    if idle := [k["name"] for k in kernels
+                if k["launches"] == 0 and k["name"] not in OFF_MAIN_PATH]:
         fail(f"kernels that no main-path run launched: {idle}")
     print(card_line())
     print(json.dumps({"kernels": kernels}))

@@ -53,12 +53,14 @@ constexpr int kStageBytes = kABytes + (BN / 64) * kBBox;   // 48 KB
 // the ring, two mbarriers per stage, and room to align the ring to 1024 bytes
 constexpr size_t kSmemBytes = (size_t)STAGES * kStageBytes + 2 * STAGES * 8 + 1024;
 
-// A 2-D row-major tensor [outer, inner] of 2-byte elements as TMA reads it:
-// boxes of box_inner x box_outer elements, 128-byte swizzle, zeros past its
-// edges.  False when cuTensorMapEncodeTiled refuses it.
-__host__ inline bool make_tensor_map(CUtensorMap* map, const void* ptr, uint64_t inner,
-                                     uint64_t outer, uint32_t box_inner, uint32_t box_outer,
-                                     CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+// A row-major tensor of 2-byte elements with `rank` dimensions as TMA reads
+// it (dims innermost first, the byte strides of the outer ones): boxes of
+// `box` elements, 128-byte swizzle, zeros past its edges.  False when
+// cuTensorMapEncodeTiled refuses it.
+__host__ inline bool make_tensor_map_nd(
+    CUtensorMap* map, const void* ptr, cuuint32_t rank, const cuuint64_t* dims,
+    const cuuint64_t* strides, const cuuint32_t* box,
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -77,14 +79,21 @@ __host__ inline bool make_tensor_map(CUtensorMap* map, const void* ptr, uint64_t
     if (err != cudaSuccess || found != cudaDriverEntryPointSuccess || fn == nullptr) return false;
     encode = reinterpret_cast<Encode>(fn);
   }
-  const cuuint64_t dims[2] = {inner, outer};
-  const cuuint64_t strides[1] = {inner * 2};
-  const cuuint32_t box[2] = {box_inner, box_outer};
-  const cuuint32_t unit[2] = {1, 1};
-  return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, unit,
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  return encode(map, type, rank, const_cast<void*>(ptr), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 2-D row-major tensor [outer, inner] of 2-byte elements, as above.
+__host__ inline bool make_tensor_map(CUtensorMap* map, const void* ptr, uint64_t inner,
+                                     uint64_t outer, uint32_t box_inner, uint32_t box_outer,
+                                     CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {inner * 2};
+  const cuuint32_t box[2] = {box_inner, box_outer};
+  return make_tensor_map_nd(map, ptr, 2, dims, strides, box, type);
 }
 
 // The ring: the block's dynamic shared memory, aligned to 1024 bytes (the

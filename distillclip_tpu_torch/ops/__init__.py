@@ -2,9 +2,11 @@
 
 Every wrapper runs its plain version for a CPU tensor and launches its CUDA
 kernel for a CUDA tensor (or raises); it adds one to its ``launches`` count
-where, and only where, it launches the kernel.  The first four serve; with a
-gradient the public functions go through ``torch.autograd.Function``s whose
-forward and backward launch the next five (and K1 / K4 in the mode that also
+where, and only where, it launches the kernel.  The first four serve (K3 at
+head shapes past its tensor-core kernel goes to its second route, the fifth,
+the CUDA-core kernel, which counts its own launches); with a gradient the
+public functions go through ``torch.autograd.Function``s whose forward and
+backward launch the next five (and K1 / K4 in the mode that also
 writes the rows' statistics).  The next three are plain attention on the fused
 qkv rows (the CLIP teacher towers and every student without head mixes):
 forward, forward with saved probabilities, backward.  The last three are
@@ -40,6 +42,7 @@ from distillclip_tpu_torch.ops.plain_attention import (
 from distillclip_tpu_torch.ops.transform_attention import (
     transform_attention_bwd,
     transform_attention_rows_qkv,
+    transform_attention_rows_qkv_wide,
     transform_attention_save_p,
 )
 
@@ -49,6 +52,7 @@ KERNELS = {
     "dense_act_ln": dense_act_ln,
     "transform_attention_rows_qkv": transform_attention_rows_qkv,
     "layer_norm_rows": layer_norm_rows,
+    "transform_attention_rows_qkv_wide": transform_attention_rows_qkv_wide,
     "transform_attention_save_p": transform_attention_save_p,
     "transform_attention_bwd": transform_attention_bwd,
     "layer_norm_rows_bwd": layer_norm_rows_bwd,
@@ -98,5 +102,6 @@ __all__ = [
     "reset_launch_counts",
     "transform_attention_bwd",
     "transform_attention_rows_qkv",
+    "transform_attention_rows_qkv_wide",
     "transform_attention_save_p",
 ]

@@ -62,10 +62,13 @@ _SIGNATURES = {
     "dc_dense_ln_bwd_blocks": (_I, [_I]),
     # x, gamma, beta, w, du, mean, rstd, dx, xn, partial, dgamma_dbeta | rows, C, N, stream
     "dc_dense_ln_bwd": (_I, [_P] * 11 + [_I, _I, _I, _P]),
+    "dc_tf_fwd_mma_smem_bytes": (ctypes.c_longlong, [_I, _I]),
+    # qkv, wl, ww, out, probs | batch, N, H, d, scale, stream (transform_attention_mma.cu)
+    "dc_transform_attention_mma": (_I, [_P] * 5 + [_I, _I, _I, _I, _F, _P]),
     "dc_tf_smem_bytes": (ctypes.c_longlong, [_I, _I, _I, _I]),
     "dc_tf_max_tq": (_I, []),
-    # qkv, wl, ww, out, probs | batch, N, H, d, tq, scale, stream
-    "dc_transform_attention": (_I, [_P] * 5 + [_I, _I, _I, _I, _I, _F, _P]),
+    # qkv, wl, ww, out | batch, N, H, d, tq, scale, stream (transform_attention.cu)
+    "dc_transform_attention": (_I, [_P] * 4 + [_I, _I, _I, _I, _I, _F, _P]),
     "dc_tf_bwd_smem_bytes": (ctypes.c_longlong, [_I, _I, _I]),
     # qkv, wl, ww, dout, probs, dqkv, ds_hi, ds_lo, partial, dwl_dww |
     # batch, N, H, d, scale, stream

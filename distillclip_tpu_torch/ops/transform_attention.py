@@ -7,17 +7,21 @@ keys, a mix of the probabilities by ``ww`` [H, H] (conv_w), then the product
 with v.  ``qkv`` is ``[B·seq, 3·H·d]`` (q | k | v column blocks, head-major
 inside each) and the result ``[B·seq, H·d]``.
 
-On a CUDA tensor it launches K3 (``csrc/transform_attention.cu``) at the
-true sequence length, for any head count; on a CPU tensor it runs
-:func:`transform_attention_rows_qkv_plain`.  With a gradient it takes fewer
-shapes, those of the backward's kernels (head dim up to 64, at most 24 heads,
-16 with a head dim past 32, up to 256 tokens), and refuses the others in the
-forward, before anything runs.
+On a CUDA tensor it launches K3 at the true sequence length: the
+tensor-core kernel (``csrc/transform_attention_mma.cu``) where it takes the
+head shape (head dim a multiple of 8 up to 64, at most 24 heads, 16 with a
+head dim past 32; any length), and otherwise, by shape, its second route
+:func:`transform_attention_rows_qkv_wide` (``csrc/transform_attention.cu``,
+the CUDA cores, any head count), which counts its own launches.  On a CPU
+tensor it runs :func:`transform_attention_rows_qkv_plain`.  With a gradient
+it takes fewer shapes, those of the backward's kernels (the same head shapes,
+up to 256 tokens), and refuses the others in the forward, before anything
+runs.
 
-With a gradient it is a ``torch.autograd.Function``: the forward is K3 with
-its save-P flag (:func:`transform_attention_save_p`), which also stores the
-per-head softmax probabilities P ``[B, H, N, N]`` (after the softmax, before
-the ``ww`` mix) in qkv's dtype, and the backward
+With a gradient it is a ``torch.autograd.Function``: the forward is the
+tensor-core K3 with its save-P flag (:func:`transform_attention_save_p`),
+which also stores the per-head softmax probabilities P ``[B, H, N, N]``
+(after the softmax, before the ``ww`` mix) in qkv's dtype, and the backward
 (:func:`transform_attention_bwd`, ``csrc/transform_attention_bwd.cu``) makes
 the fused dqkv and the two mix gradients from qkv, the output gradient and P.
 The mix gradients leave the kernel as fp32 ``[H, H]`` and are cast to the
@@ -133,10 +137,17 @@ def _check_bwd_shape(lib, seq, heads, d, what: str):
                          f"up to 256 tokens)")
 
 
+def _tensor_core_shape(lib, heads: int, d: int) -> bool:
+    """True where the tensor-core forward takes (heads, d)."""
+    smem = lib.dc_tf_fwd_mma_smem_bytes(heads, d)
+    return 0 <= smem <= _build.MAX_SMEM_BYTES
+
+
 def _launch_fwd(wrapper, qkv, wl, ww, heads, seq, scale, save_p: bool):
-    """K3 on CUDA tensors, with or without its save-P flag, counted on
-    ``wrapper``; returns (o, P or None).  The save-P forward exists for the
-    backward, so it refuses what the backward would refuse, before it runs."""
+    """The tensor-core K3 on CUDA tensors, with or without its save-P flag,
+    counted on ``wrapper``; returns (o, P or None).  The save-P forward exists
+    for the backward, so it refuses what the backward would refuse, before it
+    runs."""
     what = wrapper.__name__
     rows, hd3 = qkv.shape
     d = hd3 // 3 // heads
@@ -145,17 +156,16 @@ def _launch_fwd(wrapper, qkv, wl, ww, heads, seq, scale, save_p: bool):
     lib = _build.lib()
     if save_p:
         _check_bwd_shape(lib, seq, heads, d, what)
-    tq = _pick_tq(lib, lib.dc_tf_smem_bytes, seq, heads, d)
     out = torch.empty((rows, heads * d), dtype=qkv.dtype, device=qkv.device)
     p = None
     if save_p:
         p = torch.empty((rows // seq, heads, seq, seq), dtype=qkv.dtype, device=qkv.device)
     if rows == 0:
         return out, p
-    _build.check(lib.dc_transform_attention(qkv.data_ptr(), wl.data_ptr(), ww.data_ptr(),
-                                            out.data_ptr(), None if p is None else p.data_ptr(),
-                                            rows // seq, seq, heads, d, tq, float(scale),
-                                            _build.stream_ptr(qkv)), what)
+    _build.check(lib.dc_transform_attention_mma(
+        qkv.data_ptr(), wl.data_ptr(), ww.data_ptr(), out.data_ptr(),
+        None if p is None else p.data_ptr(), rows // seq, seq, heads, d, float(scale),
+        _build.stream_ptr(qkv)), what)
     wrapper.launches += 1
     return out, p
 
@@ -166,6 +176,31 @@ def transform_attention_save_p(qkv, wl, ww, *, heads: int, seq: int, scale: floa
     if _build.plain_only("transform_attention_save_p", qkv):
         return transform_attention_save_p_plain(qkv, wl, ww, heads=heads, seq=seq, scale=scale)
     return _launch_fwd(transform_attention_save_p, qkv, wl, ww, heads, seq, scale, True)
+
+
+def transform_attention_rows_qkv_wide(qkv, wl, ww, *, heads: int, seq: int, scale: float):
+    """K3's second route, the CUDA-core kernel (``csrc/transform_attention.cu``),
+    for the head shapes the tensor-core kernel does not take; any head shape
+    whose score tile fits a block.  The lean forward sends those shapes here;
+    :func:`transform_attention_rows_qkv_plain` on the CPU."""
+    what = "transform_attention_rows_qkv_wide"
+    if _build.plain_only(what, qkv):
+        return transform_attention_rows_qkv_plain(qkv, wl, ww, heads=heads, seq=seq,
+                                                  scale=scale)
+    rows = qkv.shape[0]
+    d = _check_shapes(qkv, wl, ww, heads, seq)
+    _build.check_operands(what, qkv, unaligned=(wl, ww))
+    _check_head_dim(d, what)
+    lib = _build.lib()
+    tq = _pick_tq(lib, lib.dc_tf_smem_bytes, seq, heads, d, what)
+    out = torch.empty((rows, heads * d), dtype=qkv.dtype, device=qkv.device)
+    if rows == 0:
+        return out
+    _build.check(lib.dc_transform_attention(qkv.data_ptr(), wl.data_ptr(), ww.data_ptr(),
+                                            out.data_ptr(), rows // seq, seq, heads, d, tq,
+                                            float(scale), _build.stream_ptr(qkv)), what)
+    transform_attention_rows_qkv_wide.launches += 1
+    return out
 
 
 def transform_attention_bwd(qkv, wl, ww, do, p, *, heads: int, seq: int, scale: float):
@@ -236,9 +271,14 @@ def transform_attention_rows_qkv(qkv: torch.Tensor, wl: torch.Tensor, ww: torch.
     if _build.plain_only("transform_attention_rows_qkv", qkv):
         return transform_attention_rows_qkv_plain(qkv, wl, ww, heads=heads, seq=seq,
                                                   scale=scale)
+    _check_head_dim(d)
+    if not _tensor_core_shape(_build.lib(), heads, d):
+        return transform_attention_rows_qkv_wide(qkv, wl, ww, heads=heads, seq=seq,
+                                                 scale=scale)
     return _launch_fwd(transform_attention_rows_qkv, qkv, wl, ww, heads, seq, scale, False)[0]
 
 
 transform_attention_rows_qkv.launches = 0
+transform_attention_rows_qkv_wide.launches = 0
 transform_attention_save_p.launches = 0
 transform_attention_bwd.launches = 0

@@ -148,6 +148,8 @@ def _op_calls():
         "dense_act_ln": lambda dev: ops.dense_act_ln(*on(dev, x, ls, lb, w, b)),
         "transform_attention_rows_qkv": lambda dev: ops.transform_attention_rows_qkv(
             *on(dev, qkv, wl, ww), heads=2, seq=5),
+        "transform_attention_rows_qkv_wide": lambda dev: ops.transform_attention_rows_qkv_wide(
+            *on(dev, qkv, wl, ww), **kw),
         "layer_norm_rows": lambda dev: ops.layer_norm_rows(*on(dev, x, ls, lb)),
         "transform_attention_save_p": lambda dev: ops.transform_attention_save_p(
             *on(dev, qkv, wl, ww), **kw)[0],
@@ -200,7 +202,7 @@ def test_build_names_library_by_source_hash():
         "dense_act.cu", "dense_ln_bwd.cu", "dense_ln_wgmma.cu", "flash_attention.cu",
         "flash_attention_bwd.cu", "flash_transform_attention.cu", "layer_norm.cu",
         "plain_attention.cu", "plain_attention_bwd.cu", "transform_attention.cu",
-        "transform_attention_bwd.cu"}
+        "transform_attention_bwd.cu", "transform_attention_mma.cu"}
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
