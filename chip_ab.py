@@ -30,7 +30,11 @@ limit (with ``--only``, only the sections named):
   beside the PyTorch composition that does the same work
   (``chip_smoke.tf_composition``: bf16 ``matmul``, ``einsum`` mixes,
   ``softmax``, ``matmul``), device ms per call over 20 calls replayed from one
-  CUDA graph;
+  CUDA graph, three rounds in turn: the median and the rounds;
+- ``flash_tf``: ``flash_transform_attention_fwd`` (#17, as the tapped stage-1
+  step runs it: q, k, v the views of a fused qkv, no mask) at the two
+  students' shapes, beside the PyTorch composition of the same work
+  (``chip_smoke.flash_tf_composition``), the same way;
 - ``tf_bwd``: ``transform_attention_bwd`` (#6) at the two students' shapes
   (B=256; 24 heads of 32 at 50 tokens, 12 of 64 at 77), device ms per call
   over 20 calls replayed from one CUDA graph;
@@ -120,14 +124,24 @@ def _own_chip_smoke():
     return module
 
 
-SECTIONS = ("k1", "dln_bwd", "k2", "tf_fwd", "tf_bwd", "reduce_partials", "k4", "serving",
-            "step")
+SECTIONS = ("k1", "dln_bwd", "k2", "tf_fwd", "flash_tf", "tf_bwd", "reduce_partials", "k4",
+            "serving", "step")
+
+
+def _rounds(torch, fns, rounds: int = 3) -> list[str]:
+    """Each of ``fns`` timed by _graph_ms ``rounds`` times, in turn: per
+    function "median [round, round, ...]"."""
+    times = [[_graph_ms(torch, fn) for fn in fns] for _ in range(rounds)]
+    return [f"{statistics.median(r[i] for r in times):.4f} "
+            f"[{' '.join(f'{r[i]:.4f}' for r in times)}]" for i in range(len(fns))]
 
 
 def one(root: Path, only: tuple[str, ...] = SECTIONS) -> None:
     """The measurements of one checkout, in this process: the sections in
     ``only``."""
     sys.path.insert(0, str(root))
+    import importlib
+
     import torch
 
     from distillclip_tpu_torch.ops import fc1_act, layer_norm
@@ -136,6 +150,8 @@ def one(root: Path, only: tuple[str, ...] = SECTIONS) -> None:
 
     own = _own_chip_smoke()
     ln_gemm_act, tf_composition = own.ln_gemm_act, own.tf_composition
+    # ops.flash_attention is the public function; this is its module
+    fa = importlib.import_module("distillclip_tpu_torch.ops.flash_attention")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card, tag = _card(), f"ab {root.resolve().name}"
@@ -182,14 +198,27 @@ def one(root: Path, only: tuple[str, ...] = SECTIONS) -> None:
         qkv, wl, ww = t((B * N, 3 * H * d)), t((H, H), H ** -0.5), t((H, H), H ** -0.5)
         kw = dict(heads=H, seq=N, scale=d ** -0.5)
         with torch.inference_mode():
-            times = [_graph_ms(torch, fn) for fn in (
+            times = _rounds(torch, (
                 lambda: ta.transform_attention_rows_qkv(qkv, wl, ww, **kw),
                 lambda: ta.transform_attention_save_p(qkv, wl, ww, **kw),
-                lambda: tf_composition(qkv, wl, ww, **kw))]
-        tff.append(f"H={H} d={d} N={N} K3 {times[0]:.4f} #5 {times[1]:.4f} "
-                   f"(composition {times[2]:.4f})")
+                lambda: tf_composition(qkv, wl, ww, **kw)))
+        tff.append(f"H={H} d={d} N={N} K3 {times[0]} #5 {times[1]} (composition {times[2]})")
     if tff:
         print(f"{tag} tf_fwd ms: {'; '.join(tff)} [{card}]", flush=True)
+
+    ftf = []
+    for B, H, d, N in () if "flash_tf" not in only else ((256, 24, 32, 50), (256, 12, 64, 77)):
+        qkv = torch.cat([t((B, N, 2, H, d)), t((B, N, 1, H, d), 0.7)], dim=2)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+        wl, ww = t((H, H), H ** -0.5), t((H, H), H ** -0.5)
+        kw = dict(scale=d ** -0.5)
+        with torch.inference_mode():
+            times = _rounds(torch, (
+                lambda: fa.flash_transform_attention_fwd(q, k, v, wl, ww, **kw),
+                lambda: own.flash_tf_composition(q, k, v, wl, ww, **kw)))
+        ftf.append(f"H={H} d={d} N={N} #17 {times[0]} (composition {times[1]})")
+    if ftf:
+        print(f"{tag} flash_tf ms: {'; '.join(ftf)} [{card}]", flush=True)
 
     tf, red = [], []
     tf_shapes = ((256, 24, 32, 50), (256, 12, 64, 77))

@@ -154,6 +154,9 @@ SOURCES = {
     "flash_attention_bwd": ("distillclip_tpu_torch/csrc/flash_attention_bwd.cu",
                             "distillclip_tpu/ops/flash_attention.py:150"),
     "flash_transform_attention_fwd": (
+        "distillclip_tpu_torch/csrc/flash_transform_attention_mma.cu",
+        "distillclip_tpu/ops/flash_attention.py:632"),
+    "flash_transform_attention_fwd_wide": (
         "distillclip_tpu_torch/csrc/flash_transform_attention.cu",
         "distillclip_tpu/ops/flash_attention.py:632"),
     "dense_act": ("distillclip_tpu_torch/csrc/dense_act.cu",
@@ -172,10 +175,10 @@ SERVING_KERNELS = ("dense_ln", "dense_act_ln", "transform_attention_rows_qkv",
 # one serving call: 10 logical layers of K1, K2 and K3, the two final norms
 SERVING_LAUNCHES = {"dense_ln": 10, "dense_act_ln": 10, "transform_attention_rows_qkv": 10,
                     "layer_norm_rows": 2}
-# K3's second route, the CUDA-core kernel, serves head shapes past the
-# tensor-core kernel's, which no config of the repository has: no main-path run
-# launches it (its oracle case holds it against its plain version)
-OFF_MAIN_PATH = ("transform_attention_rows_qkv_wide",)
+# K3's and #17's second routes, the CUDA-core kernels, serve head shapes past
+# the tensor-core kernels', which no config of the repository has: no main-path
+# run launches them (their oracle cases hold them against their plain versions)
+OFF_MAIN_PATH = ("transform_attention_rows_qkv_wide", "flash_transform_attention_fwd_wide")
 # launches of one train step: 10 logical layers (6 image + 4 text), two LN
 # GEMMs and so two backward GEMMs each, and the two towers' final norm
 TRAIN_STEP_LAUNCHES = {
@@ -258,13 +261,17 @@ KNOB_PHASES = {
 # kernels whose registers and spills (nvcc -Xptxas -v, in the build log) the
 # run prints: the LN GEMM (its statistics launch, and its product in every
 # instance: K1 <0, 0>, K2 <1|2, 0>, #8 <1|2, 1>), #9 and the no-LN GEMM on the
-# wgmma main loop, K4, K3 / #5 on the tensor cores (tf_fwd_mma_kernel<KS, HPW,
-# NH, ND>) and K3's CUDA-core route, #6's row, dq/dk and column kernels, and
-# the partials' reduction that #6 and #9 share
+# wgmma main loop, K4, #17 and K3 / #5 on the tensor cores
+# (flash_tf_fwd_mma_kernel<KS, HPW, NH, ND>, tf_fwd_mma_kernel<KS, HPW, NH,
+# ND>: one tile loop) and the CUDA-core routes of K3 and #17, #6's row, dq/dk
+# and column kernels, and the partials' reduction that #6 and #9 share.  An
+# entry function takes the first name it holds (flash_tf_fwd_mma_kernel holds
+# tf_fwd_mma_kernel).
 PTXAS_KERNELS = ("dense_ln_wgmma_kernel", "ln_stats_w16_kernel", "dense_ln_bwd_wgmma_kernel",
-                 "dense_act_wgmma_kernel", "layer_norm_rows_kernel", "tf_fwd_mma_kernel",
-                 "transform_attention_kernel", "tf_bwd_rows_kernel", "tf_bwd_qk_kernel",
-                 "tf_bwd_cols_kernel", "reduce_partials_kernel")
+                 "dense_act_wgmma_kernel", "layer_norm_rows_kernel", "flash_tf_fwd_mma_kernel",
+                 "tf_fwd_mma_kernel", "transform_attention_kernel",
+                 "flash_transform_attention_fwd_kernel", "tf_bwd_rows_kernel",
+                 "tf_bwd_qk_kernel", "tf_bwd_cols_kernel", "reduce_partials_kernel")
 
 
 def fail(msg: str) -> None:
@@ -293,6 +300,7 @@ def ptxas_lines(log: Path) -> None:
                 if (k := re.search(kernel + r"(I(?:L[a-z]\d+E)+E)?", m.group(1))):
                     args = re.findall(r"L[a-z](\d+)E", k.group(1) or "")
                     name = kernel + (f"<{', '.join(args)}>" if args else "")
+                    break
         elif name and "spill stores" in line:
             spills = line.strip()
         elif name and (m := re.search(r"Used (\d+) registers", line)):
@@ -456,6 +464,19 @@ def tf_composition(qkv, wl, ww, heads, seq, scale):
                       dim=-1)
     o = torch.einsum("hg,bgnm->bhnm", ww, p) @ v
     return o.permute(0, 2, 1, 3).reshape(rows, -1), p
+
+
+def flash_tf_composition(q, k, v, wl, ww, scale, causal=False, kv_len=None):
+    """#17's work in PyTorch's own kernels on bf16 [B, H, N, d] views: q·kᵀ by
+    matmul, the wl mix by einsum, the mask, the softmax, the ww mix, P'·v by
+    matmul.  No one call computes the function (SDPA has no head mixes)."""
+    from distillclip_tpu_torch.ops.plain_attention import attention_mask
+
+    s = torch.einsum("hg,bgnm->bhnm", wl, q @ k.transpose(-1, -2)) * scale
+    N = q.shape[2]
+    if causal or (kv_len is not None and kv_len < N):
+        s = s.masked_fill(~attention_mask(N, causal, kv_len, q.device), -float("inf"))
+    return torch.einsum("hg,bgnm->bhnm", ww, torch.softmax(s, dim=-1)) @ v
 
 
 def oracle_cases(rng):
@@ -775,7 +796,28 @@ def oracle_cases(rng):
             (("abs", 8e-3),),
             lambda q=q, k=k, v=v, l=wl, w=ww, kw=kw: fa.flash_transform_attention_fwd_plain(
                 q, k, v, l, w, **kw),
-            2 * product + 2 * mix, 4 * tensor + 4 * H * H))
+            2 * product + 2 * mix, 4 * tensor + 4 * H * H,
+            composition=lambda q=q, k=k, v=v, l=wl, w=ww, kw=kw: flash_tf_composition(
+                q, k, v, l, w, **kw)))
+    # #17's second route, the CUDA-core kernel, at a head shape past the
+    # tensor-core kernel's (H > 24) on views of a fused qkv, the students' N
+    B, H, d, N = PAIRS, 32, 32, 50
+    qkv = torch.cat([t((B, N, 2, H, d)), t((B, N, 1, H, d), 0.7)], dim=2)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    wl, ww = t((H, H), H ** -0.5), t((H, H), H ** -0.5)
+    kw = dict(scale=d ** -0.5)
+    cases.append(Case(
+        "flash_transform_attention_fwd_wide", f"B={B} H={H} d={d} N={N}, views of a fused qkv",
+        lambda q=q, k=k, v=v, l=wl, w=ww, kw=kw: (fa.flash_transform_attention_fwd_wide(
+            q, k, v, l, w, **kw),),
+        lambda q=q, k=k, v=v, l=wl, w=ww, kw=kw: (fa.flash_transform_attention_fwd_plain(
+            *[x.float() for x in (q, k, v, l, w)], **kw),),
+        (("abs", 8e-3),),
+        lambda q=q, k=k, v=v, l=wl, w=ww, kw=kw: fa.flash_transform_attention_fwd_plain(
+            q, k, v, l, w, **kw),
+        4.0 * B * H * N * N * (d + H), 2 * (4 * B * N * H * d + 2 * H * H),
+        composition=lambda q=q, k=k, v=v, l=wl, w=ww, kw=kw: flash_tf_composition(
+            q, k, v, l, w, **kw)))
 
     # K4 and its backward: rows uniform on [-sqrt(3), sqrt(3)] (unit variance),
     # so the normalised values stay within sqrt(3) and |y| within ~2.2; unit
@@ -1698,7 +1740,10 @@ def throughput(scorer, card: str) -> None:
 PROFILE_GROUPS = (
     ("flash_attention forward (#16, tensor cores)", ("flash_attention_fwd_mma_kernel",)),
     ("flash_attention_bwd (#16, tensor cores)", ("flash_attention_bwd_mma_kernel",)),
-    ("flash_transform_attention forward", ("flash_transform_attention_fwd_kernel",)),
+    # #17's instances hold K3's kernel name: they come first
+    ("#17 flash_transform_attention forward (tensor cores)", ("flash_tf_fwd_mma_kernel",)),
+    ("#17 CUDA-core route (heads past the tensor-core kernel)",
+     ("flash_transform_attention_fwd_kernel",)),
     # one kernel template: K2 / #8 are its activation instances, K1 act 0
     ("K2 / #8 dense_act_ln + dense_act_ln_res (wgmma, activation epilogue)",
      ("dense_ln_wgmma_kernel<1", "dense_ln_wgmma_kernel<2")),

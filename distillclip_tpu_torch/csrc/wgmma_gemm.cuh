@@ -53,14 +53,15 @@ constexpr int kStageBytes = kABytes + (BN / 64) * kBBox;   // 48 KB
 // the ring, two mbarriers per stage, and room to align the ring to 1024 bytes
 constexpr size_t kSmemBytes = (size_t)STAGES * kStageBytes + 2 * STAGES * 8 + 1024;
 
-// A row-major tensor of 2-byte elements with `rank` dimensions as TMA reads
-// it (dims innermost first, the byte strides of the outer ones): boxes of
-// `box` elements, 128-byte swizzle, zeros past its edges.  False when
-// cuTensorMapEncodeTiled refuses it.
+// A tensor of 2-byte elements with `rank` dimensions as TMA reads it (dims
+// innermost first, the byte strides of the outer ones): boxes of `box`
+// elements, 128-byte swizzle unless `swizzle` says otherwise, zeros past its
+// edges.  False when cuTensorMapEncodeTiled refuses it.
 __host__ inline bool make_tensor_map_nd(
     CUtensorMap* map, const void* ptr, cuuint32_t rank, const cuuint64_t* dims,
     const cuuint64_t* strides, const cuuint32_t* box,
-    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -81,8 +82,7 @@ __host__ inline bool make_tensor_map_nd(
   }
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   return encode(map, type, rank, const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

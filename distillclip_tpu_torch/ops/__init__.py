@@ -9,12 +9,14 @@ public functions go through ``torch.autograd.Function``s whose forward and
 backward launch the next five (and K1 / K4 in the mode that also
 writes the rows' statistics).  The next three are plain attention on the fused
 qkv rows (the CLIP teacher towers and every student without head mixes):
-forward, forward with saved probabilities, backward.  The last three are
+forward, forward with saved probabilities, backward.  The next three are
 attention on ``[B, H, N, d]`` views with the row logsumexp as residual (the
 towers when they collect hidden states): plain forward and backward, and the
-head-transform forward.  The last three are the dense GEMM without the
+head-transform forward.  The next three are the dense GEMM without the
 LayerNorm prologue, which the blocks run under the ``fc1_ln: "0"`` knob: h only
-(no gradient), h with the (u, e) residuals, and u only (``fc1_res: u``).
+(no gradient), h with the (u, e) residuals, and u only (``fc1_res: u``).  The
+last is the head-transform forward's second route, the CUDA-core kernel, for
+head shapes past its tensor-core kernel's (it counts its own launches).
 """
 
 from distillclip_tpu_torch.ops.fc1_act import (
@@ -31,6 +33,7 @@ from distillclip_tpu_torch.ops.flash_attention import (
     flash_attention_bwd,
     flash_attention_fwd,
     flash_transform_attention_fwd,
+    flash_transform_attention_fwd_wide,
     reference_attention,
 )
 from distillclip_tpu_torch.ops.layer_norm import layer_norm_rows, layer_norm_rows_bwd
@@ -67,6 +70,7 @@ KERNELS = {
     "dense_act": dense_act,
     "dense_act_res": dense_act_res,
     "dense_act_u": dense_act_u,
+    "flash_transform_attention_fwd_wide": flash_transform_attention_fwd_wide,
 }
 
 

@@ -83,9 +83,13 @@ _SIGNATURES = {
     # q, k, v, o, dout, lse, dq, dk, dv, strides (host, 8 x 3 int64) | batch, N, H, d,
     # scale, causal, kv_len, stream
     "dc_flash_attention_bwd": (_I, [_P] * 10 + [_I, _I, _I, _I, _F, _I, _I, _P]),
+    "dc_flash_tf_fwd_mma_smem_bytes": (ctypes.c_longlong, [_I, _I]),
+    # q, k, v, wl, ww, out, strides (host, 4 x 3 int64) | batch, N, H, d, scale, causal,
+    # kv_len, stream (flash_transform_attention_mma.cu)
+    "dc_flash_transform_attention_mma": (_I, [_P] * 7 + [_I, _I, _I, _I, _F, _I, _I, _P]),
     "dc_fta_smem_bytes": (ctypes.c_longlong, [_I, _I, _I, _I]),
     # q, k, v, wl, ww, out, strides (host, 4 x 3 int64) | batch, N, H, d, tq, scale, causal,
-    # kv_len, stream
+    # kv_len, stream (flash_transform_attention.cu)
     "dc_flash_transform_attention_fwd": (_I, [_P] * 7 + [_I, _I, _I, _I, _I, _F, _I, _I, _P]),
 }
 

@@ -19,9 +19,15 @@ Three kernels, each beside its plain PyTorch version:
   exp(s - lse), so no ``[B, H, N, N]`` tensor exists in either direction;
   every product on the tensor cores (the routine of
   ``csrc/mma_attention_bwd.cuh``);
-* :func:`flash_transform_attention_fwd` (``csrc/flash_transform_attention.cu``):
-  the head-transform forward.  Its gradient is the JAX package's: a recompute
-  of the forward in plain fp32 PyTorch (outside any kernel there too).
+* :func:`flash_transform_attention_fwd` (``csrc/flash_transform_attention_mma.cu``):
+  the head-transform forward, on the tensor cores on K3's tile loop
+  (``csrc/transform_attention_mma.cuh``) where it takes the head shape
+  (:func:`tensor_core_head_shape`), and otherwise, by shape, on its second
+  route :func:`flash_transform_attention_fwd_wide`
+  (``csrc/flash_transform_attention.cu``, the CUDA cores, any head count),
+  which counts its own launches.  Its gradient is the JAX package's: a
+  recompute of the forward in plain fp32 PyTorch (outside any kernel there
+  too).
 
 On a CUDA tensor each launches its kernel or raises; on a CPU tensor it runs
 its plain version.  The kernels take bf16 views with unit stride in d and any
@@ -205,23 +211,80 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float, causal: bool = Fal
     return dq, dk, dv
 
 
-def flash_transform_attention_fwd(q, k, v, wl, ww, *, scale: float, causal: bool = False,
-                                  kv_len: Optional[int] = None) -> torch.Tensor:
-    """The head-transform forward kernel on CUDA tensors,
-    :func:`flash_transform_attention_fwd_plain` on the CPU."""
-    what = "flash_transform_attention_fwd"
-    B, H, N, d = _check_shapes(what, q, k, v, kv_len)
+def tensor_core_head_shape(heads: int, d: int) -> bool:
+    """True where the tensor-core head-transform forward takes ``heads`` heads
+    of ``d``: d a multiple of 8 up to 64, at most 24 heads, 16 once d > 32
+    (every head of a 16 x 16 tile in one block).  The Python statement of the
+    library's predicate (``dc_flash_tf_fwd_mma_smem_bytes``), which the
+    wrapper asks."""
+    return d % 8 == 0 and 8 <= d <= 64 and 1 <= heads <= (16 if d > 32 else 24)
+
+
+def _tensor_core_shape(lib, heads: int, d: int) -> bool:
+    """True where the library's tensor-core forward takes (heads, d)."""
+    smem = lib.dc_flash_tf_fwd_mma_smem_bytes(heads, d)
+    return 0 <= smem <= _build.MAX_SMEM_BYTES
+
+
+def _check_mixes(what: str, wl, ww, H: int) -> None:
     if wl.shape != (H, H) or ww.shape != (H, H):
         raise ValueError(f"{what}: [{H}, {H}] mixes, got {tuple(wl.shape)}, {tuple(ww.shape)}")
+
+
+def _check_kernel_mixes(what: str, wl, ww) -> None:
+    for w in (wl, ww):
+        if w.dtype != torch.bfloat16 or not w.is_contiguous():
+            raise TypeError(f"{what}: the mixes must be contiguous torch.bfloat16, got "
+                            f"{w.dtype}, strides {w.stride()}")
+
+
+def flash_transform_attention_fwd(q, k, v, wl, ww, *, scale: float, causal: bool = False,
+                                  kv_len: Optional[int] = None) -> torch.Tensor:
+    """The head-transform forward on CUDA tensors: the tensor-core kernel where
+    it takes the head shape, :func:`flash_transform_attention_fwd_wide`
+    otherwise; :func:`flash_transform_attention_fwd_plain` on the CPU."""
+    what = "flash_transform_attention_fwd"
+    B, H, N, d = _check_shapes(what, q, k, v, kv_len)
+    _check_mixes(what, wl, ww, H)
+    if _build.plain_only(what, q):
+        return flash_transform_attention_fwd_plain(q, k, v, wl, ww, scale=scale,
+                                                   causal=causal, kv_len=kv_len)
+    _check_kernel_operands(what, d, q, k, v, wl, ww)
+    lib = _build.lib()
+    if not _tensor_core_shape(lib, H, d):
+        return flash_transform_attention_fwd_wide(q, k, v, wl, ww, scale=scale, causal=causal,
+                                                  kv_len=kv_len)
+    # k and v go to TMA maps, which take no zero stride along a dim longer than 1
+    q, k, v = (_kernel_view(what, t) for t in (q, k, v))
+    k, v = (t.contiguous() if any(s == 0 and n > 1 for s, n in zip(t.stride(), t.shape))
+            else t for t in (k, v))
+    _check_kernel_mixes(what, wl, ww)
+    (o,) = _empty_like_layout(q)
+    if q.numel():
+        _build.check(lib.dc_flash_transform_attention_mma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), wl.data_ptr(), ww.data_ptr(),
+            o.data_ptr(), _strides(q, k, v, o), B, N, H, d, float(scale), int(bool(causal)),
+            N if kv_len is None else int(kv_len), _build.stream_ptr(q)), what)
+        flash_transform_attention_fwd.launches += 1
+    return o
+
+
+def flash_transform_attention_fwd_wide(q, k, v, wl, ww, *, scale: float, causal: bool = False,
+                                       kv_len: Optional[int] = None) -> torch.Tensor:
+    """The head-transform forward's second route, the CUDA-core kernel
+    (``csrc/flash_transform_attention.cu``), for the head shapes the
+    tensor-core kernel does not take; any head count whose score tile fits a
+    block, d up to 128.  :func:`flash_transform_attention_fwd` sends those
+    shapes here; :func:`flash_transform_attention_fwd_plain` on the CPU."""
+    what = "flash_transform_attention_fwd_wide"
+    B, H, N, d = _check_shapes(what, q, k, v, kv_len)
+    _check_mixes(what, wl, ww, H)
     if _build.plain_only(what, q):
         return flash_transform_attention_fwd_plain(q, k, v, wl, ww, scale=scale,
                                                    causal=causal, kv_len=kv_len)
     _check_kernel_operands(what, d, q, k, v, wl, ww)
     q, k, v = (_kernel_view(what, t) for t in (q, k, v))
-    for w in (wl, ww):
-        if w.dtype != torch.bfloat16 or not w.is_contiguous():
-            raise TypeError(f"{what}: the mixes must be contiguous torch.bfloat16, got "
-                            f"{w.dtype}, strides {w.stride()}")
+    _check_kernel_mixes(what, wl, ww)
     lib = _build.lib()
     tq = _pick_tq(lib, lib.dc_fta_smem_bytes, N, H, d, what)
     (o,) = _empty_like_layout(q)
@@ -231,7 +294,7 @@ def flash_transform_attention_fwd(q, k, v, wl, ww, *, scale: float, causal: bool
             o.data_ptr(), _strides(q, k, v, o), B, N, H, d, tq, float(scale),
             int(bool(causal)), N if kv_len is None else int(kv_len), _build.stream_ptr(q)),
             what)
-        flash_transform_attention_fwd.launches += 1
+        flash_transform_attention_fwd_wide.launches += 1
     return o
 
 
@@ -303,3 +366,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention_fwd.launches = 0
 flash_attention_bwd.launches = 0
 flash_transform_attention_fwd.launches = 0
+flash_transform_attention_fwd_wide.launches = 0

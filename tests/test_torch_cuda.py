@@ -690,16 +690,84 @@ def test_flash_attention_kernels_match_plain(B, H, d, N, layout, causal, kv):
 @pytest.mark.parametrize("causal,kv", [(False, None), (True, None), (False, "short")],
                          ids=["full", "causal", "kv_len"])
 def test_flash_transform_attention_kernel_matches_plain(B, H, d, N, layout, causal, kv):
+    """Every shape on the route it takes: the tensor cores up to d = 64 (at
+    most 24 heads, 16 past d = 32), the CUDA-core kernel at (2, 2, 128, 256)."""
     rng = np.random.default_rng(B * 1000 + H * 100 + d + N + 7)
     q, k, v = _qkv_views(rng, B, H, d, N, layout)
     wl, ww = _bf16(rng, (2, H, H), H ** -0.5)
     kw = dict(scale=d ** -0.5, causal=causal, kv_len=_kv(kv, N))
+    ops.reset_launch_counts()
     with torch.inference_mode():
         o = fa.flash_transform_attention_fwd(q, k, v, wl, ww, **kw)
         ref = fa.flash_transform_attention_fwd_plain(q.float(), k.float(), v.float(),
                                                      wl.float(), ww.float(), **kw)
     assert o.shape == q.shape
     _close(o, ref)
+    assert o.stride() == (q.contiguous().stride() if layout == "contiguous"
+                          else (N * H * d, d, H * d, 1))
+    route = ("flash_transform_attention_fwd_wide" if (B, H, d, N) == (2, 2, 128, 256)
+             else "flash_transform_attention_fwd")
+    assert ops.launch_counts() == {**dict.fromkeys(ops.KERNELS, 0), route: 1}
+
+
+def test_flash_transform_attention_route_is_the_librarys():
+    """The Python statement of the tensor-core route's head shapes is the
+    library's own predicate."""
+    from distillclip_tpu_torch.ops import _build
+
+    lib = _build.lib()
+    for H in range(1, 33):
+        for d in range(4, 136, 4):
+            assert fa._tensor_core_shape(lib, H, d) == fa.tensor_core_head_shape(H, d), (H, d)
+
+
+@pytest.mark.parametrize("B,H,d,N", [(64, 4, 32, 200), (40, 12, 64, 77), (33, 24, 32, 50),
+                                     (17, 16, 48, 33), (9, 6, 40, 130), (11, 24, 24, 45)])
+@pytest.mark.parametrize("layout", ["contiguous", "fused_view"])
+@pytest.mark.parametrize("causal,kv", [(True, None), (True, "third"), (False, "third")],
+                         ids=["causal", "causal_kv_len", "kv_len"])
+def test_flash_transform_attention_takes_many_tiles_a_block(B, H, d, N, layout, causal, kv):
+    """More tiles than blocks, so a block takes tiles of different key
+    counts in turn (the k / v buffers' parity follows each tile's count)."""
+    rng = np.random.default_rng(B + H + d + N)
+    q, k, v = _qkv_views(rng, B, H, d, N, layout)
+    wl, ww = _bf16(rng, (2, H, H), H ** -0.5)
+    kw = dict(scale=d ** -0.5, causal=causal, kv_len=None if kv is None else N // 3)
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        o = fa.flash_transform_attention_fwd(q, k, v, wl, ww, **kw)
+        ref = fa.flash_transform_attention_fwd_plain(q.float(), k.float(), v.float(),
+                                                     wl.float(), ww.float(), **kw)
+    _close(o, ref)
+    assert ops.launch_counts()["flash_transform_attention_fwd"] == 1
+
+
+def test_flash_transform_attention_takes_a_broadcast_view():
+    """k and v with a zero batch stride (one sample's keys for all) go to the
+    tensor cores as copies: a TMA map takes no zero stride."""
+    rng = np.random.default_rng(14)
+    q, k, v = _qkv_views(rng, 4, 12, 64, 77, "contiguous")
+    k, v = k[:1].expand_as(q), v[:1].expand_as(q)
+    wl, ww = _bf16(rng, (2, 12, 12), 12 ** -0.5)
+    with torch.inference_mode():
+        o = fa.flash_transform_attention_fwd(q, k, v, wl, ww, scale=0.125)
+        ref = fa.flash_transform_attention_fwd_plain(q.float(), k.float(), v.float(),
+                                                     wl.float(), ww.float(), scale=0.125)
+    _close(o, ref)
+
+
+@pytest.mark.parametrize("H,d,N", [(24, 32, 50), (12, 64, 77)], ids=["image", "text"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_transform_attention_is_deterministic(H, d, N, causal):
+    rng = np.random.default_rng(12)
+    q, k, v = _qkv_views(rng, 16, H, d, N, "fused_view")
+    wl, ww = _bf16(rng, (2, H, H), H ** -0.5)
+    kw = dict(scale=d ** -0.5, causal=causal)
+    with torch.inference_mode():
+        a = fa.flash_transform_attention_fwd(q, k, v, wl, ww, **kw)
+        b = fa.flash_transform_attention_fwd(q, k, v, wl, ww, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 def test_flash_attention_backward_is_deterministic():

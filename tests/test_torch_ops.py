@@ -171,6 +171,8 @@ def _op_calls():
             *on(dev, *q4, q4[0], torch.zeros(2, 2, 5), q4[1]), scale=0.5)[0],
         "flash_transform_attention_fwd": lambda dev: ops.flash_transform_attention_fwd(
             *on(dev, *q4, wl, ww), scale=0.5, kv_len=4),
+        "flash_transform_attention_fwd_wide": lambda dev: ops.flash_transform_attention_fwd_wide(
+            *on(dev, *q4, wl, ww), scale=0.5, causal=True),
         "dense_act": lambda dev: ops.dense_act(*on(dev, x, w, b)),
         "dense_act_res": lambda dev: ops.dense_act_res(*on(dev, x, w, b), "quick_gelu")[0],
         "dense_act_u": lambda dev: ops.dense_act_u(*on(dev, x, w, b)),
@@ -200,7 +202,8 @@ def test_build_names_library_by_source_hash():
     assert path == _build.library_path()  # stable for unchanged sources
     assert {p.name for p in _build._sources()} == {
         "dense_act.cu", "dense_ln_bwd.cu", "dense_ln_wgmma.cu", "flash_attention.cu",
-        "flash_attention_bwd.cu", "flash_transform_attention.cu", "layer_norm.cu",
+        "flash_attention_bwd.cu", "flash_transform_attention.cu",
+        "flash_transform_attention_mma.cu", "layer_norm.cu",
         "plain_attention.cu", "plain_attention_bwd.cu", "transform_attention.cu",
         "transform_attention_bwd.cu", "transform_attention_mma.cu"}
 
