@@ -68,6 +68,19 @@ phases, each of which exits non-zero on failure:
    equal to score_tokens on the same decoded and tokenised rows, and the
    pairs/s of file scoring beside score_tokens (the host's decode and
    tokenise cost);
+5g. the trainer through the CLI: cli.main fit on configs/bench_fit_lclip.yaml
+   (the final students at full width, 256 pairs, uint8 images, the text
+   teacher's representations cached) with an overlay under build/ (the seeded
+   teacher, 1024 pairs, two epochs, validation on two batches every epoch, a
+   log line every step): finite train and validation losses and retrieval
+   accuracies, the teacher's baseline at epoch 0 only, checkpoints/last and
+   index.json, the first logged loss equal (1e-3 relative) to the bare
+   cached-text step's on the same first batch and seeded masters, one train
+   and one eval step's launches as the tables say (the eval step's all lean)
+   and the fit's launches their sum; then fit --ckpt last for a third epoch,
+   validate --ckpt last and lr_find (16 steps, a suggestion); the warm
+   epoch's items/s and input stall beside the bare text-cached step's
+   pairs/s (the `fit` line);
 6. card numbers: each kernel's time beside its plain version's, its bound
    and, where one PyTorch call computes the same function, that call's time
    (for K2, #8, K3 and #5, which no one call matches, the PyTorch composition
@@ -1580,6 +1593,289 @@ def knob_phase(ops, card: str, label: str, default_run: dict, keep_state: bool) 
     return {"serving": serving_counts, "step": run["counts"], "run": run}
 
 
+# -- phase 5g: the trainer -------------------------------------------------------
+
+# the trainer-overhead configuration: the final students at full width, 256
+# pairs, uint8 images, the text teacher's representations cached
+FIT_CONFIG = ROOT / "configs" / "bench_fit_lclip.yaml"
+FIT_SEED = 2022          # the CLI's default seed
+FIT_PAIRS = 1024         # 4 steps of 256 an epoch
+FIT_VAL_BATCHES = 2
+# the cached-text step (the image teacher live) and the eval step (both
+# teachers live, every kernel lean: no gradient)
+FIT_TRAIN_LAUNCHES = add_counts(TRAIN_STEP_LAUNCHES, IMAGE_TEACHER_LAUNCHES)
+FIT_EVAL_LAUNCHES = add_counts(SERVING_LAUNCHES, IMAGE_TEACHER_LAUNCHES, TEXT_TEACHER_LAUNCHES)
+FIT_DIR = ROOT / "build" / "chip_smoke" / "fit"
+
+
+def fit_overlay(max_epochs: int) -> str:
+    """The overlay on FIT_CONFIG: the seeded teacher, a 1024-pair corpus,
+    validation every epoch on two batches (the teacher's baseline at epoch
+    0), a log line every step, results under build/."""
+    import yaml
+
+    overlay = {"model": {"init_args": {"teacher_name": teacher_checkpoint()}},
+               "data": {"init_args": {"dataset_para": {"size": FIT_PAIRS}}},
+               "trainer": {"max_epochs": max_epochs, "limit_val_batches": FIT_VAL_BATCHES,
+                           "log_every_n_steps": 1, "check_val_every_n_epoch": 1,
+                           "logger": {"init_args": {"dir": str(FIT_DIR / "result")}}}}
+    path = FIT_DIR / f"overlay_{max_epochs}_epochs.yaml"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(yaml.safe_dump(overlay))
+    return str(path)
+
+
+def fit_cli(args: list) -> tuple:
+    """(exit code, standard output) of ``cli.main(args)`` on DEVICE."""
+    from distillclip_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(args + ["--device", DEVICE])
+    print(f"fit: cli.main {' '.join(a if '/' not in a else Path(a).name for a in args)}: rc "
+          f"{rc} in {time.perf_counter() - t0:.1f} s", flush=True)
+    return rc, buf.getvalue()
+
+
+def fit_records(run_dir: Path) -> list:
+    with open(run_dir / "metrics.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+def fit_bare_step(ops, overlay: str) -> tuple:
+    """One cached-text step and one eval step, built from the same config,
+    seeded masters and first batches as the fit: (first loss, the step's
+    launches, the eval step's launches)."""
+    from distillclip_tpu_torch.config import instantiate, load_configs
+    from distillclip_tpu_torch.training.trainer import fit_loaders, to_device
+
+    cfg = load_configs([str(FIT_CONFIG), overlay])
+    task = instantiate(cfg["model"])
+    loader, val_loader = fit_loaders(instantiate(cfg["data"]), DEVICE)
+    loader.set_epoch(0)
+    batch = to_device(next(iter(loader)), DEVICE)
+    state, tx = task.init_state(FIT_SEED, len(loader), device=DEVICE)
+    step = task.make_train_step(tx, cached_text_teacher=True, seed=FIT_SEED)
+    ops.reset_launch_counts()
+    state, metrics = step(state, batch["tokens"], batch["images"], batch["tea_rep"])
+    loss = float(metrics["loss"])
+    train_counts = ops.launch_counts()
+    val = to_device(next(iter(val_loader)), DEVICE)
+    ops.reset_launch_counts()
+    eval_metrics, reps = task.make_eval_step()(state, val["tokens"], val["images"])
+    torch.cuda.synchronize()
+    eval_counts = ops.launch_counts()
+    if not all(np.isfinite(float(v)) for v in eval_metrics.values()) or \
+            reps["stu_image_outs"].shape != tuple(val["tea_rep"].shape):
+        fail("fit: the eval step's metrics are not finite or its representations misshapen")
+    return loss, train_counts, eval_counts
+
+
+# the trainer-overhead measurement: the config's own log interval and
+# bench_fit_prestaged.yaml's 40-step epochs, the host loader against the
+# prestaged one, each fit traced (torch.profiler) over its first steps
+FIT_PRESTAGED_CONFIG = ROOT / "configs" / "bench_fit_prestaged.yaml"
+FIT_MEASURE_PAIRS = 10240
+FIT_MEASURE_EPOCHS = 3   # epoch 0 traced and cold; epochs 1 and 2 read
+FIT_TRACE_SKIP = 1       # the traced steps read after the first
+
+
+def fit_measure_overlay(name: str) -> str:
+    """The overlay of a measured fit: the seeded teacher, FIT_MEASURE_PAIRS
+    pairs, the config's log interval and validation (the last epoch only, on
+    one batch), the trace profiler, results under build/."""
+    import yaml
+
+    overlay = {"model": {"init_args": {"teacher_name": teacher_checkpoint()}},
+               "data": {"init_args": {"dataset_para": {"size": FIT_MEASURE_PAIRS}}},
+               "trainer": {"max_epochs": FIT_MEASURE_EPOCHS, "limit_val_batches": 1,
+                           "profiler": "trace",
+                           "logger": {"init_args": {"dir": str(FIT_DIR / "result"),
+                                                    "name": name}}}}
+    path = FIT_DIR / f"overlay_{name}.yaml"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(yaml.safe_dump(overlay))
+    return str(path)
+
+
+def trace_split(path: Path, skip: int = FIT_TRACE_SKIP) -> dict:
+    """Per step of a fit's torch.profiler trace, past its first ``skip``
+    steps: the host's ms between step starts, in ``host_to_device`` and in
+    ``train_step`` (launching the step), and the device's busy ms (the union
+    of the kernels and copies those steps launched) and its window (first
+    start to last end of that work)."""
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    spans = {name: sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                          if e.get("cat") == "user_annotation" and e["name"] == name)
+             for name in ("host_to_device", "train_step")}
+    h2d, steps = spans["host_to_device"], spans["train_step"]
+    if len(h2d) != len(steps) or len(steps) <= skip + 1:
+        fail(f"fit: the trace at {path} holds {len(h2d)} / {len(steps)} step spans")
+    t0, t1 = h2d[skip][0], steps[-1][1]
+    launched = {e["args"]["correlation"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver") and t0 <= e["ts"] <= t1
+                and "correlation" in e.get("args", {})}
+    work = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                  and e.get("args", {}).get("correlation") in launched)
+    if not work:
+        fail(f"fit: the trace at {path} holds no device work for the traced steps")
+    busy, end = 0.0, work[0][0]
+    for a, b in work:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    n = len(steps) - skip
+    mean = lambda xs: sum(b - a for a, b in xs) / len(xs) / 1e3
+    return {"steps": n, "host_step_ms": (h2d[-1][0] - h2d[skip][0]) / (n - 1) / 1e3,
+            "to_device_ms": mean(h2d[skip:]), "train_step_ms": mean(steps[skip:]),
+            "device_busy_ms": busy / n / 1e3, "device_window_ms": (end - work[0][0]) / n / 1e3}
+
+
+def fit_overhead(card: str, text_cached_ms: float):
+    """The trainer's rate beside the bare step's at the config's own log
+    interval over 40-step epochs, with the host loader and with the
+    prestaged one: items/s and input stall of each warm epoch and the
+    trace's split of a step.  The two runs see the same permutations and
+    masters, so their logged losses agree (the prestaged loader's batches
+    are the host loader's, on the card)."""
+    import shutil
+
+    bare = PAIRS / text_cached_ms * 1e3
+    losses = {}
+    for name, configs in (("fit-measure-host", [FIT_CONFIG]),
+                          ("fit-measure-prestaged", [FIT_CONFIG, FIT_PRESTAGED_CONFIG])):
+        run_dir = FIT_DIR / "result" / name
+        shutil.rmtree(run_dir, ignore_errors=True)
+        args = [a for c in configs for a in ("-c", str(c))]
+        rc, _ = fit_cli(["fit", *args, "-c", fit_measure_overlay(name)])
+        if rc != 0:
+            fail(f"{name}: rc {rc}")
+        records = fit_records(run_dir)
+        perf = [r for r in records if "perf/items_per_s" in r]
+        losses[name] = [r["train_loss/loss"] for r in records if "train_loss/loss" in r]
+        if len(perf) != FIT_MEASURE_EPOCHS or len(losses[name]) != FIT_MEASURE_EPOCHS or \
+                not np.isfinite(losses[name]).all():
+            fail(f"{name}: {len(perf)} epochs, logged losses {losses[name]}")
+        split = trace_split(run_dir / "torch_trace" / "trace.json")
+        warm = perf[1:]
+        print(f"fit overhead {name}: {FIT_MEASURE_PAIRS // PAIRS} steps an epoch, a log line "
+              f"an epoch (the config's every 100 steps); warm epochs "
+              + "; ".join(f"{r['perf/items_per_s']:.1f} items/s ({r['perf/items_per_s'] / bare:.3f} "
+                          f"of the bare step), stall {r['perf/input_stall_frac']:.4f} of "
+                          f"{r['perf/epoch_time_s']:.3f} s" for r in warm)
+              + f"; traced steps {FIT_TRACE_SKIP + 1}-{FIT_TRACE_SKIP + split['steps']} of epoch 0 "
+              f"(under the profiler): host {split['host_step_ms']:.2f} ms a step "
+              f"(to_device {split['to_device_ms']:.2f}, train_step launch "
+              f"{split['train_step_ms']:.2f}), device busy {split['device_busy_ms']:.2f} of a "
+              f"{split['device_window_ms']:.2f} ms window (idle share "
+              f"{1 - split['device_busy_ms'] / split['device_window_ms']:.4f}); the bare "
+              f"text-cached step {bare:.1f} pairs/s [{card}]", flush=True)
+    host, staged = losses.values()
+    rel = max(abs(a - b) / abs(a) for a, b in zip(host, staged))
+    print(f"fit overhead: logged losses host {host}, prestaged {staged} (max rel diff "
+          f"{rel:.3e}, limit 1e-5)", flush=True)
+    if rel > 1e-5:
+        fail("fit: the prestaged loader's run does not see the host loader's batches")
+
+
+def fit_phase(ops, card: str, text_cached_ms: float) -> dict:
+    """The trainer through the CLI at the final students' width: fit (two
+    epochs), the first loss against the bare step on the same first batch,
+    the launches of one train and one eval step, resume, validate, lr_find,
+    and the trainer's items/s beside the bare step's pairs/s."""
+    import shutil
+
+    import yaml
+
+    config = str(FIT_CONFIG)
+    run_dir = FIT_DIR / "result" / yaml.safe_load(FIT_CONFIG.read_text())[
+        "trainer"]["logger"]["init_args"]["name"]
+    shutil.rmtree(run_dir, ignore_errors=True)
+    overlay = fit_overlay(2)
+    ops.reset_launch_counts()
+    rc, out = fit_cli(["fit", "-c", config, "-c", overlay])
+    fit_counts = ops.launch_counts()
+    if rc != 0:
+        fail(f"fit: rc {rc}")
+    records = fit_records(run_dir)
+    train = [r for r in records if "train_loss/loss" in r]
+    val = [r for r in records if "val_loss/loss" in r]
+    perf = [r for r in records if "perf/items_per_s" in r]
+    print(f"fit: {len(train)} logged train steps, {len(val)} validations, summary "
+          f"{out.strip().splitlines()[-1] if out.strip() else None}", flush=True)
+    if len(train) != 2 * FIT_PAIRS // PAIRS or len(val) != 2 or len(perf) != 2:
+        fail(f"fit: {len(train)} train steps, {len(val)} validations, {len(perf)} epochs")
+    for r in train + val:
+        bad = [k for k, v in r.items() if k.startswith(("train_loss/", "val_loss/", "val_stu_acc/"))
+               and not np.isfinite(v)]
+        if bad:
+            fail(f"fit: values not finite at step {r['step']}: {bad}")
+    if not all(any(k.startswith("val_stu_acc/") for k in r) for r in val):
+        fail("fit: a validation without the retrieval accuracies")
+    tea = [r["epoch"] for r in records if any(k.startswith("val_tea_acc/") for k in r)]
+    if tea != [0.0]:
+        fail(f"fit: the teacher's baseline at epochs {tea}, not at epoch 0 only")
+    last, index = run_dir / "checkpoints" / "last", run_dir / "checkpoints" / "index.json"
+    if not (last.exists() and index.exists()):
+        fail("fit: checkpoints/last or index.json missing")
+    kept = [e["name"] for e in json.loads(index.read_text())["entries"]]
+    print("fit: losses " + " ".join(f"{r['train_loss/loss']:.6f}" for r in train)
+          + f"; val_loss/loss {[round(r['val_loss/loss'], 6) for r in val]}; "
+          f"val_stu_acc/stu_acc_top1 {[r['val_stu_acc/stu_acc_top1'] for r in val]}; "
+          f"checkpoints kept {kept}", flush=True)
+
+    loss, train_counts, eval_counts = fit_bare_step(ops, overlay)
+    first = train[0]["train_loss/loss"]
+    rel = abs(first - loss) / abs(loss)
+    print(f"fit: first logged train_loss/loss {first:.6f} vs the bare cached-text step on the "
+          f"same first batch and seeded masters {loss:.6f} (rel err {rel:.3e}, limit 1e-3)",
+          flush=True)
+    if rel > 1e-3:
+        fail("fit: the trainer's first loss is not the bare step's")
+    print(f"fit: launches of one train step {train_counts}; of one eval step {eval_counts}",
+          flush=True)
+    zero = dict.fromkeys(ops.KERNELS, 0)
+    if train_counts != {**zero, **FIT_TRAIN_LAUNCHES}:
+        fail(f"fit: train step launches differ from {FIT_TRAIN_LAUNCHES}")
+    if eval_counts != {**zero, **FIT_EVAL_LAUNCHES}:
+        fail(f"fit: eval step launches differ from {FIT_EVAL_LAUNCHES}")
+    want = add_counts(*[FIT_TRAIN_LAUNCHES] * len(train),
+                      *[FIT_EVAL_LAUNCHES] * (len(val) * FIT_VAL_BATCHES))
+    if fit_counts != {**zero, **want}:
+        fail(f"fit: the run's launches {fit_counts} are not {len(train)} train and "
+             f"{len(val) * FIT_VAL_BATCHES} eval steps' {want}")
+
+    rc, _ = fit_cli(["fit", "-c", config, "-c", fit_overlay(3), "--ckpt", str(last)])
+    resumed = [r for r in fit_records(run_dir)[len(records):] if "train_loss/loss" in r]
+    if rc != 0 or {r["epoch"] for r in resumed} != {2.0} or len(resumed) != len(train) // 2:
+        fail(f"fit --ckpt: rc {rc}, epochs {sorted({r['epoch'] for r in resumed})}, "
+             f"{len(resumed)} steps (want epoch 2 only, {len(train) // 2} steps)")
+    print(f"fit --ckpt last: one more epoch, steps {[r['step'] for r in resumed]}, losses "
+          + " ".join(f"{r['train_loss/loss']:.6f}" for r in resumed), flush=True)
+    rc, out = fit_cli(["validate", "-c", config, "-c", overlay, "--ckpt", str(last)])
+    metrics = json.loads(out) if rc == 0 else {}
+    if rc != 0 or not np.isfinite(metrics.get("loss", np.nan)):
+        fail(f"validate: rc {rc}")
+    print(f"validate --ckpt last: loss {metrics['loss']:.6f}, val_stu_acc/stu_acc_top1 "
+          f"{metrics['val_stu_acc/stu_acc_top1']}, val_tea_acc/tea_acc_top1 "
+          f"{metrics['val_tea_acc/tea_acc_top1']}", flush=True)
+    rc, out = fit_cli(["lr_find", "-c", config, "-c", overlay, "--steps", "16",
+                       "--max-lr", "1e-2"])
+    print(f"lr_find: {out.strip().splitlines()[-1] if out.strip() else None}", flush=True)
+    if rc != 0:
+        fail(f"lr_find: rc {rc} (no suggestion)")
+
+    warm = perf[-1]
+    bare = PAIRS / text_cached_ms * 1e3
+    print(f"fit: warm epoch {warm['perf/items_per_s']:.1f} items/s, input stall "
+          f"{warm['perf/input_stall_frac']:.4f} of {warm['perf/epoch_time_s']:.3f} s; the bare "
+          f"text-cached step {bare:.1f} pairs/s ({text_cached_ms:.2f} ms/step, "
+          f"device-resident) [{card}]", flush=True)
+    fit_overhead(card, text_cached_ms)
+    return {"fit train_step": train_counts, "fit eval_step": eval_counts}
+
+
 # -- phase 5f: the score entry point -------------------------------------------
 
 CAPTION_WORDS = ("a", "the", "cat", "dog", "on", "grass", "red", "car", "two", "people",
@@ -1856,6 +2152,7 @@ def main() -> None:
     knob_runs = {label: knob_phase(ops, card, label, runs["text-cached"],
                                    profiling and label.startswith("fc1_ln=0"))
                  for label in KNOB_PHASES}
+    fit_counts = fit_phase(ops, card, runs["text-cached"]["ms"])
     score_counts = score_phase(ops, card)
 
     if profiling:
@@ -1882,7 +2179,8 @@ def main() -> None:
              **{f"train_step {k}": v["counts"] for k, v in runs.items()},
              **{f"serving_call {k}": v["serving"] for k, v in knob_runs.items()},
              **{f"train_step text-cached {k}": v["step"] for k, v in knob_runs.items()},
-             **{f"score_cli {k}": v for k, v in score_counts.items()}}
+             **{f"score_cli {k}": v for k, v in score_counts.items()},
+             **fit_counts}
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1],
                 "launches": sum(c[name] for c in paths.values()),

@@ -4,7 +4,10 @@ The JAX package ``distillclip_tpu`` is the reference; this package imports
 ``torch`` and never JAX.  Ported so far: L-CLIPScore serving with the two
 weight-share students (``serving.LCLIPScorer``), the frozen CLIP teacher
 (``models.teacher_load``), every tower's taps (``models.ControlFlags``), all
-distillation losses (``losses.LossCalculator``) and every train step of the
-one-tower and the two-tower tasks (``training``), dropout included.  The hot
-ops are hand-written CUDA kernels (``ops``, sources in ``csrc/``).
+distillation losses (``losses.LossCalculator``), every train step and eval
+step of the one-tower and the two-tower tasks (``training``), dropout
+included, and the trainer with its single-process data path
+(``training.trainer.Trainer``, ``data``; the CLI's ``fit`` / ``validate`` /
+``lr_find``).  The hot ops are hand-written CUDA kernels (``ops``, sources in
+``csrc/``).
 """

@@ -40,7 +40,7 @@ from distillclip_tpu_torch.serving.inputs import cast_to_compute, prepare_inputs
 
 # the reference's class paths, which the configs use for the students
 # (distillclip_tpu/config/loader.py:25-41 maps them to the JAX towers)
-_TOWERS = {
+TOWERS = {
     "model.component.weight_share_model.RepeatVisionTransformer": RepeatVisionTransformer,
     "model.component.weight_share_model.RepeatTextTransformer": RepeatTextTransformer,
 }
@@ -48,10 +48,10 @@ _TOWERS = {
 
 def build_tower(spec: dict) -> nn.Module:
     """A student tower from a config's ``{class_path, init_args}`` entry."""
-    cls = _TOWERS.get(spec["class_path"])
+    cls = TOWERS.get(spec["class_path"])
     if cls is None:
         raise NotImplementedError(f"tower {spec['class_path']!r} is not ported yet; the "
-                                  f"port serves {sorted(_TOWERS)}")
+                                  f"port serves {sorted(TOWERS)}")
     return cls(**(spec.get("init_args") or {}))
 
 

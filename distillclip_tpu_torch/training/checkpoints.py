@@ -1,7 +1,8 @@
 """Checkpoints of the port: a nested dict of tensors in one ``torch.save`` file.
 
-Port of ``distillclip_tpu/training/checkpoints.py``'s ``save_pytree``,
-``restore_pytree`` and ``restore_tower_params``.  The JAX package writes
+Port of ``distillclip_tpu/training/checkpoints.py``: ``save_pytree``,
+``restore_pytree``, ``restore_tower_params`` and the trainer's retention
+policy, ``CheckpointManager``.  The JAX package writes
 Orbax directories; the port writes one file holding the same tree, with the
 port's parameter names as the keys: a stage checkpoint is
 ``{"params": {"student": <tower tree>}}`` (or ``{"state": {"params": ...}}``),
@@ -11,13 +12,22 @@ where a tower tree nests the tower's state dict on its dotted names
 
 A JAX checkpoint crosses in a process that has both packages: the JAX
 package's ``restore_pytree``, then ``convert.jax_*_to_torch``, then
-:func:`save_pytree` here.  The port reads no Orbax.  The retention policy
-(``CheckpointManager``) waits for the trainer (ROADMAP queue 1: the trainer).
+:func:`save_pytree` here.  The port reads no Orbax.
+
+A trainer checkpoint is ``{"state": state_tree(state), "epoch": e}``:
+:func:`state_tree` gives a ``TrainState`` its tree form (step, nested masters,
+optimizer state, counters as 0-dim int64 tensors), :func:`load_state` copies
+such a tree back into a state of the same structure, in place, on the state's
+device, with the counters as ints, and :func:`restore_state` does both halves
+of a resume.  ``CheckpointManager`` keeps the JAX package's entry names and
+``index.json``, one file an entry where JAX writes an Orbax directory.
 """
 
 from __future__ import annotations
 
+import json
 import os
+import shutil
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
@@ -109,3 +119,126 @@ def restore_tower_params(ckpt_path: str, template: Mapping[str, torch.Tensor],
     if tower is not None and isinstance(restored, Mapping) and tower in restored:
         restored = restored[tower]
     return flatten(_match(restored, nest(dict(template))))
+
+
+def state_tree(state) -> Dict[str, Any]:
+    """A ``TrainState`` as a tree of tensors: ``{"step", "params",
+    "opt_state"}``, the masters and each dict of the optimizer state nested on
+    their dotted names, every int a 0-dim int64 tensor."""
+    def leaf(v):
+        if isinstance(v, Mapping):
+            return nest(dict(v))
+        return torch.tensor(v, dtype=torch.int64) if isinstance(v, int) else v
+
+    return {"step": leaf(state.step), "params": nest(state.params),
+            "opt_state": {k: leaf(v) for k, v in state.opt_state.items()}}
+
+
+@torch.no_grad()
+def load_state(state, tree: Mapping[str, Any]):
+    """Copy ``tree`` (:func:`state_tree`'s form, on any device) into ``state``
+    in place and return it: tensors keep their device and dtype, counters come
+    back as ints.  The structure is checked against the state's own."""
+    tree = _match(tree, state_tree(state))
+
+    def put(dst, src):
+        if isinstance(dst, Mapping):
+            src = flatten(src)
+            for k, v in dst.items():
+                v.copy_(src[k])
+            return dst
+        if isinstance(dst, int):
+            return int(src)
+        dst.copy_(src)
+        return dst
+
+    state.step = int(tree["step"])
+    put(state.params, tree["params"])
+    for k, v in state.opt_state.items():
+        state.opt_state[k] = put(v, tree["opt_state"][k])
+    return state
+
+
+def restore_state(path: str, state) -> int:
+    """Load the trainer checkpoint at ``path`` (``{"state": ..., "epoch":
+    e}``) into ``state`` in place; returns e."""
+    restored = restore_pytree(path, {"state": state_tree(state), "epoch": torch.tensor(0)})
+    load_state(state, restored["state"])
+    return int(restored["epoch"])
+
+
+class CheckpointManager:
+    """Top-k by two metrics, plus ``last``.
+
+    Keeps the union of the ``top_k`` entries by ``acc_metric`` (highest) and
+    the ``top_k`` by ``loss_metric`` (lowest); a metric that is None does not
+    compete for that metric's slots.  Each entry is one file named
+    ``epoch{e}-acc{acc:.3f}-loss{loss:.5f}`` (``na`` for a missing metric),
+    ``last`` a copy of the newest, and ``index.json`` lists the entries kept
+    (``name``, ``epoch``, ``acc``, ``loss``), as in the JAX package, which
+    writes Orbax directories under the same names."""
+
+    def __init__(self, directory: str, top_k: int = 2, acc_metric: str = "stu_acc_top1",
+                 loss_metric: str = "loss"):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+        self.top_k = top_k
+        self.acc_metric = acc_metric
+        self.loss_metric = loss_metric
+        self._index_path = os.path.join(self.directory, "index.json")
+        self._index: Dict[str, Any] = {"entries": []}
+        if os.path.exists(self._index_path):
+            with open(self._index_path) as f:
+                self._index = json.load(f)
+
+    def _write_index(self):
+        with open(self._index_path, "w") as f:
+            json.dump(self._index, f, indent=2)
+
+    def save_epoch(self, epoch: int, tree: Any, metrics: Dict[str, Optional[float]]) -> str:
+        """Write the epoch's entry and refresh ``last``; returns the entry's
+        path (removed again at once if it does not make the cut)."""
+        acc = metrics.get(self.acc_metric)
+        loss = metrics.get(self.loss_metric)
+        acc = float(acc) if acc is not None else None
+        loss = float(loss) if loss is not None else None
+        acc_s = f"{acc:.3f}" if acc is not None else "na"
+        loss_s = f"{loss:.5f}" if loss is not None else "na"
+        name = f"epoch{epoch}-acc{acc_s}-loss{loss_s}"
+        path = os.path.join(self.directory, name)
+        save_pytree(path, tree)
+        last = os.path.join(self.directory, "last")
+        tmp = f"{last}.{os.getpid()}.tmp"
+        shutil.copyfile(path, tmp)
+        os.replace(tmp, last)
+        self._index["entries"].append({"name": name, "epoch": epoch, "acc": acc, "loss": loss})
+        self._gc()
+        self._write_index()
+        return path
+
+    def _gc(self):
+        entries = self._index["entries"]
+        by_acc = sorted((e for e in entries if e["acc"] is not None),
+                        key=lambda e: -e["acc"])[:self.top_k]
+        by_loss = sorted((e for e in entries if e["loss"] is not None),
+                         key=lambda e: e["loss"])[:self.top_k]
+        keep = {e["name"] for e in by_acc} | {e["name"] for e in by_loss}
+        for e in list(entries):
+            if e["name"] not in keep:
+                p = os.path.join(self.directory, e["name"])
+                if os.path.exists(p):
+                    os.remove(p)
+                entries.remove(e)
+
+    def best(self, metric: str = "acc") -> Optional[str]:
+        if metric == "acc":
+            ranked = [e for e in self._index["entries"] if e["acc"] is not None]
+            e = max(ranked, key=lambda e: e["acc"], default=None)
+        else:
+            ranked = [e for e in self._index["entries"] if e["loss"] is not None]
+            e = min(ranked, key=lambda e: e["loss"], default=None)
+        return os.path.join(self.directory, e["name"]) if e else None
+
+    def last(self) -> Optional[str]:
+        p = os.path.join(self.directory, "last")
+        return p if os.path.exists(p) else None

@@ -20,8 +20,9 @@ of the same modality, with
 * ``deterministic=False``: dropout and drop-path act in the student, drawing
   from a generator that the step seeds once and every draw advances.
 
-The teacher is built at first use.  The eval step waits for the trainer
-(ROADMAP queue 1: the trainer).
+The teacher is built at first use.  :meth:`DistillTask.make_eval_step` is the
+validation step the trainer runs (the live loss, retrieval against the
+batch's contrary representations).
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from distillclip_tpu_torch.models import ControlFlags, ImageEncoder, TextEncoder
 from distillclip_tpu_torch.models.outputs import TextOutput, VisionOutput
 from distillclip_tpu_torch.models.teacher_init import init_layers_with_teacher
 from distillclip_tpu_torch.serving.lclip_score import seeded_init
+from distillclip_tpu_torch.training import metrics as M
 from distillclip_tpu_torch.training.task_common import (
     FrozenTeacher,
     adopt_params,
@@ -259,3 +261,34 @@ class DistillTask:
             lambda params, *batch: loss(params, *batch, deterministic,
                                         generator_for(params) if random else None),
             tx, trainable_mask, self.log_grad_norm)
+
+    def make_eval_step(self) -> Callable:
+        """``step(state, inputs, contrary_rep) -> (metrics, reps)``: the live
+        loss under ``torch.no_grad()`` with the student in eval mode, and
+        retrieval of the student's and the teacher's representations against
+        ``contrary_rep`` (the other modality's teacher representations).
+        The metrics are 0-dim tensors on the state's device (``loss``, the
+        parts, ``stu_acc_top{k}`` / ``tea_acc_top{k}``, the student's
+        diagonal scores); ``reps`` are ``student``, ``teacher`` and
+        ``contrary_rep`` in fp32."""
+        random = self.loss_control.has_params
+
+        @torch.no_grad()
+        def step(state: TrainState, inputs, contrary_rep):
+            device = device_of(state.params)
+            generator = torch.Generator(device=device).manual_seed(0) if random else None
+            loss, (parts, stu_out, tea_out) = self.loss_fn(state.params, inputs, True, generator)
+            stu_logits, tea_logits = M.norm_and_logits(
+                contrary_rep, stu_out.last_representation, tea_out.last_representation)[:2]
+            metrics = {"loss": loss, **parts}
+            for k, v in M.topk_accuracy(stu_logits).items():
+                metrics[f"stu_acc_top{k}"] = v
+            for k, v in M.topk_accuracy(tea_logits).items():
+                metrics[f"tea_acc_top{k}"] = v
+            metrics["stu_mean_score"], metrics["stu_softmax_mean_score"] = \
+                M.diag_scores(stu_logits)
+            return metrics, {"student": stu_out.last_representation.float(),
+                             "teacher": tea_out.last_representation.float(),
+                             "contrary_rep": contrary_rep.float()}
+
+        return step

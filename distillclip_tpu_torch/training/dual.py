@@ -26,8 +26,9 @@ from a generator the step seeds once.
 ``load_path={"image": ..., "text": ...}`` warm-starts the towers from stage-1
 and stage-2 checkpoints (``training.checkpoints``), after the seeded init and
 before ``vit_kd``'s parameters and ``freeze_embed``'s copy, as in the JAX
-package.  Not ported yet: the eval step, which comes with the trainer (ROADMAP
-queue 1).
+package.  :meth:`DualDistillTask.make_eval_step` is the validation step the
+trainer runs: the live loss under ``torch.no_grad()``, retrieval accuracies on
+the batch and the four representations for the epoch's full-corpus retrieval.
 
 On one device the contrastive negatives are the batch's own; the JAX package
 gathers them over its data mesh.
@@ -47,6 +48,7 @@ from distillclip_tpu_torch.models import CLIPModel, CLIPOutput, ControlFlags
 from distillclip_tpu_torch.models.clip import cosine_logits
 from distillclip_tpu_torch.models.outputs import TextOutput, VisionOutput
 from distillclip_tpu_torch.serving.lclip_score import seeded_init
+from distillclip_tpu_torch.training import metrics as M
 from distillclip_tpu_torch.training.checkpoints import restore_tower_params
 from distillclip_tpu_torch.training.task_common import (
     FrozenTeacher,
@@ -320,3 +322,38 @@ class DualDistillTask:
             lambda params, *batch: loss(params, *batch, deterministic,
                                         generator_for(params) if random else None),
             tx, trainable_mask, self.log_grad_norm)
+
+    def make_eval_step(self) -> Callable:
+        """``step(state, tokens, images) -> (metrics, reps)``: the live loss
+        (both teacher towers run, whichever step trained) under
+        ``torch.no_grad()`` with the students in eval mode, so every kernel
+        takes its lean route.  The metrics are 0-dim tensors on the state's
+        device: ``loss``, the loss parts, ``stu_acc_top{k}`` /
+        ``tea_acc_top{k}`` on the batch and the student's diagonal scores;
+        ``reps`` the four last representations in fp32."""
+        random = self.loss_control.has_params
+
+        @torch.no_grad()
+        def step(state: TrainState, tokens, images):
+            device = device_of(state.params)
+            generator = torch.Generator(device=device).manual_seed(0) if random else None
+            loss, (parts, stu_out, tea_out) = self.loss_fn(state.params, tokens, images, True,
+                                                           generator)
+            stu_img = stu_out.visual_output.last_representation
+            stu_txt = stu_out.text_output.last_representation
+            tea_img = tea_out.visual_output.last_representation
+            tea_txt = tea_out.text_output.last_representation
+            stu_logits = M.l2_normalize_f32(stu_img) @ M.l2_normalize_f32(stu_txt).t()
+            tea_logits = M.l2_normalize_f32(tea_img) @ M.l2_normalize_f32(tea_txt).t()
+            metrics = {"loss": loss, **parts}
+            for k, v in M.topk_accuracy(stu_logits).items():
+                metrics[f"stu_acc_top{k}"] = v
+            for k, v in M.topk_accuracy(tea_logits).items():
+                metrics[f"tea_acc_top{k}"] = v
+            metrics["stu_mean_score"], metrics["stu_softmax_mean_score"] = \
+                M.diag_scores(stu_logits)
+            reps = {"stu_image_outs": stu_img.float(), "stu_text_outs": stu_txt.float(),
+                    "tea_image_outs": tea_img.float(), "tea_text_outs": tea_txt.float()}
+            return metrics, reps
+
+        return step

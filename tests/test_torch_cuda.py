@@ -635,6 +635,110 @@ def test_tiny_teacher_and_text_cached_step_on_card_match_plain_cpu_path(tmp_path
     assert counts["plain_attention_rows_qkv"] == 2          # the image teacher, no gradient
 
 
+def test_tiny_eval_step_on_card_takes_the_lean_kernels(tmp_path):
+    """The stage-3 eval step on the card: every kernel on its lean route (no
+    saved probabilities, residuals or statistics, no backward), metrics and
+    representations near the fp32 CPU path's, accuracies in [0, 1]."""
+    from distillclip_tpu_torch.models import RepeatTextTransformer, RepeatVisionTransformer
+    from distillclip_tpu_torch.tools.fabricate_teacher import make_clip_state_dict
+    from distillclip_tpu_torch.training import DualDistillTask
+
+    path = tmp_path / "tiny_clip.pt"
+    torch.save(make_clip_state_dict(vision_width=128, vision_layers=2, patch_size=8,
+                                    image_resolution=32, text_width=128, text_layers=2,
+                                    context_length=13, vocab_size=100, embed_dim=64), str(path))
+    common = dict(out_dim=64, embed_dim=64, depth=2, num_heads=4, repeated_times=2,
+                  use_transform=True)
+
+    def task(dtype):
+        return DualDistillTask(
+            image_student=RepeatVisionTransformer(img_size=32, patch_size=8, qkv_bias=True,
+                                                  **common),
+            text_student=RepeatTextTransformer(vocab_size=100, context_length=13, **common),
+            loss_control_para={"loss_name": ["out_l1", "out_cos", "cos_diff"]},
+            teacher_name=str(path), compute_dtype=dtype)
+
+    card, cpu = task("bfloat16"), task("float32")
+    rng = np.random.default_rng(5)
+    images = torch.from_numpy(rng.integers(0, 256, size=(6, 32, 32, 3), dtype=np.uint8))
+    tokens = rng.integers(1, 99, size=(6, 13))
+    tokens[:, 7] = 99
+    tokens = torch.from_numpy(tokens)
+    state, _ = card.init_state(0, 1, device="cuda")
+    cpu_state, _ = cpu.init_state(0, 1, params={k: v.cpu() for k, v in state.params.items()},
+                                  device="cpu")
+    ops.reset_launch_counts()
+    metrics, reps = card.make_eval_step()(state, tokens.cuda(), images.cuda())
+    counts = ops.launch_counts()
+    # 2 + 2 student layers, 2 + 2 teacher layers, the students' two final norms
+    # and the teachers' ln_pre, ln_post and ln_final
+    assert counts == {**dict.fromkeys(ops.KERNELS, 0), "dense_ln": 8, "dense_act_ln": 8,
+                      "transform_attention_rows_qkv": 4, "plain_attention_rows_qkv": 4,
+                      "layer_norm_rows": 5}
+    ref_metrics, ref_reps = cpu.make_eval_step()(cpu_state, tokens, images)
+    for k, v in ref_metrics.items():
+        if "acc" in k:
+            assert 0.0 <= float(metrics[k]) <= 1.0
+        else:
+            assert abs(float(metrics[k]) - float(v)) < 2e-2, k
+    for k, v in ref_reps.items():
+        assert reps[k].dtype == torch.float32 and reps[k].is_cuda
+        assert torch.nn.functional.cosine_similarity(reps[k].cpu(), v).min() > 0.999, k
+
+
+def test_to_device_goes_through_pinned_memory():
+    from distillclip_tpu_torch.training.trainer import to_device
+
+    rng = np.random.default_rng(6)
+    batch = {"images": rng.integers(0, 256, size=(4, 8, 8, 3), dtype=np.uint8),
+             "tokens": rng.integers(0, 100, size=(4, 5)).astype(np.int32),
+             "nested": {"rep": rng.standard_normal((4, 3), dtype=np.float32)},
+             "names": ["a", "b", "c", "d"]}
+    moved = to_device(batch, "cuda")
+    torch.cuda.synchronize()
+    assert moved["names"] == batch["names"]
+    for got, want in ((moved["images"], batch["images"]), (moved["tokens"], batch["tokens"]),
+                      (moved["nested"]["rep"], batch["nested"]["rep"])):
+        assert got.is_cuda and got.dtype == torch.from_numpy(want).dtype
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+    pinned = torch.from_numpy(batch["tokens"]).pin_memory()
+    assert pinned.is_pinned()
+    again = to_device({"t": pinned, "on_card": moved["images"]}, "cuda")
+    assert again["on_card"] is moved["images"]
+    torch.testing.assert_close(again["t"].cpu(), pinned)
+
+
+def test_prestaged_loader_on_card_gives_the_host_loaders_batches():
+    """A datamodule with ``prestage_device`` keeps its items on the card: each
+    epoch's batches equal the host loader's at that epoch's permutation."""
+    from distillclip_tpu_torch.data.datamodule import DevicePrestagedLoader, MainDataModule
+    from distillclip_tpu_torch.training.trainer import fit_loaders
+
+    def module(prestage):
+        return MainDataModule(
+            dataset_para={"size": 40, "image_size": 16, "context_length": 9, "vocab_size": 50,
+                          "uint8": True, "image_pool": 7, "cached_text_rep_dim": 4},
+            dataset="synthetic", dataset_name="SyntheticPairDataset", num_workers=2,
+            train_batch_size=8, val_batch_size=8, seed=3, prestage_device=prestage)
+
+    staged, _ = fit_loaders(module(True), "cuda")
+    host, _ = fit_loaders(module(False), "cuda")
+    assert isinstance(staged, DevicePrestagedLoader) and len(staged) == len(host) == 5
+    orders = []
+    for epoch in range(3):
+        staged.set_epoch(epoch)
+        host.set_epoch(epoch)
+        got, want = list(staged), list(host)
+        assert len(got) == len(want) == 5
+        for a, b in zip(got, want):
+            assert set(a) == set(b)
+            for k in a:
+                assert a[k].is_cuda and a[k].dtype == torch.from_numpy(b[k]).dtype
+                np.testing.assert_array_equal(a[k].cpu().numpy(), b[k])
+        orders.append(np.concatenate([b["tokens"].cpu().numpy() for b in got]))
+    assert not np.array_equal(orders[0], orders[1])
+
+
 # -- attention on [B, H, N, d] views with the logsumexp residual ---------------------
 
 import importlib  # noqa: E402

@@ -39,7 +39,13 @@ def test_port_files_are_found():
             "distillclip_tpu_torch/config/perf.py", "distillclip_tpu_torch/config/loader.py",
             "distillclip_tpu_torch/data/tokenizer.py", "distillclip_tpu_torch/data/transforms.py",
             "distillclip_tpu_torch/data/native_loader.py",
-            "distillclip_tpu_torch/training/checkpoints.py"} <= names
+            "distillclip_tpu_torch/training/checkpoints.py",
+            "distillclip_tpu_torch/data/loader.py", "distillclip_tpu_torch/data/datamodule.py",
+            "distillclip_tpu_torch/data/component/synthetic.py",
+            "distillclip_tpu_torch/training/trainer.py", "distillclip_tpu_torch/training/metrics.py",
+            "distillclip_tpu_torch/training/logging.py",
+            "distillclip_tpu_torch/training/profiling.py",
+            "distillclip_tpu_torch/tools/lr_finder.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

@@ -98,12 +98,6 @@ def test_score_needs_images_and_captions(capsys, teacher_ckpt):
     assert "need --images DIR and --captions FILE" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("command", ["fit", "validate", "lr_find"])
-def test_trainer_commands_wait_for_the_trainer(command):
-    with pytest.raises(NotImplementedError, match="queue 1: the trainer"):
-        cli.main([command, "-c", "x.yaml"])
-
-
 def test_similarity_matrix_takes_captions_as_in_jax(teacher_ckpt):
     """The repaired public signature: images against caption strings."""
     ours = LCLIPScorer.from_teacher(teacher_ckpt, device="cpu")
