@@ -81,6 +81,23 @@ phases, each of which exits non-zero on failure:
    validate --ckpt last and lr_find (16 steps, a suggestion); the warm
    epoch's items/s and input stall beside the bare text-cached step's
    pairs/s (the `fit` line);
+5h. the final configs' own data (``data_phases``): a corpus in their layouts
+   written from a seed by tools/fabricate_images.py (1024 combined and 1024
+   COCO train2017 JPEGs, 256 val2017, 4096 CC3M captions) under build/; each
+   config's prepare through MainDataModule.prepare_data on the card (per
+   cache: rows, seconds, rows/s, launches = chunks x one encode's, the first
+   16 rows against the plain fp32 CPU encode: unit rows within 2e-2, cosine
+   >= 0.999); cli.main fit on configs/final/{l_clip,image,text}.yaml with an
+   overlay of the corpus paths, the seeded teacher, the stage checkpoints as
+   load_path and the cuts (256 items a step, 2 epochs of 4 steps, validation
+   on 2 batches of 128): the first logged loss against the bare step on the
+   trainer's first batch and seeded masters (1e-3 relative), finite
+   validation metrics, one train and one eval step's launches as the tables
+   say, the warm epoch's items/s and input stall beside the bare step's
+   pairs/s; then tools/dryrun.py over NCCL on min(2, device_count) ranks (4
+   text-cached steps of l_clip.yaml, 256 pairs a rank): every rank the same
+   losses, masters bitwise equal, and at world size 1 the single process's
+   loss exactly or within 1e-6 relative;
 6. card numbers: each kernel's time beside its plain version's, its bound
    and, where one PyTorch call computes the same function, that call's time
    (for K2, #8, K3 and #5, which no one call matches, the PyTorch composition
@@ -1876,6 +1893,456 @@ def fit_phase(ops, card: str, text_cached_ms: float) -> dict:
     return {"fit train_step": train_counts, "fit eval_step": eval_counts}
 
 
+# -- phase 5h: the final configs' own data, and data parallelism ------------------
+
+DATA_DIR = ROOT / "build" / "chip_smoke" / "data"
+CORPUS_TRAIN, CORPUS_VAL, CORPUS_CAPTIONS = 1024, 256, 4096
+CORPUS_COCO_TRAIN = 2048     # l_clip's 4-step epochs leave the loader working
+FINAL_PAIRS = 256        # items a step (the configs say 512 and 1024)
+FINAL_EPOCHS, FINAL_STEPS, FINAL_VAL_BATCHES = 2, 4, 2
+FINAL_VAL_BATCH = CORPUS_VAL // FINAL_VAL_BATCHES   # the configs say 1250
+FINAL_CUTS = (f"{FINAL_PAIRS} items a step, {FINAL_EPOCHS} epochs of {FINAL_STEPS} steps, "
+              f"validation on {FINAL_VAL_BATCHES} batches of {FINAL_VAL_BATCH}, the seeded "
+              f"teacher, a log line every step")
+# the students without a gradient (the eval steps' lean towers): the image
+# student's 6 logical layers, the text student's 4, each with its final norm
+IMAGE_STUDENT_LEAN = {"dense_ln": 6, "dense_act_ln": 6, "transform_attention_rows_qkv": 6,
+                      "layer_norm_rows": 1}
+TEXT_STUDENT_LEAN = {"dense_ln": 4, "dense_act_ln": 4, "transform_attention_rows_qkv": 4,
+                     "layer_norm_rows": 1}
+# stage 2: the text student alone (4 logical layers), its teacher cached
+TEXT_STEP_LAUNCHES = {"dense_ln": 4, "dense_act_ln_res": 4, "transform_attention_save_p": 4,
+                      "transform_attention_bwd": 4, "dense_ln_bwd": 8, "layer_norm_rows": 1,
+                      "layer_norm_rows_bwd": 1}
+# config -> (its file, the train step's launches, the eval step's)
+FINAL_FITS = {
+    "l_clip": (CONFIG, FIT_TRAIN_LAUNCHES, FIT_EVAL_LAUNCHES),
+    "image": (IMAGE_CONFIG, add_counts(IMAGE_STEP_LAUNCHES, IMAGE_TEACHER_LAUNCHES),
+              add_counts(IMAGE_STUDENT_LEAN, IMAGE_TEACHER_LAUNCHES)),
+    "text": (ROOT / "configs" / "final" / "text.yaml", TEXT_STEP_LAUNCHES,
+             add_counts(TEXT_STUDENT_LEAN, TEXT_TEACHER_LAUNCHES)),
+}
+# the encoders of data/component/utils.py -> (the tower, its launches per chunk)
+ENCODERS = {"encode_texts": ("text", TEXT_TEACHER_LAUNCHES),
+            "encode_tokens": ("text", TEXT_TEACHER_LAUNCHES),
+            "encode_images": ("image", IMAGE_TEACHER_LAUNCHES)}
+
+
+def corpus_phase() -> None:
+    """The final configs' layouts, written from a seed by the port's
+    fabricator: COCO train2017 / val2017 with their captions, the combined
+    folder of coco- and imagenet-prefixed JPEGs, and a CC3M tsv of captions."""
+    import shutil
+
+    from distillclip_tpu_torch.tools.fabricate_images import (
+        WORDS,
+        fabricate,
+        fabricate_coco_train,
+    )
+
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        fabricate(str(DATA_DIR), n_train=CORPUS_TRAIN, n_val=CORPUS_VAL, seed=SEED)
+        fabricate_coco_train(str(DATA_DIR), n_train=CORPUS_COCO_TRAIN, seed=SEED + 1)
+    (DATA_DIR / "cc").mkdir()
+    (DATA_DIR / "cc" / "train_cc3m.tsv").write_text("".join(
+        f"{WORDS[i % len(WORDS)]} number {i}\thttp://cc.invalid/{i}.jpg\n"
+        for i in range(CORPUS_CAPTIONS)))
+    print(f"corpus: {CORPUS_TRAIN} combined train JPEGs (coco and imagenet prefixes), "
+          f"{CORPUS_COCO_TRAIN} COCO train2017 and {CORPUS_VAL} val2017 JPEGs (224 px) with their "
+          f"captions, {CORPUS_CAPTIONS} CC3M captions, under {DATA_DIR.relative_to(ROOT)} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def final_overlay(name: str) -> dict:
+    """What the final config's run changes: the corpus paths, the seeded
+    teacher, the stage checkpoints as ``load_path`` and the cuts."""
+    teacher = teacher_checkpoint()
+    data = {"cache_dir": str(DATA_DIR / "cache"), "teacher_name": teacher}
+    if name == "l_clip":
+        data.update(root_path=str(DATA_DIR / "mscoco"),
+                    annotation_path=str(DATA_DIR / "mscoco" / "annotations"))
+    elif name == "image":
+        data.update(combine_dataset_path=str(DATA_DIR / "combined"))
+    model = {"teacher_name": teacher, "download_root": str(DATA_DIR / "cache")}
+    if name == "l_clip":
+        model["load_path"] = stage_checkpoints()
+    return {"model": {"init_args": model},
+            "data": {"init_args": {"train_batch_size": FINAL_PAIRS,
+                                   "val_batch_size": FINAL_VAL_BATCH,
+                                   "prepare_para": {"raw_data_dir": str(DATA_DIR)},
+                                   "dataset_para": data}},
+            "trainer": {"max_epochs": FINAL_EPOCHS, "limit_train_batches": FINAL_STEPS,
+                        "limit_val_batches": FINAL_VAL_BATCHES, "log_every_n_steps": 1,
+                        "check_val_every_n_epoch": 1,
+                        "logger": {"init_args": {"dir": str(DATA_DIR / "result"),
+                                                 "name": f"final-{name}"}}}}
+
+
+def final_config(name: str) -> list:
+    """[the final config, the overlay file]."""
+    import yaml
+
+    path = DATA_DIR / f"overlay_{name}.yaml"
+    path.write_text(yaml.safe_dump(final_overlay(name)))
+    return [str(FINAL_FITS[name][0]), str(path)]
+
+
+UNIT_ROW_LIMIT = 5e-3    # the cached rows' readings: 1.6e-3 (text), 1.9e-3 (image)
+
+
+@contextlib.contextmanager
+def logged_encodes(records: list):
+    """The teacher encodes of ``data/component/utils.py`` while the block
+    runs, from their log records: encoder, rows, chunks, seconds."""
+    import logging
+
+    from distillclip_tpu_torch.data.component import utils
+
+    class Records(logging.Handler):
+        def emit(self, record):
+            if hasattr(record, "encode"):
+                records.append(record.encode)
+
+    logger, handler, level = utils.log, Records(), utils.log.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        yield
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+
+
+def encode_launches(records: list) -> dict:
+    """The launches of the encodes in ``records``: chunks x one encode's."""
+    return add_counts(*[{k: v * r["chunks"] for k, v in ENCODERS[r["encoder"]][1].items()}
+                        for r in records])
+
+
+def written_caches(before: dict) -> list:
+    """The cache files under DATA_DIR/cache written since ``before`` (path ->
+    mtime)."""
+    return sorted(p for p in (DATA_DIR / "cache").glob("*.npz")
+                  if before.get(p) != p.stat().st_mtime_ns)
+
+
+def cache_mtimes() -> dict:
+    return {p: p.stat().st_mtime_ns for p in (DATA_DIR / "cache").glob("*.npz")}
+
+
+def check_cache(path: Path, label: str, card: str) -> None:
+    """A teacher cache as prepare wrote it: its first 16 rows against the
+    plain fp32 CPU encode of the same inputs, and, as the control, against
+    the plain encode of the next row's input."""
+    from distillclip_tpu_torch.data.component import utils
+    from distillclip_tpu_torch.data.component.ms_coco import load_coco_index
+
+    with np.load(path) as f:
+        cache = {k: f[k] for k in f.files}
+    if "caption_rep" in cache:
+        index = load_coco_index(str(DATA_DIR / "mscoco" / "annotations" /
+                                    "captions_train2017.json"))
+        key, encoder, inputs = "caption_rep", "encode_texts", [c[0] for _, c in index[:17]]
+    elif "captions_rep" in cache:
+        key, encoder = "captions_rep", "encode_texts"
+        inputs = list(map(str, cache["captions"][:17]))
+    elif "image_rep" in cache:
+        key, encoder, inputs = "image_rep", "encode_images", list(map(str, cache["paths"][:17]))
+    elif "train_rep" in cache:
+        with np.load(path.with_name(path.name.replace("-reps-", "-"))) as f:
+            key, encoder, inputs = "train_rep", "encode_tokens", f["tokens"][:17]
+    else:
+        return      # the token cache: no teacher
+    got = cache[key][:len(inputs) - 1]
+    plain = getattr(utils, encoder)(inputs, teacher_checkpoint(), device="cpu")     # fp32
+    unit = lambda x: x / np.linalg.norm(x, axis=1, keepdims=True)
+
+    def reading(ref):
+        a, b = unit(got), unit(ref)
+        return float(np.abs(a - b).max()), float((a * b).sum(1).min())
+
+    (unit_err, cos), (control_err, control_cos) = reading(plain[:-1]), reading(plain[1:])
+    err = float(np.abs(got - plain[:-1]).max())
+    name = path.name.replace(teacher_checkpoint().replace("/", "-"), "<teacher>")
+    print(f"prepare {label}: {name} {key} {cache[key].shape}, rows[:{len(got)}] vs the plain "
+          f"fp32 CPU encode ({encoder}): unit rows max_abs_err {unit_err:.3e} (limit "
+          f"{UNIT_ROW_LIMIT:g}), min row cosine {cos:.6f} (limit 0.999); raw max_abs_err "
+          f"{err:.3e} of values up to {float(np.abs(plain).max()):.3f}; control, each row "
+          f"against the next input's encode: unit max_abs_err {control_err:.3e}, min cosine "
+          f"{control_cos:.6f} [{card}]",
+          flush=True)
+    if unit_err > UNIT_ROW_LIMIT or cos < 0.999 or not np.isfinite(got).all():
+        fail(f"prepare {label}: the card's {key} cache disagrees with the plain encode")
+    if control_err <= UNIT_ROW_LIMIT and control_cos >= 0.999:
+        fail(f"prepare {label}: the limits do not tell one input's {key} row from another's")
+
+
+def prepare_phase(ops, card: str) -> dict:
+    """Each final config's prepare through MainDataModule.prepare_data on
+    the card: its wall seconds and launches (the sum over its encodes of
+    chunks x one encode's), per encode its rows, chunks and rows/s, and per
+    cache its first 16 rows against the plain fp32 CPU encode."""
+    from distillclip_tpu_torch.config import instantiate, load_configs
+
+    counts = {}
+    zero = dict.fromkeys(ops.KERNELS, 0)
+    for name, label in (("l_clip", "ms_coco"), ("image", "combine_image"),
+                        ("text", "combine_text")):
+        dm = instantiate(load_configs(final_config(name))["data"])
+        before, records = cache_mtimes(), []
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with logged_encodes(records):
+            dm.prepare_data(DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got, want = ops.launch_counts(), encode_launches(records)
+        for r in records:
+            print(f"prepare {label}: {r['encoder']} ({ENCODERS[r['encoder']][0]} teacher) "
+                  f"{r['rows']} rows in {r['chunks']} chunks of {r['batch_size']}: "
+                  f"{r['seconds']:.3f} s, {r['rows'] / r['seconds']:.1f} rows/s [{card}]",
+                  flush=True)
+        print(f"prepare {label}: {wall:.2f} s wall (the teachers' loads, decode and tokenise "
+              f"included); launches {({k: v for k, v in got.items() if v})} (want {want})",
+              flush=True)
+        if not records:
+            fail(f"prepare {label}: no teacher encode ran")
+        if got != {**zero, **want}:
+            fail(f"prepare {label}: the launches differ from chunks x one encode's")
+        for path in written_caches(before):
+            check_cache(path, label, card)
+        counts[f"prepare {label}"] = got
+    return counts
+
+
+def final_fit_phase(ops, card: str, name: str) -> dict:
+    """``cli.main fit`` on one final config with its own dataset and the
+    cuts; the first logged loss against the bare step on the trainer's first
+    batch and seeded masters, the launches of one train and one eval step,
+    finite validation metrics, items/s and input stall beside the bare
+    step's pairs/s."""
+    import shutil
+
+    from distillclip_tpu_torch.config import instantiate, load_configs
+    from distillclip_tpu_torch.training import trainer as trainer_mod
+    from distillclip_tpu_torch.training.trainer import to_device
+
+    configs = final_config(name)
+    _, want_train, want_eval = FINAL_FITS[name]
+    run_dir = DATA_DIR / "result" / f"final-{name}"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    first: list = []
+
+    def capture(batch, device):
+        moved = to_device(batch, device)
+        if not first:
+            first.append(moved)
+        return moved
+
+    trainer_mod.to_device = capture
+    encodes: list = []
+    ops.reset_launch_counts()
+    try:
+        with logged_encodes(encodes):
+            rc, out = fit_cli(["fit", "-c", configs[0], "-c", configs[1]])
+    finally:
+        trainer_mod.to_device = to_device
+    run_counts = ops.launch_counts()
+    if rc != 0:
+        fail(f"fit {name}: rc {rc}")
+    records = fit_records(run_dir)
+    train = [r for r in records if "train_loss/loss" in r]
+    val = [r for r in records if "val_loss/loss" in r]
+    perf = [r for r in records if "perf/items_per_s" in r]
+    if len(train) != FINAL_EPOCHS * FINAL_STEPS or len(val) != FINAL_EPOCHS or \
+            len(perf) != FINAL_EPOCHS:
+        fail(f"fit {name}: {len(train)} train steps, {len(val)} validations, {len(perf)} epochs")
+    for r in train + val:
+        bad = [k for k, v in r.items() if k.startswith(("train_loss/", "val_loss/", "val_stu_acc/"))
+               and not np.isfinite(v)]
+        if bad or (r in val and not any(k.startswith("val_stu_acc/") for k in r)):
+            fail(f"fit {name}: values not finite or missing at step {r['step']}: {bad}")
+
+    cfg = load_configs(configs)
+    task = instantiate(cfg["model"])
+    dm = instantiate(cfg["data"])
+    dm.setup("fit")                 # the caches the fit prepared
+    loader, val_loader = dm.train_dataloader(), dm.val_dataloader()
+    batch = first[0]
+    state, tx = task.init_state(FIT_SEED, min(len(loader), FINAL_STEPS), device=DEVICE)
+    dual = hasattr(task, "image_student")
+    if dual:
+        step = task.make_train_step(tx, cached_text_teacher=True, seed=FIT_SEED)
+        inputs = [batch["tokens"], batch["images"], batch["tea_rep"]]
+    elif "tea_rep" in batch:
+        step = task.make_train_step(tx, cached_teacher=True, seed=FIT_SEED)
+        inputs = [batch["tea_rep"], batch["inputs"]]
+    else:
+        step = task.make_train_step(tx, seed=FIT_SEED)
+        inputs = [batch["inputs"]]
+    ops.reset_launch_counts()
+    state, metrics = step(state, *inputs)
+    loss = float(metrics["loss"])
+    train_counts = ops.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        state, metrics = step(state, *inputs)
+    float(metrics["loss"])
+    bare_ms = (time.perf_counter() - t0) / 5 * 1e3
+    val_batch = to_device(next(iter(val_loader)), DEVICE)
+    eval_step = task.make_eval_step()
+    ops.reset_launch_counts()
+    eval_args = ([val_batch["tokens"], val_batch["images"]] if dual
+                 else [val_batch["inputs"], val_batch["contrary"]])
+    eval_metrics, _ = eval_step(state, *eval_args)
+    torch.cuda.synchronize()
+    eval_counts = ops.launch_counts()
+    if not all(np.isfinite(float(v)) for v in eval_metrics.values()):
+        fail(f"fit {name}: the bare eval step's metrics are not finite")
+
+    rel = abs(train[0]["train_loss/loss"] - loss) / abs(loss)
+    warm = perf[-1]
+    bare = len(inputs[0]) / bare_ms * 1e3
+    shapes = {k: f"{tuple(v.shape)} {str(v.dtype)[6:]}" for k, v in batch.items()}
+    print(f"fit {Path(configs[0]).name}: {cfg['data']['init_args']['dataset']} on the "
+          f"fabricated corpus, batch {shapes}"
+          f"{', RandAugment(4) on the host' if dual or task.model_type == 'image' else ''}; "
+          f"cuts: {FINAL_CUTS}; first logged train_loss/loss {train[0]['train_loss/loss']:.6f} "
+          f"vs the bare step on the same batch and seeded masters {loss:.6f} (rel err "
+          f"{rel:.3e}, limit 1e-3); val_loss/loss {[round(r['val_loss/loss'], 6) for r in val]}, "
+          f"val_stu_acc/stu_acc_top1 {[r['val_stu_acc/stu_acc_top1'] for r in val]}; warm epoch "
+          f"{warm['perf/items_per_s']:.1f} items/s, input stall {warm['perf/input_stall_frac']:.4f}"
+          f" of {warm['perf/epoch_time_s']:.3f} s; the bare step {bare_ms:.2f} ms, {bare:.1f} "
+          f"pairs/s (device-resident) [{card}]", flush=True)
+    print(f"fit {name}: launches of one train step "
+          f"{({k: v for k, v in train_counts.items() if v})}; of one eval step "
+          f"{({k: v for k, v in eval_counts.items() if v})}", flush=True)
+    if rel > 1e-3:
+        fail(f"fit {name}: the trainer's first loss is not the bare step's")
+    zero = dict.fromkeys(ops.KERNELS, 0)
+    if train_counts != {**zero, **want_train}:
+        fail(f"fit {name}: train step launches differ from {want_train}")
+    if eval_counts != {**zero, **want_eval}:
+        fail(f"fit {name}: eval step launches differ from {want_eval}")
+    check_run_launches(f"fit {name}", run_counts, zero, want_train, len(train), want_eval,
+                       len(val) * FINAL_VAL_BATCHES, encodes)
+    del task, state, loader, val_loader, first
+    return {f"fit {name} train_step": train_counts, f"fit {name} eval_step": eval_counts}
+
+
+def check_run_launches(label: str, counts: dict, zero: dict, want_train: dict, steps: int,
+                       want_eval: dict, eval_steps: int, encodes: list) -> None:
+    """A fit's launches against its train and eval steps' tables and the
+    teacher encodes its prepare ran."""
+    want = add_counts(*[want_train] * steps, *[want_eval] * eval_steps, encode_launches(encodes))
+    print(f"{label}: the run's launches {({k: v for k, v in counts.items() if v})} = {steps} "
+          f"train steps, {eval_steps} eval steps and {sum(r['chunks'] for r in encodes)} "
+          f"encode chunks of prepare: {counts == {**zero, **want}}", flush=True)
+    if counts != {**zero, **want}:
+        fail(f"{label}: the run's launches are not its steps' and encodes' {want}")
+
+
+def traced_fit_phase(ops, card: str) -> None:
+    """configs/final/l_clip.yaml's fit once more, for one epoch of 8 steps
+    (the whole COCO corpus) under the trace profiler (its first 5 steps, so
+    that the loader still works while steps 2-5 run): the host's split of a
+    step (to_device, the train step's launch) and the device's busy share,
+    past the first step."""
+    import shutil
+
+    import yaml
+
+    configs = final_config("l_clip")
+    run_name = "final-l_clip-traced"
+    run_dir = DATA_DIR / "result" / run_name
+    shutil.rmtree(run_dir, ignore_errors=True)
+    overlay = DATA_DIR / "overlay_l_clip_traced.yaml"
+    steps = CORPUS_COCO_TRAIN // FINAL_PAIRS
+    overlay.write_text(yaml.safe_dump({"trainer": {
+        "max_epochs": 1, "limit_train_batches": steps, "profiler": "trace",
+        "logger": {"init_args": {"name": run_name}}}}))
+    encodes: list = []
+    ops.reset_launch_counts()
+    with logged_encodes(encodes):
+        rc, _ = fit_cli(["fit", "-c", configs[0], "-c", configs[1], "-c", str(overlay)])
+    counts = ops.launch_counts()
+    if rc != 0:
+        fail(f"fit l_clip traced: rc {rc}")
+    records = fit_records(run_dir)
+    train = [r for r in records if "train_loss/loss" in r]
+    perf = [r for r in records if "perf/items_per_s" in r]
+    if len(train) != steps or len(perf) != 1:
+        fail(f"fit l_clip traced: {len(train)} train steps, {len(perf)} epochs")
+    _, want_train, want_eval = FINAL_FITS["l_clip"]
+    check_run_launches("fit l_clip traced", counts, dict.fromkeys(ops.KERNELS, 0), want_train,
+                       len(train), want_eval, FINAL_VAL_BATCHES, encodes)
+    split = trace_split(run_dir / "torch_trace" / "trace.json")
+    rest = split["host_step_ms"] - split["to_device_ms"] - split["train_step_ms"]
+    epoch = perf[0]
+    print(f"fit l_clip.yaml traced: one epoch of {steps} steps of {FINAL_PAIRS} (the COCO "
+          f"corpus; cold, under the profiler) {epoch['perf/items_per_s']:.1f} items/s, input stall "
+          f"{epoch['perf/input_stall_frac']:.4f} of {epoch['perf/epoch_time_s']:.3f} s; steps "
+          f"{FIT_TRACE_SKIP + 1}-{FIT_TRACE_SKIP + split['steps']}: host "
+          f"{split['host_step_ms']:.2f} ms a step (to_device {split['to_device_ms']:.2f}, "
+          f"train_step launch {split['train_step_ms']:.2f}, the rest {rest:.2f}: waiting on the "
+          f"loader, logging), device busy {split['device_busy_ms']:.2f} of a "
+          f"{split['device_window_ms']:.2f} ms window (idle share "
+          f"{1 - split['device_busy_ms'] / split['device_window_ms']:.4f}) [{card}]", flush=True)
+
+
+DDP_PAIRS, DDP_STEPS = 256, 4
+
+
+def ddp_phase(ops, card: str) -> dict:
+    """tools/dryrun.py over NCCL on min(2, device_count) ranks: the
+    text-cached step of configs/final/l_clip.yaml on each rank's rows of one
+    seeded global batch against the single process on the whole batch."""
+    procs = min(2, torch.cuda.device_count())
+    cmd = [sys.executable, "-m", "distillclip_tpu_torch.tools.dryrun", "--procs", str(procs),
+           "--device", DEVICE, "--config", str(CONFIG),
+           "--teacher", teacher_checkpoint(), "--pairs", str(DDP_PAIRS), "--steps",
+           str(DDP_STEPS), "--timeout", "400", "--work", str(ROOT / "build" / "dryrun" / "smoke")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=str(ROOT), capture_output=True, text=True, timeout=500)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(f"ddp: {line}", flush=True)
+    res = json.loads(lines[-1]) if lines and lines[-1].startswith("{") else {}
+    print(f"ddp: world size {procs} over {'NCCL' if DEVICE == 'cuda' else 'gloo'} "
+          f"(tools/dryrun.py, the text-cached step of "
+          f"l_clip.yaml, {DDP_PAIRS} pairs a rank, {DDP_STEPS} steps), rc {proc.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s: each rank's losses {res.get('losses')}; masters "
+          f"bitwise equal across ranks {res.get('masters_equal')}; against the single process "
+          f"on the global batch: loss rel diff {res.get('loss_rel_diff')}, max |master diff| "
+          f"{res.get('max_master_diff')}; {res.get('ms')} ms the last step, the single "
+          f"process {res.get('single_ms')} ms [{card}]", flush=True)
+    if proc.returncode != 0 or not res.get("ok"):
+        print(proc.stderr[-4000:], flush=True)
+        fail(f"ddp: the dry run failed (rc {proc.returncode})")
+    if procs == 1 and res["loss_rel_diff"] > 1e-6:
+        fail("ddp: at world size 1 the loss differs from the single process's")
+    print(f"ddp: launches of the first rank's last step "
+          f"{({k: v for k, v in res['launches'].items() if v})}", flush=True)
+    if res["launches"] != {**dict.fromkeys(ops.KERNELS, 0), **FIT_TRAIN_LAUNCHES}:
+        fail(f"ddp: the step's launches differ from {FIT_TRAIN_LAUNCHES}")
+    return {"ddp train_step": res["launches"]}
+
+
+def data_phases(ops, card: str) -> dict:
+    """Phase 5h: the corpus, prepare, fit on the three final configs (and
+    l_clip's traced), ddp."""
+    corpus_phase()
+    counts = prepare_phase(ops, card)
+    for name in FINAL_FITS:
+        counts.update(final_fit_phase(ops, card, name))
+    traced_fit_phase(ops, card)
+    counts.update(ddp_phase(ops, card))
+    return counts
+
+
 # -- phase 5f: the score entry point -------------------------------------------
 
 CAPTION_WORDS = ("a", "the", "cat", "dog", "on", "grass", "red", "car", "two", "people",
@@ -2153,6 +2620,7 @@ def main() -> None:
                                    profiling and label.startswith("fc1_ln=0"))
                  for label in KNOB_PHASES}
     fit_counts = fit_phase(ops, card, runs["text-cached"]["ms"])
+    data_counts = data_phases(ops, card)
     score_counts = score_phase(ops, card)
 
     if profiling:
@@ -2180,7 +2648,7 @@ def main() -> None:
              **{f"serving_call {k}": v["serving"] for k, v in knob_runs.items()},
              **{f"train_step text-cached {k}": v["step"] for k, v in knob_runs.items()},
              **{f"score_cli {k}": v for k, v in score_counts.items()},
-             **fit_counts}
+             **fit_counts, **data_counts}
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1],
                 "launches": sum(c[name] for c in paths.values()),

@@ -9,6 +9,7 @@ Port of ``distillclip_tpu/cli.py``::
         --images DIR --captions FILE
     distillclip-torch score --teacher clip.pt --images DIR --captions FILE
     python -m distillclip_tpu_torch.cli fit -c configs/smoke_text.yaml --device cpu
+    torchrun --nproc_per_node N -m distillclip_tpu_torch.cli fit -c config.yaml [--device cpu]
 
 ``fit``, ``validate`` and ``lr_find`` need at least one ``-c``: repeated files
 deep-merge, the ``perf:`` section is applied (``config.apply_perf_config``;
@@ -27,6 +28,11 @@ checkpoints it scores with the teacher (``--teacher``, a model name or a
 checkpoint path).  One line on standard error says which tokenizer and which
 image decoder ran.  Every command runs on the card unless ``--device cpu``;
 without a card ``--device cuda`` fails.
+
+Under ``torchrun`` (``WORLD_SIZE`` > 1) ``fit``, ``validate`` and ``lr_find``
+join the launcher's processes (``parallel.initialize_distributed``: NCCL on
+``cuda:LOCAL_RANK``, gloo with ``--device cpu``) and train data-parallel; the
+first rank prints the result.  A process group that cannot form is an error.
 """
 
 from __future__ import annotations
@@ -60,21 +66,33 @@ def _load(args) -> dict:
 
 def _build(cfg, args):
     from distillclip_tpu_torch.config import build_trainer, instantiate
+    from distillclip_tpu_torch.parallel import initialize_distributed
 
+    initialize_distributed(args.device)
     return (instantiate(cfg.get("model")), instantiate(cfg.get("data")),
             build_trainer(cfg.get("trainer"), seed=args.seed, device=args.device))
 
 
+def _print_main(line: str) -> None:
+    """Print on the first rank only (every rank holds the same result)."""
+    from distillclip_tpu_torch.parallel import is_main
+
+    if is_main():
+        print(line)
+
+
 def cmd_fit(args) -> int:
     from distillclip_tpu_torch.config import save_resolved_config
+    from distillclip_tpu_torch.parallel import is_main
 
     cfg = _load(args)
     task, datamodule, trainer = _build(cfg, args)
     run_dir = f"{trainer.result_dir}/{trainer.run_name}"
     os.makedirs(run_dir, exist_ok=True)
-    save_resolved_config(cfg, f"{run_dir}/config.yaml")
+    if is_main():
+        save_resolved_config(cfg, f"{run_dir}/config.yaml")
     result = trainer.fit(task, datamodule, ckpt_path=args.ckpt_path)
-    print(json.dumps({"summary": result["summary"]}))
+    _print_main(json.dumps({"summary": result["summary"]}))
     return 0
 
 
@@ -87,7 +105,7 @@ def cmd_validate(args) -> int:
     state, _ = task.init_state(args.seed, 1, device=run_device(args.device))
     if args.ckpt_path:
         restore_state(args.ckpt_path, state)
-    print(json.dumps(trainer.validate(task, datamodule, state), indent=2))
+    _print_main(json.dumps(trainer.validate(task, datamodule, state), indent=2))
     return 0
 
 
@@ -99,8 +117,9 @@ def cmd_lr_find(args) -> int:
     task, datamodule, _ = _build(cfg, args)
     result = lr_find(task, datamodule, min_lr=args.min_lr, max_lr=args.max_lr,
                      num_steps=args.steps, seed=args.seed, device=args.device)
-    print(json.dumps({"suggested_lr": result["suggestion"], "diverged_at": result["diverged_at"],
-                      "steps_run": len(result["lrs"])}))
+    _print_main(json.dumps({"suggested_lr": result["suggestion"],
+                            "diverged_at": result["diverged_at"],
+                            "steps_run": len(result["lrs"])}))
     return 0 if result["suggestion"] is not None else 1
 
 
@@ -162,7 +181,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = parser.parse_args(argv)
     if args.command in ("fit", "validate", "lr_find") and not args.config:
         parser.error(f"{args.command} requires at least one -c/--config")
-    return args.fn(args)
+    import torch.distributed as dist
+
+    joined = dist.is_initialized()
+    try:
+        return args.fn(args)
+    finally:
+        if not joined and dist.is_initialized():   # the process group this call formed
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

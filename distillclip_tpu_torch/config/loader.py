@@ -19,8 +19,6 @@ from typing import Any, Dict, List, Optional
 
 import yaml
 
-from distillclip_tpu_torch.data.datamodule import DATA_ITEM
-
 MODELS_ITEM = "ROADMAP queue 1: models off the main path"
 
 # reference class_path -> the port's (constructor-argument renames below); the
@@ -33,14 +31,12 @@ _ALIASES = {
     "model.dual_distill_model.DualDistillModel":
         "distillclip_tpu_torch.training.dual.DualDistillTask",
     "data.main_datamodule.MainDataModule": "distillclip_tpu_torch.data.datamodule.MainDataModule",
+    "data.text_image_datamodule.TextImageDataModule":
+        "distillclip_tpu_torch.data.component.text_image_webdataset.TextImageDataModule",
     # the plain CLIP encoders, as students of stages 1 and 2 (not served)
     "model.component.image_encoder.ImageEncoder": "distillclip_tpu_torch.models.encoders.ImageEncoder",
     "model.component.text_encoder.TextEncoder": "distillclip_tpu_torch.models.encoders.TextEncoder",
 }
-
-# reference class paths the port does not have yet, by the queue-1 item that
-# brings them
-_UNPORTED_CLASSES = {"data.text_image_datamodule.TextImageDataModule": DATA_ITEM}
 
 _ARG_RENAMES = {
     "distillclip_tpu_torch.training.distill.DistillTask": {"student_encoder": "student"},
@@ -83,9 +79,6 @@ def class_aliases() -> Dict[str, str]:
 
 def resolve_class(class_path: str):
     """(class, canonical path) of a config's ``class_path``."""
-    if class_path in _UNPORTED_CLASSES:
-        raise NotImplementedError(f"{class_path} is not ported yet "
-                                  f"({_UNPORTED_CLASSES[class_path]})")
     class_path = class_aliases().get(class_path, class_path)
     module_name, _, cls_name = class_path.rpartition(".")
     if not module_name:

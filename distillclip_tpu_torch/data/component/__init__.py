@@ -1,6 +1,6 @@
-"""Dataset components, found by name by ``data.datamodule.MainDataModule``.
-
-Ported: ``synthetic``.  The corpora (``ms_coco``, ``combine_image_dataset``,
-``combine_text_dataset``, ``text_image_webdataset``) wait for ROADMAP queue 1:
-real datasets and multi-GPU.
+"""Dataset components, found by name by ``data.datamodule.MainDataModule``:
+``synthetic``, and the corpora of the final configs, ``ms_coco`` (stage 3),
+``combine_image_dataset`` (stage 1), ``combine_text_dataset`` (stage 2) and
+``text_image_webdataset`` (tar shards); ``utils`` holds the teacher's
+pre-encoding that their ``prepare`` hooks run.
 """

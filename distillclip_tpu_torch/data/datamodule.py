@@ -1,31 +1,29 @@
-"""Reflection-driven data module, single process.
+"""Reflection-driven data module.
 
 Port of ``distillclip_tpu/data/datamodule.py``: ``dataset`` names a module
 under ``distillclip_tpu_torch.data.component``, ``dataset_name`` the class in
 it; constructor arguments are taken from ``dataset_para`` by the class's
-signature, and a module-level ``prepare(args)`` hook runs once before setup.
+signature, and a module-level ``prepare(args)`` hook runs once before setup,
+on the run's device (:meth:`MainDataModule.prepare_data`; the trainer calls
+it on the first rank only).
 
-One process drives one device.  A run with ``WORLD_SIZE`` > 1, and the
-corpora the port does not have yet, raise naming ROADMAP queue 1: real
-datasets and multi-GPU.
+One process drives one device.  Under data parallelism each process's
+loaders read its shard of every epoch (``{"num_shards": world_size(),
+"shard_index": rank()}`` from ``torch.distributed``); a launcher's
+``WORLD_SIZE`` > 1 without a process group is an error.
 """
 
 from __future__ import annotations
 
 import importlib
 import inspect
-import os
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from distillclip_tpu_torch.data.loader import DataLoader
-
-DATA_ITEM = "ROADMAP queue 1: real datasets and multi-GPU"
-# the JAX package's dataset components the port does not have yet
-UNPORTED_DATASETS = ("ms_coco", "combine_image_dataset", "combine_text_dataset",
-                     "text_image_webdataset")
+from distillclip_tpu_torch.parallel import shard_kwargs
 
 
 def _to_device_tree(tree, device):
@@ -57,6 +55,10 @@ class DevicePrestagedLoader:
     device batches and replays them in that order every epoch; the port
     reshuffles, which is what training needs (ROADMAP §3, deliberate
     differences).
+
+    Under data parallelism every rank stages the whole dataset once and
+    gathers its batches from its own shard of each epoch's permutation (the
+    wrapped loader's ``batch_indices``).
     """
 
     def __init__(self, loader: DataLoader, device):
@@ -109,8 +111,6 @@ class MainDataModule:
     # -- reflection ----------------------------------------------------------
 
     def _module(self):
-        if self.dataset in UNPORTED_DATASETS:
-            raise NotImplementedError(f"dataset {self.dataset!r} is not ported yet ({DATA_ITEM})")
         return importlib.import_module("distillclip_tpu_torch.data.component." + self.dataset)
 
     def load_prepare(self):
@@ -131,9 +131,15 @@ class MainDataModule:
 
     # -- lifecycle -------------------------------------------------------------
 
-    def prepare_data(self) -> None:
+    def prepare_data(self, device=None) -> None:
+        """Run the dataset's ``prepare`` hook.  ``device`` is the run's: a hook
+        that encodes with the teacher runs there, and refuses to run without
+        one."""
         if self.prepare_function and self.prepare_function_args is not None:
-            self.prepare_function(self.prepare_function_args)
+            args = dict(self.prepare_function_args)
+            if device is not None:
+                args["device"] = str(device)
+            self.prepare_function(args)
 
     def setup(self, stage: Optional[str] = None):
         if stage in ("fit", None):
@@ -142,12 +148,8 @@ class MainDataModule:
 
     @staticmethod
     def _shard_kwargs() -> dict:
-        """One process, one shard: a launcher's ``WORLD_SIZE`` > 1 is refused
-        rather than letting every process train on the whole epoch."""
-        if int(os.environ.get("WORLD_SIZE", "1") or 1) > 1:
-            raise NotImplementedError(f"WORLD_SIZE={os.environ['WORLD_SIZE']}: the port trains "
-                                      f"on one device per run ({DATA_ITEM})")
-        return {}
+        """This process's shard (``parallel.shard_kwargs``)."""
+        return shard_kwargs()
 
     def train_dataloader(self) -> DataLoader:
         """The host loader; a run with ``prestage_device`` wraps it in

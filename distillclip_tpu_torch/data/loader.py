@@ -48,8 +48,8 @@ class DataLoader:
       keeps the batches in order whatever the workers' timing.
     * ``num_shards`` / ``shard_index``: each process loads its interleaved
       slice of the epoch's permutation, every shard the same number of
-      batches (the trainer runs one process; multi-GPU comes with ROADMAP
-      queue 1: real datasets and multi-GPU).
+      batches; under data parallelism the data module sets them from the
+      process group (``parallel.shard_kwargs``).
     """
 
     def __init__(self, dataset: MapDataset, batch_size: int, shuffle: bool = False,

@@ -33,6 +33,8 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from distillclip_tpu_torch.parallel import barrier, is_main
+
 
 def nest(flat: Mapping[str, Any]) -> Dict[str, Any]:
     """``{"a.b.c": t}`` -> ``{"a": {"b": {"c": t}}}``."""
@@ -192,12 +194,20 @@ class CheckpointManager:
                 self._index = json.load(f)
 
     def _write_index(self):
-        with open(self._index_path, "w") as f:
+        tmp = f"{self._index_path}.{os.getpid()}.tmp"
+        with open(tmp, "w") as f:
             json.dump(self._index, f, indent=2)
+        os.replace(tmp, self._index_path)
+
+    def _refresh_index(self):
+        if os.path.exists(self._index_path):
+            with open(self._index_path) as f:
+                self._index = json.load(f)
 
     def save_epoch(self, epoch: int, tree: Any, metrics: Dict[str, Optional[float]]) -> str:
         """Write the epoch's entry and refresh ``last``; returns the entry's
-        path (removed again at once if it does not make the cut)."""
+        path (removed again at once if it does not make the cut).  Every rank
+        calls it: the first writes, the others wait and read the index."""
         acc = metrics.get(self.acc_metric)
         loss = metrics.get(self.loss_metric)
         acc = float(acc) if acc is not None else None
@@ -206,14 +216,19 @@ class CheckpointManager:
         loss_s = f"{loss:.5f}" if loss is not None else "na"
         name = f"epoch{epoch}-acc{acc_s}-loss{loss_s}"
         path = os.path.join(self.directory, name)
-        save_pytree(path, tree)
-        last = os.path.join(self.directory, "last")
-        tmp = f"{last}.{os.getpid()}.tmp"
-        shutil.copyfile(path, tmp)
-        os.replace(tmp, last)
-        self._index["entries"].append({"name": name, "epoch": epoch, "acc": acc, "loss": loss})
-        self._gc()
-        self._write_index()
+        if is_main():
+            save_pytree(path, tree)
+            last = os.path.join(self.directory, "last")
+            tmp = f"{last}.{os.getpid()}.tmp"
+            shutil.copyfile(path, tmp)
+            os.replace(tmp, last)
+            self._index["entries"].append({"name": name, "epoch": epoch, "acc": acc,
+                                           "loss": loss})
+            self._gc()
+            self._write_index()
+        barrier()
+        if not is_main():
+            self._refresh_index()
         return path
 
     def _gc(self):
@@ -231,6 +246,8 @@ class CheckpointManager:
                 entries.remove(e)
 
     def best(self, metric: str = "acc") -> Optional[str]:
+        if not is_main():
+            self._refresh_index()
         if metric == "acc":
             ranked = [e for e in self._index["entries"] if e["acc"] is not None]
             e = max(ranked, key=lambda e: e["acc"], default=None)

@@ -22,7 +22,10 @@ of the same modality, with
 
 The teacher is built at first use.  :meth:`DistillTask.make_eval_step` is the
 validation step the trainer runs (the live loss, retrieval against the
-batch's contrary representations).
+batch's contrary representations).  Under data parallelism the loss reads
+both towers' outputs gathered over the ranks, and the eval step's
+representations are the global batch's (``parallel.distributed``, the sum
+rule).
 """
 
 from __future__ import annotations
@@ -36,18 +39,20 @@ import torch
 from distillclip_tpu_torch.convert import torch_name_to_jax_path
 from distillclip_tpu_torch.losses import LossCalculator
 from distillclip_tpu_torch.models import ControlFlags, ImageEncoder, TextEncoder, l2_normalize
+from distillclip_tpu_torch.models.frozen_teacher import FrozenTeacher
 from distillclip_tpu_torch.models.outputs import TextOutput, VisionOutput
 from distillclip_tpu_torch.models.teacher_init import init_layers_with_teacher
+from distillclip_tpu_torch.parallel import all_gather
 from distillclip_tpu_torch.serving.lclip_score import seeded_init
 from distillclip_tpu_torch.training import metrics as M
 from distillclip_tpu_torch.training.task_common import (
-    FrozenTeacher,
     adopt_params,
     build_optimizer,
     copy_teacher_embeddings,
     device_of,
     embedding_leaves,
     check_projections,
+    gather_output,
     make_step,
     split_params,
     step_generator,
@@ -185,6 +190,7 @@ class DistillTask:
         return out, x, aux
 
     def _finish(self, stu_out, tea_out, aux=None, generator=None):
+        stu_out, tea_out = gather_output(stu_out, True), gather_output(tea_out, False)
         if self.norm:
             stu_out = dataclasses.replace(
                 stu_out, last_representation=l2_normalize(stu_out.last_representation))
@@ -221,14 +227,8 @@ class DistillTask:
     def make_teacher_encode(self, device="cuda") -> Callable:
         """``encode(inputs) -> fp32 last representations`` of the teacher, for
         building the train caches."""
-        teacher = self.teacher.compute(device)
-
-        @torch.no_grad()
-        def encode(inputs):
-            x = self._prepare_inputs(torch.as_tensor(inputs).to(device))
-            return teacher(x).last_representation.float()
-
-        return encode
+        return (self.teacher.image_encode(device) if self.model_type == "image"
+                else self.teacher.text_encode(device))
 
     # -- steps ---------------------------------------------------------------------
 
@@ -278,6 +278,7 @@ class DistillTask:
             device = device_of(state.params)
             generator = torch.Generator(device=device).manual_seed(0) if random else None
             loss, (parts, stu_out, tea_out) = self.loss_fn(state.params, inputs, True, generator)
+            contrary_rep = all_gather(contrary_rep)
             stu_logits, tea_logits = M.norm_and_logits(
                 contrary_rep, stu_out.last_representation, tea_out.last_representation)[:2]
             metrics = {"loss": loss, **parts}

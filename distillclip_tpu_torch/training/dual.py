@@ -30,8 +30,11 @@ package.  :meth:`DualDistillTask.make_eval_step` is the validation step the
 trainer runs: the live loss under ``torch.no_grad()``, retrieval accuracies on
 the batch and the four representations for the epoch's full-corpus retrieval.
 
-On one device the contrastive negatives are the batch's own; the JAX package
-gathers them over its data mesh.
+Under data parallelism every loss sees the global batch: both towers'
+outputs, the students' and the teachers' (live or cached), are gathered over
+the ranks before the loss, and the eval step's representations are the whole
+validation batch's, in rank order (``parallel.distributed``, the sum rule).
+The JAX package gets the same global negatives from its data mesh.
 """
 
 from __future__ import annotations
@@ -46,18 +49,19 @@ from distillclip_tpu_torch.convert import torch_name_to_jax_path
 from distillclip_tpu_torch.losses import LossCalculator
 from distillclip_tpu_torch.models import CLIPModel, CLIPOutput, ControlFlags
 from distillclip_tpu_torch.models.clip import cosine_logits
+from distillclip_tpu_torch.models.frozen_teacher import FrozenTeacher
 from distillclip_tpu_torch.models.outputs import TextOutput, VisionOutput
 from distillclip_tpu_torch.serving.lclip_score import seeded_init
 from distillclip_tpu_torch.training import metrics as M
 from distillclip_tpu_torch.training.checkpoints import restore_tower_params
 from distillclip_tpu_torch.training.task_common import (
-    FrozenTeacher,
     adopt_params,
     build_optimizer,
     copy_teacher_embeddings,
     device_of,
     embedding_leaves,
     check_projections,
+    gather_clip_output,
     make_step,
     split_params,
     step_generator,
@@ -215,6 +219,7 @@ class DualDistillTask:
         return out, aux
 
     def _finish(self, stu_out: CLIPOutput, tea_out: CLIPOutput, aux=None, generator=None):
+        stu_out, tea_out = gather_clip_output(stu_out, True), gather_clip_output(tea_out, False)
         if self.norm:
             stu_out = norm_last_representation(stu_out)
             tea_out = norm_last_representation(tea_out)
@@ -268,26 +273,12 @@ class DualDistillTask:
         """``encode(images) -> fp32 last representations`` of the image
         teacher, for the all-cached path (only valid when the train images are
         not augmented)."""
-        teacher = self.teacher.compute(device)
-
-        @torch.no_grad()
-        def encode(images):
-            imgs = prepare_inputs(torch.as_tensor(images).to(device), self._dtype)
-            return teacher.encode_image(imgs).last_representation.float()
-
-        return encode
+        return self.teacher.image_encode(device)
 
     def make_teacher_text_encode(self, device="cuda") -> Callable:
         """``encode(tokens) -> fp32 last representations`` of the text
         teacher, for building the caption caches."""
-        teacher = self.teacher.compute(device)
-
-        @torch.no_grad()
-        def encode(tokens):
-            toks = torch.as_tensor(tokens).to(device).long()
-            return teacher.encode_text(toks).last_representation.float()
-
-        return encode
+        return self.teacher.text_encode(device)
 
     def make_train_step(self, tx: AdamW, deterministic: bool = True, trainable_mask=None,
                         cached_text_teacher: bool = False,

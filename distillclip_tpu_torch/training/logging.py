@@ -11,7 +11,8 @@ Port of ``distillclip_tpu/training/logging.py`` (framework-free, so a copy).
   ``online`` only where the machine has egress).
 
 The headline accuracies (``MAX_SUMMARY_KEYS``) keep a running maximum in the
-process, which ``Trainer.fit`` returns as its summary.
+process, which ``Trainer.fit`` returns as its summary.  Under data
+parallelism the ranks after the first log to a :class:`NullLogger`.
 """
 
 from __future__ import annotations
@@ -177,3 +178,21 @@ class MetricLogger:
     def close(self):
         for w in self.writers:
             w.close()
+
+
+class NullLogger:
+    """The logger of the ranks after the first under data parallelism: it
+    writes nothing (the reference relied on Lightning's rank-zero logging)."""
+
+    def log_hyperparams(self, params):
+        pass
+
+    def log_metrics(self, metrics, step):
+        pass
+
+    @property
+    def summary(self) -> Dict[str, float]:
+        return {}
+
+    def close(self):
+        pass

@@ -1,21 +1,33 @@
-"""What the one-tower and the two-tower distillation tasks share: the frozen
-teacher, the embedding copy of ``freeze_embed``, the optimizer's schedule and
-the train step around a loss function.
+"""What the one-tower and the two-tower distillation tasks share beside the
+frozen teacher (``models.frozen_teacher``): the embedding copy of
+``freeze_embed``, the optimizer's schedule, the train step around a loss
+function, and the gathers of data parallelism.
+
+Under data parallelism (``parallel.distributed``: the sum rule) the tasks
+hand the loss the outputs of every rank, gathered along their batch axis in
+rank order (:func:`gather_output`, :func:`gather_clip_output`; the students'
+with their gradient), so every rank evaluates the loss of the global batch;
+:func:`make_step` sums the ranks' gradients before the update.
 """
 
 from __future__ import annotations
 
-import copy
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+import dataclasses
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
-from distillclip_tpu_torch.config.perf import perf_knobs, set_perf
+from distillclip_tpu_torch.models.clip import cosine_logits
 from distillclip_tpu_torch.models.encoders import ImageEncoder, TextEncoder, projections_for
 from distillclip_tpu_torch.models.repeat_vit import RepeatVisionTransformer
-from distillclip_tpu_torch.models.teacher import teacher_load
-from distillclip_tpu_torch.serving.inputs import cast_to_compute as cast_module_to_compute
+from distillclip_tpu_torch.models.outputs import CLIPOutput
+from distillclip_tpu_torch.parallel import (
+    active,
+    all_gather,
+    all_reduce_gradients,
+    gather_with_grad,
+)
 from distillclip_tpu_torch.training.schedules import hf_cosine_with_warmup, per_epoch
 from distillclip_tpu_torch.training.train_state import (
     AdamW,
@@ -23,49 +35,6 @@ from distillclip_tpu_torch.training.train_state import (
     global_norm,
     make_optimizer,
 )
-
-
-class FrozenTeacher:
-    """The CLIP teacher, loaded at first use and never trained.
-
-    ``module`` is the fp32 teacher on the CPU (it seeds fp32 masters: the
-    embedding copy of ``freeze_embed``, the teacher warm start).
-    :meth:`compute` is its copy in the compute dtype on a device, made once per
-    device: the frozen weights never change, so nothing is cast inside a step.
-    It runs under ``torch.no_grad()``, so its kernels are the lean ones and no
-    probabilities or residuals are saved.  It runs under the perf knobs that
-    were set when the task was built (``config.perf``), even though it is
-    loaded later."""
-
-    def __init__(self, name: str, download_root: Optional[str], model_type: str,
-                 need_layers: Optional[Sequence[int]], dtype: torch.dtype):
-        self._perf = perf_knobs()
-        self._load = lambda: set_perf(teacher_load(name, download_root, model_type,
-                                                   need_layers=need_layers, device="cpu"),
-                                      self._perf)
-        self._dtype = dtype
-        self._module: Optional[nn.Module] = None
-        self._compute: Dict[str, nn.Module] = {}
-
-    @property
-    def module(self) -> nn.Module:
-        if self._module is None:
-            self._module = self._load()
-        return self._module
-
-    def compute(self, device) -> nn.Module:
-        key = str(torch.device(device))
-        if key not in self._compute:
-            self._compute[key] = cast_module_to_compute(
-                copy.deepcopy(self.module), self._dtype).to(device).eval()
-        return self._compute[key]
-
-    def state(self, scope: str) -> Dict[str, torch.Tensor]:
-        """The fp32 state dict under ``scope`` (``visual``, ``text``,
-        ``image_tower.visual`` ...), without the prefix."""
-        prefix = scope + "."
-        return {k[len(prefix):]: v for k, v in self.module.state_dict().items()
-                if k.startswith(prefix)}
 
 
 def embedding_leaves(image_student) -> List[Tuple[str, str]]:
@@ -179,11 +148,43 @@ def build_optimizer(task, steps_per_epoch: int) -> AdamW:
                           grad_clip_norm=task.grad_clip_norm, accumulate_steps=k)
 
 
+# taps stacked over layers, [L, B, ...]: their batch axis is 1
+_LAYER_STACKED = ("attention_scores", "attention_probs", "representations")
+
+
+def gather_output(out, with_grad: bool):
+    """A tower's output container with every tensor it holds gathered over
+    the ranks along its batch axis; ``with_grad`` for a student's.  The same
+    container outside a process group."""
+    if not active():
+        return out
+    gather = gather_with_grad if with_grad else all_gather
+    return dataclasses.replace(out, **{
+        f.name: gather(getattr(out, f.name), 1 if f.name in _LAYER_STACKED else 0)
+        for f in dataclasses.fields(out) if getattr(out, f.name) is not None})
+
+
+def gather_clip_output(out: CLIPOutput, with_grad: bool) -> CLIPOutput:
+    """Both towers' outputs gathered (:func:`gather_output`) and the cosine
+    logits of the global batch, by the arithmetic of ``CLIPModel.forward``."""
+    if not active():
+        return out
+    vis = gather_output(out.visual_output, with_grad)
+    txt = gather_output(out.text_output, with_grad)
+    logits = cosine_logits(vis.last_representation, txt.last_representation)
+    return CLIPOutput(visual_output=vis, text_output=txt, i2t_logits=logits,
+                      t2i_logits=logits.t())
+
+
 def make_step(loss_fn: Callable, tx: AdamW, trainable_mask, log_grad_norm: bool) -> Callable:
     """``step(state, *batch) -> (state, metrics)`` around ``loss_fn(params,
     *batch) -> (loss, (parts, student out, teacher out))``.  The metrics are
     0-dim tensors on the state's device: ``loss``, the loss parts, and
-    ``grad_norm`` under ``log_grad_norm``."""
+    ``grad_norm`` under ``log_grad_norm``.  Under data parallelism the loss
+    is the global batch's and the students' gradients are summed over the
+    ranks before the norm and the update; the loss's own variables
+    (``loss_aux``) are not summed: they act after the gather, so each rank's
+    gradient of them is already the whole one."""
 
     def step(state: TrainState, *batch):
         names = list(state.params)
@@ -192,6 +193,9 @@ def make_step(loss_fn: Callable, tx: AdamW, trainable_mask, log_grad_norm: bool)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = {k: torch.zeros_like(p) if g is None else g
                  for k, p, g in zip(names, leaves, grads)}
+        # the students' shares are summed; the loss's own variables act on the
+        # gathered outputs, so every rank already holds their whole gradient
+        all_reduce_gradients({k: g for k, g in grads.items() if not k.startswith(LOSS_AUX)})
         for p in leaves:
             p.requires_grad_(False)
         metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in parts.items()}}

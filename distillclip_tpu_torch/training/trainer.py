@@ -1,6 +1,6 @@
 """Trainer: epoch loop, validation, checkpointing, early stopping.
 
-Port of ``distillclip_tpu/training/trainer.py`` for one device:
+Port of ``distillclip_tpu/training/trainer.py``, one process a device:
 
 * the epoch loop over the task's train step, chosen from the first batch
   (``tea_rep`` in the batch: the cached-text step of stage 3 or the cached
@@ -24,6 +24,16 @@ pinned host memory, then a non-blocking copy; uint8 images and integer
 tokens cross as they are and the tasks normalise them on the device.  A
 datamodule with ``prestage_device`` keeps its items on the device instead
 (:func:`fit_loaders`).
+
+Under data parallelism (``torchrun``: ``parallel.distributed``, the sum
+rule) every process runs the loop on its shard of each epoch and the steps
+see the global batch, with the JAX trainer's rank-zero semantics: the first
+rank alone prepares the data (the others wait for it, however long it takes:
+``parallel.on_first_rank``), logs, profiles and writes checkpoints; every
+rank restores a checkpoint; ``hparams.json`` records the world size, and
+``perf/items_per_s`` counts the global batch.  The caller joins the
+launcher's process group first (``parallel.initialize_distributed``; the CLI
+does); a ``WORLD_SIZE`` > 1 without one is an error.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ import numpy as np
 import torch
 
 from distillclip_tpu_torch.data.datamodule import DevicePrestagedLoader
+from distillclip_tpu_torch.parallel import is_main, on_first_rank, process_device, world_size
 from distillclip_tpu_torch.training import metrics as M
 from distillclip_tpu_torch.training.checkpoints import (
     CheckpointManager,
@@ -43,19 +54,20 @@ from distillclip_tpu_torch.training.checkpoints import (
     save_pytree,
     state_tree,
 )
-from distillclip_tpu_torch.training.logging import MetricLogger
+from distillclip_tpu_torch.training.logging import MetricLogger, NullLogger
 from distillclip_tpu_torch.training.profiling import build_profiler
 from distillclip_tpu_torch.training.schedules import hf_cosine_with_warmup
 
 
 def run_device(name) -> torch.device:
-    """``name`` as a device; a CUDA device where there is none is an error,
+    """``name`` as this process's device (``cuda`` is ``cuda:LOCAL_RANK``
+    under data parallelism); a CUDA device where there is none is an error,
     never a quiet fall back to the CPU."""
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {str(name)!r}: no CUDA device is available "
                            "(pass --device cpu to run on the CPU)")
-    return device
+    return process_device(device)
 
 
 def to_device(batch, device):
@@ -83,10 +95,11 @@ def to_device(batch, device):
 
 def fit_loaders(datamodule, device):
     """(train loader, validation loader) of ``datamodule``, prepared and set
-    up for fitting.  The one place that gives the data the run's device: a
-    datamodule with ``prestage_device`` keeps its training items there
-    (:class:`DevicePrestagedLoader`)."""
-    datamodule.prepare_data()
+    up for fitting.  The one place that gives the data the run's device: the
+    teacher's pre-encoding in ``prepare`` runs there (on the first rank; the
+    others wait), and a datamodule with ``prestage_device`` keeps its training
+    items there (:class:`DevicePrestagedLoader`)."""
+    on_first_rank(lambda: datamodule.prepare_data(device))
     datamodule.setup("fit")
     train = datamodule.train_dataloader()
     if getattr(datamodule, "prestage_device", False):
@@ -202,9 +215,9 @@ class Trainer:
     def fit(self, task, datamodule, ckpt_path: Optional[str] = None) -> Dict[str, Any]:
         device = run_device(self.device)
         run_dir = f"{self.result_dir}/{self.run_name}"
-        logger = MetricLogger(self.result_dir, self.run_name)
+        logger = MetricLogger(self.result_dir, self.run_name) if is_main() else NullLogger()
         ckpts = CheckpointManager(f"{run_dir}/checkpoints")
-        prof = build_profiler(self.profiler, run_dir)
+        prof = build_profiler(self.profiler if is_main() else None, run_dir)
 
         train_loader, val_loader = fit_loaders(datamodule, device)
         # schedule length: the loader's, else the datamodule's declared one;
@@ -246,7 +259,7 @@ class Trainer:
         logger.log_hyperparams({
             "task": type(task).__name__, "loss": task.loss_control_para, "lr": task.lr,
             "weight_decay": task.weight_decay, "max_epochs": self.max_epochs,
-            "steps_per_epoch": steps_per_epoch, "devices": 1, **param_summary})
+            "steps_per_epoch": steps_per_epoch, "devices": world_size(), **param_summary})
 
         def build_train_step(tx_, trainable_mask=None):
             kw = {}
@@ -317,8 +330,9 @@ class Trainer:
                     state, metrics = run_train_step(state, batch)
                 prof.step()
                 host_step += 1
-                n_items += _batch_size(batch)
-                if self.save_every_n_steps and host_step % self.save_every_n_steps == 0:
+                n_items += _batch_size(batch) * world_size()
+                if self.save_every_n_steps and host_step % self.save_every_n_steps == 0 \
+                        and is_main():
                     save_pytree(f"{run_dir}/checkpoints/autosave",
                                 {"state": state_tree(state), "epoch": epoch})
                 if i % self.log_every_n_steps == 0:

@@ -127,11 +127,23 @@ def test_datamodule_reflection_gives_jax_loaders():
                 _assert_tree_equal(x, y)
 
 
-@pytest.mark.parametrize("dataset", ["ms_coco", "combine_image_dataset",
-                                     "combine_text_dataset", "text_image_webdataset"])
-def test_unported_datasets_raise_by_item(dataset):
-    with pytest.raises(NotImplementedError, match="queue 1: real datasets and multi-GPU"):
-        MainDataModule(**{**_module_args(), "dataset": dataset, "dataset_name": "X"})
+DATASET_CLASSES = {"ms_coco": "COCODataset", "combine_image_dataset": "CombineImageDataset",
+                   "combine_text_dataset": "CombineTextDataset",
+                   "text_image_webdataset": "TextImageDataModule"}
+
+
+@pytest.mark.parametrize("dataset", sorted(DATASET_CLASSES))
+def test_each_dataset_module_builds_its_class_and_prepare(dataset):
+    """The reflection finds each corpus's class and ``prepare`` hook in the
+    port's module, as the JAX package's finds its own (the webdataset module
+    has no hook in either)."""
+    args = {**_module_args(), "dataset": dataset, "dataset_name": DATASET_CLASSES[dataset]}
+    ours, ref = MainDataModule(**args), JaxDataModule(**args)
+    assert ours.data_module.__module__ == f"distillclip_tpu_torch.data.component.{dataset}"
+    assert ours.data_module.__name__ == ref.data_module.__name__ == DATASET_CLASSES[dataset]
+    assert (ours.prepare_function is None) == (ref.prepare_function is None)
+    if ours.prepare_function is not None:
+        assert ours.prepare_function.__module__ == ours.data_module.__module__
 
 
 def test_invalid_dataset_class_raises_like_jax():
@@ -139,12 +151,25 @@ def test_invalid_dataset_class_raises_like_jax():
         MainDataModule(**{**_module_args(), "dataset_name": "NoSuchDataset"})
 
 
-def test_world_size_above_one_is_refused(monkeypatch):
+def test_world_size_above_one_needs_a_process_group(monkeypatch):
+    """A launcher's WORLD_SIZE without a process group is an error, never
+    every process on the whole epoch; inside one, each loader reads the
+    rank's shard."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
     dm = MainDataModule(**_module_args())
     dm.setup("fit")
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="queue 1: real datasets and multi-GPU"):
+    with pytest.raises(RuntimeError, match="no process group is initialised"):
         dm.train_dataloader()
+    dist.init_process_group("fake", store=FakeStore(), rank=1, world_size=2)
+    try:
+        assert dm._shard_kwargs() == {"num_shards": 2, "shard_index": 1}
+        for loader in (dm.train_dataloader(), dm.val_dataloader()):
+            assert (loader.num_shards, loader.shard_index) == (2, 1)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_the_run_device_is_not_a_datamodule_argument():

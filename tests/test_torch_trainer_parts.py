@@ -184,12 +184,19 @@ def test_instantiate_model_matches_jax(paths, monkeypatch):
         assert stu.head.kernel.shape == (jstu.embed_dim, jstu.out_dim)
 
 
+DATASET_CLASSES = {"ms_coco": "COCODataset", "combine_image_dataset": "CombineImageDataset",
+                   "combine_text_dataset": "CombineTextDataset"}
+
+
 @pytest.mark.parametrize("paths", [c for c in CONFIGS if "smoke" not in c[0]
                                    and "bench" not in c[0]], ids=lambda c: c[-1])
-def test_unported_datasets_in_configs_raise_by_item(paths):
+def test_each_config_s_data_section_instantiates_its_dataset_class(paths):
     cfg = config.load_configs(paths)
-    with pytest.raises(NotImplementedError, match="queue 1: real datasets and multi-GPU"):
-        config.instantiate(cfg["data"])
+    dm = config.instantiate(cfg["data"])
+    assert isinstance(dm, MainDataModule)
+    assert dm.data_module.__name__ == DATASET_CLASSES[dm.dataset]
+    assert dm.data_module.__module__ == f"distillclip_tpu_torch.data.component.{dm.dataset}"
+    assert callable(dm.prepare_function)
 
 
 def test_synthetic_data_sections_build():
@@ -199,15 +206,18 @@ def test_synthetic_data_sections_build():
         assert isinstance(dm, MainDataModule) and dm.dataset == "synthetic"
 
 
-def test_irpe_and_webdataset_raise_by_item():
+def test_irpe_raises_by_item_and_webdataset_instantiates(tmp_path):
+    from distillclip_tpu_torch.data.component.text_image_webdataset import TextImageDataModule
+
     node = {"class_path": "model.component.weight_share_model.RepeatVisionTransformer",
             "init_args": {"depth": 1, "embed_dim": 32, "num_heads": 4,
                           "rpe_config": {"method": "product", "mode": "ctx"}}}
     with pytest.raises(NotImplementedError, match="queue 1: models off the main path"):
         config.instantiate(node)
-    with pytest.raises(NotImplementedError, match="queue 1: real datasets and multi-GPU"):
-        config.instantiate({"class_path": "data.text_image_datamodule.TextImageDataModule",
-                            "init_args": {}})
+    (tmp_path / "shard0.tar").write_bytes(b"")
+    dm = config.instantiate({"class_path": "data.text_image_datamodule.TextImageDataModule",
+                             "init_args": {"image_path": str(tmp_path), "batch_size": 4}})
+    assert isinstance(dm, TextImageDataModule) and dm.val_url and not dm.train_url
 
 
 def test_instantiate_refuses_unknown_arguments_like_jax():
