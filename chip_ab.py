@@ -22,19 +22,19 @@ limit (with ``--only``, only the sections named):
   and text students (exact GELU) and of the image and text teachers
   (QuickGELU): [12800, 768] and [19712, 768] -> 3072, [12800, 768] -> 3072,
   [19712, 512] -> 2048; beside each the PyTorch composition that does the
-  same work (``chip_smoke.ln_gemm_act``: ``native_layer_norm``, ``addmm``,
+  same work (``hw_oracle.ln_gemm_act``: ``native_layer_norm``, ``addmm``,
   the activation; #8's also e), the same way;
 - ``tf_fwd``: lean ``transform_attention_rows_qkv`` (K3, as serving runs it)
   and ``transform_attention_save_p`` (#5, as a train step runs it) at the two
   students' shapes (B=256; 24 heads of 32 at 50 tokens, 12 of 64 at 77),
   beside the PyTorch composition that does the same work
-  (``chip_smoke.tf_composition``: bf16 ``matmul``, ``einsum`` mixes,
+  (``hw_oracle.tf_composition``: bf16 ``matmul``, ``einsum`` mixes,
   ``softmax``, ``matmul``), device ms per call over 20 calls replayed from one
   CUDA graph, three rounds in turn: the median and the rounds;
 - ``flash_tf``: ``flash_transform_attention_fwd`` (#17, as the tapped stage-1
   step runs it: q, k, v the views of a fused qkv, no mask) at the two
   students' shapes, beside the PyTorch composition of the same work
-  (``chip_smoke.flash_tf_composition``), the same way;
+  (``hw_oracle.flash_tf_composition``), the same way;
 - ``tf_bwd``: ``transform_attention_bwd`` (#6) at the two students' shapes
   (B=256; 24 heads of 32 at 50 tokens, 12 of 64 at 77), device ms per call
   over 20 calls replayed from one CUDA graph;
@@ -111,13 +111,14 @@ def _kernel_ms(torch, fn, key: str, iters: int = 20) -> float:
     return us / 1e3 / iters
 
 
-def _own_chip_smoke():
-    """The chip_smoke.py beside this script (not the checkout's), for the
-    PyTorch compositions that every checkout is timed against."""
+def _own_yardsticks():
+    """The kernel oracle beside this script (``distillclip_tpu_torch/tools/
+    hw_oracle.py``, not the checkout's), for the PyTorch compositions that
+    every checkout is timed against."""
     import importlib.util
 
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke_of_chip_ab", Path(__file__).resolve().with_name("chip_smoke.py"))
+    path = Path(__file__).resolve().parent / "distillclip_tpu_torch" / "tools" / "hw_oracle.py"
+    spec = importlib.util.spec_from_file_location("hw_oracle_of_chip_ab", path)
     module = importlib.util.module_from_spec(spec)
     sys.modules[spec.name] = module       # for its dataclasses
     spec.loader.exec_module(module)
@@ -148,7 +149,7 @@ def one(root: Path, only: tuple[str, ...] = SECTIONS) -> None:
     from distillclip_tpu_torch.ops import transform_attention as ta
     from distillclip_tpu_torch.serving import LCLIPScorer
 
-    own = _own_chip_smoke()
+    own = _own_yardsticks()
     ln_gemm_act, tf_composition = own.ln_gemm_act, own.tf_composition
     # ops.flash_attention is the public function; this is its module
     fa = importlib.import_module("distillclip_tpu_torch.ops.flash_attention")

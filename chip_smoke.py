@@ -55,6 +55,16 @@ phases, each of which exits non-zero on failure:
    no attention kernel), the value-map tap of both tower families against the
    plain fp32 CPU towers, stage 3 live with the contrastive losses, and a
    short stochastic phase (dropout and drop-path: seeded runs repeat);
+5d'. the modules off the main path, each phased like 5: stage 1 of
+   configs/final/image.yaml with iRPE on q, k and v (product buckets,
+   contextual, a table per head; every table seeded non-zero), whose student
+   attention is materialised; a seeded teacher of RN50's geometry (the
+   ModifiedResNet image tower): its image encode of 256 rows in bf16 against
+   the plain fp32 CPU encode of the first 16 (unit rows within 2e-2, cosines
+   at least the plain bf16 CPU encode's less 1e-3), rows/s and peak memory,
+   and the teacher scorer's score_tokens at
+   256 pairs (pairs/s, the text tower's launches); stage 1 with that teacher
+   live (out_dim 1024, no embedding copy, out_l1 + out_cos);
 5e. the perf knobs (config.perf): under fc1_ln "0", fc1_ln "0" with fc1_res u,
    fc1_res u, and tf_impl factored, the serving call and the text-cached step
    of 5c, rebuilt under the knob: 16 pairs against the plain fp32 CPU path
@@ -98,6 +108,12 @@ phases, each of which exits non-zero on failure:
    text-cached steps of l_clip.yaml, 256 pairs a rank): every rank the same
    losses, masters bitwise equal, and at world size 1 the single process's
    loss exactly or within 1e-6 relative;
+5i. the tools (distillclip_tpu_torch/tools) on the card: hw_oracle on the row
+   LayerNorm's cases (rc 0), hw_trajectory at its defaults (50 steps against
+   the CPU and its perturbed shadow: the verdict), the roofline floors of the
+   joint and text stages beside the text-cached step and fit text.yaml's bare
+   step, trace_summary of the traced l_clip fit, input_bench on phase 5h's
+   corpus (1 and 4 loader threads, 256 items) and cached_teacher_ab --epochs 1;
 6. card numbers: each kernel's time beside its plain version's, its bound
    and, where one PyTorch call computes the same function, that call's time
    (for K2, #8, K3 and #5, which no one call matches, the PyTorch composition
@@ -115,7 +131,6 @@ of the kernels; the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import io
 import json
 import os
@@ -123,11 +138,24 @@ import subprocess
 import sys
 import time
 from pathlib import Path
-from typing import Callable, Optional
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+# the oracle table and the timing helpers live in the port's kernel oracle
+# (python -m distillclip_tpu_torch.tools.hw_oracle), so that the two agree;
+# chip_ab.py reads the PyTorch compositions from there too
+from distillclip_tpu_torch.tools.hw_oracle import (
+    Disagreement,
+    bf16,
+    cuda_ms,
+    device_events,
+    kernel_oracles,
+    library_device_times,
+)
+from distillclip_tpu_torch.tools.trace_summary import PROFILE_GROUPS, REST, family_of, trace_split
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "final" / "l_clip.yaml"
@@ -137,11 +165,6 @@ PAIRS = 256     # pairs per serving call and per train step
 DEVICE = "cuda"
 SOT, EOT = 49406, 49407  # CLIP's start / end of text ids
 
-# The card's published peaks (H100 SXM): device memory rate, dense bf16/fp16
-# tensor-core rate, fp32 rate outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-TENSOR_FLOPS = 989e12
-FP32_FLOPS = 67e12
 
 def add_counts(*parts: dict) -> dict:
     out = {}
@@ -351,636 +374,6 @@ def cluster_line(lib, card: str) -> None:
         fail(f"dense_ln_bwd: no cluster of {blocks} blocks fits the card ({n})")
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() over ``iters`` launches, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def graph_ms(fn, iters: int = 20) -> Optional[float]:
-    """Mean device time of fn() over ``iters`` calls captured in one CUDA
-    graph and replayed, by CUDA events: the host's cost of a call (Python,
-    argument checks, the launch itself) does not enter it, where a kernel
-    shorter than its wrapper would otherwise time the host.  None where the
-    calls cannot be captured."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    try:
-        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
-            for _ in range(iters):
-                fn()
-    except RuntimeError as err:
-        torch.cuda.synchronize()
-        print(f"graph capture failed ({str(err).splitlines()[0][:120]}); eager timing", flush=True)
-        return None
-    graph.replay()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def device_events(prof):
-    """(name, µs) of every kernel, copy and memset a profile recorded on the
-    device."""
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0)
-        if dev_us > 0 and not str(getattr(ev, "device_type", "")).endswith("CPU"):
-            yield ev.key, dev_us
-
-
-def profiled_ms(fn, iters: int = 100) -> Optional[float]:
-    """Mean device time of fn() over ``iters`` eager calls: the sum of the
-    device times of the kernels they launch, read from torch.profiler, for a
-    call that a graph cannot capture (an autograd backward, whose ops run on
-    the forward's stream).  The host's cost between the kernels does not enter
-    it.  None where the profiler records no device time."""
-    from torch.profiler import ProfilerActivity
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(us for _, us in device_events(prof))
-    return total / 1e3 / iters if total > 0 else None
-
-
-def bf16(rng: np.random.Generator, shape, std: float = 1.0, mean: float = 0.0):
-    a = rng.standard_normal(shape, dtype=np.float32) * np.float32(std) + np.float32(mean)
-    return torch.from_numpy(a).to(DEVICE).to(torch.bfloat16)
-
-
-# -- phase 3 ----------------------------------------------------------------
-
-@dataclasses.dataclass
-class Case:
-    """One kernel at one shape.  ``run`` and ``ref`` return tuples of tensors,
-    output by output; ``limits`` holds, per output, ("abs", max[, mean]) for an
-    absolute limit on the error (and on its mean) or ("rel", x) for a limit on
-    the largest error over the largest reference entry.  ``same`` returns the
-    lean mode's output, which ``run()[0]`` must equal bit for bit; ``also``
-    takes the outputs and returns a complaint or None.  ``plain`` is the plain
-    version on the kernel's own bf16 inputs (timed, not compared); ``library``
-    one PyTorch call that computes the same function, if any;
-    ``library_eager`` says it runs through autograd, whose backward ops run
-    on the streams of the forward and so stay out of a graph captured on
-    another stream: its device time is read from the profiler.
-    ``composition`` is a few PyTorch calls that do the same work where no
-    one call does (timed beside the kernel, not in the JSON line's
-    ``library_ms``)."""
-
-    kernel: str
-    label: str
-    run: Callable[[], tuple]
-    ref: Callable[[], tuple]
-    limits: tuple
-    plain: Callable[[], object]
-    flops: float
-    nbytes: float
-    peak: float = TENSOR_FLOPS
-    same: Optional[Callable[[], torch.Tensor]] = None
-    library: Optional[Callable[[], object]] = None
-    also: Optional[Callable[[tuple], Optional[str]]] = None
-    library_eager: bool = False
-    composition: Optional[Callable[[], object]] = None
-
-    def bound(self):
-        by_bytes, by_ops = self.nbytes / HBM_BYTES_PER_S, self.flops / self.peak
-        return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
-
-
-def _f32(ts):
-    return [None if t is None else t.float() for t in ts]
-
-
-def ln_gemm_act(x, g, b, w, bias, act, res=False):
-    """K2's work in PyTorch's own kernels on bf16: native_layer_norm (with
-    the rows' mean and rstd), the product with the bias, the activation;
-    with ``res`` #8's, whose e is also returned: (h, u, e, mean, rstd)."""
-    y, mean, rstd = torch.native_layer_norm(x, (x.shape[1],), g, b, 1e-5)
-    u = torch.addmm(bias, y, w)
-    if act == "gelu_exact":
-        h = F.gelu(u)
-        e = torch.erf(u * 0.7071067811865476) if res else None
-    else:
-        e = torch.sigmoid(1.702 * u)
-        h = u * e
-    return (h, u, e, mean, rstd) if res else h
-
-
-def tf_composition(qkv, wl, ww, heads, seq, scale):
-    """K3's work in PyTorch's own kernels on bf16: q·kᵀ by matmul, the two
-    head mixes by einsum, the softmax, P'·v by matmul; (O [B·N, H·d], P).
-    No one call computes the function (SDPA has no head mixes)."""
-    rows = qkv.shape[0]
-    q, k, v = qkv.view(rows // seq, seq, 3, heads, -1).permute(2, 0, 3, 1, 4)
-    p = torch.softmax(torch.einsum("hg,bgnm->bhnm", wl, q @ k.transpose(-1, -2)) * scale,
-                      dim=-1)
-    o = torch.einsum("hg,bgnm->bhnm", ww, p) @ v
-    return o.permute(0, 2, 1, 3).reshape(rows, -1), p
-
-
-def flash_tf_composition(q, k, v, wl, ww, scale, causal=False, kv_len=None):
-    """#17's work in PyTorch's own kernels on bf16 [B, H, N, d] views: q·kᵀ by
-    matmul, the wl mix by einsum, the mask, the softmax, the ww mix, P'·v by
-    matmul.  No one call computes the function (SDPA has no head mixes)."""
-    from distillclip_tpu_torch.ops.plain_attention import attention_mask
-
-    s = torch.einsum("hg,bgnm->bhnm", wl, q @ k.transpose(-1, -2)) * scale
-    N = q.shape[2]
-    if causal or (kv_len is not None and kv_len < N):
-        s = s.masked_fill(~attention_mask(N, causal, kv_len, q.device), -float("inf"))
-    return torch.einsum("hg,bgnm->bhnm", ww, torch.softmax(s, dim=-1)) @ v
-
-
-def oracle_cases(rng):
-    """The cases, main-path shapes first for each kernel (the first case of a
-    kernel gives its times in the JSON line).
-
-    Every bf16 output rounds |y| in [2, 4) by up to 0.0078 and |y| in [4, 8)
-    by up to 0.0156, so an absolute limit of 1e-2 or 8e-3 only holds while the
-    outputs stay under 4, and 3e-2 while they stay under 8; the inputs below
-    keep them there."""
-    import importlib
-
-    from distillclip_tpu_torch.ops import fc1_act, layer_norm, plain_attention as pa
-    from distillclip_tpu_torch.ops import transform_attention as ta
-    # ops.flash_attention is the public function; this is its module
-    fa = importlib.import_module("distillclip_tpu_torch.ops.flash_attention")
-
-    t = lambda shape, std=1.0, mean=0.0: bf16(rng, shape, std, mean)
-    cases = []
-    C = 768
-    img, txt = PAIRS * 50, PAIRS * 77
-
-    # K1 / K2 / K2-residual / backward GEMM: LN output of std ~1 times W of
-    # std 0.02 over C = 768 gives outputs of std ~0.55 (largest ~3.2 over 30M
-    # values); du is unit-scale, so dxn = du·Wᵀ has std ~1 and dx stays under 8.
-    def gemm_bytes(rows, c, n, outs):
-        return 2 * (rows * c + c * n + 2 * c + n + outs * rows * n)
-
-    def dense_cases(label, rows, c, n, bias, k1=True, k2=True, w_std=0.02,
-                    act="gelu_exact", bwd=True):
-        """K1 (with its statistics) and/or K2 (lean and residual mode, under
-        ``act``) at one shape, and the backward GEMM of either unless the
-        shape only runs without a gradient."""
-        args = [t((rows, c)), t((c,), 0.1, 1.0), t((c,), 0.1), t((c, n), w_std),
-                t((n,), 0.02) if bias else None]
-        du = t((rows, n))
-        flops = 2.0 * rows * c * n
-        stat = ("rel", 1e-5)
-        stats = fc1_act.dense_ln_stats_plain(*args)[1:]
-        if bwd:
-            cases.append(Case(
-                "dense_ln_bwd", f"{label} [{rows},{n}]->{c}",
-                lambda: fc1_act.dense_ln_bwd(*args[:4], du, *stats),
-                lambda: fc1_act.dense_ln_bwd_plain(*_f32(args[:4]), du.float(), *stats),
-                (("abs", 3e-2), ("abs", 3e-2), ("rel", 6e-3), ("rel", 6e-3)),
-                lambda: fc1_act.dense_ln_bwd_plain(*args[:4], du, *stats), flops,
-                2 * (3 * rows * c + rows * n + c * n + 2 * c) + 8 * rows + 8 * c))
-        if k1:
-            cases.append(Case(
-                "dense_ln", f"{label} [{rows},{c}]->{n}, with mean/rstd",
-                lambda: fc1_act.dense_ln_fwd(*args, stats=True),
-                lambda: fc1_act.dense_ln_stats_plain(*_f32(args)),
-                (("abs", 1e-2, 1e-3), stat, stat),
-                lambda: fc1_act.dense_ln_plain(*args), flops,
-                gemm_bytes(rows, c, n, 1) + 8 * rows,
-                same=lambda: fc1_act.dense_ln_fwd(*args)[0]))
-        if not k2:
-            return
-        cases.append(Case(
-            "dense_act_ln", f"{label} [{rows},{c}]->{n} {act}",
-            lambda: (fc1_act.dense_act_ln(*args, act),),
-            lambda: (fc1_act.dense_ln_plain(*_f32(args), act=act),),
-            (("abs", 1e-2, 1e-3),),
-            lambda: fc1_act.dense_ln_plain(*args, act=act), flops,
-            gemm_bytes(rows, c, n, 1), composition=lambda: ln_gemm_act(*args, act)))
-        cases.append(Case(
-            "dense_act_ln_res", f"{label} [{rows},{c}]->{n} {act}",
-            lambda: fc1_act.dense_act_ln_res(*args, act),
-            lambda: fc1_act.dense_act_ln_res_plain(*_f32(args), act),
-            (("abs", 1e-2, 1e-3), ("abs", 1e-2, 1e-3), ("abs", 1e-2, 1e-3), stat, stat),
-            lambda: fc1_act.dense_act_ln_res_plain(*args, act), flops,
-            gemm_bytes(rows, c, n, 3) + 8 * rows,
-            same=lambda: fc1_act.dense_act_ln(*args, act),
-            composition=lambda: ln_gemm_act(*args, act, res=True)))
-
-    dense_cases("image qkv", img, C, 3 * C, True, k2=False)
-    dense_cases("image fc1", img, C, 4 * C, True, k1=False)
-    dense_cases("text qkv", txt, C, 3 * C, False, k2=False)
-    dense_cases("text fc1", txt, C, 4 * C, True, k1=False)
-    # the frozen teachers (ViT-B/32 architecture: image 768 wide, text 512
-    # wide and causal at 77 tokens) run lean K1 and lean K2 under QuickGELU,
-    # without a gradient; the residual mode under QuickGELU is the plain
-    # CLIP-architecture students'
-    dense_cases("image teacher fc1", img, C, 4 * C, True, k1=False, act="quick_gelu", bwd=False)
-    dense_cases("text teacher qkv", txt, 512, 3 * 512, True, k2=False, bwd=False)
-    dense_cases("text teacher fc1", txt, 512, 4 * 512, True, k1=False, act="quick_gelu",
-                bwd=False)
-    dense_cases("ragged", 130, 256, 520, True, w_std=0.05)
-
-    # The no-LN GEMM (#12 h only, #10 h/u/e, #11 u only): under fc1_ln "0"
-    # fc1 takes norm2's output, unit-scale rows, so at W std 0.02 u has std
-    # ~0.55 and stays under 4 over the 39M-60M values (the 8e-3 limit of
-    # bf16 outputs); products of bf16 operands are exact, only the fp32 sum
-    # and the store round.  #11's library call is F.linear; #10 and #12 have
-    # none (F.linear + F.gelu is a scale line).
-    def no_ln_cases(label, rows, c, n, act="gelu_exact", u_mode=True):
-        x, w, b = t((rows, c)), t((c, n), 0.02), t((n,), 0.02)
-        flops, lim = 2.0 * rows * c * n, ("abs", 8e-3, 1e-3)
-        lean = lambda: fc1_act.dense_act(x, w, b, act)
-        cases.append(Case(
-            "dense_act", f"{label} [{rows},{c}]->{n} {act}", lambda: (lean(),),
-            lambda: (fc1_act.dense_act_plain(x.float(), w.float(), b.float(), act),), (lim,),
-            lambda: fc1_act.dense_act_plain(x, w, b, act), flops, gemm_bytes(rows, c, n, 1)))
-        cases.append(Case(
-            "dense_act_res", f"{label} [{rows},{c}]->{n} {act}",
-            lambda: fc1_act.dense_act_res(x, w, b, act),
-            lambda: fc1_act.dense_act_res_plain(x.float(), w.float(), b.float(), act),
-            (lim, lim, lim), lambda: fc1_act.dense_act_res_plain(x, w, b, act), flops,
-            gemm_bytes(rows, c, n, 3), same=lean))
-        if u_mode:
-            cases.append(Case(
-                "dense_act_u", f"{label} [{rows},{c}]->{n}",
-                lambda: (fc1_act.dense_act_u(x, w, b),),
-                lambda: (fc1_act.dense_act_u_plain(x.float(), w.float(), b.float()),), (lim,),
-                lambda: fc1_act.dense_act_u_plain(x, w, b), flops, gemm_bytes(rows, c, n, 1),
-                same=lambda: fc1_act.dense_act_res(x, w, b, act)[1],
-                library=lambda: F.linear(x, w.t(), b)))
-
-    no_ln_cases("image fc1", img, C, 4 * C)
-    no_ln_cases("text fc1", txt, C, 4 * C)
-    no_ln_cases("image fc1", img, C, 4 * C, act="quick_gelu", u_mode=False)
-    no_ln_cases("ragged", 130, 256, 520)
-
-    # K3 / save-P / backward: the head mixes are drawn at std H^-1/2, so the
-    # mixed logits have std ~1 and the softmax is far from uniform; at the
-    # towers' init std (0.02) it is nearly uniform and the check would be weak.
-    for label, B, H, d, N in (("image", PAIRS, 24, 32, 50), ("text", PAIRS, 12, 64, 77),
-                              ("ragged", 64, 4, 16, 17)):
-        qkv, do = t((B * N, 3 * H * d)), t((B * N, H * d))
-        wl, ww = t((H, H), H ** -0.5), t((H, H), H ** -0.5)
-        kw = dict(heads=H, seq=N, scale=d ** -0.5)
-        shape = f"{label} B={B} H={H} d={d} N={N}"
-        product, mix = 2.0 * B * H * N * N * d, 2.0 * B * H * H * N * N
-        io = 2 * (B * N * 4 * H * d + 2 * H * H)
-        pbytes = 2 * B * H * N * N
-        lean = lambda q=qkv, l=wl, w=ww, k=kw: ta.transform_attention_rows_qkv(q, l, w, **k)
-        comp = lambda q=qkv, l=wl, w=ww, k=kw: tf_composition(q, l, w, **k)
-        cases.append(Case(
-            "transform_attention_rows_qkv", shape,
-            lambda f=lean: (f(),),
-            lambda q=qkv, l=wl, w=ww, k=kw: (ta.transform_attention_rows_qkv_plain(
-                q.float(), l.float(), w.float(), **k),),
-            (("abs", 8e-3),),
-            lambda q=qkv, l=wl, w=ww, k=kw: ta.transform_attention_rows_qkv_plain(q, l, w, **k),
-            2 * product + 2 * mix, io, composition=comp))
-        cases.append(Case(
-            "transform_attention_save_p", shape,
-            lambda q=qkv, l=wl, w=ww, k=kw: ta.transform_attention_save_p(q, l, w, **k),
-            lambda q=qkv, l=wl, w=ww, k=kw: ta.transform_attention_save_p_plain(
-                q.float(), l.float(), w.float(), **k),
-            (("abs", 8e-3), ("abs", 4e-3)),
-            lambda q=qkv, l=wl, w=ww, k=kw: ta.transform_attention_save_p_plain(q, l, w, **k),
-            2 * product + 2 * mix, io + pbytes, same=lean, composition=comp))
-        p = ta.transform_attention_save_p_plain(qkv, wl, ww, **kw)[1]
-        cases.append(Case(
-            "transform_attention_bwd", shape,
-            lambda q=qkv, l=wl, w=ww, g=do, p=p, k=kw: ta.transform_attention_bwd(
-                q, l, w, g, p, **k),
-            lambda q=qkv, l=wl, w=ww, g=do, p=p, k=kw: ta.transform_attention_bwd_plain(
-                q.float(), l.float(), w.float(), g.float(), p.float(), **k),
-            (("abs", 3e-2), ("rel", 6e-3), ("rel", 6e-3)),
-            lambda q=qkv, l=wl, w=ww, g=do, p=p, k=kw: ta.transform_attention_bwd_plain(
-                q, l, w, g, p, **k),
-            5 * product + 5 * mix,
-            2 * (B * N * 7 * H * d + 2 * H * H) + pbytes + 8 * H * H))
-    # K3's second route, the CUDA-core kernel, at a head shape past the
-    # tensor-core kernel's (H > 24), the students' N and width
-    B, H, d, N = PAIRS, 32, 32, 50
-    qkv, wl, ww = t((B * N, 3 * H * d)), t((H, H), H ** -0.5), t((H, H), H ** -0.5)
-    kw = dict(heads=H, seq=N, scale=d ** -0.5)
-    cases.append(Case(
-        "transform_attention_rows_qkv_wide", f"B={B} H={H} d={d} N={N}",
-        lambda q=qkv, l=wl, w=ww, k=kw: (ta.transform_attention_rows_qkv_wide(q, l, w, **k),),
-        lambda q=qkv, l=wl, w=ww, k=kw: (ta.transform_attention_rows_qkv_plain(
-            q.float(), l.float(), w.float(), **k),),
-        (("abs", 8e-3),),
-        lambda q=qkv, l=wl, w=ww, k=kw: ta.transform_attention_rows_qkv_plain(q, l, w, **k),
-        4.0 * B * H * N * N * (d + H), 2 * (B * N * 4 * H * d + 2 * H * H),
-        composition=lambda q=qkv, l=wl, w=ww, k=kw: tf_composition(q, l, w, **k)))
-
-    # Plain attention, its save-P mode and its backward: the teachers' shapes,
-    # the students' without head mixes, head shapes the TPU's block-diagonal
-    # kernel rejects (5 heads; d = 48), and a ragged one with a short kv_len.
-    # The library call is F.scaled_dot_product_attention on the same values as
-    # [B, H, N, d] tensors, forward and backward (kv_len has no counterpart
-    # there, so the ragged case has none).
-    for label, B, H, d, N, causal, kv in (
-            ("image teacher", PAIRS, 12, 64, 50, False, None),
-            ("text teacher", PAIRS, 8, 64, 77, True, None),
-            ("image student", PAIRS, 24, 32, 50, False, None),
-            ("text student", PAIRS, 12, 64, 77, False, None),
-            ("5 heads", 64, 5, 64, 33, False, None), ("5 heads", 64, 5, 64, 33, True, None),
-            ("d=48", 64, 4, 48, 33, False, None), ("d=48", 64, 4, 48, 33, True, None),
-            ("ragged", 64, 3, 16, 17, True, 13)):
-        # q and k at unit scale (logits of std ~1); v at 0.7, so that the first
-        # causal rows, which mix only two or three values, stay under 4 (the
-        # 8e-3 limit; the row that sees one key returns v itself, exactly)
-        qkv = torch.cat([t((B * N, 2 * H * d)), t((B * N, H * d), 0.7)], dim=1)
-        do = t((B * N, H * d))
-        kw = dict(heads=H, seq=N, scale=d ** -0.5)
-        mask = dict(causal=causal, kv_len=kv)
-        shape = (f"{label} B={B} H={H} d={d} N={N}" + (" causal" if causal else "")
-                 + (f" kv_len={kv}" if kv else ""))
-        # the (query, key) pairs this mask leaves: what the run's data needs
-        pairs = float(pa.attention_mask(N, causal, kv, "cpu").sum())
-        product = 2.0 * B * H * pairs * d
-        io, pbytes = 2 * B * N * 4 * H * d, 2 * B * H * N * N
-        q4, k4, v4 = (x.contiguous().requires_grad_()
-                      for x in qkv.view(B, N, 3, H, d).permute(2, 0, 3, 1, 4))
-        sdpa = None
-        if kv is None:      # SDPA has no key limit; is_causal is the same mask
-            sdpa = lambda q=q4, k=k4, v=v4, c=causal: F.scaled_dot_product_attention(
-                q, k, v, is_causal=c)
-        lean = lambda q=qkv, k=kw, m=mask: pa.plain_attention_rows_qkv(q, **k, **m)
-        cases.append(Case(
-            "plain_attention_rows_qkv", shape, lambda f=lean: (f(),),
-            lambda q=qkv, k=kw, m=mask: (pa.plain_attention_rows_qkv_plain(q.float(), **k, **m),),
-            (("abs", 8e-3),),
-            lambda q=qkv, k=kw, m=mask: pa.plain_attention_rows_qkv_plain(q, **k, **m),
-            2 * product, io, library=sdpa))
-        hidden = ~pa.attention_mask(N, causal, kv, DEVICE)
-        cases.append(Case(
-            "plain_attention_save_p", shape,
-            lambda q=qkv, k=kw, m=mask: pa.plain_attention_save_p(q, **k, **m),
-            lambda q=qkv, k=kw, m=mask: pa.plain_attention_save_p_plain(q.float(), **k, **m),
-            (("abs", 8e-3), ("abs", 4e-3)),
-            lambda q=qkv, k=kw, m=mask: pa.plain_attention_save_p_plain(q, **k, **m),
-            2 * product, io + pbytes, same=lean, library=sdpa,
-            also=lambda outs, h=hidden: "a masked probability is not 0"
-            if bool(outs[1][:, :, h].any()) else None))
-        p = pa.plain_attention_save_p_plain(qkv, **kw, **mask)[1]
-        sdpa_bwd = None
-        if sdpa is not None:
-            with torch.enable_grad():
-                o4 = sdpa()
-            do4 = do.view(B, N, H, d).permute(0, 2, 1, 3).contiguous()
-            sdpa_bwd = lambda o=o4, q=q4, k=k4, v=v4, g=do4: torch.autograd.grad(
-                o, (q, k, v), g, retain_graph=True)
-        cases.append(Case(
-            "plain_attention_bwd", shape,
-            lambda q=qkv, g=do, p=p, k=kw: (pa.plain_attention_bwd(q, g, p, **k),),
-            lambda q=qkv, g=do, p=p, k=kw: (pa.plain_attention_bwd_plain(
-                q.float(), g.float(), p.float(), **k),),
-            (("abs", 3e-2),),
-            lambda q=qkv, g=do, p=p, k=kw: pa.plain_attention_bwd_plain(q, g, p, **k),
-            4 * product, 2 * B * N * 7 * H * d + pbytes, library=sdpa_bwd, library_eager=True))
-
-    # Attention on [B, H, N, d] views with the logsumexp residual (the towers
-    # when they collect hidden states): forward, backward and the
-    # head-transform forward, at the teachers' and the students' shapes.  The
-    # main path hands the kernels strided views of the fused qkv (first, so
-    # their times stand in the JSON line); a contiguous case, a causal one and
-    # a ragged one with a short kv_len follow.  Limits as for the fused-qkv
-    # kernels: forward 8e-3 (outputs under 4), dq/dk/dv 3e-2 (under 8), the
-    # fp32 logsumexp 1e-3.  The library call is SDPA on contiguous copies.
-    for label, B, H, d, N, causal, kv, strided in (
-            ("image teacher", PAIRS, 12, 64, 50, False, None, True),
-            ("text teacher", PAIRS, 8, 64, 77, True, None, True),
-            ("image student", PAIRS, 24, 32, 50, False, None, True),
-            ("text student", PAIRS, 12, 64, 77, False, None, True),
-            ("image teacher, contiguous", PAIRS, 12, 64, 50, False, None, False),
-            ("ragged", 64, 3, 16, 17, True, 13, True),
-            ("ragged, contiguous", 64, 5, 48, 33, False, 29, False)):
-        qkv = torch.cat([t((B, N, 2, H, d)), t((B, N, 1, H, d), 0.7)], dim=2)
-        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
-        do = t((B, N, H, d)).permute(0, 2, 1, 3)       # as an output projection's gradient
-        if not strided:
-            q, k, v, do = (x.contiguous() for x in (q, k, v, do))
-        kw = dict(scale=d ** -0.5, causal=causal, kv_len=kv)
-        shape = (f"{label} B={B} H={H} d={d} N={N}" + (" causal" if causal else "")
-                 + (f" kv_len={kv}" if kv else "") + (", views of a fused qkv" if strided else ""))
-        pairs = float(pa.attention_mask(N, causal, kv, "cpu").sum())
-        product = 2.0 * B * H * pairs * d
-        tensor, lse_bytes = 2 * B * N * H * d, 4 * B * H * N
-        sdpa = sdpa_bwd = None
-        if kv is None:
-            q4, k4, v4 = (x.contiguous().requires_grad_() for x in (q, k, v))
-            sdpa = lambda q=q4, k=k4, v=v4, c=causal: F.scaled_dot_product_attention(
-                q, k, v, is_causal=c)
-            with torch.enable_grad():
-                o4 = sdpa()
-            sdpa_bwd = lambda o=o4, q=q4, k=k4, v=v4, g=do.contiguous(): torch.autograd.grad(
-                o, (q, k, v), g, retain_graph=True)
-        f32 = lambda *xs: [x.float() for x in xs]
-        cases.append(Case(
-            "flash_attention_fwd", shape,
-            lambda q=q, k=k, v=v, kw=kw: fa.flash_attention_fwd(q, k, v, **kw),
-            lambda q=q, k=k, v=v, kw=kw: fa.flash_attention_fwd_plain(*f32(q, k, v), **kw),
-            (("abs", 8e-3), ("abs", 1e-3)),
-            lambda q=q, k=k, v=v, kw=kw: fa.flash_attention_fwd_plain(q, k, v, **kw),
-            2 * product, 4 * tensor + lse_bytes, library=sdpa))
-        with torch.no_grad():
-            o, lse = fa.flash_attention_fwd_plain(q, k, v, **kw)
-            o = o.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3) if strided else o
-        cases.append(Case(
-            "flash_attention_bwd", shape,
-            lambda q=q, k=k, v=v, o=o, l=lse, g=do, kw=kw: fa.flash_attention_bwd(
-                q, k, v, o, l, g, **kw),
-            lambda q=q, k=k, v=v, o=o, l=lse, g=do, kw=kw: fa.flash_attention_bwd_plain(
-                *f32(q, k, v, o), l, g.float(), **kw),
-            (("abs", 3e-2), ("abs", 3e-2), ("abs", 3e-2)),
-            lambda q=q, k=k, v=v, o=o, l=lse, g=do, kw=kw: fa.flash_attention_bwd_plain(
-                q, k, v, o, l, g, **kw),
-            5 * product, 8 * tensor + lse_bytes, library=sdpa_bwd, library_eager=True))
-        if "teacher" in label:
-            continue        # the teachers have no head mixes
-        # under the causal mask the first rows see one or two keys, so their
-        # output is Σ_g Ww[h, g] times v itself: Ww at half the scale keeps it under 4
-        wl, ww = t((H, H), H ** -0.5), t((H, H), H ** -0.5 * (0.5 if causal else 1.0))
-        mix = 2.0 * B * H * H * pairs
-        cases.append(Case(
-            "flash_transform_attention_fwd", shape,
-            lambda q=q, k=k, v=v, l=wl, w=ww, kw=kw: (fa.flash_transform_attention_fwd(
-                q, k, v, l, w, **kw),),
-            lambda q=q, k=k, v=v, l=wl, w=ww, kw=kw: (fa.flash_transform_attention_fwd_plain(
-                *f32(q, k, v, l, w), **kw),),
-            (("abs", 8e-3),),
-            lambda q=q, k=k, v=v, l=wl, w=ww, kw=kw: fa.flash_transform_attention_fwd_plain(
-                q, k, v, l, w, **kw),
-            2 * product + 2 * mix, 4 * tensor + 4 * H * H,
-            composition=lambda q=q, k=k, v=v, l=wl, w=ww, kw=kw: flash_tf_composition(
-                q, k, v, l, w, **kw)))
-    # #17's second route, the CUDA-core kernel, at a head shape past the
-    # tensor-core kernel's (H > 24) on views of a fused qkv, the students' N
-    B, H, d, N = PAIRS, 32, 32, 50
-    qkv = torch.cat([t((B, N, 2, H, d)), t((B, N, 1, H, d), 0.7)], dim=2)
-    q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
-    wl, ww = t((H, H), H ** -0.5), t((H, H), H ** -0.5)
-    kw = dict(scale=d ** -0.5)
-    cases.append(Case(
-        "flash_transform_attention_fwd_wide", f"B={B} H={H} d={d} N={N}, views of a fused qkv",
-        lambda q=q, k=k, v=v, l=wl, w=ww, kw=kw: (fa.flash_transform_attention_fwd_wide(
-            q, k, v, l, w, **kw),),
-        lambda q=q, k=k, v=v, l=wl, w=ww, kw=kw: (fa.flash_transform_attention_fwd_plain(
-            *[x.float() for x in (q, k, v, l, w)], **kw),),
-        (("abs", 8e-3),),
-        lambda q=q, k=k, v=v, l=wl, w=ww, kw=kw: fa.flash_transform_attention_fwd_plain(
-            q, k, v, l, w, **kw),
-        4.0 * B * H * N * N * (d + H), 2 * (4 * B * N * H * d + 2 * H * H),
-        composition=lambda q=q, k=k, v=v, l=wl, w=ww, kw=kw: flash_tf_composition(
-            q, k, v, l, w, **kw)))
-
-    # K4 and its backward: rows uniform on [-sqrt(3), sqrt(3)] (unit variance),
-    # so the normalised values stay within sqrt(3) and |y| within ~2.2; unit
-    # Gaussian rows put ~50 of the 786k outputs past 4.
-    # [12800, 768] is also the image student's under need_last_layer (fine_grain),
-    # and [19712, 768] the text student's: there the backward runs at those rows
-    for rows, c in ((1024, C), (PAIRS, C), (img, C), (txt, 512), (txt, C), (77, 40)):
-        x = rng.uniform(-3 ** 0.5, 3 ** 0.5, size=(rows, c)).astype(np.float32)
-        args = [torch.from_numpy(x).to(DEVICE).to(torch.bfloat16), t((c,), 0.1, 1.0),
-                t((c,), 0.1)]
-        g = t((rows, c))
-        stat = ("rel", 1e-5)
-        cases.append(Case(
-            "layer_norm_rows", f"[{rows},{c}], with mean/rstd",
-            lambda a=args: layer_norm.layer_norm_rows_fwd(*a, stats=True),
-            lambda a=args: layer_norm.layer_norm_rows_stats_plain(*_f32(a)),
-            (("abs", 1e-2), stat, stat),
-            lambda a=args: layer_norm.layer_norm_rows_plain(*a), 8.0 * rows * c,
-            2 * (2 * rows * c + 2 * c) + 8 * rows, FP32_FLOPS,
-            same=lambda a=args: layer_norm.layer_norm_rows_fwd(*a)[0],
-            library=lambda a=args, c=c: F.layer_norm(a[0], (c,), a[1], a[2], 1e-5)))
-        if (rows, c) not in ((PAIRS, C), (img, C), (txt, C), (77, 40)):
-            continue    # serving and teacher shapes; the backward runs at the train steps' rows
-        _, mean, rstd = torch.native_layer_norm(args[0], (c,), args[1], args[2], 1e-5)
-        stats = layer_norm.layer_norm_rows_stats_plain(*args)[1:]
-        cases.append(Case(
-            "layer_norm_rows_bwd", f"[{rows},{c}]",
-            lambda a=args, g=g, s=stats: layer_norm.layer_norm_rows_bwd(a[0], a[1], g, *s),
-            lambda a=args, g=g, s=stats: layer_norm.layer_norm_rows_bwd_plain(
-                a[0].float(), a[1].float(), g.float(), *s),
-            (("abs", 3e-2), ("rel", 6e-3), ("rel", 6e-3)),
-            lambda a=args, g=g, s=stats: layer_norm.layer_norm_rows_bwd_plain(a[0], a[1], g, *s),
-            14.0 * rows * c, 2 * (3 * rows * c + c) + 8 * rows + 8 * c, FP32_FLOPS,
-            library=lambda a=args, g=g, c=c, m=mean, r=rstd:
-                torch.ops.aten.native_layer_norm_backward(
-                    g, a[0], [c], m, r, a[1], a[2], [True, True, True])))
-    return cases
-
-
-def check_case(case: Case) -> float:
-    """Hold one case's outputs to their limits; returns the largest absolute
-    error of its abs-limited outputs."""
-    outs = case.run()
-    torch.cuda.synchronize()
-    refs = case.ref()
-    if case.same is not None and not torch.equal(outs[0], case.same()):
-        fail(f"{case.kernel} {case.label}: the first output differs from the lean mode's")
-    if case.also is not None and (complaint := case.also(outs)):
-        fail(f"{case.kernel} {case.label}: {complaint}")
-    worst, notes = 0.0, []
-    for i, (out, ref, limit) in enumerate(zip(outs, refs, case.limits)):
-        out, ref = out.float(), ref.float()
-        if out.shape != ref.shape or not torch.isfinite(out).all() \
-                or not torch.isfinite(ref).all():
-            fail(f"{case.kernel} {case.label}: output {i} has shape {tuple(out.shape)} "
-                 f"(want {tuple(ref.shape)}) or is not finite")
-        diff = (out - ref).abs()
-        err = diff.max().item()
-        if limit[0] == "rel":
-            err /= max(ref.abs().max().item(), 1e-30)
-            notes.append(f"out{i} rel {err:.3e} (limit {limit[1]:g})")
-            bad = err > limit[1]
-        else:
-            worst = max(worst, err)
-            mean = diff.mean().item()
-            notes.append(f"out{i} max_abs {err:.3e} (limit {limit[1]:g}) mean_abs {mean:.3e}"
-                         + (f" (limit {limit[2]:g})" if len(limit) > 2 else ""))
-            bad = err > limit[1] or (len(limit) > 2 and mean > limit[2])
-        if bad:
-            print(f"oracle {case.kernel} {case.label}: " + "; ".join(notes), flush=True)
-            fail(f"{case.kernel} {case.label}: output {i} disagrees with its plain version")
-    print(f"oracle {case.kernel} {case.label}: " + "; ".join(notes)
-          + ("; out0 bit-identical to the lean mode" if case.same else ""), flush=True)
-    return worst
-
-
-def kernel_oracles(card: str):
-    """Phases 3 and 6a: per kernel, the worst error over its shapes and, at
-    its first (main-path) shape, the kernel / plain / library times and the
-    bound; beside them the kernel time of every case, by (kernel, label)."""
-    results, case_ms = {}, {}
-    for case in oracle_cases(np.random.default_rng(SEED)):
-        with torch.no_grad():
-            err = check_case(case)
-            # the kernel and the library call replayed from a CUDA graph (their
-            # device time), eager where a call cannot be captured; the plain
-            # version, many small launches, eager; the library calls are short:
-            # more calls for a steadier mean.  A library call through autograd
-            # is timed at the end of the run (library_device_times).
-            ms = graph_ms(case.run) or cuda_ms(case.run)
-            plain_ms = cuda_ms(case.plain)
-            lib_ms = None
-            if case.library is not None and not case.library_eager:
-                lib_ms = graph_ms(case.library, 100) or cuda_ms(case.library, 100, 10)
-            comp = ""
-            if case.composition is not None:
-                comp_ms = graph_ms(case.composition) or cuda_ms(case.composition)
-                comp = f", composition {comp_ms:.4f} ms (kernel / composition {ms / comp_ms:.2f})"
-        case_ms[case.kernel, case.label] = ms
-        bound_ms, bound_by = case.bound()
-        print(f"time {case.kernel} {case.label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms by {bound_by} ({case.flops / 1e9:.3f} GFLOP, "
-              f"{case.nbytes / 1e6:.3f} MB, {bound_ms / ms:.3f} of it), library "
-              + ("at the end of the run" if case.library_eager
-                 else "none" if lib_ms is None
-                 else f"{lib_ms:.4f} ms (kernel / library {ms / lib_ms:.2f})") + comp
-              + f" [{card}]", flush=True)
-        r = results.setdefault(case.kernel, {
-            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": lib_ms})
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-    return results, case_ms
-
-
-def library_device_times(results: dict, case_ms: dict, card: str) -> None:
-    """The library calls that run through autograd (SDPA's backward): the
-    device time of their kernels from torch.profiler, at the cases' shapes,
-    the first into the kernel's ``library_ms``.  Measured after every step
-    timing: eager steps that run after a profiler session are slower."""
-    seen = set()
-    for case in oracle_cases(np.random.default_rng(SEED)):
-        if not case.library_eager or case.library is None:
-            continue
-        with torch.no_grad():
-            lib_ms = profiled_ms(case.library) or cuda_ms(case.library, 100, 10)
-        ms = case_ms[case.kernel, case.label]
-        print(f"time {case.kernel} {case.label}: library {lib_ms:.4f} ms, device time of its "
-              f"kernels (kernel / library {ms / lib_ms:.2f}) [{card}]", flush=True)
-        if case.kernel not in seen:
-            results[case.kernel]["library_ms"] = lib_ms
-            seen.add(case.kernel)
-
-
 def scale_lines(card: str) -> None:
     """PyTorch compositions and library attention at the main-path shapes,
     for scale only: none of them computes the same function as a kernel (no
@@ -1172,15 +565,16 @@ def check_warm_start(task) -> None:
 
 def make_image_task(compute_dtype: str, losses: Optional[dict] = None,
                     need_layers: Optional[list] = None, lr: Optional[float] = None,
+                    teacher: Optional[str] = None, task_over: Optional[dict] = None,
                     **student_over):
     """The stage-1 task of configs/final/image.yaml (weight-share image
     student, out_l1 + out_cos, freeze_embed, the live image teacher), or the
-    same with other losses, teacher layers, learning rate or student
-    arguments."""
+    same with other losses, teacher layers, learning rate, teacher checkpoint,
+    task arguments (``task_over``, the config's names) or student arguments."""
     from distillclip_tpu_torch.serving.lclip_score import build_tower
     from distillclip_tpu_torch.training import DistillTask
 
-    args = _config_args(IMAGE_CONFIG)
+    args = {**_config_args(IMAGE_CONFIG), **(task_over or {})}
     args["student_encoder"]["init_args"].update(student_over)
     return DistillTask(
         student=build_tower(args["student_encoder"]),
@@ -1190,7 +584,7 @@ def make_image_task(compute_dtype: str, losses: Optional[dict] = None,
         model_type=args["model_type"],
         warm_steps=args["warm_steps"], total_steps=args["total_steps"],
         weight_decay=args["weight_decay"], lr=lr or args["lr"], norm=args["norm"],
-        teacher_name=teacher_checkpoint(), compute_dtype=compute_dtype)
+        teacher_name=teacher or teacher_checkpoint(), compute_dtype=compute_dtype)
 
 
 def train_batch(rng: np.random.Generator, n: int, device: str, reps: int = 2):
@@ -1223,13 +617,19 @@ def _loss_and_grads(loss_fn, params, batch, left_out: Optional[dict] = None):
 
 
 def compare_with_plain(label: str, task, plain, loss_name: str, params, small,
-                       selecting: tuple = ()) -> None:
+                       selecting: tuple = (), noise_floor: float = 0.0,
+                       relative_loss: bool = False) -> None:
     """(a) 16 pairs: loss, parts and every leaf's gradient on the kernel path
     against the plain fp32 CPU path on the same masters.  ``selecting`` names
     losses that pick by comparison (a max over tokens, a mined index): a pick
     can flip between bf16 and fp32 and the gradient with it, so their values
     are compared like every part's, and the gradients are those of the total
-    without their shares."""
+    without their shares.  A leaf whose plain-path gradient is below
+    ``noise_floor`` times the global norm is at float-noise level, where a
+    cosine compares noise: its gradient's distance from the plain one must be
+    below that bound instead, and the line lists it.  ``relative_loss`` holds
+    a loss or part past 1 to 2e-2 of its size (a teacher whose
+    representations are O(100) makes the losses O(10))."""
     left_out = {name: task.loss_control.percent[name] for name in selecting}
     if left_out:
         print(f"train {label} (a): gradients compared without the shares of {selecting}, "
@@ -1240,21 +640,28 @@ def compare_with_plain(label: str, task, plain, loss_name: str, params, small,
     cpu_params = {k: v.cpu() for k, v in params.items()}
     ref_loss, ref_parts, ref_grads = _loss_and_grads(getattr(plain, loss_name), cpu_params,
                                                      small, left_out)
-    err = abs(float(loss) - float(ref_loss))
-    part_err = max(abs(float(parts[k]) - float(ref_parts[k])) for k in parts)
+    # the error over the limit's unit: 1, or the value's size under relative_loss
+    unit = (lambda ref: max(1.0, abs(float(ref)))) if relative_loss else (lambda ref: 1.0)
+    err = abs(float(loss) - float(ref_loss)) / unit(ref_loss)
+    part_err = max(abs(float(parts[k]) - float(ref_parts[k])) / unit(ref_parts[k])
+                   for k in parts)
+    kind = "relative to max(1, |value|)" if relative_loss else "abs"
     print(f"train {label} (a) 16 pairs: loss {float(loss):.6f} vs plain fp32 CPU "
-          f"{float(ref_loss):.6f} (abs err {err:.3e}, parts max err {part_err:.3e}, limit 2e-2)",
-          flush=True)
+          f"{float(ref_loss):.6f} ({kind} err {err:.3e}, parts max err {part_err:.3e}, limit "
+          f"2e-2)", flush=True)
     if not np.isfinite(float(loss)) or err > 2e-2 or part_err > 2e-2:
         fail(f"{label}: train loss disagrees with the plain path")
     gn = float(torch.sqrt(sum(g.float().square().sum() for g in grads.values())))
     ref_gn = float(torch.sqrt(sum(g.square().sum() for g in ref_grads.values())))
-    worst_name, worst_cos = None, 1.0
+    worst_name, worst_cos, noise = None, 1.0, {}
     for k, g in grads.items():
         g, r = g.float().cpu().flatten(), ref_grads[k].flatten()
         if not torch.isfinite(g).all():
             fail(f"{label}: train gradient of {k} is not finite")
         if float(r.norm()) == 0.0 and float(g.norm()) == 0.0:
+            continue
+        if float(r.norm()) < noise_floor * ref_gn:
+            noise[k] = (float(g.norm()), float(r.norm()), float((g - r).norm()))
             continue
         cos = float(torch.dot(g, r) / (g.norm() * r.norm()).clamp_min(1e-30))
         if cos < worst_cos:
@@ -1262,7 +669,13 @@ def compare_with_plain(label: str, task, plain, loss_name: str, params, small,
     print(f"train {label} (a) gradients: global norm {gn:.6f} vs {ref_gn:.6f} (limit 5%), "
           f"lowest per-parameter cosine {worst_cos:.6f} at {worst_name} (limit 0.99)",
           flush=True)
-    if abs(gn - ref_gn) > 0.05 * ref_gn or worst_cos < 0.99:
+    if noise:
+        print(f"train {label} (a) gradients at float-noise level (plain norm below "
+              f"{noise_floor:g} of the global norm; kernel-path norm, plain norm, distance): "
+              + "; ".join(f"{k} {a:.3e} {b:.3e} {d:.3e}" for k, (a, b, d) in noise.items())
+              + f" (distance limit {noise_floor * ref_gn:.3e})", flush=True)
+    if abs(gn - ref_gn) > 0.05 * ref_gn or worst_cos < 0.99 or \
+            any(d > noise_floor * ref_gn for _, _, d in noise.values()):
         fail(f"{label}: train gradients disagree with the plain path")
 
 
@@ -1545,6 +958,172 @@ def dropout_phase(ops, card: str) -> dict:
     return {"counts": counts}
 
 
+# -- phase 5d': iRPE and the ResNet teacher -------------------------------------
+
+# stage 1 with relative position tables on q, k and v: 50 tokens (the cls and
+# a 7 x 7 grid), 50 product buckets, a table per head (configs/final/image.yaml
+# has rpe_config: null; this is the overlay)
+RPE_CONFIG = {"method": "product", "mode": "contextual", "shared_head": False, "rpe_on": "qkv"}
+RPE_TABLE_STD = 0.3     # the tables' seeded values: zero tables make iRPE an exact no-op
+# The key tables' gradient is a near-cancelling sum (q_i against the score
+# gradient summed per bucket, whose rows sum to 0) and, under the config's
+# pooled losses, about 1e-7 of the global norm in fp32 (the last layer's cls
+# row sees one bucket only): bf16 cannot resolve its direction, on the card
+# or on the CPU.  Such leaves are held by their distance from the plain path.
+RPE_NOISE_FLOOR = 1e-6
+# the iRPE student takes the materialised attention (no attention kernel), its
+# dense layers and norms are the stage-1 step's; the teacher is unchanged
+RPE_IMAGE_STEP_LAUNCHES = add_counts(MATERIALISED_IMAGE_STEP_LAUNCHES, IMAGE_TEACHER_LAUNCHES)
+# a teacher of RN50's geometry: the image tower is convolutions and an
+# attention pool (PyTorch's own calls: no TPU kernel in the JAX package), the
+# text tower ViT-B/32's (width 512, 12 layers, 8 heads, causal)
+RN50_ARGS = dict(width=64, layers=(3, 4, 6, 3), image_resolution=224, embed_dim=1024,
+                 text_width=512, text_layers=12, context_length=77, vocab_size=49408)
+RN50_IMAGE_LAUNCHES: dict = {}
+# bf16 through 16 bottlenecks of seeded weights with no normalising layer:
+# the JAX package's own bf16 encode of this checkpoint reaches cosine 0.99839
+# of its fp32 encode (CPU), below the ViT's 0.999.  The card's rows are held
+# to the plain bf16 CPU encode's lowest cosine (the same rounding points)
+# less RN50_COSINE_MARGIN, and to 2e-2 on unit rows.
+RN50_COSINE_MARGIN = 1e-3
+RN50_SCORE_LAUNCHES = TEXT_TEACHER_LAUNCHES
+# stage 1 against the RN50 teacher: what the JAX package needs to run one
+# (out_dim = the teacher's 1024, no embedding copy from a ResNet, no teacher
+# layers), the student's launches alone
+RN50_TASK = {"freeze_embed": False, "teacher_need_layers": None}
+RN50_LOSSES = {"loss_name": ["out_l1", "out_cos"]}
+RN50_STEP_LAUNCHES = IMAGE_STEP_LAUNCHES
+
+
+def rn50_checkpoint() -> str:
+    """A seeded CLIP checkpoint of RN50's geometry, written once under build/."""
+    from distillclip_tpu_torch.tools.fabricate_teacher import make_rn_state_dict
+
+    path = ROOT / "build" / "chip_smoke" / f"clip_rn50_arch_seed{SEED}.pt"
+    if not path.exists():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        torch.save(make_rn_state_dict(**RN50_ARGS, seed=SEED), str(path))
+    return str(path)
+
+
+def irpe_phase(ops, card: str) -> dict:
+    """Stage 1 of configs/final/image.yaml with iRPE on q, k and v, every
+    table seeded non-zero: (a) 16 pairs against the plain fp32 CPU path, (b)
+    steps on one batch with the launch table met, (c) ms/step."""
+    task = make_image_task("bfloat16", rpe_config=RPE_CONFIG)
+    plain = make_image_task("float32", rpe_config=RPE_CONFIG)
+    state, tx = task.init_state(SEED, steps_per_epoch=1, device=DEVICE)
+    rng = np.random.default_rng(SEED + 50)
+    tables = sorted(k for k in state.params if ".rpe_" in k)
+    with torch.no_grad():
+        for k in tables:
+            v = rng.standard_normal(tuple(state.params[k].shape), dtype=np.float32)
+            state.params[k].copy_(torch.from_numpy(v * np.float32(RPE_TABLE_STD)))
+    frozen = [k for k, m in (task._mask or {}).items() if not m]
+    print(f"train stage-1 iRPE: rpe_config {RPE_CONFIG}, {len(tables)} tables "
+          f"({sum(state.params[k].numel() for k in tables)} values, seeded N(0, "
+          f"{RPE_TABLE_STD}^2)), shapes {sorted({tuple(state.params[k].shape) for k in tables})}, "
+          f"{len(state.params)} parameter leaves, {len(frozen)} frozen", flush=True)
+    small = [torch.from_numpy(make_images(np.random.default_rng(SEED + 51), 16))]
+    compare_with_plain("stage-1 iRPE", task, plain, "loss_fn", state.params, small,
+                       noise_floor=RPE_NOISE_FLOOR)
+    del plain
+    batch = [torch.from_numpy(make_images(np.random.default_rng(SEED + 52), PAIRS)).to(DEVICE)]
+    return run_steps(ops, card, "stage-1 iRPE", task.make_train_step(tx), state, batch,
+                     RPE_IMAGE_STEP_LAUNCHES, 8, False, frozen)
+
+
+def rn50_teacher_phase(ops, card: str) -> dict:
+    """The RN50-geometry teacher: its image encode of 256 rows in bf16 against
+    the plain fp32 CPU encode of the first 16 (unit rows, cosines), rows/s and
+    peak memory; the teacher scorer's score_tokens at 256 pairs (pairs/s, the
+    text tower's launches)."""
+    from distillclip_tpu_torch.models.frozen_teacher import FrozenTeacher
+    from distillclip_tpu_torch.serving import LCLIPScorer
+
+    path = rn50_checkpoint()
+    rng = np.random.default_rng(SEED + 60)
+    images = make_images(rng, PAIRS, RN50_ARGS["image_resolution"])
+    tokens = make_tokens(rng, PAIRS, RN50_ARGS["context_length"])
+    teacher = FrozenTeacher(path, None, "image", None, torch.bfloat16)
+    t0 = time.perf_counter()
+    encode = teacher.image_encode(DEVICE)
+    tower = teacher.tower(DEVICE, "image")
+    print(f"teacher RN50: {type(tower).__name__} layers {tower.layers}, "
+          f"{sum(p.numel() for p in teacher.module.parameters()) / 1e6:.2f} M image-tower "
+          f"parameters (seeded), loaded and cast in {time.perf_counter() - t0:.1f} s", flush=True)
+    d_images = torch.from_numpy(images).to(DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    rep = encode(d_images)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if counts != {**dict.fromkeys(ops.KERNELS, 0), **RN50_IMAGE_LAUNCHES}:
+        fail(f"teacher RN50: image encode launches {counts}, want {RN50_IMAGE_LAUNCHES}")
+    if rep.shape != (PAIRS, RN50_ARGS["embed_dim"]) or not torch.isfinite(rep).all():
+        fail(f"teacher RN50: representations of shape {tuple(rep.shape)} or not finite")
+    ms = cuda_ms(lambda: encode(d_images), iters=5, warmup=1)
+    ref = FrozenTeacher(path, None, "image", None, torch.float32).image_encode("cpu")(images[:16])
+    # the same rounding points on the CPU: what bf16 itself costs on these weights
+    ref16 = FrozenTeacher(path, None, "image", None, torch.bfloat16).image_encode("cpu")(
+        images[:16])
+
+    def against(x):
+        unit = lambda y: y / y.norm(dim=1, keepdim=True)
+        cos = torch.nn.functional.cosine_similarity(x, ref, dim=1)
+        return float((unit(x) - unit(ref)).abs().max()), float(cos.min())
+
+    (err, cos), (err16, cos16) = against(rep[:16].cpu()), against(ref16)
+    limit = cos16 - RN50_COSINE_MARGIN
+    print(f"teacher RN50: image encode of {PAIRS} rows (bf16) {ms:.2f} ms, {PAIRS / ms * 1e3:.1f} "
+          f"rows/s, peak device memory {peak:.2f} GiB; rows[:16] vs the plain fp32 CPU encode: "
+          f"unit rows max_abs_err {err:.3e} (limit 2e-2), lowest cosine {cos:.6f} (limit "
+          f"{limit:.6f}: the plain bf16 CPU encode's {cos16:.6f} less {RN50_COSINE_MARGIN:g}; its "
+          f"unit rows {err16:.3e}); launches of one encode "
+          f"{({k: v for k, v in counts.items() if v})} [{card}]", flush=True)
+    if err > 2e-2 or cos < limit:
+        fail("teacher RN50: the kernel-path encode disagrees with the plain fp32 CPU encode")
+    del teacher, encode, tower, d_images
+    scorer = LCLIPScorer.from_teacher(path, device=DEVICE)
+    ops.reset_launch_counts()
+    scores = scorer.score_tokens(images, tokens)
+    score_counts = ops.launch_counts()
+    if score_counts != {**dict.fromkeys(ops.KERNELS, 0), **RN50_SCORE_LAUNCHES}:
+        fail(f"teacher RN50: score_tokens launches {score_counts}, want {RN50_SCORE_LAUNCHES}")
+    if not np.isfinite(scores).all() or np.abs(scores).max() > 1.0 + 1e-5:
+        fail("teacher RN50: scores not finite or outside [-1, 1]")
+    d_images, d_tokens = torch.from_numpy(images).to(DEVICE), torch.from_numpy(tokens).to(DEVICE)
+    scorer.score_tokens(d_images, d_tokens)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        scorer.score_tokens(d_images, d_tokens)       # returns numpy: the readback fences
+    dt = (time.perf_counter() - t0) / 5
+    print(f"throughput teacher RN50 score_tokens batch {PAIRS} (device-resident): "
+          f"{PAIRS / dt:.1f} pairs/s, {dt * 1e3:.2f} ms/call; launches of one call (the text "
+          f"tower) {({k: v for k, v in score_counts.items() if v})} [{card}]", flush=True)
+    return {"teacher_rn50_image_encode": counts, "score_tokens teacher RN50": score_counts}
+
+
+def rn50_stage_phase(ops, card: str) -> dict:
+    """Stage 1 of configs/final/image.yaml's student against the RN50 teacher,
+    live: (a) 16 pairs against the plain fp32 CPU path, (b) and (c)."""
+    kw = dict(losses=RN50_LOSSES, teacher=rn50_checkpoint(), task_over=RN50_TASK,
+              out_dim=RN50_ARGS["embed_dim"])
+    task, plain = make_image_task("bfloat16", **kw), make_image_task("float32", **kw)
+    state, tx = task.init_state(SEED, steps_per_epoch=1, device=DEVICE)
+    print(f"train stage-1 RN50 teacher: overlay {RN50_TASK}, losses {RN50_LOSSES['loss_name']}, "
+          f"out_dim {RN50_ARGS['embed_dim']}, {len(state.params)} parameter leaves", flush=True)
+    small = [torch.from_numpy(make_images(np.random.default_rng(SEED + 61), 16))]
+    compare_with_plain("stage-1 RN50 teacher", task, plain, "loss_fn", state.params, small,
+                       relative_loss=True)
+    del plain
+    batch = [torch.from_numpy(make_images(np.random.default_rng(SEED + 62), PAIRS)).to(DEVICE)]
+    return run_steps(ops, card, "stage-1 RN50 teacher", task.make_train_step(tx), state, batch,
+                     RN50_STEP_LAUNCHES, 8, False)
+
+
 # -- phase 5e: the perf knobs ---------------------------------------------------
 
 @contextlib.contextmanager
@@ -1714,39 +1293,6 @@ def fit_measure_overlay(name: str) -> str:
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(yaml.safe_dump(overlay))
     return str(path)
-
-
-def trace_split(path: Path, skip: int = FIT_TRACE_SKIP) -> dict:
-    """Per step of a fit's torch.profiler trace, past its first ``skip``
-    steps: the host's ms between step starts, in ``host_to_device`` and in
-    ``train_step`` (launching the step), and the device's busy ms (the union
-    of the kernels and copies those steps launched) and its window (first
-    start to last end of that work)."""
-    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
-    spans = {name: sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                          if e.get("cat") == "user_annotation" and e["name"] == name)
-             for name in ("host_to_device", "train_step")}
-    h2d, steps = spans["host_to_device"], spans["train_step"]
-    if len(h2d) != len(steps) or len(steps) <= skip + 1:
-        fail(f"fit: the trace at {path} holds {len(h2d)} / {len(steps)} step spans")
-    t0, t1 = h2d[skip][0], steps[-1][1]
-    launched = {e["args"]["correlation"] for e in events
-                if e.get("cat") in ("cuda_runtime", "cuda_driver") and t0 <= e["ts"] <= t1
-                and "correlation" in e.get("args", {})}
-    work = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
-                  and e.get("args", {}).get("correlation") in launched)
-    if not work:
-        fail(f"fit: the trace at {path} holds no device work for the traced steps")
-    busy, end = 0.0, work[0][0]
-    for a, b in work:
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
-    n = len(steps) - skip
-    mean = lambda xs: sum(b - a for a, b in xs) / len(xs) / 1e3
-    return {"steps": n, "host_step_ms": (h2d[-1][0] - h2d[skip][0]) / (n - 1) / 1e3,
-            "to_device_ms": mean(h2d[skip:]), "train_step_ms": mean(steps[skip:]),
-            "device_busy_ms": busy / n / 1e3, "device_window_ms": (end - work[0][0]) / n / 1e3}
 
 
 def fit_overhead(card: str, text_cached_ms: float):
@@ -2117,6 +1663,10 @@ def prepare_phase(ops, card: str) -> dict:
     return counts
 
 
+# each final config's bare step, ms at FINAL_PAIRS (the roofline's yardsticks)
+BARE_STEP_MS: dict = {}
+
+
 def final_fit_phase(ops, card: str, name: str) -> dict:
     """``cli.main fit`` on one final config with its own dataset and the
     cuts; the first logged loss against the bare step on the trainer's first
@@ -2192,6 +1742,7 @@ def final_fit_phase(ops, card: str, name: str) -> dict:
         state, metrics = step(state, *inputs)
     float(metrics["loss"])
     bare_ms = (time.perf_counter() - t0) / 5 * 1e3
+    BARE_STEP_MS[name] = bare_ms
     val_batch = to_device(next(iter(val_loader)), DEVICE)
     eval_step = task.make_eval_step()
     ops.reset_launch_counts()
@@ -2341,6 +1892,97 @@ def data_phases(ops, card: str) -> dict:
     traced_fit_phase(ops, card)
     counts.update(ddp_phase(ops, card))
     return counts
+
+
+# -- phase 5i: the tools ----------------------------------------------------------
+
+INPUT_BENCH_THREADS, INPUT_BENCH_ITEMS = (1, 4), 256
+TRACED_STEPS = 5          # the trainer's trace profiler records the first 5 steps
+
+
+def tools_phase(ops, card: str, text_cached_ms: float) -> None:
+    """Each tool of distillclip_tpu_torch/tools on the card: the kernel oracle
+    on the row LayerNorm's cases, the 50-step trajectory against its CPU legs,
+    the roofline floors beside the measured steps, the digest of the traced
+    l_clip fit's trace, the input bench on phase 5h's corpus, and one epoch of
+    the cached-teacher A/B (a few seconds on the card)."""
+    from distillclip_tpu_torch.tools import (
+        cached_teacher_ab,
+        hw_oracle,
+        hw_trajectory,
+        input_bench,
+        roofline,
+        trace_summary,
+    )
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        rc = hw_oracle.main(["--only", "layer_norm_rows"])
+    lines = out.getvalue().splitlines()
+    print(f"tools hw_oracle --only layer_norm_rows: rc {rc}, {lines[-1]} "
+          f"({time.perf_counter() - t0:.1f} s) [{card}]", flush=True)
+    if rc != 0:
+        print("\n".join(lines), flush=True)
+        fail("tools: hw_oracle disagrees")
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        rc = hw_trajectory.main([])
+    verdict = json.loads(out.getvalue().splitlines()[-1])
+    first, last = verdict["loss_first_last"]
+    print(f"tools hw_trajectory ({hw_trajectory.STEPS} steps of {hw_trajectory.BATCH} rows, card "
+          f"against the CPU and its perturbed shadow): rc {rc}, verdict {json.dumps(verdict)}; "
+          f"card loss {first:.6f} -> {last:.6f} ({time.perf_counter() - t0:.1f} s) [{card}]",
+          flush=True)
+    if rc != 0 or not verdict["ok"]:
+        fail("tools: the card's trajectory disagrees with the CPU's")
+
+    for stage, ms, what in (("joint", text_cached_ms, "the text-cached stage-3 step"),
+                            ("text", BARE_STEP_MS.get("text"), "fit text.yaml's bare step")):
+        r = roofline.roofline(stage, PAIRS)
+        line = (f"tools roofline --stage {stage} --batch {PAIRS}: floor {r['floor_ms']:.4f} ms "
+                f"({r['true_gflops']:.1f} true GFLOP, {r['issued_gflops']:.1f} issued)")
+        if ms:
+            line += f"; {what} {ms:.2f} ms = {ms / r['floor_ms']:.2f}x the floor"
+        print(f"{line} [{card}]", flush=True)
+
+    trace = DATA_DIR / "result" / "final-l_clip-traced"
+    digest = trace_summary.summarize(trace, top=6, steps=TRACED_STEPS)
+    print(f"tools trace_summary (fit l_clip.yaml traced, {TRACED_STEPS} steps): device "
+          f"{digest['device_total_ms_per_step']} ms/step; top families "
+          + "; ".join(f"{f['family']} {f['ms_per_step']} ms ({f['pct']}%)"
+                      for f in digest["families"]) + f" [{card}]", flush=True)
+    if not digest["families"]:
+        fail("tools: the traced fit's trace holds no device events")
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        bench = input_bench.run(str(DATA_DIR), n=INPUT_BENCH_ITEMS,
+                                threads_list=INPUT_BENCH_THREADS, n_captions=20000,
+                                device=DEVICE, cache_dir=str(DATA_DIR / "input_bench"))
+    rates = {k: {t: v and round(v, 1) for t, v in per.items()}
+             for k, per in bench["images_per_s"].items()}
+    captions = {k: round(v, 1) if isinstance(v, float) else v
+                for k, v in bench["captions_per_s"].items()}
+    print(f"tools input_bench ({INPUT_BENCH_ITEMS} items of phase 5h's combined corpus, 224 px, "
+          f"batches of 64 normalised on the card; {bench['cpu_count']} host cores): items/s by "
+          f"format and threads {rates}; captions/s {captions} ({time.perf_counter() - t0:.1f} s) "
+          f"[{card}]", flush=True)
+    if not all(v and v > 0 for per in bench["images_per_s"].values() for v in per.values()):
+        fail("tools: input_bench measured no items")
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        rc = cached_teacher_ab.main(["--epochs", "1", "--workdir",
+                                     str(DATA_DIR / "cached_teacher_ab")])
+    ab = json.loads(out.getvalue()[out.getvalue().index("{"):])
+    losses = {name: r.get("val_loss/loss") for name, r in ab.items()}
+    print(f"tools cached_teacher_ab --epochs 1 (the fabricated 32 px corpus, a 64-wide pair): "
+          f"rc {rc}, val_loss/loss {losses}, val_stu_acc/stu_acc_top1 "
+          f"{({n: r.get('val_stu_acc/stu_acc_top1') for n, r in ab.items()})} "
+          f"({time.perf_counter() - t0:.1f} s) [{card}]", flush=True)
+    if rc != 0 or not all(v is not None and np.isfinite(v) for v in losses.values()):
+        fail("tools: cached_teacher_ab did not finish with finite validation losses")
 
 
 # -- phase 5f: the score entry point -------------------------------------------
@@ -2499,37 +2141,6 @@ def throughput(scorer, card: str) -> None:
 
 # -- --profile --------------------------------------------------------------
 
-# device kernels by the piece of the step they belong to, first match wins
-PROFILE_GROUPS = (
-    ("flash_attention forward (#16, tensor cores)", ("flash_attention_fwd_mma_kernel",)),
-    ("flash_attention_bwd (#16, tensor cores)", ("flash_attention_bwd_mma_kernel",)),
-    # #17's instances hold K3's kernel name: they come first
-    ("#17 flash_transform_attention forward (tensor cores)", ("flash_tf_fwd_mma_kernel",)),
-    ("#17 CUDA-core route (heads past the tensor-core kernel)",
-     ("flash_transform_attention_fwd_kernel",)),
-    # one kernel template: K2 / #8 are its activation instances, K1 act 0
-    ("K2 / #8 dense_act_ln + dense_act_ln_res (wgmma, activation epilogue)",
-     ("dense_ln_wgmma_kernel<1", "dense_ln_wgmma_kernel<2")),
-    ("K1 dense_ln (wgmma)", ("dense_ln_wgmma_kernel",)),
-    ("ln_stats_w16 (statistics and W's fp16 copy for K1, K2 and #8)", ("ln_stats_w16_kernel",)),
-    ("#9 dense_ln_bwd (wgmma, clusters along C)", ("dense_ln_bwd_wgmma_kernel",)),
-    ("K3 / #5 transform_attention forward (lean / save_p, tensor cores)",
-     ("tf_fwd_mma_kernel",)),
-    ("K3 CUDA-core route (heads past the tensor-core kernel)", ("transform_attention_kernel",)),
-    ("transform_attention_bwd", ("tf_bwd_",)),
-    ("plain_attention forward (#13 lean / save_p, tensor cores)",
-     ("plain_attention_mma_kernel",)),
-    ("plain_attention_bwd (#14, tensor cores)", ("plain_attention_bwd_mma_kernel",)),
-    ("layer_norm_rows + bwd", ("layer_norm_rows",)),
-    ("reduce_partials (#6, #9)", ("reduce_partials",)),
-    ("optimizer (foreach kernels)", ("multi_tensor_apply",)),
-    ("library convolutions (cuDNN; vit_kd)", ("fprop", "dgrad", "wgrad", "conv", "cudnn")),
-    ("dense_act (#10-#12, wgmma)", ("dense_act_wgmma_kernel",)),
-    ("library products (cuBLAS)", ("gemm", "cutlass", "nvjet", "xmma", "cublas", "splitk")),
-    ("copies and memset", ("memcpy", "memset")),
-)
-
-
 def profile(label: str, fn, iters: int, card: str) -> None:
     """torch.profiler over ``iters`` calls of ``fn``: wall per call and the
     device time of each group of kernels as a share of the wall."""
@@ -2543,12 +2154,9 @@ def profile(label: str, fn, iters: int, card: str) -> None:
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / iters
-    groups = dict.fromkeys([g for g, _ in PROFILE_GROUPS] + ["elementwise and the rest"], 0.0)
+    groups = dict.fromkeys([g for g, _ in PROFILE_GROUPS] + [REST], 0.0)
     for name, dev_us in device_events(prof):
-        name = name.lower()
-        group = next((g for g, keys in PROFILE_GROUPS if any(k in name for k in keys)),
-                     "elementwise and the rest")
-        groups[group] += dev_us / 1e3 / iters
+        groups[family_of(name)] += dev_us / 1e3 / iters
     total = sum(groups.values())
     print(f"profile {label}: wall {wall_ms:.3f} ms per call under the profiler, device kernels "
           f"{total:.3f} ms, busy share {total / wall_ms:.3f} [{card}]", flush=True)
@@ -2565,6 +2173,7 @@ def main() -> None:
         sys.exit(2)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    started = time.perf_counter()
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
@@ -2580,7 +2189,10 @@ def main() -> None:
         ptxas_lines(_build.BUILD_DIR / "build.log")
     cluster_line(_build.lib(), card)
 
-    results, case_ms = kernel_oracles(card)
+    try:
+        results, case_ms = kernel_oracles(card)
+    except Disagreement as err:
+        fail(str(err))
     if missing := sorted(set(ops.KERNELS) - set(results)):
         fail(f"kernels without an oracle case: {missing}")
     scale_lines(card)
@@ -2616,12 +2228,20 @@ def main() -> None:
         add_counts(TRAIN_STEP_LAUNCHES, IMAGE_TEACHER_LAUNCHES, TEXT_TEACHER_LAUNCHES), 6,
         SEED + 16, profiling, selecting=("fine_grain", "smd_multi_model"))
     runs["stage-1 dropout"] = dropout_phase(ops, card)
+    t0 = time.perf_counter()
+    runs["stage-1 iRPE"] = irpe_phase(ops, card)
+    rn50_counts = rn50_teacher_phase(ops, card)
+    runs["stage-1 RN50 teacher"] = rn50_stage_phase(ops, card)
+    print(f"wall: the iRPE and RN50 phases {time.perf_counter() - t0:.1f} s", flush=True)
     knob_runs = {label: knob_phase(ops, card, label, runs["text-cached"],
                                    profiling and label.startswith("fc1_ln=0"))
                  for label in KNOB_PHASES}
     fit_counts = fit_phase(ops, card, runs["text-cached"]["ms"])
     data_counts = data_phases(ops, card)
     score_counts = score_phase(ops, card)
+    t0 = time.perf_counter()
+    tools_phase(ops, card, runs["text-cached"]["ms"])
+    print(f"wall: the tools phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     if profiling:
         tokens, images = runs["all-cached"]["batch"][:2]
@@ -2648,7 +2268,7 @@ def main() -> None:
              **{f"serving_call {k}": v["serving"] for k, v in knob_runs.items()},
              **{f"train_step text-cached {k}": v["step"] for k, v in knob_runs.items()},
              **{f"score_cli {k}": v for k, v in score_counts.items()},
-             **fit_counts, **data_counts}
+             **rn50_counts, **fit_counts, **data_counts}
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1],
                 "launches": sum(c[name] for c in paths.values()),
@@ -2666,6 +2286,7 @@ def main() -> None:
     if idle := [k["name"] for k in kernels
                 if k["launches"] == 0 and k["name"] not in OFF_MAIN_PATH]:
         fail(f"kernels that no main-path run launched: {idle}")
+    print(f"wall: the whole check {time.perf_counter() - started:.1f} s", flush=True)
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -19,8 +19,6 @@ from typing import Any, Dict, List, Optional
 
 import yaml
 
-MODELS_ITEM = "ROADMAP queue 1: models off the main path"
-
 # reference class_path -> the port's (constructor-argument renames below); the
 # student towers are added from the scorer's table by class_aliases()
 _ALIASES = {
@@ -100,8 +98,10 @@ def instantiate(node: Any) -> Any:
             if k in _DROPPABLE_IF_NONE and v is None:
                 continue
             kwargs[k] = v
-        if kwargs.get("rpe_config") is not None:
-            raise NotImplementedError(f"iRPE (rpe_config) is not ported yet ({MODELS_ITEM})")
+        if isinstance(kwargs.get("rpe_config"), dict):
+            from distillclip_tpu_torch.models.irpe import rpe_config_from_dict
+
+            kwargs["rpe_config"] = rpe_config_from_dict(kwargs["rpe_config"])
         params = inspect.signature(cls.__init__).parameters
         if not any(p.kind == inspect.Parameter.VAR_KEYWORD for p in params.values()):
             for k in [k for k in kwargs if k not in params]:

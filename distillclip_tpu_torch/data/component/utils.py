@@ -68,7 +68,9 @@ def encode_images(path_list: Sequence, teacher_name: str, device,
     from PIL import Image
 
     teacher = _teacher(teacher_name, download_root, "image", device)
-    transform = eval_image_transform(teacher.module.visual.input_resolution)
+    from distillclip_tpu_torch.serving.lclip_score import image_size_of
+
+    transform = eval_image_transform(image_size_of(teacher.module))
     return _chunked("encode_images", teacher.image_encode(device), list(path_list), batch_size,
                     lambda chunk: np.stack([transform(Image.open(str(p))) for p in chunk]))
 

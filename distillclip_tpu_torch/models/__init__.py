@@ -1,5 +1,6 @@
 from distillclip_tpu_torch.models.clip import CLIPModel, l2_normalize
 from distillclip_tpu_torch.models.encoders import ImageEncoder, TextEncoder
+from distillclip_tpu_torch.models.irpe import RpeConfig, rpe_config_from_dict
 from distillclip_tpu_torch.models.outputs import (
     AttentionOutput,
     CLIPOutput,
@@ -12,6 +13,7 @@ from distillclip_tpu_torch.models.repeat_vit import (
     RepeatTextTransformer,
     RepeatVisionTransformer,
 )
+from distillclip_tpu_torch.models.resnet import ModifiedResNet
 from distillclip_tpu_torch.models.teacher import teacher_load
 from distillclip_tpu_torch.models.text import TextTransformer
 from distillclip_tpu_torch.models.vit import VisionTransformer
@@ -22,8 +24,10 @@ __all__ = [
     "CLIPOutput",
     "ControlFlags",
     "ImageEncoder",
+    "ModifiedResNet",
     "RepeatTextTransformer",
     "RepeatVisionTransformer",
+    "RpeConfig",
     "TextEncoder",
     "TextOutput",
     "TextTransformer",
@@ -31,5 +35,6 @@ __all__ = [
     "VisionOutput",
     "VisionTransformer",
     "l2_normalize",
+    "rpe_config_from_dict",
     "teacher_load",
 ]

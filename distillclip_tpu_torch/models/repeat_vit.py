@@ -56,7 +56,14 @@ Dropout (after ``proj``, in the MLP, on the embeddings and on the attention
 probabilities) and per-sample drop-path act in training mode (``.train()``)
 with non-zero rates, drawing from the ``generator`` the forward is given.
 
-Not ported yet, and refused rather than approximated: iRPE.
+With ``rpe_config`` (:mod:`models.irpe`) a block holds its relative position
+tables and every attention takes the materialised path, taps or not, as the
+JAX package does: the encodings on keys and queries are added to the scaled
+scores (after ``attention_scores`` is read, before ``conv_l``), the encoding
+of the probabilities after dropout is added to the output.  The sequence must
+be ``skip`` plus a square grid (the ViT's ``1 + patches``); the text tower's
+``context_length`` rarely is, and then the tower raises ``ValueError`` when it
+is built, where the JAX tower raises at its first call.
 """
 
 from __future__ import annotations
@@ -67,6 +74,15 @@ import torch
 from torch import nn
 
 from distillclip_tpu_torch.config.perf import perf_knobs, require_kernels
+from distillclip_tpu_torch.models.irpe import (
+    RpeParams,
+    bucket_index,
+    rpe_config_from_dict,
+    rpe_on_keys,
+    rpe_on_queries,
+    rpe_on_values,
+    table_shapes,
+)
 from distillclip_tpu_torch.models.layers import (
     Dense,
     drop_path,
@@ -111,16 +127,17 @@ class MiniAttention(nn.Module):
     """Shared qkv/proj attention; with ``use_transform`` the per-repeat head
     mixes ``conv_l`` / ``conv_w`` exist and mix the heads, without it the
     attention is plain.  norm1 is folded into the qkv kernel unless the
-    ``fc1_ln: "0"`` knob unfuses it."""
+    ``fc1_ln: "0"`` knob unfuses it.  With ``rpe_config`` (a
+    :class:`models.irpe.RpeConfig` or its dict) the module holds the iRPE
+    tables of ``seq_len`` tokens, zero-initialised."""
 
     def __init__(self, dim: int, num_heads: int, repeated_times: int = 1,
                  qkv_bias: bool = False, qk_scale: Optional[float] = None,
                  attn_drop: float = 0.0, proj_drop: float = 0.0,
-                 use_transform: bool = False, rpe_config=None):
+                 use_transform: bool = False, rpe_config=None, seq_len: Optional[int] = None):
         super().__init__()
-        if rpe_config is not None:
-            raise NotImplementedError("iRPE is not ported yet (ROADMAP queue 1: models off the "
-                                      "main path)")
+        self.rpe = rpe_config_from_dict(rpe_config)
+        self.seq_len = seq_len
         self.num_heads = num_heads
         self.scale = qk_scale or (dim // num_heads) ** -0.5
         self.attn_drop, self.proj_drop = attn_drop, proj_drop
@@ -129,8 +146,24 @@ class MiniAttention(nn.Module):
         if use_transform:
             self.conv_l = nn.Parameter(torch.empty(repeated_times, num_heads, num_heads))
             self.conv_w = nn.Parameter(torch.empty(repeated_times, num_heads, num_heads))
+        if self.rpe is not None:
+            if seq_len is None:
+                raise ValueError("seq_len required when rpe_config is set")
+            bucket_index(self.rpe, seq_len, "cpu")      # a length off the grid raises here
+            for name, shape in table_shapes(self.rpe, dim // num_heads, num_heads,
+                                            repeated_times).items():
+                self.register_parameter(name, nn.Parameter(torch.zeros(shape)))
         self.proj = Dense(dim, dim)
         self.perf = perf_knobs()
+
+    def _rpe_params(self, head_dim: int) -> Optional[RpeParams]:
+        if self.rpe is None:
+            return None
+        kind = "bias" if self.rpe.mode == "bias" else "weight"
+        return RpeParams(self.rpe, self.seq_len, self.num_heads, head_dim,
+                         q_table=getattr(self, f"rpe_q_{kind}", None),
+                         k_table=getattr(self, f"rpe_k_{kind}", None),
+                         v_table=getattr(self, "rpe_v_weight", None))
 
     def _project(self, ctx: torch.Tensor, generator) -> torch.Tensor:
         out = self.proj(ctx)
@@ -147,7 +180,7 @@ class MiniAttention(nn.Module):
         else:
             qkv = self.qkv(norm1(x))
         dropout_active = self.attn_drop > 0.0 and self.training
-        if not flags.attn_tap() and not dropout_active:
+        if not flags.attn_tap() and not dropout_active and self.rpe is None:
             if flags.need_rep:
                 q, k, v = split_heads(qkv, self.num_heads, seq)
                 mixes = ((self.conv_l[repeat_id], self.conv_w[repeat_id])
@@ -172,18 +205,33 @@ class MiniAttention(nn.Module):
             v32 = v.float()
             value_map = torch.softmax(v32 @ v32.transpose(-1, -2) / q.shape[-1] ** 0.5, dim=-1)
         # q is scaled in the compute dtype first, as the reference does
-        q = q * torch.tensor(self.scale, dtype=x.dtype)
+        scale = torch.tensor(self.scale, dtype=x.dtype)
+        q = q * scale
         attn = q.to(buf) @ k.to(buf).transpose(-1, -2)
         attention_scores = attn if flags.need_attn_score else None
+        rpe = self._rpe_params(q.shape[-1])
+        if rpe is not None:
+            # the contextual encodings are fp32 and promote the scores; the
+            # head mix returns them to the buffer dtype, as in the JAX package
+            attn = attn + rpe_on_keys(rpe, repeat_id, q)
+            attn = attn + rpe_on_queries(rpe, repeat_id, k * scale)
         if self.use_transform:
-            attn = torch.einsum("hg,bgnm->bhnm", self.conv_l[repeat_id].to(buf), attn)
+            attn = torch.einsum("hg,bgnm->bhnm", self.conv_l[repeat_id].to(attn.dtype),
+                                attn).to(buf)
         attn = torch.softmax(attn, dim=-1)
         attention_probs = attn if flags.need_attn_prob else None
         if self.use_transform:
             attn = torch.einsum("hg,bgnm->bhnm", self.conv_w[repeat_id].to(buf), attn)
         if dropout_active:
             attn = dropout(attn, self.attn_drop, generator)
-        ctx = merge_heads(attn.to(v.dtype) @ v)
+        if rpe is None:
+            ctx = attn.to(v.dtype) @ v
+        else:
+            # P·v accumulated in fp32 with the values' encoding added, then
+            # rounded once to the compute dtype
+            probs = attn.to(v.dtype)
+            ctx = (probs.float() @ v.float() + rpe_on_values(rpe, repeat_id, probs)).to(x.dtype)
+        ctx = merge_heads(ctx)
         return AttentionOutput(hidden=self._project(ctx, generator),
                                attention_scores=attention_scores,
                                attention_probs=attention_probs, value_map=value_map)
@@ -223,14 +271,14 @@ class RepeatedMiniBlock(nn.Module):
                  mlp_ratio: float = 4.0, qkv_bias: bool = False,
                  qk_scale: Optional[float] = None, drop: float = 0.0, attn_drop: float = 0.0,
                  drop_paths: Optional[Sequence[float]] = None, use_transform: bool = False,
-                 rpe_config=None):
+                 rpe_config=None, seq_len: Optional[int] = None):
         super().__init__()
         self.drop_paths = tuple(drop_paths) if drop_paths else (0.0,) * repeated_times
         if len(self.drop_paths) != repeated_times:
             raise ValueError(f"{len(self.drop_paths)} drop-path rates for {repeated_times} "
                              f"repeats")
         self.attn = MiniAttention(dim, num_heads, repeated_times, qkv_bias, qk_scale,
-                                  attn_drop, drop, use_transform, rpe_config)
+                                  attn_drop, drop, use_transform, rpe_config, seq_len)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), drop)
         self.norm1 = nn.ModuleList(StudentLayerNorm(dim) for _ in range(repeated_times))
         self.norm2 = nn.ModuleList(StudentLayerNorm(dim) for _ in range(repeated_times))
@@ -276,7 +324,7 @@ class _RepeatTower(nn.Module):
 
     def __init__(self, *, out_dim, embed_dim, depth, num_heads, mlp_ratio, qkv_bias,
                  qk_scale, drop_rate, attn_drop_rate, drop_path_rate, repeated_times,
-                 use_transform, rpe_config):
+                 use_transform, rpe_config, seq_len):
         super().__init__()
         if depth % repeated_times:
             raise ValueError(f"depth {depth} is not a multiple of repeated_times "
@@ -288,7 +336,7 @@ class _RepeatTower(nn.Module):
             RepeatedMiniBlock(embed_dim, num_heads, repeated_times, mlp_ratio, qkv_bias,
                               qk_scale, drop_rate, attn_drop_rate,
                               dpr[b * repeated_times:(b + 1) * repeated_times], use_transform,
-                              rpe_config)
+                              rpe_config, seq_len)
             for b in range(depth // repeated_times))
         self.norm = StudentLayerNorm(embed_dim)
         self.head = Dense(embed_dim, out_dim)
@@ -342,16 +390,16 @@ class RepeatVisionTransformer(_RepeatTower):
                  attn_drop_rate: float = 0.0, drop_path_rate: float = 0.0,
                  repeated_times: int = 1, use_transform: bool = False, rpe_config=None,
                  need_layers: Optional[Sequence[int]] = None):
+        seq_len = (img_size // patch_size) ** 2 + 1
         super().__init__(out_dim=out_dim, embed_dim=embed_dim, depth=depth,
                          num_heads=num_heads, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
                          qk_scale=qk_scale, drop_rate=drop_rate,
                          attn_drop_rate=attn_drop_rate, drop_path_rate=drop_path_rate,
                          repeated_times=repeated_times, use_transform=use_transform,
-                         rpe_config=rpe_config)
+                         rpe_config=rpe_config, seq_len=seq_len)
         self.need_layers = need_layers      # accepted and not applied (reference quirk)
         self.img_size = img_size
         self.patch_size = patch_size
-        seq_len = (img_size // patch_size) ** 2 + 1
         self.patch_kernel = nn.Parameter(torch.empty(patch_size * patch_size * in_chans,
                                                      embed_dim))
         self.patch_bias = nn.Parameter(torch.zeros(embed_dim))
@@ -391,7 +439,7 @@ class RepeatTextTransformer(_RepeatTower):
                          qk_scale=qk_scale, drop_rate=drop_rate,
                          attn_drop_rate=attn_drop_rate, drop_path_rate=drop_path_rate,
                          repeated_times=repeated_times, use_transform=use_transform,
-                         rpe_config=rpe_config)
+                         rpe_config=rpe_config, seq_len=context_length)
         self.need_layers = need_layers      # accepted and not applied (reference quirk)
         self.vocab_size = vocab_size
         self.context_length = context_length

@@ -17,7 +17,10 @@ Weight layouts (torch checkpoint -> the port's parameters):
 * LayerNorm ``weight`` / ``bias`` -> ``scale`` / ``bias``
 
 The loaders return the module with the weights loaded as fp32, in eval mode
-and without gradients, on ``device``.  A ResNet image tower is not ported.
+and without gradients, on ``device``.  A checkpoint without ``visual.proj`` is
+an RN-class CLIP (RN50, RN101, RN50x4 ...): its image tower is a
+:class:`models.resnet.ModifiedResNet` (``map_resnet_weights``), its text tower
+the same transformer as a ViT checkpoint's.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from torch import nn
 from distillclip_tpu_torch.config.perf import require_module_kernels
 from distillclip_tpu_torch.models.clip import CLIPModel
 from distillclip_tpu_torch.models.encoders import ImageEncoder, TextEncoder
+from distillclip_tpu_torch.models.resnet import ModifiedResNet, map_resnet_weights
 
 # Official OpenAI CLIP checkpoint URLs.
 MODELS = {
@@ -48,8 +52,6 @@ MODELS = {
     "ViT-L/14": "https://openaipublic.azureedge.net/clip/models/b8cca3fd41ae0c99ba7e8951adf17d267cdb84cd88be6f7c2e0eca1737a03836/ViT-L-14.pt",
     "ViT-L/14@336px": "https://openaipublic.azureedge.net/clip/models/3035c92b350959924f9f00213499208652fc7ea050643e8b385c2dac08641f02/ViT-L-14-336px.pt",
 }
-
-_RESNET_ITEM = "ROADMAP queue 1: models off the main path"
 
 
 def available_models() -> List[str]:
@@ -131,8 +133,7 @@ def get_transformer_para(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
 
 def get_visual_para(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     if "visual.proj" not in sd:
-        raise NotImplementedError(
-            f"a ResNet image tower (ModifiedResNet) is not ported yet ({_RESNET_ITEM})")
+        return _resnet_para(sd)
     vision_width = sd["visual.conv1.weight"].shape[0]
     patch = sd["visual.conv1.weight"].shape[-1]
     grid = round((sd["visual.positional_embedding"].shape[0] - 1) ** 0.5)
@@ -144,6 +145,22 @@ def get_visual_para(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         "patch_size": patch,
         "input_resolution": patch * grid,
         "heads": vision_width // 64,
+        "output_dim": sd["text_projection"].shape[1],
+    }
+
+
+def _resnet_para(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    counts = [len({k.split(".")[2] for k in sd if k.startswith(f"visual.layer{b}")})
+              for b in (1, 2, 3, 4)]
+    vision_width = sd["visual.layer1.0.conv1.weight"].shape[0]
+    output_width = round((sd["visual.attnpool.positional_embedding"].shape[0] - 1) ** 0.5)
+    assert output_width ** 2 + 1 == sd["visual.attnpool.positional_embedding"].shape[0]
+    return {
+        "kind": "resnet",
+        "layers": tuple(counts),
+        "width": vision_width,
+        "input_resolution": output_width * 32,
+        "heads": vision_width * 32 // 64,
         "output_dim": sd["text_projection"].shape[1],
     }
 
@@ -219,10 +236,15 @@ def _frozen(module: nn.Module, device) -> nn.Module:
 
 def load_image_teacher(name: str, download_root: Optional[str] = None,
                        need_layers: Optional[Sequence[int]] = None,
-                       device="cuda") -> ImageEncoder:
+                       device="cuda") -> nn.Module:
+    """An ``ImageEncoder`` for a ViT checkpoint, a ``ModifiedResNet`` for an
+    RN one (``need_layers`` does not apply to it)."""
     sd = load_torch_state_dict(resolve_checkpoint(name, download_root))
     para = get_visual_para(sd)
-    para.pop("kind")
+    if para.pop("kind") == "resnet":
+        module = ModifiedResNet(**para)
+        module.load_state_dict(map_resnet_weights(sd, para["layers"]), strict=True)
+        return _frozen(module, device)
     module = ImageEncoder(is_student=False, need_layers=need_layers, **para)
     module.visual.load_state_dict(map_visual_weights(sd, para["layers"]), strict=True)
     return _frozen(module, device)

@@ -33,7 +33,7 @@ whose 600 s would abort them.
 Nothing falls back: a launcher's ``WORLD_SIZE`` > 1 whose process group
 cannot form raises, and a process group is never formed quietly on another
 device.  The tensor-parallel ``model`` axis of the JAX mesh and its kernel
-sharding (``ops/_shard.py``) are not ported.
+sharding (``ops/_shard.py``) have no counterpart here.
 """
 
 from __future__ import annotations

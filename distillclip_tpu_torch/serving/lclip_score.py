@@ -50,8 +50,8 @@ def build_tower(spec: dict) -> nn.Module:
     """A student tower from a config's ``{class_path, init_args}`` entry."""
     cls = TOWERS.get(spec["class_path"])
     if cls is None:
-        raise NotImplementedError(f"tower {spec['class_path']!r} is not ported yet; the "
-                                  f"port serves {sorted(TOWERS)}")
+        raise NotImplementedError(f"tower {spec['class_path']!r} is not a student tower of "
+                                  f"the configs; the port serves {sorted(TOWERS)}")
     return cls(**(spec.get("init_args") or {}))
 
 
@@ -105,8 +105,8 @@ def seeded_clip_init(encoder: nn.Module, rng: np.random.Generator) -> nn.Module:
 @torch.no_grad()
 def seeded_init(module: nn.Module, rng: np.random.Generator) -> nn.Module:
     """Random weights from a numpy generator, by the towers' init rules.  The
-    weight-share students: LN scale 1, biases 0, embedding tables N(0, 0.02),
-    everything else a normal truncated at 2σ with σ = 0.02.  The plain CLIP
+    weight-share students: LN scale 1, biases and iRPE tables 0, embedding
+    tables N(0, 0.02), everything else a normal truncated at 2σ with σ = 0.02.  The plain CLIP
     encoders: :func:`seeded_clip_init`."""
     if isinstance(module, (ImageEncoder, TextEncoder)):
         return seeded_clip_init(module, rng)
@@ -114,8 +114,8 @@ def seeded_init(module: nn.Module, rng: np.random.Generator) -> nn.Module:
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "scale":
             v = np.ones(p.shape, np.float32)
-        elif leaf in ("bias", "patch_bias"):
-            v = np.zeros(p.shape, np.float32)
+        elif leaf in ("bias", "patch_bias") or leaf.startswith("rpe_"):
+            v = np.zeros(p.shape, np.float32)        # the iRPE tables start at zero
         elif leaf == "embedding":
             v = rng.standard_normal(p.shape, dtype=np.float32) * np.float32(0.02)
         else:
@@ -124,8 +124,14 @@ def seeded_init(module: nn.Module, rng: np.random.Generator) -> nn.Module:
     return module
 
 
-def _image_size(tower: nn.Module) -> int:
-    return tower.img_size if hasattr(tower, "img_size") else tower.visual.input_resolution
+def image_size_of(tower: nn.Module) -> int:
+    """The input resolution of a weight-share student, a CLIP ViT encoder or
+    the ResNet teacher tower."""
+    for owner in (tower, getattr(tower, "visual", None)):
+        for name in ("img_size", "input_resolution"):
+            if hasattr(owner, name):
+                return getattr(owner, name)
+    raise ValueError(f"{type(tower).__name__} states no input resolution")
 
 
 def _text_dims(tower: nn.Module) -> Tuple[int, int]:
@@ -156,7 +162,7 @@ class LCLIPScorer:
         for tower in (image_tower, text_tower):
             require_module_kernels(tower, self.device)
         self.dtype = dtype
-        self.image_size = _image_size(image_tower)
+        self.image_size = image_size_of(image_tower)
         self.context_length = _text_dims(text_tower)[0]
         self.tokenizer = tokenizer or _tokenizer(None, text_tower)
         self.image_tower = cast_to_compute(image_tower.eval(), dtype).to(self.device)

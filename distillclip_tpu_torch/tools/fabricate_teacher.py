@@ -3,7 +3,9 @@
 For offline development, smoke runs and tests where no OpenAI checkpoint is at
 hand: a ``torch.save`` state dict with OpenAI CLIP's key names, which the
 teacher loader reads.  The same seed gives the same tensors as the JAX
-package's ``tools/fabricate_teacher.py``, so one saved file feeds both.
+package's ``tools/fabricate_teacher.py``, so one saved file feeds both;
+:func:`make_rn_state_dict` writes an RN-class (ModifiedResNet) checkpoint the
+same way.
 
     python -m distillclip_tpu_torch.tools.fabricate_teacher --out .cache/tiny_clip.pt \
         --vision-width 64 --vision-layers 3 --text-width 64 --text-layers 2
@@ -53,6 +55,74 @@ def make_clip_state_dict(vision_width=64, vision_layers=3, patch_size=8, image_r
     sd["positional_embedding"] = r(context_length, text_width)
     for i in range(text_layers):
         block(f"transformer.resblocks.{i}", text_width)
+    sd["ln_final.weight"] = torch.ones(text_width)
+    sd["ln_final.bias"] = torch.zeros(text_width)
+    sd["text_projection"] = r(text_width, embed_dim)
+    return sd
+
+
+def make_rn_state_dict(width=16, layers=(1, 1, 1, 1), image_resolution=64, embed_dim=32,
+                       text_width=64, text_layers=2, context_length=12, vocab_size=100, seed=0):
+    """An RN50-architecture CLIP checkpoint (a ModifiedResNet image tower)."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g) * 0.05
+    sd = {}
+
+    def bn(prefix, c):
+        sd[f"{prefix}.weight"] = torch.ones(c)
+        sd[f"{prefix}.bias"] = torch.zeros(c)
+        sd[f"{prefix}.running_mean"] = 0.1 * r(c)
+        sd[f"{prefix}.running_var"] = torch.ones(c)
+
+    sd["visual.conv1.weight"] = r(width // 2, 3, 3, 3)
+    bn("visual.bn1", width // 2)
+    sd["visual.conv2.weight"] = r(width // 2, width // 2, 3, 3)
+    bn("visual.bn2", width // 2)
+    sd["visual.conv3.weight"] = r(width, width // 2, 3, 3)
+    bn("visual.bn3", width)
+
+    inplanes = width
+    for stage, (mult, blocks) in enumerate(zip((1, 2, 4, 8), layers), start=1):
+        planes = width * mult
+        for b in range(blocks):
+            pre = f"visual.layer{stage}.{b}"
+            sd[f"{pre}.conv1.weight"] = r(planes, inplanes, 1, 1)
+            bn(f"{pre}.bn1", planes)
+            sd[f"{pre}.conv2.weight"] = r(planes, planes, 3, 3)
+            bn(f"{pre}.bn2", planes)
+            sd[f"{pre}.conv3.weight"] = r(planes * 4, planes, 1, 1)
+            bn(f"{pre}.bn3", planes * 4)
+            stride = 2 if (stage > 1 and b == 0) else 1
+            if stride > 1 or inplanes != planes * 4:
+                sd[f"{pre}.downsample.0.weight"] = r(planes * 4, inplanes, 1, 1)
+                bn(f"{pre}.downsample.1", planes * 4)
+            inplanes = planes * 4
+
+    embed = width * 32
+    spacial = image_resolution // 32
+    sd["visual.attnpool.positional_embedding"] = r(spacial ** 2 + 1, embed)
+    for name, out in (("q_proj", embed), ("k_proj", embed), ("v_proj", embed),
+                      ("c_proj", embed_dim)):
+        sd[f"visual.attnpool.{name}.weight"] = r(out, embed)
+        sd[f"visual.attnpool.{name}.bias"] = 0.1 * r(out)
+
+    # the text tower, so that the text and "all" loads work
+    sd["token_embedding.weight"] = r(vocab_size, text_width)
+    sd["positional_embedding"] = r(context_length, text_width)
+    for i in range(text_layers):
+        p = f"transformer.resblocks.{i}"
+        sd[f"{p}.ln_1.weight"] = torch.ones(text_width)
+        sd[f"{p}.ln_1.bias"] = torch.zeros(text_width)
+        sd[f"{p}.ln_2.weight"] = torch.ones(text_width)
+        sd[f"{p}.ln_2.bias"] = torch.zeros(text_width)
+        sd[f"{p}.attn.in_proj_weight"] = r(3 * text_width, text_width)
+        sd[f"{p}.attn.in_proj_bias"] = torch.zeros(3 * text_width)
+        sd[f"{p}.attn.out_proj.weight"] = r(text_width, text_width)
+        sd[f"{p}.attn.out_proj.bias"] = torch.zeros(text_width)
+        sd[f"{p}.mlp.c_fc.weight"] = r(4 * text_width, text_width)
+        sd[f"{p}.mlp.c_fc.bias"] = torch.zeros(4 * text_width)
+        sd[f"{p}.mlp.c_proj.weight"] = r(text_width, 4 * text_width)
+        sd[f"{p}.mlp.c_proj.bias"] = torch.zeros(text_width)
     sd["ln_final.weight"] = torch.ones(text_width)
     sd["ln_final.bias"] = torch.zeros(text_width)
     sd["text_projection"] = r(text_width, embed_dim)

@@ -55,7 +55,15 @@ def test_port_files_are_found():
             "distillclip_tpu_torch/parallel/distributed.py",
             "distillclip_tpu_torch/tools/dryrun.py",
             "distillclip_tpu_torch/tools/fabricate_images.py",
-            "distillclip_tpu_torch/models/frozen_teacher.py"} <= names
+            "distillclip_tpu_torch/models/frozen_teacher.py",
+            "distillclip_tpu_torch/models/irpe.py", "distillclip_tpu_torch/models/resnet.py",
+            "distillclip_tpu_torch/tools/hw_oracle.py",
+            "distillclip_tpu_torch/tools/hw_trajectory.py",
+            "distillclip_tpu_torch/tools/roofline.py",
+            "distillclip_tpu_torch/tools/trace_summary.py",
+            "distillclip_tpu_torch/tools/input_bench.py",
+            "distillclip_tpu_torch/tools/cached_teacher_ab.py",
+            "distillclip_tpu_torch/tools/experiments.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

@@ -264,7 +264,7 @@ def test_from_config_reads_the_final_config():
 def test_unknown_tower_class_is_refused():
     from distillclip_tpu_torch.serving.lclip_score import build_tower
 
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(NotImplementedError, match="is not a student tower of the configs"):
         build_tower({"class_path": "model.component.clip_model.CLIPModel", "init_args": {}})
 
 
@@ -313,7 +313,8 @@ def test_converter_accepts_nested_and_flat_trees(image_tower):
 def test_unported_paths_raise():
     plain = RepeatVisionTransformer(**dict(IMAGE_ARGS, use_transform=False))
     assert not any("conv_" in k for k in plain.state_dict())     # plain attention: no mixes
-    with pytest.raises(NotImplementedError, match="iRPE"):
+    # iRPE needs skip + a square grid of tokens: the text tower's 9 are not
+    with pytest.raises(ValueError, match="not a square grid"):
         RepeatTextTransformer(**dict(TEXT_ARGS, rpe_config={"method": "product"}))
     # drop-path and the taps are served: in training mode the first changes
     # the output, and a flag turns the pooled tensor into the output container

@@ -324,13 +324,18 @@ def test_init_layers_with_teacher_refuses_bad_arguments(ckpt_path):
         init_layers_with_teacher(state, state, "mid", step=5)
 
 
-# -- what stays refused ----------------------------------------------------------------
+# -- the ResNet teacher, taps and dropout -----------------------------------------------
 
 def test_resnet_taps_and_dropout_are_refused_by_item(tmp_path, ckpt_path):
+    # an RN-class checkpoint loads as a ModifiedResNet and encodes
+    # (tests/test_torch_resnet.py holds it to JAX)
     rn = tmp_path / "rn.pt"
     torch.save(jax_fabricate.make_rn_state_dict(), str(rn))
-    with pytest.raises(NotImplementedError, match="queue 1: models off the main path"):
-        teacher.teacher_load(str(rn), None, "image", device="cpu")
+    rn_tower = teacher.teacher_load(str(rn), None, "image", device="cpu")
+    assert type(rn_tower).__name__ == "ModifiedResNet"
+    with torch.no_grad():
+        rep = rn_tower(torch.zeros(2, 64, 64, 3)).last_representation
+    assert rep.shape == (2, 32) and torch.isfinite(rep).all()
     img = teacher.teacher_load(ckpt_path, None, "image", device="cpu")
     _, images = _batch(RES)
     # the taps and attention dropout run (tests/test_torch_taps.py holds them to JAX)

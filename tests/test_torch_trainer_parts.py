@@ -209,11 +209,19 @@ def test_synthetic_data_sections_build():
 def test_irpe_raises_by_item_and_webdataset_instantiates(tmp_path):
     from distillclip_tpu_torch.data.component.text_image_webdataset import TextImageDataModule
 
+    from distillclip_tpu_torch.models import RpeConfig
+
+    # a config's rpe_config dict becomes an RpeConfig, whose checks are JAX's
     node = {"class_path": "model.component.weight_share_model.RepeatVisionTransformer",
             "init_args": {"depth": 1, "embed_dim": 32, "num_heads": 4,
                           "rpe_config": {"method": "product", "mode": "ctx"}}}
-    with pytest.raises(NotImplementedError, match="queue 1: models off the main path"):
+    with pytest.raises(ValueError, match="mode must be one of"):
         config.instantiate(node)
+    node["init_args"]["rpe_config"]["mode"] = "contextual"
+    tower = config.instantiate(node)
+    assert isinstance(tower, RepeatVisionTransformer)
+    assert tower.blocks[0].attn.rpe == RpeConfig(method="product", mode="contextual")
+    assert tower.blocks[0].attn.rpe_k_weight.shape == (1, 1, 1, 8, 50)
     (tmp_path / "shard0.tar").write_bytes(b"")
     dm = config.instantiate({"class_path": "data.text_image_datamodule.TextImageDataModule",
                              "init_args": {"image_path": str(tmp_path), "batch_size": 4}})
