@@ -65,6 +65,21 @@ phases, each of which exits non-zero on failure:
    and the teacher scorer's score_tokens at
    256 pairs (pairs/s, the text tower's launches); stage 1 with that teacher
    live (out_dim 1024, no embedding copy, out_l1 + out_cos);
+5d''. past 256 tokens and past the tensor-core heads, in bf16, nothing cut:
+   seeded checkpoints of ViT-L/14, ViT-L/14@336px and ViT-B/16's published
+   geometries (tools/fabricate_teacher.py --preset); each image encode of 256
+   rows (257, 577 and 197 tokens: the first two materialise the attention, as
+   the JAX towers take XLA's past 256 tokens) with its launches, the first 16
+   rows against the plain fp32 CPU encode (cosine >= 0.999) and a
+   `throughput teacher` line; LCLIPScorer.from_teacher on the ViT-L/14
+   checkpoint, score_tokens at 256 pairs (16 against the plain fp32 CPU
+   scorer, 2e-2); stage 1 of configs/final/image.yaml against the live
+   ViT-L/14 (teacher layers [0, 1, 22, 23]) with a student 1024 wide of 32
+   heads of 32, patch 16 (197 tokens, freeze_embed off: the patch geometry
+   differs), out_dim 768, 256 pairs: #5 and #6 on their CUDA-core route, six
+   launches each a step; then the same student at patch 14 (257 tokens, its
+   attention materialised, freeze_embed on), 64 pairs; each step phased like
+   5 ((a) 16 pairs against the plain fp32 CPU path, (b), (c));
 5e. the perf knobs (config.perf): under fc1_ln "0", fc1_ln "0" with fc1_res u,
    fc1_res u, and tf_impl factored, the serving call and the text-cached step
    of 5c, rebuilt under the knob: 16 pairs against the plain fp32 CPU path
@@ -116,8 +131,8 @@ phases, each of which exits non-zero on failure:
    corpus (1 and 4 loader threads, 256 items) and cached_teacher_ab --epochs 1;
 6. card numbers: each kernel's time beside its plain version's, its bound
    and, where one PyTorch call computes the same function, that call's time
-   (for K2, #8, K3 and #5, which no one call matches, the PyTorch composition
-   that does their work)
+   (for K2, #8, K3, #5 and #6 on either route, which no one call matches, the
+   PyTorch composition that does their work)
    (kernel and library call: device time of calls replayed from a CUDA graph,
    so that a wrapper's host cost does not enter it; a library call through
    autograd, SDPA's backward, which a graph cannot capture: the device time of
@@ -190,6 +205,10 @@ SOURCES = {
                                    "distillclip_tpu/ops/transform_attention.py:467"),
     "transform_attention_bwd": ("distillclip_tpu_torch/csrc/transform_attention_bwd.cu",
                                 "distillclip_tpu/ops/transform_attention.py:224"),
+    "transform_attention_save_p_wide": ("distillclip_tpu_torch/csrc/transform_attention.cu",
+                                        "distillclip_tpu/ops/transform_attention.py:467"),
+    "transform_attention_bwd_wide": ("distillclip_tpu_torch/csrc/transform_attention_bwd_wide.cu",
+                                     "distillclip_tpu/ops/transform_attention.py:224"),
     "layer_norm_rows_bwd": ("distillclip_tpu_torch/csrc/layer_norm.cu",
                             "distillclip_tpu/ops/layer_norm.py:63"),
     "dense_act_ln_res": ("distillclip_tpu_torch/csrc/dense_ln_wgmma.cu",
@@ -229,8 +248,9 @@ SERVING_KERNELS = ("dense_ln", "dense_act_ln", "transform_attention_rows_qkv",
 SERVING_LAUNCHES = {"dense_ln": 10, "dense_act_ln": 10, "transform_attention_rows_qkv": 10,
                     "layer_norm_rows": 2}
 # K3's and #17's second routes, the CUDA-core kernels, serve head shapes past
-# the tensor-core kernels', which no config of the repository has: no main-path
-# run launches them (their oracle cases hold them against their plain versions)
+# the tensor-core kernels' in the lean forward and the tapped forward, which no
+# path here runs (the 32-head stage-1 L/14 student trains, so it takes #5 and
+# #6's second route): their oracle cases hold them against their plain versions
 OFF_MAIN_PATH = ("transform_attention_rows_qkv_wide", "flash_transform_attention_fwd_wide")
 # launches of one train step: 10 logical layers (6 image + 4 text), two LN
 # GEMMs and so two backward GEMMs each, and the two towers' final norm
@@ -316,15 +336,17 @@ KNOB_PHASES = {
 # instance: K1 <0, 0>, K2 <1|2, 0>, #8 <1|2, 1>), #9 and the no-LN GEMM on the
 # wgmma main loop, K4, #17 and K3 / #5 on the tensor cores
 # (flash_tf_fwd_mma_kernel<KS, HPW, NH, ND>, tf_fwd_mma_kernel<KS, HPW, NH,
-# ND>: one tile loop) and the CUDA-core routes of K3 and #17, #6's row, dq/dk
-# and column kernels, and the partials' reduction that #6 and #9 share.  An
+# ND>: one tile loop) and the CUDA-core routes of K3 (its save-P mode #5's)
+# and #17, #6's row, dq/dk and column kernels and its CUDA-core route's two,
+# and the partials' reduction that #6 and #9 share.  An
 # entry function takes the first name it holds (flash_tf_fwd_mma_kernel holds
 # tf_fwd_mma_kernel).
 PTXAS_KERNELS = ("dense_ln_wgmma_kernel", "ln_stats_w16_kernel", "dense_ln_bwd_wgmma_kernel",
                  "dense_act_wgmma_kernel", "layer_norm_rows_kernel", "flash_tf_fwd_mma_kernel",
                  "tf_fwd_mma_kernel", "transform_attention_kernel",
                  "flash_transform_attention_fwd_kernel", "tf_bwd_rows_kernel",
-                 "tf_bwd_qk_kernel", "tf_bwd_cols_kernel", "reduce_partials_kernel")
+                 "tf_bwd_qk_kernel", "tf_bwd_cols_kernel", "tf_bwd_wide_q_kernel",
+                 "tf_bwd_wide_kv_kernel", "reduce_partials_kernel")
 
 
 def fail(msg: str) -> None:
@@ -484,15 +506,13 @@ def serving_slice(ops, LCLIPScorer):
 def teacher_checkpoint() -> str:
     """A seeded CLIP checkpoint of ViT-B/32's architecture (no pretrained
     weights are in the repository), written once under build/."""
-    from distillclip_tpu_torch.tools.fabricate_teacher import make_clip_state_dict
+    from distillclip_tpu_torch.tools.fabricate_teacher import preset_state_dict
 
     path = ROOT / "build" / "chip_smoke" / f"clip_vit_b32_arch_seed{SEED}.pt"
     if not path.exists():
         path.parent.mkdir(parents=True, exist_ok=True)
-        torch.save(make_clip_state_dict(
-            vision_width=768, vision_layers=TEACHER_LAYERS, patch_size=32,
-            image_resolution=224, text_width=512, text_layers=TEACHER_LAYERS,
-            context_length=77, vocab_size=49408, embed_dim=512, seed=SEED), str(path))
+        torch.save(preset_state_dict("ViT-B/32", seed=SEED, vision_layers=TEACHER_LAYERS,
+                                     text_layers=TEACHER_LAYERS), str(path))
     return str(path)
 
 
@@ -687,6 +707,7 @@ def run_steps(ops, card: str, label: str, step, state, batch, expected: dict, st
     readback."""
     before = {k: v.clone() for k, v in state.params.items()}
     first = state.step
+    pairs = int(batch[0].shape[0])
     losses, counts = [], None
     for _ in range(steps):
         ops.reset_launch_counts()
@@ -694,7 +715,7 @@ def run_steps(ops, card: str, label: str, step, state, batch, expected: dict, st
         if counts is None:
             counts = ops.launch_counts()
         losses.append(float(metrics["loss"]))
-    print(f"train {label} (b) {PAIRS} pairs: launches of one step {counts}", flush=True)
+    print(f"train {label} (b) {pairs} pairs: launches of one step {counts}", flush=True)
     print(f"train {label} (b) losses " + " ".join(f"{x:.6f}" for x in losses), flush=True)
     if counts != {**dict.fromkeys(ops.KERNELS, 0), **expected}:
         fail(f"{label}: launch counts of one train step differ from {expected}")
@@ -722,8 +743,8 @@ def run_steps(ops, card: str, label: str, step, state, batch, expected: dict, st
     float(metrics["loss"])
     dt = (time.perf_counter() - t0) / iters
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"throughput train step {label} {PAIRS} pairs (device-resident): {dt * 1e3:.2f} "
-          f"ms/step, {PAIRS / dt:.1f} pairs/s, peak device memory {peak:.2f} GiB "
+    print(f"throughput train step {label} {pairs} pairs (device-resident): {dt * 1e3:.2f} "
+          f"ms/step, {pairs / dt:.1f} pairs/s, peak device memory {peak:.2f} GiB "
           f"({resident:.2f} GiB allocated when the timing starts) [{card}]", flush=True)
     # the state (0.9 GB of masters and moments) only outlives the phase where
     # the caller profiles it, so that a later phase's peak memory is its own
@@ -1122,6 +1143,199 @@ def rn50_stage_phase(ops, card: str) -> dict:
     batch = [torch.from_numpy(make_images(np.random.default_rng(SEED + 62), PAIRS)).to(DEVICE)]
     return run_steps(ops, card, "stage-1 RN50 teacher", task.make_train_step(tx), state, batch,
                      RN50_STEP_LAUNCHES, 8, False)
+
+
+# -- phase 5d'': past 256 tokens and past the tensor-core heads --------------------
+
+# the published geometries (tools/fabricate_teacher.py PRESETS), seeded: the
+# vision tower's tokens and the launches of one image encode.  Past 256 tokens
+# (ViT-L/14: 257, @336px: 577) the towers materialise the attention, as the
+# JAX towers take XLA's there: no attention kernel, 24 layers of lean K1 and K2
+LONG_TEACHERS = {
+    "ViT-L/14": (257, {"dense_ln": 24, "dense_act_ln": 24, "layer_norm_rows": 2}),
+    "ViT-L/14@336px": (577, {"dense_ln": 24, "dense_act_ln": 24, "layer_norm_rows": 2}),
+    "ViT-B/16": (197, IMAGE_TEACHER_LAUNCHES),
+}
+# the L/14 teacher scorer: its image encode and its text tower (768 wide, 12
+# layers, 12 heads of 64: #13)
+L14_SCORE_LAUNCHES = add_counts(
+    LONG_TEACHERS["ViT-L/14"][1],
+    {"dense_ln": 12, "dense_act_ln": 12, "plain_attention_rows_qkv": 12, "layer_norm_rows": 1})
+# stage 1 of configs/final/image.yaml against the live ViT-L/14 (its tapped
+# layers the L/14 ones): the student 1024 wide with the final image student's
+# 32-wide heads (32 of them, past the tensor-core #5 / #6), patch 16 at 224 px
+# (197 tokens), out_dim the teacher's 768; depth 6, repeated twice, head mixes
+# and mlp_ratio 4 as the config says.  freeze_embed copies the teacher's
+# patch-14 embeddings into the student, which needs the teacher's patch
+# geometry: off at patch 16, on (the config's) at patch 14
+L14_LAYERS = [0, 1, 22, 23]
+L14_STUDENT = dict(embed_dim=1024, num_heads=32, patch_size=16, out_dim=768)
+L14_STEP_LAUNCHES = add_counts(
+    {"dense_ln": 6, "dense_act_ln_res": 6, "transform_attention_save_p_wide": 6,
+     "transform_attention_bwd_wide": 6, "dense_ln_bwd": 12, "layer_norm_rows": 1,
+     "layer_norm_rows_bwd": 1}, LONG_TEACHERS["ViT-L/14"][1])
+# the same student at patch 14: 257 tokens, its attention materialised too
+L14_P14_PAIRS = 64
+L14_P14_STEP_LAUNCHES = add_counts(MATERIALISED_IMAGE_STEP_LAUNCHES,
+                                   LONG_TEACHERS["ViT-L/14"][1])
+STAGE_L14 = {
+    "stage-1 L/14": (dict(L14_STUDENT), {"freeze_embed": False}, PAIRS, L14_STEP_LAUNCHES),
+    "stage-1 L/14 patch-14 student": (dict(L14_STUDENT, patch_size=14), {}, L14_P14_PAIRS,
+                                      L14_P14_STEP_LAUNCHES),
+}
+
+
+def preset_checkpoint(name: str) -> str:
+    """A seeded CLIP checkpoint of a published geometry, written once under
+    build/ (no OpenAI weights are in the repository)."""
+    from distillclip_tpu_torch.tools.fabricate_teacher import preset_state_dict
+
+    slug = name.replace("/", "").replace("@", "_").lower()
+    path = ROOT / "build" / "chip_smoke" / f"clip_{slug}_arch_seed{SEED}.pt"
+    if not path.exists():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        torch.save(preset_state_dict(name, seed=SEED), str(path))
+    return str(path)
+
+
+def long_teacher_phase(ops, card: str) -> dict:
+    """The image encode of 256 rows in bf16 through each geometry of
+    LONG_TEACHERS: launches as the table says, representations finite of the
+    embedding's width, the first 16 against the plain fp32 CPU encode (each
+    row's cosine at least 0.999), rows/s and peak memory."""
+    from distillclip_tpu_torch.models.frozen_teacher import FrozenTeacher
+
+    counts = {}
+    for name, (tokens, want) in LONG_TEACHERS.items():
+        t0 = time.perf_counter()
+        path = preset_checkpoint(name)
+        teacher = FrozenTeacher(path, None, "image", None, torch.bfloat16)
+        encode = teacher.image_encode(DEVICE)
+        visual = teacher.tower(DEVICE, "image").visual
+        res, embed = visual.input_resolution, visual.proj.shape[1]
+        n_tokens = (res // visual.patch_size) ** 2 + 1
+        print(f"teacher {name}: {visual.width} wide, {visual.transformer.layers} layers, "
+              f"{visual.transformer.heads} heads, {n_tokens} tokens at {res} px, "
+              f"{sum(p.numel() for p in teacher.module.parameters()) / 1e6:.2f} M image-tower "
+              f"parameters (seeded), written, loaded and cast in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        if n_tokens != tokens:
+            fail(f"teacher {name}: {n_tokens} tokens, the geometry has {tokens}")
+        images = make_images(np.random.default_rng(SEED + 70), PAIRS, res)
+        d_images = torch.from_numpy(images).to(DEVICE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        rep = encode(d_images)
+        torch.cuda.synchronize()
+        counts[f"teacher_image_encode {name}"] = got = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if got != {**dict.fromkeys(ops.KERNELS, 0), **want}:
+            fail(f"teacher {name}: image encode launches {got}, want {want}")
+        if rep.shape != (PAIRS, embed) or rep.dtype != torch.float32 \
+                or not torch.isfinite(rep).all():
+            fail(f"teacher {name}: representations {tuple(rep.shape)} {rep.dtype} or not finite")
+        ms = cuda_ms(lambda: encode(d_images), iters=5, warmup=1)
+        ref = FrozenTeacher(path, None, "image", None, torch.float32).image_encode("cpu")(
+            images[:16])
+        cos = float(torch.nn.functional.cosine_similarity(rep[:16].cpu(), ref, dim=1).min())
+        print(f"throughput teacher {name} image encode {PAIRS} rows ({n_tokens} tokens, bf16): "
+              f"{ms:.2f} ms, {PAIRS / ms * 1e3:.1f} rows/s, peak device memory {peak:.2f} GiB; "
+              f"launches {({k: v for k, v in got.items() if v})} [{card}]", flush=True)
+        print(f"teacher {name}: representations[:16] vs plain fp32 CPU encode min row cosine "
+              f"{cos:.6f} (limit 0.999): ok", flush=True)
+        if cos < 0.999:
+            fail(f"teacher {name}: the kernel-path encode disagrees with the plain path")
+        del teacher, encode, visual, d_images, rep
+    return counts
+
+
+def l14_score_phase(ops, card: str) -> dict:
+    """LCLIPScorer.from_teacher on the ViT-L/14 checkpoint: score_tokens at
+    256 pairs, launches as the table says, scores finite in [-1, 1] and the
+    first 16 within 2e-2 of the plain fp32 CPU scorer; pairs/s."""
+    from distillclip_tpu_torch.serving import LCLIPScorer
+
+    path = preset_checkpoint("ViT-L/14")
+    scorer = LCLIPScorer.from_teacher(path, device=DEVICE)
+    rng = np.random.default_rng(SEED + 71)
+    images, tokens = make_images(rng, PAIRS, scorer.image_size), make_tokens(rng, PAIRS)
+    ops.reset_launch_counts()
+    scores = scorer.score_tokens(images, tokens)
+    counts = ops.launch_counts()
+    if counts != {**dict.fromkeys(ops.KERNELS, 0), **L14_SCORE_LAUNCHES}:
+        fail(f"L/14 scorer: score_tokens launches {counts}, want {L14_SCORE_LAUNCHES}")
+    if scores.shape != (PAIRS,) or not np.isfinite(scores).all() \
+            or np.abs(scores).max() > 1.0 + 1e-5:
+        fail("L/14 scorer: scores not finite or outside [-1, 1]")
+    plain = LCLIPScorer.from_teacher(path, device="cpu", dtype=torch.float32)
+    err = float(np.abs(scores[:16] - plain.score_tokens(images[:16], tokens[:16])).max())
+    del plain
+    d_images, d_tokens = torch.from_numpy(images).to(DEVICE), torch.from_numpy(tokens).to(DEVICE)
+    scorer.score_tokens(d_images, d_tokens)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        scorer.score_tokens(d_images, d_tokens)       # returns numpy: the readback fences
+    dt = (time.perf_counter() - t0) / 5
+    print(f"throughput teacher ViT-L/14 score_tokens batch {PAIRS} (device-resident): "
+          f"{PAIRS / dt:.1f} pairs/s, {dt * 1e3:.2f} ms/call; scores[:16] vs plain fp32 CPU "
+          f"scorer max_abs_err {err:.3e} (limit 2e-2); launches of one call "
+          f"{({k: v for k, v in counts.items() if v})} [{card}]", flush=True)
+    if err > 2e-2:
+        fail("L/14 scorer: kernel-path scores disagree with the plain path")
+    print("L/14 scorer: ok", flush=True)
+    return {"score_tokens teacher ViT-L/14": counts}
+
+
+def l14_stage_phase(ops, card: str, label: str, keep_state: bool = False) -> dict:
+    """Stage 1 of configs/final/image.yaml against the live ViT-L/14 with the
+    student of STAGE_L14[label]: (a) 16 pairs against the plain fp32 CPU
+    path, (b) steps on one batch with the launch table met, (c) ms/step."""
+    student, task_over, pairs, expected = STAGE_L14[label]
+    kw = dict(need_layers=L14_LAYERS, teacher=preset_checkpoint("ViT-L/14"),
+              task_over=task_over, **student)
+    task, plain = make_image_task("bfloat16", **kw), make_image_task("float32", **kw)
+    state, tx = task.init_state(SEED, steps_per_epoch=1, device=DEVICE)
+    frozen = [k for k, m in (task._mask or {}).items() if not m]
+    tokens = (task.student.img_size // task.student.patch_size) ** 2 + 1
+    print(f"train {label}: student {student} ({tokens} tokens), task overlay {task_over}, "
+          f"teacher ViT-L/14 (seeded) layers {L14_LAYERS}, losses "
+          f"{task.loss_control_para['loss_name']}, {len(state.params)} parameter leaves "
+          f"({sum(v.numel() for v in state.params.values()) / 1e6:.2f} M fp32 masters), "
+          f"{len(frozen)} frozen", flush=True)
+    small = [torch.from_numpy(make_images(np.random.default_rng(SEED + 72), 16))]
+    compare_with_plain(label, task, plain, "loss_fn", state.params, small, relative_loss=True)
+    del plain
+    batch = [torch.from_numpy(make_images(np.random.default_rng(SEED + 73), pairs)).to(DEVICE)]
+    run = run_steps(ops, card, label, task.make_train_step(tx), state, batch, expected, 6,
+                    keep_state, frozen)
+    print(f"train {label}: ok", flush=True)
+    return run
+
+
+def long_seq_phases(ops, card: str, keep_state: bool = False) -> tuple:
+    """Phase 5d'': the teachers past 256 tokens, the L/14 scorer, and stage 1
+    against the live ViT-L/14 with a 32-head student (#5 and #6's second
+    route) and with a patch-14 student (its attention materialised)."""
+    counts = long_teacher_phase(ops, card)
+    counts.update(l14_score_phase(ops, card))
+    runs = {label: l14_stage_phase(ops, card, label, keep_state) for label in STAGE_L14}
+    return counts, runs
+
+
+def profile_long_encodes(card: str) -> None:
+    """--profile: the image encode of 256 rows through each LONG_TEACHERS
+    geometry (past 256 tokens the attention's products are cuBLAS batched
+    products and its softmax an elementwise pass)."""
+    from distillclip_tpu_torch.models.frozen_teacher import FrozenTeacher
+
+    for name in LONG_TEACHERS:
+        teacher = FrozenTeacher(preset_checkpoint(name), None, "image", None, torch.bfloat16)
+        encode = teacher.image_encode(DEVICE)
+        res = teacher.tower(DEVICE, "image").visual.input_resolution
+        x = torch.from_numpy(make_images(np.random.default_rng(SEED + 70), PAIRS, res)).to(DEVICE)
+        profile(f"teacher {name} image encode {PAIRS} rows", lambda: encode(x), 5, card)
+        del teacher, encode, x
 
 
 # -- phase 5e: the perf knobs ---------------------------------------------------
@@ -2233,6 +2447,10 @@ def main() -> None:
     rn50_counts = rn50_teacher_phase(ops, card)
     runs["stage-1 RN50 teacher"] = rn50_stage_phase(ops, card)
     print(f"wall: the iRPE and RN50 phases {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    long_counts, long_runs = long_seq_phases(ops, card, profiling)
+    runs.update(long_runs)
+    print(f"wall: the ViT-L/14 and ViT-B/16 phases {time.perf_counter() - t0:.1f} s", flush=True)
     knob_runs = {label: knob_phase(ops, card, label, runs["text-cached"],
                                    profiling and label.startswith("fc1_ln=0"))
                  for label in KNOB_PHASES}
@@ -2250,10 +2468,11 @@ def main() -> None:
         for label in ("all-cached", "text-cached", "live", "all-cached plain-attention",
                       "stage-1 tapped",
                       "stage-1 tapped plain-attention", "stage-1 attention-taps",
-                      "live contrastive"):
+                      "live contrastive", "stage-1 L/14", "stage-1 L/14 patch-14 student"):
             run = runs[label]
-            profile(f"train step {label} 256 pairs",
+            profile(f"train step {label} {int(run['batch'][0].shape[0])} pairs",
                     lambda r=run: r["step"](r["state"], *r["batch"]), 5, card)
+        profile_long_encodes(card)
         for label in ("fc1_ln=0", "fc1_ln=0 fc1_res=u"):
             run = knob_runs[label]["run"]
             with perf_section(KNOB_PHASES[label][0]):
@@ -2268,7 +2487,7 @@ def main() -> None:
              **{f"serving_call {k}": v["serving"] for k, v in knob_runs.items()},
              **{f"train_step text-cached {k}": v["step"] for k, v in knob_runs.items()},
              **{f"score_cli {k}": v for k, v in score_counts.items()},
-             **rn50_counts, **fit_counts, **data_counts}
+             **rn50_counts, **long_counts, **fit_counts, **data_counts}
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1],
                 "launches": sum(c[name] for c in paths.values()),

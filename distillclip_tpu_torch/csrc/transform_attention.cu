@@ -1,14 +1,18 @@
 // K3's second route: head-transform attention forward on the fused qkv
 // projection, on the CUDA cores, for head shapes past the tensor-core kernel
 // (transform_attention_mma.cu takes d % 8 == 0 up to 64 and H up to 24, 16
-// with d > 32).  The Python wrapper sends the lean forward here by shape
-// (ops/transform_attention.py, transform_attention_rows_qkv_wide); the
-// save-P forward takes only the backward's shapes, which the tensor-core
-// kernel takes.
+// with d > 32).  The Python wrapper sends those shapes here by shape
+// (ops/transform_attention.py): the lean forward as
+// transform_attention_rows_qkv_wide, the training forward as
+// transform_attention_save_p_wide (#5's second route), which also stores P_h,
+// after the per-head normalisation and before the conv_w mix, as bf16
+// [B, H, N, N] at the true N for the backward's second route
+// (transform_attention_bwd_wide.cu).  The output is the same bits either way.
 //
 // Replaces distillclip_tpu/ops/transform_attention.py:_tf_kernel (with its
 // _build_mix_expansions), the Pallas forward behind
-// transform_attention_rows_qkv, at those head shapes.
+// transform_attention_rows_qkv, at those head shapes, without and with saved
+// probabilities (the Pallas kernel's save_p mode, _tf_fwd_call(save_p=True)).
 //
 // Per sample b and query row i (scores never leave shared memory):
 //   S_g[i, j]  = q_g[i] · k_g[j]                      g = 0..H-1, j = 0..N-1
@@ -55,8 +59,9 @@ __host__ __device__ inline size_t tf_smem(int N, int H, int d, int tq) {
 
 __global__ void __launch_bounds__(kThreads)
 transform_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ wl,
-                           const bf16* __restrict__ ww, bf16* __restrict__ out, int N,
-                           int H, int d, int tq, float scale) {
+                           const bf16* __restrict__ ww, bf16* __restrict__ out,
+                           bf16* __restrict__ probs, int N, int H, int d, int tq,
+                           float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int HD = H * d;
   const int HD3 = 3 * HD;
@@ -105,6 +110,18 @@ transform_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict_
   }
   __syncthreads();
 
+  // 3b) the probabilities, for the backward: P[b, h, i0 + i, :] as bf16.
+  if (probs != nullptr) {
+    for (int idx = threadIdx.x; idx < H * nq * N; idx += kThreads) {
+      const int h = idx / (nq * N);
+      const int rem = idx - h * nq * N;
+      const int i = rem / N;
+      const int j = rem - i * N;
+      probs[(((size_t)b * H + h) * N + i0 + i) * N + j] =
+          __float2bfloat16(T[(h * tq + i) * N + j]);
+    }
+  }
+
   // 4) conv_w across heads on the probabilities.
   mix_heads(Ww, T, S, H, plane, 1.0f);
   __syncthreads();
@@ -125,11 +142,12 @@ DC_EXPORT long long dc_tf_smem_bytes(int N, int H, int d, int tq) {
 DC_EXPORT int dc_tf_max_tq() { return dc::tf::kTqMax; }
 
 // qkv: [batch·N, 3·H·d]; wl, ww: [H, H]; out: [batch·N, H·d]; all bf16.
-// 1 <= tq <= dc_tf_max_tq(), d % 8 == 0, dc_tf_smem_bytes(...) within the
-// block limit (the Python wrapper checks all of these).
+// probs: NULL, or [batch, H, N, N] bf16 to fill.  1 <= tq <= dc_tf_max_tq(),
+// d % 8 == 0, dc_tf_smem_bytes(...) within the block limit (the Python
+// wrapper checks all of these).
 DC_EXPORT int dc_transform_attention(const void* qkv, const void* wl, const void* ww,
-                                     void* out, int batch, int N, int H, int d, int tq,
-                                     float scale, void* stream) {
+                                     void* out, void* probs, int batch, int N, int H, int d,
+                                     int tq, float scale, void* stream) {
   const size_t smem = dc::tf_smem(N, H, d, tq);
   cudaError_t err = cudaFuncSetAttribute(dc::transform_attention_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -137,7 +155,7 @@ DC_EXPORT int dc_transform_attention(const void* qkv, const void* wl, const void
   if (err != cudaSuccess) return (int)err;
   dim3 grid((N + tq - 1) / tq, batch);
   dc::transform_attention_kernel<<<grid, dc::tf::kThreads, smem, (cudaStream_t)stream>>>(
-      (const dc::bf16*)qkv, (const dc::bf16*)wl, (const dc::bf16*)ww, (dc::bf16*)out, N, H, d,
-      tq, scale);
+      (const dc::bf16*)qkv, (const dc::bf16*)wl, (const dc::bf16*)ww, (dc::bf16*)out,
+      (dc::bf16*)probs, N, H, d, tq, scale);
   return (int)cudaGetLastError();
 }

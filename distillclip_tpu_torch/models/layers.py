@@ -13,9 +13,11 @@ a plain product with a plain QuickGELU, as the JAX package leaves them to XLA.
 Attention takes one of three routes, as in the JAX package:
 :func:`ops.plain_attention_rows_qkv` on the fused rows when nothing is tapped,
 :func:`ops.flash_attention` on ``[B, H, N, d]`` views of the fused qkv when
-the stack collects hidden states (``need_rep``), and the materialised fp32
-path when the scores, probabilities or value map are the product or attention
-dropout is active.
+the stack collects hidden states (``need_rep``), and the materialised path
+when the scores, probabilities or value map are the product, attention
+dropout is active or the sequence is longer than the kernels take
+(:func:`attention_kernel_ok`, the JAX towers' own dispatch by shape: 257
+tokens of ViT-L/14, 577 of ViT-L/14@336px).
 
 Randomness (dropout, drop-path) is drawn from an explicit ``torch.Generator``
 when one is given, so that a step repeats from its seed; a module is
@@ -38,8 +40,22 @@ from distillclip_tpu_torch.ops import (
     layer_norm_rows,
     plain_attention_rows_qkv,
 )
+from distillclip_tpu_torch.ops.transform_attention import MAX_SEQ
 
 MASK_NEG = -1e9
+
+
+def attention_kernel_ok(flags: ControlFlags, seq: int, dropout_active: bool,
+                        rpe: bool = False) -> bool:
+    """Whether a tower's attention goes to a kernel: nothing tapped, no
+    active attention dropout, no iRPE tables, and at most ``MAX_SEQ`` (256)
+    tokens.  The JAX towers' gate (``flash_ok`` in
+    ``distillclip_tpu/models/layers.py`` and ``repeat_vit.py``), shared by
+    both families of towers: past 256 tokens the JAX package runs XLA's
+    materialised attention, because its Pallas kernels stop there, and the
+    port materialises it in PyTorch.  A dispatch by shape, not a fallback: a
+    kernel that fails still raises."""
+    return not flags.attn_tap() and not dropout_active and not rpe and seq <= MAX_SEQ
 
 
 def dropout(x: torch.Tensor, rate: float,
@@ -174,7 +190,7 @@ class InstrumentedAttention(nn.Module):
         else:
             qkv = self.in_proj(ln(x))
         dropout_active = self.drop_prob > 0.0 and self.training
-        if not flags.attn_tap() and not dropout_active:
+        if attention_kernel_ok(flags, seq, dropout_active):
             if flags.need_rep:
                 q, k, v = split_heads(qkv, self.heads, seq)
                 ctx = merge_heads(flash_attention(q, k, v, causal=causal, kv_len=kv_len))

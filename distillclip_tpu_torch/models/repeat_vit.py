@@ -33,9 +33,13 @@ and what the blocks collect.  When the blocks collect hidden states
 (``need_rep``) attention runs through :func:`ops.flash_attention` on strided
 ``[B, H, N, d]`` views of the fused qkv; when the scores, probabilities or
 value map are the product, or attention dropout is active, they are
-materialised in fp32 by plain PyTorch.  Tap semantics are the reference's:
-``attention_scores`` is the scaled q·kᵀ before ``conv_l``, ``attention_probs``
-the softmax before ``conv_w``.  Every repeat's taps are returned:
+materialised in fp32 by plain PyTorch.  Past 256 tokens (a patch-14 student
+at 224 px has 257) every attention is materialised, in the compute dtype
+when nothing is tapped, as the JAX towers take XLA's attention there
+(``models.layers.attention_kernel_ok``, the gate both tower families
+share).  Tap semantics are the reference's: ``attention_scores`` is the
+scaled q·kᵀ before ``conv_l``, ``attention_probs`` the softmax before
+``conv_w``.  Every repeat's taps are returned:
 ``need_layers`` is accepted by neither tower, as the reference ignores it.
 With the default flags a tower returns its pooled representation as a tensor
 (the serving path); with any flag set it returns a
@@ -85,6 +89,7 @@ from distillclip_tpu_torch.models.irpe import (
 )
 from distillclip_tpu_torch.models.layers import (
     Dense,
+    attention_kernel_ok,
     drop_path,
     dropout,
     merge_heads,
@@ -180,7 +185,7 @@ class MiniAttention(nn.Module):
         else:
             qkv = self.qkv(norm1(x))
         dropout_active = self.attn_drop > 0.0 and self.training
-        if not flags.attn_tap() and not dropout_active and self.rpe is None:
+        if attention_kernel_ok(flags, seq, dropout_active, self.rpe is not None):
             if flags.need_rep:
                 q, k, v = split_heads(qkv, self.num_heads, seq)
                 mixes = ((self.conv_l[repeat_id], self.conv_w[repeat_id])

@@ -15,8 +15,11 @@ towers when they collect hidden states): plain forward and backward, and the
 head-transform forward.  The next three are the dense GEMM without the
 LayerNorm prologue, which the blocks run under the ``fc1_ln: "0"`` knob: h only
 (no gradient), h with the (u, e) residuals, and u only (``fc1_res: u``).  The
-last is the head-transform forward's second route, the CUDA-core kernel, for
-head shapes past its tensor-core kernel's (it counts its own launches).
+next is the head-transform forward's second route, the CUDA-core kernel, for
+head shapes past its tensor-core kernel's (it counts its own launches).  The
+last two are the second route of the head-transform training pair, the
+CUDA-core save-P forward and backward, for the head shapes past the
+tensor-core backward's (``ops.transform_attention.grad_route``).
 """
 
 from distillclip_tpu_torch.ops.fc1_act import (
@@ -44,9 +47,11 @@ from distillclip_tpu_torch.ops.plain_attention import (
 )
 from distillclip_tpu_torch.ops.transform_attention import (
     transform_attention_bwd,
+    transform_attention_bwd_wide,
     transform_attention_rows_qkv,
     transform_attention_rows_qkv_wide,
     transform_attention_save_p,
+    transform_attention_save_p_wide,
 )
 
 # Every kernel by the name of the wrapper that launches and counts it.
@@ -71,6 +76,8 @@ KERNELS = {
     "dense_act_res": dense_act_res,
     "dense_act_u": dense_act_u,
     "flash_transform_attention_fwd_wide": flash_transform_attention_fwd_wide,
+    "transform_attention_save_p_wide": transform_attention_save_p_wide,
+    "transform_attention_bwd_wide": transform_attention_bwd_wide,
 }
 
 
@@ -105,7 +112,9 @@ __all__ = [
     "reference_attention",
     "reset_launch_counts",
     "transform_attention_bwd",
+    "transform_attention_bwd_wide",
     "transform_attention_rows_qkv",
     "transform_attention_rows_qkv_wide",
     "transform_attention_save_p",
+    "transform_attention_save_p_wide",
 ]

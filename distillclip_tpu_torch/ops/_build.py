@@ -67,12 +67,16 @@ _SIGNATURES = {
     "dc_transform_attention_mma": (_I, [_P] * 5 + [_I, _I, _I, _I, _F, _P]),
     "dc_tf_smem_bytes": (ctypes.c_longlong, [_I, _I, _I, _I]),
     "dc_tf_max_tq": (_I, []),
-    # qkv, wl, ww, out | batch, N, H, d, tq, scale, stream (transform_attention.cu)
-    "dc_transform_attention": (_I, [_P] * 4 + [_I, _I, _I, _I, _I, _F, _P]),
+    # qkv, wl, ww, out, probs | batch, N, H, d, tq, scale, stream (transform_attention.cu)
+    "dc_transform_attention": (_I, [_P] * 5 + [_I, _I, _I, _I, _I, _F, _P]),
     "dc_tf_bwd_smem_bytes": (ctypes.c_longlong, [_I, _I, _I]),
     # qkv, wl, ww, dout, probs, dqkv, ds_hi, ds_lo, partial, dwl_dww |
     # batch, N, H, d, scale, stream
     "dc_transform_attention_bwd": (_I, [_P] * 10 + [_I, _I, _I, _I, _F, _P]),
+    "dc_tf_bwd_wide_smem_bytes": (ctypes.c_longlong, [_I, _I, _I, _I]),
+    # qkv, wl, ww, dout, probs, dqkv, pm_scratch, ds_scratch, partial, dwl_dww |
+    # batch, N, H, d, tq, scale, stream (transform_attention_bwd_wide.cu)
+    "dc_transform_attention_bwd_wide": (_I, [_P] * 10 + [_I, _I, _I, _I, _I, _F, _P]),
     # qkv, out, probs | batch, N, H, d, scale, causal, kv_len, stream
     "dc_plain_attention": (_I, [_P] * 3 + [_I, _I, _I, _I, _F, _I, _I, _P]),
     # qkv, dout, probs, dqkv | batch, N, H, d, scale, stream

@@ -35,9 +35,8 @@ from typing import Optional
 import torch
 
 from distillclip_tpu_torch.ops import _build
-from distillclip_tpu_torch.ops.transform_attention import _check_head_dim, _split_heads
+from distillclip_tpu_torch.ops.transform_attention import MAX_SEQ, _check_head_dim, _split_heads
 
-MAX_SEQ = 256
 MAX_HEAD_DIM = 128
 
 

@@ -13,19 +13,33 @@ head shape (head dim a multiple of 8 up to 64, at most 24 heads, 16 with a
 head dim past 32; any length), and otherwise, by shape, its second route
 :func:`transform_attention_rows_qkv_wide` (``csrc/transform_attention.cu``,
 the CUDA cores, any head count), which counts its own launches.  On a CPU
-tensor it runs :func:`transform_attention_rows_qkv_plain`.  With a gradient
-it takes fewer shapes, those of the backward's kernels (the same head shapes,
-up to 256 tokens), and refuses the others in the forward, before anything
-runs.
+tensor it runs :func:`transform_attention_rows_qkv_plain`.
 
-With a gradient it is a ``torch.autograd.Function``: the forward is the
-tensor-core K3 with its save-P flag (:func:`transform_attention_save_p`),
-which also stores the per-head softmax probabilities P ``[B, H, N, N]``
-(after the softmax, before the ``ww`` mix) in qkv's dtype, and the backward
-(:func:`transform_attention_bwd`, ``csrc/transform_attention_bwd.cu``) makes
-the fused dqkv and the two mix gradients from qkv, the output gradient and P.
-The mix gradients leave the kernel as fp32 ``[H, H]`` and are cast to the
-parameters' dtype, as the JAX package casts them.
+With a gradient it is a ``torch.autograd.Function`` whose forward saves the
+per-head softmax probabilities P ``[B, H, N, N]`` (after the softmax, before
+the ``ww`` mix) in qkv's dtype and whose backward makes the fused dqkv and the
+two mix gradients from qkv, the output gradient and P.  The mix gradients
+leave the kernels as fp32 ``[H, H]`` and are cast to the parameters' dtype, as
+the JAX package casts them.  Two pairs of kernels do this, and the function
+picks one by shape before anything runs (:func:`grad_route`) and remembers it
+for its backward:
+
+* the tensor cores (``"tensor_core"``): K3 with its save-P flag
+  (:func:`transform_attention_save_p`, #5) and
+  :func:`transform_attention_bwd` (#6, ``csrc/transform_attention_bwd.cu``),
+  where #6 takes the shape: d up to 64, at most 24 heads (16 with d > 32);
+* the CUDA cores (``"wide"``) for every other head shape:
+  :func:`transform_attention_save_p_wide` (K3's second route with its save-P
+  flag) and :func:`transform_attention_bwd_wide`
+  (``csrc/transform_attention_bwd_wide.cu``), where one query row's score
+  planes of all H heads fit a block's shared memory
+  (:func:`wide_route_takes`): at 256 tokens, 32 heads of 32 and 12 heads of
+  128 among others.
+
+Both take up to :data:`MAX_SEQ` tokens, as the JAX package's Pallas kernels
+do; past that its towers, and the port's (``models.layers.attention_kernel_ok``),
+materialise the attention instead.  A shape neither route takes is refused
+with a ``ValueError`` before the forward runs.
 
 The JAX package's ``tf_impl: factored`` route
 (``ops/transform_factored.py::tf_factored_qkv``, kernel #18) computes the same
@@ -44,6 +58,12 @@ from typing import Optional
 import torch
 
 from distillclip_tpu_torch.ops import _build
+
+# The longest sequence the attention kernels with a gradient take (and the
+# plain attention's, ops.plain_attention): the JAX package's Pallas attention
+# kernels take up to 256 tokens, and its towers materialise the attention past
+# that, as the port's do.
+MAX_SEQ = 256
 
 
 def _split_heads(qkv: torch.Tensor, heads: int, seq: int):
@@ -106,8 +126,9 @@ def _pick_tq(lib, smem_bytes, seq: int, heads: int, d: int,
     while tq > 0 and smem_bytes(seq, heads, d, tq) > _build.MAX_SMEM_BYTES:
         tq -= 1
     if tq == 0:
-        raise ValueError(f"{what}: the score tile of {heads} heads x {seq} keys does not "
-                         f"fit in one block's shared memory")
+        raise ValueError(f"{what}: the score tile of one query row, {heads} heads x {seq} keys "
+                         f"(fp32 planes: two in the forward, three in the backward), does not "
+                         f"fit in one block's {_build.MAX_SMEM_BYTES} bytes of shared memory")
     tiles = -(-seq // tq)
     return -(-seq // tiles)
 
@@ -127,20 +148,67 @@ def _check_head_dim(d, what: str = "transform_attention_rows_qkv"):
         raise ValueError(f"{what}: head dim must be a multiple of 8, got {d}")
 
 
-def _check_bwd_shape(lib, seq, heads, d, what: str):
-    """Raise unless the backward's kernels take (seq, heads, d): they hold
-    every head of a 16 x 16 tile in one block."""
+def _tc_takes(lib, seq: int, heads: int, d: int) -> bool:
+    """True where the tensor-core backward (#6) takes (seq, heads, d)."""
     smem = lib.dc_tf_bwd_smem_bytes(seq, heads, d)
-    if smem < 0 or smem > _build.MAX_SMEM_BYTES:
+    return 0 <= smem <= _build.MAX_SMEM_BYTES
+
+
+def _check_bwd_shape(lib, seq, heads, d, what: str):
+    """Raise unless the tensor-core backward's kernels take (seq, heads, d):
+    they hold every head of a 16 x 16 tile in one block."""
+    if not _tc_takes(lib, seq, heads, d):
         raise ValueError(f"{what}: {heads} heads of {d} at {seq} tokens do not fit the "
-                         f"backward's kernels (d up to 64, at most 24 heads, 16 with d > 32, "
-                         f"up to 256 tokens)")
+                         f"tensor-core backward's kernels (d up to 64, at most 24 heads, 16 "
+                         f"with d > 32, up to {MAX_SEQ} tokens); transform_attention_rows_qkv "
+                         f"trains other head shapes on the CUDA-core pair (*_wide)")
 
 
 def _tensor_core_shape(lib, heads: int, d: int) -> bool:
     """True where the tensor-core forward takes (heads, d)."""
     smem = lib.dc_tf_fwd_mma_smem_bytes(heads, d)
     return 0 <= smem <= _build.MAX_SMEM_BYTES
+
+
+def _wide_smem(seq: int, heads: int, d: int, tq: int, planes: int) -> int:
+    """Shared memory of a block of the CUDA-core route at ``tq`` query rows:
+    the q (dO) tile, ``planes`` [H, H] mixes and ``planes`` fp32 [H, tq, N]
+    score planes (two in the forward, three in the backward's first kernel),
+    as ``dc_tf_smem_bytes`` and ``dc_tf_bwd_wide_smem_bytes`` count them."""
+    pad4 = (heads + 3) // 4 * 4
+    return tq * heads * d * 2 + planes * heads * pad4 * 4 + planes * heads * tq * seq * 4
+
+
+def wide_route_takes(seq: int, heads: int, d: int) -> bool:
+    """True where the CUDA-core pair (#5 and #6's second route) trains heads
+    of ``d`` at ``seq`` tokens: d a multiple of 8, up to :data:`MAX_SEQ`
+    tokens, and one query row's three backward planes of all heads within a
+    block's shared memory.  The Python statement of the library's limits
+    (``dc_tf_smem_bytes``, ``dc_tf_bwd_wide_smem_bytes`` at one row), which
+    the wrappers ask."""
+    return (d % 8 == 0 and 1 <= seq <= MAX_SEQ
+            and _wide_smem(seq, heads, d, 1, 3) <= _build.MAX_SMEM_BYTES)
+
+
+def _check_seq(seq: int, what: str) -> None:
+    if seq > MAX_SEQ:
+        raise ValueError(f"{what}: the training kernels take up to {MAX_SEQ} tokens, as the "
+                         f"JAX package's do (its towers and the port's materialise the "
+                         f"attention past that), got {seq}")
+
+
+def grad_route(qkv: torch.Tensor, heads: int, seq: int) -> str:
+    """The kernels that train this call, chosen by shape before anything
+    runs: ``"plain"`` on the CPU, ``"tensor_core"`` where #6 takes the shape,
+    else ``"wide"``, whose save-P forward refuses before it launches what
+    neither pair takes (past :data:`MAX_SEQ` tokens, or one row's planes past
+    shared memory)."""
+    what = "transform_attention_rows_qkv"
+    if _build.plain_only(what, qkv):
+        return "plain"
+    d = qkv.shape[1] // 3 // heads
+    _check_head_dim(d, what)
+    return "tensor_core" if _tc_takes(_build.lib(), seq, heads, d) else "wide"
 
 
 def _launch_fwd(wrapper, qkv, wl, ww, heads, seq, scale, save_p: bool):
@@ -170,6 +238,34 @@ def _launch_fwd(wrapper, qkv, wl, ww, heads, seq, scale, save_p: bool):
     return out, p
 
 
+def _launch_wide_fwd(wrapper, qkv, wl, ww, heads, seq, scale, save_p: bool):
+    """K3's CUDA-core route on CUDA tensors, with or without its save-P flag,
+    counted on ``wrapper``; returns (o, P or None).  The save-P mode refuses
+    what the CUDA-core backward would refuse, before it runs."""
+    what = wrapper.__name__
+    rows = qkv.shape[0]
+    d = _check_shapes(qkv, wl, ww, heads, seq)
+    _build.check_operands(what, qkv, unaligned=(wl, ww))
+    _check_head_dim(d, what)
+    lib = _build.lib()
+    if save_p:
+        _check_seq(seq, what)
+        _pick_tq(lib, lib.dc_tf_bwd_wide_smem_bytes, seq, heads, d, what)
+    tq = _pick_tq(lib, lib.dc_tf_smem_bytes, seq, heads, d, what)
+    out = torch.empty((rows, heads * d), dtype=qkv.dtype, device=qkv.device)
+    p = None
+    if save_p:
+        p = torch.empty((rows // seq, heads, seq, seq), dtype=qkv.dtype, device=qkv.device)
+    if rows == 0:
+        return out, p
+    _build.check(lib.dc_transform_attention(
+        qkv.data_ptr(), wl.data_ptr(), ww.data_ptr(), out.data_ptr(),
+        None if p is None else p.data_ptr(), rows // seq, seq, heads, d, tq, float(scale),
+        _build.stream_ptr(qkv)), what)
+    wrapper.launches += 1
+    return out, p
+
+
 def transform_attention_save_p(qkv, wl, ww, *, heads: int, seq: int, scale: float):
     """(o, P): K3 with its save-P flag on CUDA tensors,
     :func:`transform_attention_save_p_plain` on the CPU."""
@@ -187,20 +283,19 @@ def transform_attention_rows_qkv_wide(qkv, wl, ww, *, heads: int, seq: int, scal
     if _build.plain_only(what, qkv):
         return transform_attention_rows_qkv_plain(qkv, wl, ww, heads=heads, seq=seq,
                                                   scale=scale)
-    rows = qkv.shape[0]
-    d = _check_shapes(qkv, wl, ww, heads, seq)
-    _build.check_operands(what, qkv, unaligned=(wl, ww))
-    _check_head_dim(d, what)
-    lib = _build.lib()
-    tq = _pick_tq(lib, lib.dc_tf_smem_bytes, seq, heads, d, what)
-    out = torch.empty((rows, heads * d), dtype=qkv.dtype, device=qkv.device)
-    if rows == 0:
-        return out
-    _build.check(lib.dc_transform_attention(qkv.data_ptr(), wl.data_ptr(), ww.data_ptr(),
-                                            out.data_ptr(), rows // seq, seq, heads, d, tq,
-                                            float(scale), _build.stream_ptr(qkv)), what)
-    transform_attention_rows_qkv_wide.launches += 1
-    return out
+    return _launch_wide_fwd(transform_attention_rows_qkv_wide, qkv, wl, ww, heads, seq, scale,
+                            False)[0]
+
+
+def transform_attention_save_p_wide(qkv, wl, ww, *, heads: int, seq: int, scale: float):
+    """(o, P): #5's second route, the CUDA-core kernel with its save-P flag,
+    for the head shapes that train on :func:`transform_attention_bwd_wide`
+    (:func:`wide_route_takes`); :func:`transform_attention_save_p_plain` on
+    the CPU.  o is the lean route's bits."""
+    if _build.plain_only("transform_attention_save_p_wide", qkv):
+        return transform_attention_save_p_plain(qkv, wl, ww, heads=heads, seq=seq, scale=scale)
+    return _launch_wide_fwd(transform_attention_save_p_wide, qkv, wl, ww, heads, seq, scale,
+                            True)
 
 
 def transform_attention_bwd(qkv, wl, ww, do, p, *, heads: int, seq: int, scale: float):
@@ -239,12 +334,58 @@ def transform_attention_bwd(qkv, wl, ww, do, p, *, heads: int, seq: int, scale: 
     return dqkv, grads[:hh].view(heads, heads), grads[hh:].view(heads, heads)
 
 
+def transform_attention_bwd_wide(qkv, wl, ww, do, p, *, heads: int, seq: int,
+                                 scale: float):
+    """(dqkv, dwl fp32, dww fp32) from the P that
+    :func:`transform_attention_save_p_wide` saved: #6's second route on CUDA
+    tensors (``csrc/transform_attention_bwd_wide.cu``: a query-tile kernel, a
+    key-tile kernel and the reduction of the mix gradients' partials, one
+    wrapper launch), :func:`transform_attention_bwd_plain` on the CPU."""
+    what = "transform_attention_bwd_wide"
+    if _build.plain_only(what, qkv):
+        return transform_attention_bwd_plain(qkv, wl, ww, do, p, heads=heads, seq=seq,
+                                             scale=scale)
+    do = do.contiguous()
+    _build.check_operands(what, qkv, do, unaligned=(wl, ww, p))
+    rows, hd3 = qkv.shape
+    d = hd3 // 3 // heads
+    _check_head_dim(d, what)
+    _check_seq(seq, what)
+    B = rows // seq
+    lib = _build.lib()
+    tq = _pick_tq(lib, lib.dc_tf_bwd_wide_smem_bytes, seq, heads, d, what)
+    dqkv = torch.empty_like(qkv)
+    grads = torch.zeros(2 * heads * heads, dtype=torch.float32, device=qkv.device)
+    if rows > 0:
+        f32 = dict(dtype=torch.float32, device=qkv.device)
+        pm = torch.empty((B, heads, seq, seq), **f32)
+        ds = torch.empty((B, heads, seq, seq), **f32)
+        partial = torch.empty((B * -(-seq // tq), 2 * heads * heads), **f32)
+        _build.check(lib.dc_transform_attention_bwd_wide(
+            qkv.data_ptr(), wl.data_ptr(), ww.data_ptr(), do.data_ptr(), p.data_ptr(),
+            dqkv.data_ptr(), pm.data_ptr(), ds.data_ptr(), partial.data_ptr(),
+            grads.data_ptr(), B, seq, heads, d, tq, float(scale), _build.stream_ptr(qkv)), what)
+        transform_attention_bwd_wide.launches += 1
+    hh = heads * heads
+    return dqkv, grads[:hh].view(heads, heads), grads[hh:].view(heads, heads)
+
+
+# route -> (the forward that saves P, the backward that reads it)
+_GRAD_ROUTES = {
+    "plain": (transform_attention_save_p_plain, transform_attention_bwd_plain),
+    "tensor_core": (transform_attention_save_p, transform_attention_bwd),
+    "wide": (transform_attention_save_p_wide, transform_attention_bwd_wide),
+}
+
+
 class _TransformAttention(torch.autograd.Function):
-    """After ``_tf_flat_qkv_fwd`` / ``_tf_flat_qkv_bwd`` of the JAX package."""
+    """After ``_tf_flat_qkv_fwd`` / ``_tf_flat_qkv_bwd`` of the JAX package.
+    The backward is the one of the route whose forward wrote P."""
 
     @staticmethod
     def forward(ctx, qkv, wl, ww, heads, seq, scale):
-        o, p = transform_attention_save_p(qkv, wl, ww, heads=heads, seq=seq, scale=scale)
+        save_p, ctx.bwd = _GRAD_ROUTES[grad_route(qkv, heads, seq)]
+        o, p = save_p(qkv, wl, ww, heads=heads, seq=seq, scale=scale)
         ctx.save_for_backward(qkv, wl, ww, p)
         ctx.args = (heads, seq, scale)
         return o
@@ -253,8 +394,7 @@ class _TransformAttention(torch.autograd.Function):
     def backward(ctx, do):
         qkv, wl, ww, p = ctx.saved_tensors
         heads, seq, scale = ctx.args
-        dqkv, dwl, dww = transform_attention_bwd(qkv, wl, ww, do, p, heads=heads, seq=seq,
-                                                 scale=scale)
+        dqkv, dwl, dww = ctx.bwd(qkv, wl, ww, do, p, heads=heads, seq=seq, scale=scale)
         return dqkv, dwl.to(wl.dtype), dww.to(ww.dtype), None, None, None
 
 
@@ -282,3 +422,5 @@ transform_attention_rows_qkv.launches = 0
 transform_attention_rows_qkv_wide.launches = 0
 transform_attention_save_p.launches = 0
 transform_attention_bwd.launches = 0
+transform_attention_save_p_wide.launches = 0
+transform_attention_bwd_wide.launches = 0

@@ -9,6 +9,13 @@ same way.
 
     python -m distillclip_tpu_torch.tools.fabricate_teacher --out .cache/tiny_clip.pt \
         --vision-width 64 --vision-layers 3 --text-width 64 --text-layers 2
+    python -m distillclip_tpu_torch.tools.fabricate_teacher --out vit_l14.pt --preset ViT-L/14
+
+``--preset`` takes a published geometry (:data:`PRESETS`: the ViT CLIP
+models' widths, depths, patch sizes, resolutions and embedding widths) with
+seeded weights; any geometry flag given beside it overrides that value (a
+cut depth, say).  The loader infers the heads from the widths, 64 a head, as
+OpenAI's ``build_model`` does.
 """
 
 from __future__ import annotations
@@ -17,6 +24,31 @@ import argparse
 import os
 
 import torch
+
+
+# Published CLIP ViT geometries: OpenAI CLIP's clip/model.py build_model (the
+# checkpoints' tensor shapes) and the CLIP paper's model table (Radford et al.
+# 2021, table 20).  Every one has a 77-token context and a 49408-word vocabulary.
+PRESETS = {
+    "ViT-B/32": dict(vision_width=768, vision_layers=12, patch_size=32, image_resolution=224,
+                     text_width=512, text_layers=12, embed_dim=512),
+    "ViT-B/16": dict(vision_width=768, vision_layers=12, patch_size=16, image_resolution=224,
+                     text_width=512, text_layers=12, embed_dim=512),
+    "ViT-L/14": dict(vision_width=1024, vision_layers=24, patch_size=14, image_resolution=224,
+                     text_width=768, text_layers=12, embed_dim=768),
+    "ViT-L/14@336px": dict(vision_width=1024, vision_layers=24, patch_size=14,
+                           image_resolution=336, text_width=768, text_layers=12,
+                           embed_dim=768),
+}
+
+
+def preset_state_dict(name: str, seed: int = 0, **overrides):
+    """A seeded checkpoint of the published geometry ``name`` (a key of
+    :data:`PRESETS`), with ``overrides`` of its arguments (a cut depth)."""
+    if name not in PRESETS:
+        raise ValueError(f"unknown preset {name!r}; one of {sorted(PRESETS)}")
+    return make_clip_state_dict(**{**PRESETS[name], **overrides}, context_length=77,
+                                vocab_size=49408, seed=seed)
 
 
 def make_clip_state_dict(vision_width=64, vision_layers=3, patch_size=8, image_resolution=32,
@@ -129,27 +161,30 @@ def make_rn_state_dict(width=16, layers=(1, 1, 1, 1), image_resolution=64, embed
     return sd
 
 
-def main():
+def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--out", required=True)
-    p.add_argument("--vision-width", type=int, default=64)
-    p.add_argument("--vision-layers", type=int, default=3)
-    p.add_argument("--patch-size", type=int, default=8)
-    p.add_argument("--image-resolution", type=int, default=32)
-    p.add_argument("--text-width", type=int, default=64)
-    p.add_argument("--text-layers", type=int, default=2)
-    p.add_argument("--context-length", type=int, default=77)
-    p.add_argument("--vocab-size", type=int, default=49408)
-    p.add_argument("--embed-dim", type=int, default=48)
+    p.add_argument("--preset", choices=sorted(PRESETS), default=None,
+                   help="a published geometry; the flags below override its values")
+    # None: the preset's value, or without a preset the tiny default
+    p.add_argument("--vision-width", type=int)
+    p.add_argument("--vision-layers", type=int)
+    p.add_argument("--patch-size", type=int)
+    p.add_argument("--image-resolution", type=int)
+    p.add_argument("--text-width", type=int)
+    p.add_argument("--text-layers", type=int)
+    p.add_argument("--context-length", type=int)
+    p.add_argument("--vocab-size", type=int)
+    p.add_argument("--embed-dim", type=int)
     p.add_argument("--seed", type=int, default=0)
-    args = p.parse_args()
+    args = p.parse_args(argv)
 
-    sd = make_clip_state_dict(
-        vision_width=args.vision_width, vision_layers=args.vision_layers,
-        patch_size=args.patch_size, image_resolution=args.image_resolution,
-        text_width=args.text_width, text_layers=args.text_layers,
-        context_length=args.context_length, vocab_size=args.vocab_size,
-        embed_dim=args.embed_dim, seed=args.seed)
+    given = {k: v for k, v in vars(args).items()
+             if k not in ("out", "preset", "seed") and v is not None}
+    if args.preset is not None:
+        sd = preset_state_dict(args.preset, args.seed, **given)
+    else:
+        sd = make_clip_state_dict(**given, seed=args.seed)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     torch.save(sd, args.out)
     print(f"wrote {args.out} ({sum(v.numel() for v in sd.values())} params)")

@@ -198,6 +198,25 @@ def tf_composition(qkv, wl, ww, heads, seq, scale):
     return o.permute(0, 2, 1, 3).reshape(rows, -1), p
 
 
+def tf_bwd_composition(qkv, wl, ww, do, p, heads, seq, scale):
+    """#6's work in PyTorch's own kernels on bf16, from the saved P: the
+    products by matmul, the head mixes and head-pair sums by einsum, the
+    softmax's backward elementwise; (dqkv [B·N, 3·H·d], dwl, dww).  No one
+    call computes the function."""
+    rows = qkv.shape[0]
+    q, k, v = qkv.view(rows // seq, seq, 3, heads, -1).permute(2, 0, 3, 1, 4)
+    do4 = do.view(rows // seq, seq, heads, -1).permute(0, 2, 1, 3)
+    g = do4 @ v.transpose(-1, -2)
+    dv = torch.einsum("hg,bgnm->bhnm", ww, p).transpose(-1, -2) @ do4
+    dww = torch.einsum("bhnm,bgnm->hg", g, p)
+    dp = torch.einsum("hg,bhnm->bgnm", ww, g)
+    ds2 = p * (dp - (p * dp).sum(-1, keepdim=True))
+    dwl = scale * torch.einsum("bhnm,bgnm->hg", ds2, q @ k.transpose(-1, -2))
+    ds = scale * torch.einsum("hg,bhnm->bgnm", wl, ds2)
+    dqkv = torch.stack([ds @ k, ds.transpose(-1, -2) @ q, dv])
+    return dqkv.permute(1, 3, 0, 2, 4).reshape(rows, -1), dwl, dww
+
+
 def flash_tf_composition(q, k, v, wl, ww, scale, causal=False, kv_len=None):
     """#17's work in PyTorch's own kernels on bf16 [B, H, N, d] views: q·kᵀ by
     matmul, the wl mix by einsum, the mask, the softmax, the ww mix, P'·v by
@@ -339,7 +358,8 @@ def oracle_cases(rng, samples: int = PAIRS, device=DEVICE, only: Optional[str] =
         no_ln_cases("ragged", 130, 256, 520)
 
     if wants("transform_attention_rows_qkv", "transform_attention_save_p",
-             "transform_attention_bwd", "transform_attention_rows_qkv_wide"):
+             "transform_attention_bwd", "transform_attention_rows_qkv_wide",
+             "transform_attention_save_p_wide", "transform_attention_bwd_wide"):
         # K3 / save-P / backward: the head mixes are drawn at std H^-1/2, so the
         # mixed logits have std ~1 and the softmax is far from uniform; at the
         # towers' init std (0.02) it is nearly uniform and the check would be weak.
@@ -381,7 +401,46 @@ def oracle_cases(rng, samples: int = PAIRS, device=DEVICE, only: Optional[str] =
                 lambda q=qkv, l=wl, w=ww, g=do, p=p, k=kw: ta.transform_attention_bwd_plain(
                     q, l, w, g, p, **k),
                 5 * product + 5 * mix,
-                2 * (B * N * 7 * H * d + 2 * H * H) + pbytes + 8 * H * H))
+                2 * (B * N * 7 * H * d + 2 * H * H) + pbytes + 8 * H * H,
+                composition=lambda q=qkv, l=wl, w=ww, g=do, p=p, k=kw: tf_bwd_composition(
+                    q, l, w, g, p, **k)))
+        # #5 and #6's second route, the CUDA-core training pair, at head shapes
+        # past the tensor-core pair's: the stage-1 ViT-L/14 student's (32 heads
+        # of 32 at 197 tokens, 1024 wide; first, its times stand in the JSON
+        # line) and 12 heads of 128 at 256 tokens; limits as for #5 and #6
+        for label, B, H, d, N in (("L/14 student", samples, 32, 32, 197),
+                                  ("12 heads of 128", max(samples // 4, 1), 12, 128, 256)):
+            qkv, do = t((B * N, 3 * H * d)), t((B * N, H * d))
+            wl, ww = t((H, H), H ** -0.5), t((H, H), H ** -0.5)
+            kw = dict(heads=H, seq=N, scale=d ** -0.5)
+            shape = f"{label} B={B} H={H} d={d} N={N}"
+            product, mix = 2.0 * B * H * N * N * d, 2.0 * B * H * H * N * N
+            io, pbytes = 2 * (B * N * 4 * H * d + 2 * H * H), 2 * B * H * N * N
+            cases.append(Case(
+                "transform_attention_save_p_wide", shape,
+                lambda q=qkv, l=wl, w=ww, k=kw: ta.transform_attention_save_p_wide(q, l, w, **k),
+                lambda q=qkv, l=wl, w=ww, k=kw: ta.transform_attention_save_p_plain(
+                    q.float(), l.float(), w.float(), **k),
+                (("abs", 8e-3), ("abs", 4e-3)),
+                lambda q=qkv, l=wl, w=ww, k=kw: ta.transform_attention_save_p_plain(q, l, w, **k),
+                2 * product + 2 * mix, io + pbytes,
+                same=lambda q=qkv, l=wl, w=ww, k=kw: ta.transform_attention_rows_qkv_wide(
+                    q, l, w, **k),
+                composition=lambda q=qkv, l=wl, w=ww, k=kw: tf_composition(q, l, w, **k)))
+            p = ta.transform_attention_save_p_plain(qkv, wl, ww, **kw)[1]
+            cases.append(Case(
+                "transform_attention_bwd_wide", shape,
+                lambda q=qkv, l=wl, w=ww, g=do, p=p, k=kw: ta.transform_attention_bwd_wide(
+                    q, l, w, g, p, **k),
+                lambda q=qkv, l=wl, w=ww, g=do, p=p, k=kw: ta.transform_attention_bwd_plain(
+                    q.float(), l.float(), w.float(), g.float(), p.float(), **k),
+                (("abs", 3e-2), ("rel", 6e-3), ("rel", 6e-3)),
+                lambda q=qkv, l=wl, w=ww, g=do, p=p, k=kw: ta.transform_attention_bwd_plain(
+                    q, l, w, g, p, **k),
+                5 * product + 5 * mix,
+                2 * (B * N * 7 * H * d + 2 * H * H) + pbytes + 8 * H * H,
+                composition=lambda q=qkv, l=wl, w=ww, g=do, p=p, k=kw: tf_bwd_composition(
+                    q, l, w, g, p, **k)))
         # K3's second route, the CUDA-core kernel, at a head shape past the
         # tensor-core kernel's (H > 24), the students' N and width
         B, H, d, N = samples, 32, 32, 50

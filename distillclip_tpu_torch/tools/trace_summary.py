@@ -42,7 +42,9 @@ PROFILE_GROUPS = (
     ("#9 dense_ln_bwd (wgmma, clusters along C)", ("dense_ln_bwd_wgmma_kernel",)),
     ("K3 / #5 transform_attention forward (lean / save_p, tensor cores)",
      ("tf_fwd_mma_kernel",)),
-    ("K3 CUDA-core route (heads past the tensor-core kernel)", ("transform_attention_kernel",)),
+    ("K3 / #5 CUDA-core route (heads past the tensor-core kernel)",
+     ("transform_attention_kernel",)),
+    ("#6 CUDA-core route (heads past the tensor-core backward)", ("tf_bwd_wide_",)),
     ("transform_attention_bwd", ("tf_bwd_",)),
     ("plain_attention forward (#13 lean / save_p, tensor cores)",
      ("plain_attention_mma_kernel",)),

@@ -309,22 +309,152 @@ def test_transform_attention_bwd_refuses_heads_it_does_not_take():
 
 
 def test_training_forward_refuses_what_the_backward_does_not_take():
-    """The save-P forward, alone or under autograd, refuses a head shape
-    that #6 would refuse, before it launches; the lean forward takes it."""
+    """The tensor-core save-P forward refuses a head shape that #6 would
+    refuse, before it launches; under autograd such a shape trains on the
+    second route (the CUDA-core save-P forward), and the lean forward takes it
+    on K3's second route."""
     rng = np.random.default_rng(8)
     for H, d in ((25, 8), (17, 48), (2, 72)):
         qkv, w = _bf16(rng, (8, 3 * H * d)), _bf16(rng, (H, H))
         kw = dict(heads=H, seq=8, scale=1.0)
+        ref = ta.transform_attention_rows_qkv_plain(qkv.float(), w.float(), w.float(), **kw)
         ops.reset_launch_counts()
         with pytest.raises(ValueError, match="do not fit"):
             ta.transform_attention_save_p(qkv, w, w, **kw)
-        with pytest.raises(ValueError, match="do not fit"):
-            ta.transform_attention_rows_qkv(qkv.requires_grad_(), w, w, **kw)
         assert ops.launch_counts()["transform_attention_save_p"] == 0
+        o = ta.transform_attention_rows_qkv(qkv.clone().requires_grad_(), w, w, **kw)
+        _close(o.detach(), ref)
+        assert ops.launch_counts() == {**dict.fromkeys(ops.KERNELS, 0),
+                                       "transform_attention_save_p_wide": 1}
         with torch.inference_mode():
-            o = ta.transform_attention_rows_qkv(qkv.detach(), w, w, **kw)
-        _close(o, ta.transform_attention_rows_qkv_plain(qkv.detach().float(), w.float(),
-                                                        w.float(), **kw))
+            o = ta.transform_attention_rows_qkv(qkv, w, w, **kw)
+        _close(o, ref)
+
+
+# -- #5 / #6's second route: the training pair at wide head shapes -----------------
+
+# (B, H, d, N): the stage-1 L/14 student's heads (32 of 32) at its 197 tokens and
+# at 256, 12 heads of 128 (the widest heads asked of the route), 48 heads of 8 at 256 (near
+# the limit), and past the tensor-core pair at ragged lengths down to 1 token
+_TF_WIDE_GRAD = [(4, 32, 32, 197), (2, 32, 32, 256), (2, 12, 128, 256), (3, 12, 128, 197),
+                 (2, 48, 8, 256), (2, 25, 8, 17), (2, 17, 48, 33), (3, 2, 72, 1)]
+
+
+@pytest.mark.parametrize("B,H,d,N", _TF_WIDE_GRAD)
+def test_wide_save_p_and_bwd_match_plain(B, H, d, N):
+    """ROADMAP's kernel tolerance: o within 8e-3 and P within 4e-3 absolute
+    (o the lean second route's bits), dqkv within 3e-2 absolute, the mix
+    gradients within 6e-3 of their largest entry."""
+    rng = np.random.default_rng(B * H * N + d)
+    qkv, do = _bf16(rng, (B * N, 3 * H * d)), _bf16(rng, (B * N, H * d))
+    wl, ww = _bf16(rng, (H, H), H ** -0.5), _bf16(rng, (H, H), 0.5 * H ** -0.5)
+    kw = dict(heads=H, seq=N, scale=d ** -0.5)
+    with torch.inference_mode():
+        lean = ta.transform_attention_rows_qkv_wide(qkv, wl, ww, **kw)
+    ops.reset_launch_counts()
+    o, p = ta.transform_attention_save_p_wide(qkv, wl, ww, **kw)
+    ro, rp = ta.transform_attention_save_p_plain(qkv.float(), wl.float(), ww.float(), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, lean) and p.shape == (B, H, N, N) and p.dtype == torch.bfloat16
+    assert float((o.float() - ro).abs().max()) <= 8e-3
+    assert float((p.float() - rp).abs().max()) <= 4e-3
+    dqkv, dwl, dww = ta.transform_attention_bwd_wide(qkv, wl, ww, do, p, **kw)
+    rdqkv, rdwl, rdww = ta.transform_attention_bwd_plain(
+        qkv.float(), wl.float(), ww.float(), do.float(), p.float(), **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {**dict.fromkeys(ops.KERNELS, 0),
+                                   "transform_attention_save_p_wide": 1,
+                                   "transform_attention_bwd_wide": 1}
+    assert dqkv.dtype == torch.bfloat16 and torch.isfinite(dqkv.float()).all()
+    assert float((dqkv.float() - rdqkv).abs().max()) <= 3e-2
+    assert dwl.dtype == torch.float32 and dww.dtype == torch.float32
+    if N == 1:      # one key: dconv_l is 0 up to fp32 noise of dP − δ
+        assert float(rdwl.abs().max()) == 0 and float(dwl.abs().max()) < 1e-5
+    else:
+        assert _rel_to_max(dwl, rdwl) < 6e-3
+    assert _rel_to_max(dww, rdww) < 6e-3
+
+
+@pytest.mark.parametrize("H,d,N,route", [
+    (24, 32, 50, "tensor_core"), (12, 64, 77, "tensor_core"), (16, 64, 256, "tensor_core"),
+    (4, 16, 17, "tensor_core"), (32, 32, 197, "wide"), (12, 128, 256, "wide"),
+    (25, 8, 16, "wide"), (2, 72, 9, "wide")])
+def test_training_routes_by_head_shape(H, d, N, route):
+    """Under autograd the tensor-core shapes still take #5 and #6 on the tensor
+    cores and the others the second route, one launch each, and the
+    gradients are the plain autograd's."""
+    rng = np.random.default_rng(H + d + N)
+    B = 2
+    qkv, do = _bf16(rng, (B * N, 3 * H * d)), _bf16(rng, (B * N, H * d))
+    wl, ww = _bf16(rng, (H, H), H ** -0.5), _bf16(rng, (H, H), 0.5 * H ** -0.5)
+    assert ta.grad_route(qkv, H, N) == route
+    want = ({"transform_attention_save_p": 1, "transform_attention_bwd": 1}
+            if route == "tensor_core" else
+            {"transform_attention_save_p_wide": 1, "transform_attention_bwd_wide": 1})
+    leaves = [t.clone().requires_grad_() for t in (qkv, wl, ww)]
+    ops.reset_launch_counts()
+    ta.transform_attention_rows_qkv(*leaves, heads=H, seq=N).backward(do)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {**dict.fromkeys(ops.KERNELS, 0), **want}
+    ref = [t.float().requires_grad_() for t in (qkv, wl, ww)]
+    ta.transform_attention_rows_qkv_plain(*ref, heads=H, seq=N, scale=d ** -0.5).backward(
+        do.float())
+    assert float((leaves[0].grad.float() - ref[0].grad).abs().max()) <= 3e-2
+    for g, r in zip(leaves[1:], ref[1:]):
+        # the bf16 mixes also round their own gradient (2^-9 relative)
+        assert g.grad.dtype == torch.bfloat16 and _rel_to_max(g.grad, r.grad) < 6e-3 + 2 ** -8
+
+
+def test_wide_route_limits_are_the_librarys():
+    """``wide_route_takes`` and its shared-memory count state the library's."""
+    from distillclip_tpu_torch.ops import _build
+
+    lib = _build.lib()
+    for N in (1, 17, 197, 256):
+        for H in (1, 12, 24, 25, 32, 48, 64, 80):
+            for d in (8, 32, 64, 128):
+                for tq in (1, 5, 16):
+                    assert ta._wide_smem(N, H, d, tq, 2) == lib.dc_tf_smem_bytes(N, H, d, tq)
+                    assert ta._wide_smem(N, H, d, tq, 3) == lib.dc_tf_bwd_wide_smem_bytes(
+                        N, H, d, tq)
+                fits = lib.dc_tf_bwd_wide_smem_bytes(N, H, d, 1) <= _build.MAX_SMEM_BYTES
+                assert ta.wide_route_takes(N, H, d) == fits, (N, H, d)
+
+
+def test_wide_bwd_is_deterministic():
+    """The partials of the mix gradients are added in block order: two runs
+    give the same bits."""
+    rng = np.random.default_rng(9)
+    B, H, d, N = 4, 32, 32, 197
+    qkv, do = _bf16(rng, (B * N, 3 * H * d)), _bf16(rng, (B * N, H * d))
+    wl, ww = _bf16(rng, (H, H), H ** -0.5), _bf16(rng, (H, H), H ** -0.5)
+    kw = dict(heads=H, seq=N, scale=d ** -0.5)
+    _, p = ta.transform_attention_save_p_wide(qkv, wl, ww, **kw)
+    a = ta.transform_attention_bwd_wide(qkv, wl, ww, do, p, **kw)
+    b = ta.transform_attention_bwd_wide(qkv, wl, ww, do, p, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_training_refuses_what_neither_route_takes():
+    """Past 256 tokens (the towers materialise there) and where one query
+    row's score planes of all heads do not fit a block: a ValueError before
+    any launch, from the autograd call and from the wide wrappers."""
+    rng = np.random.default_rng(10)
+    for H, d, N, match in ((32, 32, 257, "up to 256 tokens"), (4, 16, 300, "up to 256 tokens"),
+                           (64, 8, 256, "does not fit")):
+        qkv, do = _bf16(rng, (N, 3 * H * d)), _bf16(rng, (N, H * d))
+        w = _bf16(rng, (H, H))
+        p = torch.zeros((1, H, N, N), dtype=torch.bfloat16, device="cuda")
+        kw = dict(heads=H, seq=N, scale=1.0)
+        ops.reset_launch_counts()
+        with pytest.raises(ValueError, match=match):
+            ta.transform_attention_rows_qkv(qkv.clone().requires_grad_(), w, w, **kw)
+        with pytest.raises(ValueError, match=match):
+            ta.transform_attention_save_p_wide(qkv, w, w, **kw)
+        with pytest.raises(ValueError, match=match):
+            ta.transform_attention_bwd_wide(qkv, w, w, do, p, **kw)
+        assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
 
 
 # -- plain attention: forward, saved probabilities, backward ------------------------

@@ -176,6 +176,10 @@ def _op_calls():
         "dense_act": lambda dev: ops.dense_act(*on(dev, x, w, b)),
         "dense_act_res": lambda dev: ops.dense_act_res(*on(dev, x, w, b), "quick_gelu")[0],
         "dense_act_u": lambda dev: ops.dense_act_u(*on(dev, x, w, b)),
+        "transform_attention_save_p_wide": lambda dev: ops.transform_attention_save_p_wide(
+            *on(dev, qkv, wl, ww), **kw)[0],
+        "transform_attention_bwd_wide": lambda dev: ops.transform_attention_bwd_wide(
+            *on(dev, qkv, wl, ww, do, p), **kw)[0],
     }
 
 
@@ -205,7 +209,8 @@ def test_build_names_library_by_source_hash():
         "flash_attention_bwd.cu", "flash_transform_attention.cu",
         "flash_transform_attention_mma.cu", "layer_norm.cu",
         "plain_attention.cu", "plain_attention_bwd.cu", "transform_attention.cu",
-        "transform_attention_bwd.cu", "transform_attention_mma.cu"}
+        "transform_attention_bwd.cu", "transform_attention_bwd_wide.cu",
+        "transform_attention_mma.cu"}
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
