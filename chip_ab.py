@@ -10,6 +10,11 @@ kernels built under ROOT/build/, as ``chip_smoke.py`` builds them) and prints
 lines ``ab <ROOT's name> <what>: ...`` that end with the card's name and power
 limit (with ``--only``, only the sections named):
 
+- ``build``: nvcc over the checkout's ``distillclip_tpu_torch/csrc/*.cu``
+  with its own flags, one process per source and all at once, as its
+  ``ops._build`` builds them, into a scratch directory under ROOT/build/ (the
+  checkout's library cache untouched): the wall seconds and the four slowest
+  sources' seconds (no card needed);
 - ``k1``: ``dense_ln`` with its statistics (K1, as a train step runs it) at
   the image and text qkv ([12800, 768] and [19712, 768] -> 2304), the text
   teacher's qkv ([19712, 512] -> 1536) and the fc1 of ``fc1_res: u`` ([12800,
@@ -26,8 +31,9 @@ limit (with ``--only``, only the sections named):
   the activation; #8's also e), the same way;
 - ``tf_fwd``: lean ``transform_attention_rows_qkv`` (K3, as serving runs it)
   and ``transform_attention_save_p`` (#5, as a train step runs it) at the two
-  students' shapes (B=256; 24 heads of 32 at 50 tokens, 12 of 64 at 77),
-  beside the PyTorch composition that does the same work
+  students' shapes (B=256; 24 heads of 32 at 50 tokens, 12 of 64 at 77) and
+  at the widest heads the tensor-core pair takes (B=256, 32 heads of 32 at
+  197 tokens, the stage-1 ViT-L/14 student's; B=64, 12 of 128 at 256), beside the PyTorch composition that does the same work
   (``hw_oracle.tf_composition``: bf16 ``matmul``, ``einsum`` mixes,
   ``softmax``, ``matmul``), device ms per call over 20 calls replayed from one
   CUDA graph, three rounds in turn: the median and the rounds;
@@ -35,9 +41,9 @@ limit (with ``--only``, only the sections named):
   step runs it: q, k, v the views of a fused qkv, no mask) at the two
   students' shapes, beside the PyTorch composition of the same work
   (``hw_oracle.flash_tf_composition``), the same way;
-- ``tf_bwd``: ``transform_attention_bwd`` (#6) at the two students' shapes
-  (B=256; 24 heads of 32 at 50 tokens, 12 of 64 at 77), device ms per call
-  over 20 calls replayed from one CUDA graph;
+- ``tf_bwd``: ``transform_attention_bwd`` (#6) at ``tf_fwd``'s four shapes,
+  beside the PyTorch composition of the same work
+  (``hw_oracle.tf_bwd_composition``), the same way;
 - ``reduce_partials``: device ms per call of the kernels named
   ``reduce_partials`` (the fixed-order sums of per-block partials) in
   ``dense_ln_bwd`` (#9) at its four main-path shapes and in #6 at both
@@ -125,7 +131,7 @@ def _own_yardsticks():
     return module
 
 
-SECTIONS = ("k1", "dln_bwd", "k2", "tf_fwd", "flash_tf", "tf_bwd", "reduce_partials", "k4",
+SECTIONS = ("build", "k1", "dln_bwd", "k2", "tf_fwd", "flash_tf", "tf_bwd", "reduce_partials", "k4",
             "serving", "step")
 
 
@@ -157,6 +163,8 @@ def one(root: Path, only: tuple[str, ...] = SECTIONS) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     card, tag = _card(), f"ab {root.resolve().name}"
     rng = np.random.default_rng(0)
+    if "build" in only:
+        build_times(root, tag, card)
 
     def t(shape, std=1.0, mean=0.0):
         a = rng.standard_normal(shape, dtype=np.float32) * np.float32(std) + np.float32(mean)
@@ -195,7 +203,8 @@ def one(root: Path, only: tuple[str, ...] = SECTIONS) -> None:
         print(f"{tag} k2 ms: {'; '.join(k2)} [{card}]", flush=True)
 
     tff = []
-    for B, H, d, N in () if "tf_fwd" not in only else ((256, 24, 32, 50), (256, 12, 64, 77)):
+    tf_shapes = ((256, 24, 32, 50), (256, 12, 64, 77), (256, 32, 32, 197), (64, 12, 128, 256))
+    for B, H, d, N in () if "tf_fwd" not in only else tf_shapes:
         qkv, wl, ww = t((B * N, 3 * H * d)), t((H, H), H ** -0.5), t((H, H), H ** -0.5)
         kw = dict(heads=H, seq=N, scale=d ** -0.5)
         with torch.inference_mode():
@@ -222,15 +231,20 @@ def one(root: Path, only: tuple[str, ...] = SECTIONS) -> None:
         print(f"{tag} flash_tf ms: {'; '.join(ftf)} [{card}]", flush=True)
 
     tf, red = [], []
-    tf_shapes = ((256, 24, 32, 50), (256, 12, 64, 77))
     for B, H, d, N in () if {"tf_bwd", "reduce_partials"}.isdisjoint(only) else tf_shapes:
+        if "tf_bwd" not in only and N > 77:
+            continue                    # reduce_partials: the students' shapes
         qkv, do = t((B * N, 3 * H * d)), t((B * N, H * d))
         wl, ww = t((H, H), H ** -0.5), t((H, H), H ** -0.5)
         kw = dict(heads=H, seq=N, scale=d ** -0.5)
         p = ta.transform_attention_save_p(qkv, wl, ww, **kw)[1]
         fn = lambda: ta.transform_attention_bwd(qkv, wl, ww, do, p, **kw)
-        tf.append(f"H={H} d={d} N={N} {_graph_ms(torch, fn):.4f}")
-        red.append(f"#6 H={H} {_kernel_ms(torch, fn, 'reduce_partials'):.4f}")
+        if "tf_bwd" in only:
+            times = _rounds(torch, (
+                fn, lambda: own.tf_bwd_composition(qkv, wl, ww, do, p, **kw)))
+            tf.append(f"H={H} d={d} N={N} #6 {times[0]} (composition {times[1]})")
+        if "reduce_partials" in only and N <= 77:
+            red.append(f"#6 H={H} {_kernel_ms(torch, fn, 'reduce_partials'):.4f}")
     if "tf_bwd" in only:
         print(f"{tag} tf_bwd ms: {'; '.join(tf)} [{card}]", flush=True)
 
@@ -249,6 +263,35 @@ def one(root: Path, only: tuple[str, ...] = SECTIONS) -> None:
         serving(torch, LCLIPScorer, root, rng, tag, card)
     if "step" in only:
         steps(root, tag, card)
+
+
+def build_times(root: Path, tag: str, card: str) -> None:
+    """The ``build`` line: the checkout's sources through nvcc, one process
+    each and all at once, into a scratch directory removed after."""
+    import shutil
+    import tempfile
+
+    from distillclip_tpu_torch.ops import _build
+
+    (root / "build").mkdir(exist_ok=True)
+    out = Path(tempfile.mkdtemp(prefix="ab_build_", dir=root / "build"))
+    t0, done = time.perf_counter(), {}
+    procs = {src.name: subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.SRC_DIR), "-c", "-o",
+         str(out / f"{src.stem}.o"), str(src)],
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL) for src in _build._sources()}
+    while len(done) < len(procs):
+        for name, proc in procs.items():
+            if name not in done and proc.poll() is not None:
+                done[name] = time.perf_counter() - t0
+                if proc.returncode:
+                    sys.exit(f"{tag} build: nvcc failed for {name}")
+        time.sleep(0.05)
+    wall = time.perf_counter() - t0
+    shutil.rmtree(out, ignore_errors=True)
+    slowest = sorted(done.items(), key=lambda kv: -kv[1])[:4]
+    print(f"{tag} build s: wall {wall:.1f} ({len(done)} sources at once); slowest "
+          + ", ".join(f"{name} {sec:.1f}" for name, sec in slowest) + f" [{card}]", flush=True)
 
 
 def k4_host(torch, layer_norm, t, tag: str, card: str) -> None:

@@ -65,7 +65,7 @@ phases, each of which exits non-zero on failure:
    and the teacher scorer's score_tokens at
    256 pairs (pairs/s, the text tower's launches); stage 1 with that teacher
    live (out_dim 1024, no embedding copy, out_l1 + out_cos);
-5d''. past 256 tokens and past the tensor-core heads, in bf16, nothing cut:
+5d''. past 256 tokens and at the widest heads, in bf16, nothing cut:
    seeded checkpoints of ViT-L/14, ViT-L/14@336px and ViT-B/16's published
    geometries (tools/fabricate_teacher.py --preset); each image encode of 256
    rows (257, 577 and 197 tokens: the first two materialise the attention, as
@@ -76,8 +76,9 @@ phases, each of which exits non-zero on failure:
    scorer, 2e-2); stage 1 of configs/final/image.yaml against the live
    ViT-L/14 (teacher layers [0, 1, 22, 23]) with a student 1024 wide of 32
    heads of 32, patch 16 (197 tokens, freeze_embed off: the patch geometry
-   differs), out_dim 768, 256 pairs: #5 and #6 on their CUDA-core route, six
-   launches each a step; then the same student at patch 14 (257 tokens, its
+   differs), out_dim 768, 256 pairs: #5 and #6 on the tensor cores (the
+   widened pair), six launches each a step, their CUDA-core route none; then
+   the same student at patch 14 (257 tokens, its
    attention materialised, freeze_embed on), 64 pairs; each step phased like
    5 ((a) 16 pairs against the plain fp32 CPU path, (b), (c));
 5e. the perf knobs (config.perf): under fc1_ln "0", fc1_ln "0" with fc1_res u,
@@ -247,11 +248,13 @@ SERVING_KERNELS = ("dense_ln", "dense_act_ln", "transform_attention_rows_qkv",
 # one serving call: 10 logical layers of K1, K2 and K3, the two final norms
 SERVING_LAUNCHES = {"dense_ln": 10, "dense_act_ln": 10, "transform_attention_rows_qkv": 10,
                     "layer_norm_rows": 2}
-# K3's and #17's second routes, the CUDA-core kernels, serve head shapes past
-# the tensor-core kernels' in the lean forward and the tapped forward, which no
-# path here runs (the 32-head stage-1 L/14 student trains, so it takes #5 and
-# #6's second route): their oracle cases hold them against their plain versions
-OFF_MAIN_PATH = ("transform_attention_rows_qkv_wide", "flash_transform_attention_fwd_wide")
+# K3's, #5 / #6's and #17's second routes, the CUDA-core kernels, serve head
+# shapes past the tensor-core kernels' (past 32 heads of 32 and 16 of 128 for
+# K3, #5 and #6; past 24 heads of 32 and 16 of 64 for #17), which no path here
+# runs (the 32-head stage-1 L/14 student trains on the tensor-core #5 and #6):
+# their oracle cases hold them against their plain versions
+OFF_MAIN_PATH = ("transform_attention_rows_qkv_wide", "transform_attention_save_p_wide",
+                 "transform_attention_bwd_wide", "flash_transform_attention_fwd_wide")
 # launches of one train step: 10 logical layers (6 image + 4 text), two LN
 # GEMMs and so two backward GEMMs each, and the two towers' final norm
 TRAIN_STEP_LAUNCHES = {
@@ -1145,7 +1148,7 @@ def rn50_stage_phase(ops, card: str) -> dict:
                      RN50_STEP_LAUNCHES, 8, False)
 
 
-# -- phase 5d'': past 256 tokens and past the tensor-core heads --------------------
+# -- phase 5d'': past 256 tokens and at the widest heads -----------------------------
 
 # the published geometries (tools/fabricate_teacher.py PRESETS), seeded: the
 # vision tower's tokens and the launches of one image encode.  Past 256 tokens
@@ -1163,7 +1166,7 @@ L14_SCORE_LAUNCHES = add_counts(
     {"dense_ln": 12, "dense_act_ln": 12, "plain_attention_rows_qkv": 12, "layer_norm_rows": 1})
 # stage 1 of configs/final/image.yaml against the live ViT-L/14 (its tapped
 # layers the L/14 ones): the student 1024 wide with the final image student's
-# 32-wide heads (32 of them, past the tensor-core #5 / #6), patch 16 at 224 px
+# 32-wide heads (32 of them: the tensor-core #5 / #6), patch 16 at 224 px
 # (197 tokens), out_dim the teacher's 768; depth 6, repeated twice, head mixes
 # and mlp_ratio 4 as the config says.  freeze_embed copies the teacher's
 # patch-14 embeddings into the student, which needs the teacher's patch
@@ -1171,8 +1174,8 @@ L14_SCORE_LAUNCHES = add_counts(
 L14_LAYERS = [0, 1, 22, 23]
 L14_STUDENT = dict(embed_dim=1024, num_heads=32, patch_size=16, out_dim=768)
 L14_STEP_LAUNCHES = add_counts(
-    {"dense_ln": 6, "dense_act_ln_res": 6, "transform_attention_save_p_wide": 6,
-     "transform_attention_bwd_wide": 6, "dense_ln_bwd": 12, "layer_norm_rows": 1,
+    {"dense_ln": 6, "dense_act_ln_res": 6, "transform_attention_save_p": 6,
+     "transform_attention_bwd": 6, "dense_ln_bwd": 12, "layer_norm_rows": 1,
      "layer_norm_rows_bwd": 1}, LONG_TEACHERS["ViT-L/14"][1])
 # the same student at patch 14: 257 tokens, its attention materialised too
 L14_P14_PAIRS = 64

@@ -1,7 +1,7 @@
 // K3's second route: head-transform attention forward on the fused qkv
 // projection, on the CUDA cores, for head shapes past the tensor-core kernel
-// (transform_attention_mma.cu takes d % 8 == 0 up to 64 and H up to 24, 16
-// with d > 32).  The Python wrapper sends those shapes here by shape
+// (transform_attention_mma.cu takes d % 8 == 0 with H up to 32 at d <= 32 and
+// up to 16 at d <= 128).  The Python wrapper sends those shapes here by shape
 // (ops/transform_attention.py): the lean forward as
 // transform_attention_rows_qkv_wide, the training forward as
 // transform_attention_save_p_wide (#5's second route), which also stores P_h,

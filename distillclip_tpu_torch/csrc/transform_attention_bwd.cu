@@ -62,9 +62,23 @@
 //   with H fixed at compile time (7% and 11% faster at those shapes on an
 //   H100 SXM at 700 W than the instances that take H from the call): the row
 //   section of a warp is bound by its instruction count.
-// * Shapes: every head of a 16 x 16 tile lives in one block, so d <= 64, H <=
-//   24 (16 with d > 32) and N <= 256; the Python wrapper, and the save-P
-//   forward before it, refuse the rest.
+// * Shapes: every head of a 16 x 16 tile lives in one block: d % 8 == 0, H <=
+//   32 at d <= 32, H <= 16 at d <= 128, N <= 256; the Python wrapper, and the
+//   save-P forward before it, refuse the rest.  Staged as planes beside the
+//   v and k chunks, the dO and q tiles would take four [H][16][LD] planes
+//   with X and Y past a block (296 448 bytes at 32 heads of 32, 343 808 at
+//   16 of 128), so the row kernel keeps the two tiles as A fragments in
+//   registers: warp w makes G and S of heads w and w + 16 and of no other, so
+//   it needs only its own heads' fragments, loaded once from device memory
+//   (dO's at the start, q's for pass B).  That leaves 214 528 and 204 544
+//   bytes and keeps the mixes within the block (every head's G, S and dS2 in
+//   its own X and Y), with no exchange between the blocks of a cluster; it
+//   costs registers (the generic 32-head instance at its 128 with 92 bytes
+//   spilled).  At the students' shapes, where the planes fit, the fragments
+//   were 4% and 2% faster than the planes on an H100 SXM at 700 W (0.4391
+//   against 0.4567 ms, 0.5081 against 0.5181).  Past d = 64 the dq / dk
+//   kernel takes 64 columns of d a block (grid z), reading dS once per half.
+//   dS stays in device memory as bf16 hi / lo planes only.
 // * Precision: an fp32 operand of a product enters as two bf16 operands, hi =
 //   bf16(x) and lo = bf16(x − hi), into one fp32 sum (G and dS2 into the
 //   mixes; G, dS2 and S into the head-pair sums; dS into dq and dk; Pm into
@@ -90,7 +104,6 @@ using mma_attn::split2;
 using mma_attn_bwd::ab_frag;
 using mma_attn_bwd::p_frag;
 using mma_attn_bwd::pt_frag;
-using mma_attn_bwd::scores_from_planes;
 using mma_attn_bwd::stage;
 using mma_attn_bwd::store_rows;
 
@@ -254,16 +267,15 @@ __device__ __forceinline__ void heads_frag(uint32_t (&hi)[4], uint32_t (&lo)[4],
 // acc[mt][nt][.] (h = 16·mt + rows, g = 8·nt + columns) += Σ_pos X[h][row,
 // pos] · P[g][row, pos] over the row's 16 positions, P (exact in bf16) from
 // its staged words (slots PW[g·kBP + row·kBL]); `rowok`: the row is below N,
-// `nj`: keys of the chunk below N.  H <= 8·(HPW + 1): 16 heads, or 24 with
-// two a warp.
-template <int HPW>
-__device__ __forceinline__ void pair_sums_p(float (&acc)[HPW][HPW + 1][4], const float* X,
+// `nj`: keys of the chunk below N.  H <= 8·NP (the row kernel's NP = 2·HPW).
+template <int HPW, int NP>
+__device__ __forceinline__ void pair_sums_p(float (&acc)[HPW][NP][4], const float* X,
                                             const bf16* PW, int row, int H, int b, int r, int N,
                                             int j0, bool rowok, int nj, int lane) {
   const int gid = lane >> 2, tig = lane & 3;
-  uint32_t bp[HPW + 1][2];
+  uint32_t bp[NP][2];
 #pragma unroll
-  for (int nt = 0; nt < HPW + 1; ++nt) {
+  for (int nt = 0; nt < NP; ++nt) {
     const int g = nt * 8 + gid;
     const bool ok = rowok && g < H;
     const bf16* slot = PW + g * kBP + row * kBL + (ok ? p_lead(b, H, g, r, N, j0) : 0);
@@ -277,7 +289,7 @@ __device__ __forceinline__ void pair_sums_p(float (&acc)[HPW][HPW + 1][4], const
     uint32_t hi[4], lo[4];
     heads_frag(hi, lo, X, row, mt, H, lane);
 #pragma unroll
-    for (int nt = 0; nt < HPW + 1; ++nt) {
+    for (int nt = 0; nt < NP; ++nt) {
       mma_bf16(acc[mt][nt], hi, bp[nt][0], bp[nt][1]);
       mma_bf16(acc[mt][nt], lo, bp[nt][0], bp[nt][1]);
     }
@@ -286,14 +298,14 @@ __device__ __forceinline__ void pair_sums_p(float (&acc)[HPW][HPW + 1][4], const
 
 // acc += A · Y[g][row][0 .. 15]ᵀ with A given as fragments (hi, lo) per mt and
 // Y fp32 (hi·hi + lo·hi + hi·lo).
-template <int HPW>
-__device__ __forceinline__ void pair_sums_y(float (&acc)[HPW][HPW + 1][4],
+template <int HPW, int NP>
+__device__ __forceinline__ void pair_sums_y(float (&acc)[HPW][NP][4],
                                             const uint32_t (&ahi)[HPW][4],
                                             const uint32_t (&alo)[HPW][4], const float* Y,
                                             int row, int H, int lane) {
   const int gid = lane >> 2, tig = lane & 3;
 #pragma unroll
-  for (int nt = 0; nt < HPW + 1; ++nt) {
+  for (int nt = 0; nt < NP; ++nt) {
     const int g = nt * 8 + gid;
     float2 y0 = make_float2(0.f, 0.f), y1 = y0;
     if (g < H) {
@@ -316,8 +328,8 @@ __device__ __forceinline__ void pair_sums_y(float (&acc)[HPW][HPW + 1][4],
 // out[h·H + g] = alpha · Σ_w (warp w's acc), in warp order: each warp leaves
 // its fragments in red ([kWarps][16·HPW][16·HPW]), then the block adds them.
 // Called by every thread; red must be free, and is free again on return.
-template <int HPW>
-__device__ __forceinline__ void reduce_pair_sums(const float (&acc)[HPW][HPW + 1][4],
+template <int HPW, int NP>
+__device__ __forceinline__ void reduce_pair_sums(const float (&acc)[HPW][NP][4],
                                                  float* red, float* __restrict__ out, int H,
                                                  float alpha) {
   constexpr int S = 16 * HPW;
@@ -327,7 +339,7 @@ __device__ __forceinline__ void reduce_pair_sums(const float (&acc)[HPW][HPW + 1
 #pragma unroll
   for (int mt = 0; mt < HPW; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < HPW + 1; ++nt)
+    for (int nt = 0; nt < NP; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         mine[(mt * 16 + gid + (e >> 1) * 8) * S + nt * 8 + 2 * tig + (e & 1)] = acc[mt][nt][e];
@@ -358,8 +370,8 @@ __device__ __forceinline__ void store_ds(const bf16* DS, bf16* __restrict__ ds_h
 }
 
 // Shared memory of the row kernel: X and Y (whose space also holds the warps'
-// head-pair sums between the passes), δ, P's words, the v and k chunks, the dO
-// and q tiles, wwᵀ and wlᵀ.
+// head-pair sums between the passes), δ, P's words, the v and k chunks, wwᵀ
+// and wlᵀ.
 __host__ __device__ inline size_t rows_xy_bytes(int H, int HPW) {
   const size_t xy = (size_t)2 * H * kXP * 4, red = (size_t)kWarps * (16 * HPW) * (16 * HPW) * 4;
   return xy > red ? xy : red;
@@ -368,7 +380,42 @@ __host__ __device__ inline size_t rows_xy_bytes(int H, int HPW) {
 __host__ inline size_t rows_smem(int H, int d, int HPW) {
   const int LD = pad16(d) + 8, HP = pad16(H);
   return rows_xy_bytes(H, HPW) + (size_t)16 * HP * 4 + (size_t)H * kBP * 2 +
-         (size_t)H * 4 * 16 * LD * 2 + (size_t)2 * HP * (HP + 8) * 2;
+         (size_t)H * 2 * 16 * LD * 2 + (size_t)2 * HP * (HP + 8) * 2;
+}
+
+// The A fragments of query rows i0 .. i0 + 15 of head g, straight from the
+// [B·N, ld] bf16 rows (the head's columns g·d ..): zero past N and past d.
+template <int KS>
+__device__ __forceinline__ void tile_frags(uint32_t (&a)[KS][4], const bf16* __restrict__ src,
+                                           size_t ld, int b, int N, int i0, int g, int d,
+                                           int lane) {
+  const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = i0 + gid + (r & 1) * 8, c = ks * 16 + (r >> 1) * 8 + 2 * tig;
+      a[ks][r] = i < N && c < d ? __ldg(reinterpret_cast<const unsigned int*>(
+                                      src + ((size_t)b * N + i) * ld + g * d + c))
+                                : 0u;
+    }
+}
+
+// s = A · (rows 16·st .. 16·st + 15 of a staged plane)ᵀ, A given as fragments.
+template <int KS>
+__device__ __forceinline__ void scores_from_frags(const uint32_t (&a)[KS][4], const bf16* B,
+                                                  int lane, float (&s)[2][4]) {
+  constexpr int LD = 16 * KS + 8;
+#pragma unroll
+  for (int n = 0; n < 2; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+  const bf16* brow = B + (size_t)((lane & 7) + (lane >> 4) * 8) * LD + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    uint32_t bk[4];
+    ldsm_x4(bk, brow + ks * 16);
+    mma_bf16(s[0], a[ks], bk[0], bk[1]);
+    mma_bf16(s[1], a[ks], bk[2], bk[3]);
+  }
 }
 
 // The row kernel: a block per (tile of 16 query rows, sample); warp w owns row
@@ -376,7 +423,10 @@ __host__ inline size_t rows_smem(int H, int d, int HPW) {
 // the k chunk nor Y, keeps two chunks in flight: v in Cv and Ck, P's words in
 // P and Y, the next chunk's copies issued before the current chunk is worked
 // on.  Pass B copies the next chunk's v and k as soon as the products have
-// read them, and a warp its next P row after its last read of it.
+// read them, and a warp its next P row after its last read of it.  The dO and
+// q tiles are not staged: warp w makes G and S of heads w, w + 16 from their A
+// fragments, held in its registers (dO's from the start, q's from pass B), and
+// the head-pair sums span NP = 2·HPW tiles of 8 heads.
 template <int KS, int HPW, int NH>
 __global__ void __launch_bounds__(kThreads, 1)
 tf_bwd_rows_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ wl,
@@ -388,6 +438,7 @@ tf_bwd_rows_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ wl,
   constexpr int LD = 16 * KS + 8;
   constexpr int PL = 16 * LD;             // a head's 16 staged rows
   constexpr int HP = 16 * HPW;
+  constexpr int NP = 2 * HPW;                       // tiles of 8 heads in the pair sums
   extern __shared__ __align__(128) unsigned char smem[];
   float* X = reinterpret_cast<float*>(smem);        // [H][kXP]: G, then dS2
   float* Y = X + H * kXP;                           // [H][kXP]: S, then dS hi | lo
@@ -396,9 +447,7 @@ tf_bwd_rows_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ wl,
   bf16* P = reinterpret_cast<bf16*>(Dl + 16 * HP);  // [H][kBP]: P's words
   bf16* Cv = P + H * kBP;                           // [H][16][LD]: v rows of the chunk
   bf16* Ck = Cv + H * PL;                           // k rows of the chunk
-  bf16* Wd = Ck + H * PL;                           // [H][16][LD]: dO rows of the tile
-  bf16* Wq = Wd + H * PL;                           // q rows of the tile
-  bf16* WWT = Wq + H * PL;                          // [HP][HP + 8]: wwᵀ
+  bf16* WWT = Ck + H * PL;                          // [HP][HP + 8]: wwᵀ
   bf16* WLT = WWT + HP * (HP + 8);                  // wlᵀ
 
   const int Np = pad16(N), T = Np / 16;
@@ -406,7 +455,6 @@ tf_bwd_rows_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ wl,
   const size_t HD = (size_t)H * d;
   const size_t total = (size_t)gridDim.y * H * N * N;
   const Strides sx{(size_t)N * 3 * HD, (size_t)d, 3 * HD};
-  const Strides sdo{(size_t)N * HD, (size_t)d, HD};
   const bf16* q = qkv;
   const bf16* k = qkv + HD;
   const bf16* v = qkv + 2 * HD;
@@ -417,9 +465,12 @@ tf_bwd_rows_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ wl,
   const int HH = H * H;
   float* part = partial + ((size_t)b * gridDim.x + blockIdx.x) * 2 * HH;  // dwl, then dww
 
-  // the tile's dO and q rows, the first chunk's v and P
-  stage<KS>(Wd, PL, dout, sdo, b, 0, H, i0, 16, N, d);
-  stage<KS>(Wq, PL, q, sx, b, 0, H, i0, 16, N, d);
+  // the fragments of the warp's heads' dO rows, the first chunk's v and P
+  uint32_t da[HPW][KS][4], qa[HPW][KS][4];
+#pragma unroll
+  for (int it = 0; it < HPW; ++it)
+    if (warp + it * kWarps < H) tile_frags<KS>(da[it], dout, HD, b, N, i0, warp + it * kWarps, d,
+                                               lane);
   stage<KS>(Cv, PL, v, sx, b, 0, H, 0, 16, N, d);
   p_words(P, kBP, probs, b, H, N, i0, 16, 0, threadIdx.x, blockDim.x, total);
   mma_attn::cp_async_commit();
@@ -427,11 +478,11 @@ tf_bwd_rows_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ wl,
 
   // pass A: M[h, g](row) = Σ_j G_h ∘ P_g over the row's keys, in the warp's
   // registers (rows h = 16·mt + gid + 8·(e / 2), columns g = 8·nt + 2·tig + e % 2)
-  float acc[HPW][HPW + 1][4];
+  float acc[HPW][NP][4];
 #pragma unroll
   for (int mt = 0; mt < HPW; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < HPW + 1; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] =
+    for (int nt = 0; nt < NP; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] =
         acc[mt][nt][3] = 0.f;
   for (int jt = 0; jt < T; ++jt) {
     const int j0 = jt * 16;
@@ -450,11 +501,11 @@ tf_bwd_rows_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ wl,
       const int g = warp + it * kWarps;
       if (g >= H) continue;
       float s[2][4];
-      scores_from_planes<KS>(Wd + g * PL, 0, vc + g * PL, 0, lane, s);
+      scores_from_frags<KS>(da[it], vc + g * PL, lane, s);
       store_tile(X + g * kXP, s, lane);
     }
     __syncthreads();
-    pair_sums_p<HPW>(acc, X, pc, row, H, b, r, N, j0, rowok, N - j0, lane);
+    pair_sums_p<HPW, NP>(acc, X, pc, row, H, b, r, N, j0, rowok, N - j0, lane);
     __syncthreads();
   }
   // pass B's first chunk, copied while δ and dww are made
@@ -462,10 +513,14 @@ tf_bwd_rows_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ wl,
   stage<KS>(Ck, PL, k, sx, b, 0, H, 0, 16, N, d);
   p_words(P, kBP, probs, b, H, N, i0, 16, 0, threadIdx.x, blockDim.x, total);
   mma_attn::cp_async_commit();
+#pragma unroll
+  for (int it = 0; it < HPW; ++it)
+    if (warp + it * kWarps < H) tile_frags<KS>(qa[it], q, 3 * HD, b, N, i0, warp + it * kWarps, d,
+                                               lane);
   // δ_g(row) = Σ_h ww[h, g] · M[h, g](row): the lane's rows h, then the warp's
   // lanes of one column (xor over gid)
 #pragma unroll
-  for (int nt = 0; nt < HPW + 1; ++nt)
+  for (int nt = 0; nt < NP; ++nt)
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
       const int g = nt * 8 + 2 * tig + c;
@@ -482,7 +537,7 @@ tf_bwd_rows_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ wl,
       t += __shfl_xor_sync(0xffffffffu, t, 16);
       if (gid == 0 && g < HP) Dl[row * HP + g] = t;
     }
-  reduce_pair_sums<HPW>(acc, red, part + HH, H, 1.0f);                   // dww
+  reduce_pair_sums<HPW, NP>(acc, red, part + HH, H, 1.0f);               // dww
   float dl[HPW][2];
 #pragma unroll
   for (int mt = 0; mt < HPW; ++mt) {
@@ -494,7 +549,7 @@ tf_bwd_rows_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ wl,
 #pragma unroll
   for (int mt = 0; mt < HPW; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < HPW + 1; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] =
+    for (int nt = 0; nt < NP; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] =
         acc[mt][nt][3] = 0.f;
   bf16* DS = reinterpret_cast<bf16*>(Y);     // row (g, r): hi at g·2kXP + r·2kXL, lo + kXL
   for (int jt = 0; jt < T; ++jt) {
@@ -503,18 +558,14 @@ tf_bwd_rows_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ wl,
     mma_attn::cp_async_wait<0>();
     __syncthreads();
 #pragma unroll
-    for (int it = 0; it < 2 * HPW; ++it) {                   // G_g, then S_g
-      const int item = warp + it * kWarps;
-      if (item >= 2 * H) continue;
+    for (int it = 0; it < HPW; ++it) {                       // G_g and S_g, heads g ≡ warp
+      const int g = warp + it * kWarps;
+      if (g >= H) continue;
       float s[2][4];
-      if (item < H) {
-        scores_from_planes<KS>(Wd + item * PL, 0, Cv + item * PL, 0, lane, s);   // G_g
-        store_tile(X + item * kXP, s, lane);
-      } else {
-        const int g = item - H;
-        scores_from_planes<KS>(Wq + g * PL, 0, Ck + g * PL, 0, lane, s);         // S_g
-        store_tile(Y + g * kXP, s, lane);
-      }
+      scores_from_frags<KS>(da[it], Cv + g * PL, lane, s);
+      store_tile(X + g * kXP, s, lane);
+      scores_from_frags<KS>(qa[it], Ck + g * PL, lane, s);
+      store_tile(Y + g * kXP, s, lane);
     }
     __syncthreads();
     if (more) {
@@ -547,7 +598,7 @@ tf_bwd_rows_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ wl,
     __syncwarp();
     if (more) p_words(P + row * kBL, kBP, probs, b, H, N, r, 1, j0 + 16, lane, 32, total);
     mma_attn::cp_async_commit();
-    pair_sums_y<HPW>(acc, ahi, alo, Y, row, H, lane);                   // dwl / scale
+    pair_sums_y<HPW, NP>(acc, ahi, alo, Y, row, H, lane);               // dwl / scale
     mix_row<HPW>(m, WLT, X, row, H, lane);                              // dS / scale
     __syncwarp();
 #pragma unroll
@@ -568,7 +619,7 @@ tf_bwd_rows_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ wl,
     store_ds(DS, ds_hi, ds_lo, b, H, N, Np, i0, j0);
   }
   __syncthreads();
-  reduce_pair_sums<HPW>(acc, red, part, H, scale);                       // dwl
+  reduce_pair_sums<HPW, NP>(acc, red, part, H, scale);                   // dwl
 }
 
 // The dq / dk kernel: a block of kQkWarps warps per (sample, G heads) stages
@@ -576,6 +627,9 @@ tf_bwd_rows_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ wl,
 // (R = pad16(N) where it fits, so dS is read once), and makes dq of each
 // chunk's query tiles and dk of every key tile, whose accumulators stay in
 // registers across the chunks: a warp owns up to two (head, key tile) items.
+// Past d = 64 the grid's third dimension takes 64 columns of d a block (the
+// KS = 4 instance), each reading dS again: two items' dk of 128 columns would
+// take 128 registers a thread.
 constexpr int kQkWarps = 8;
 
 struct QkPlan {
@@ -618,8 +672,10 @@ tf_bwd_qk_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ ds_hi,
   const size_t HD = (size_t)H * d;
   const Strides sx{(size_t)N * 3 * HD, (size_t)d, 3 * HD};
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  stage<KS>(Qs, wplane, qkv, sx, b, h0, Gb, 0, Np, N, d);
-  stage<KS>(Ks, wplane, qkv + HD, sx, b, h0, Gb, 0, Np, N, d);
+  // the block's columns of d: c0 .. c0 + dn - 1
+  const int c0 = blockIdx.z * 16 * KS, dn = min(16 * KS, d - c0);
+  stage<KS>(Qs, wplane, qkv + c0, sx, b, h0, Gb, 0, Np, N, dn);
+  stage<KS>(Ks, wplane, qkv + HD + c0, sx, b, h0, Gb, 0, Np, N, dn);
   float dk[2][2 * KS][4];
 #pragma unroll
   for (int sl = 0; sl < 2; ++sl)
@@ -630,16 +686,16 @@ tf_bwd_qk_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ ds_hi,
   const int words = Np / 8;
   int wsh = 0;
   while ((1 << wsh) < words) ++wsh;
-  for (int c0 = 0; c0 < Np; c0 += R) {
-    const int Rc = min(R, Np - c0);
+  for (int r0 = 0; r0 < Np; r0 += R) {
+    const int Rc = min(R, Np - r0);
     for (int gl = 0; gl < 2 * Gb; ++gl) {                   // (head, hi / lo) planes
       const bf16* src = ((gl & 1) ? ds_lo : ds_hi) + ((size_t)b * H + h0 + (gl >> 1)) * N * Np;
       for (int f = threadIdx.x; f < Rc << wsh; f += blockDim.x) {
         const int i = f >> wsh, w = f & ((1 << wsh) - 1);
         if (w >= words) continue;
         bf16* dst = D + (size_t)gl * dplane + (size_t)i * dl + w * 8;
-        if (c0 + i < N)
-          mma_attn::cp_async16(dst, src + (size_t)(c0 + i) * Np + w * 8);
+        if (r0 + i < N)
+          mma_attn::cp_async16(dst, src + (size_t)(r0 + i) * Np + w * 8);
         else
           *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
       }
@@ -661,7 +717,7 @@ tf_bwd_qk_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ ds_hi,
           ab_frag<KS>(acc, a, Ks + g * wplane, kt, lane);
         }
       }
-      store_rows<KS>(dqkv, sx, b, h0 + g, c0 + t * 16, N, d, acc, lane);
+      store_rows<KS>(dqkv + c0, sx, b, h0 + g, r0 + t * 16, N, dn, acc, lane);
     }
     // dk of the warp's (head, key tile) items += dSᵀ · q over the chunk's queries
 #pragma unroll
@@ -674,7 +730,7 @@ tf_bwd_qk_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ ds_hi,
         for (int lo = 0; lo < 2; ++lo) {
           uint32_t a[4];
           pt_frag(a, D + (size_t)(2 * g + lo) * dplane, dl, t * 16, jt * 16, lane);
-          ab_frag<KS>(dk[sl], a, Qs + g * wplane, c0 / 16 + t, lane);
+          ab_frag<KS>(dk[sl], a, Qs + g * wplane, r0 / 16 + t, lane);
         }
       }
     }
@@ -685,7 +741,7 @@ tf_bwd_qk_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ ds_hi,
     const int item = warp + sl * kQkWarps;
     if (item >= Gb * T) continue;
     const int g = item / T, jt = item - g * T;
-    store_rows<KS>(dqkv + HD, sx, b, h0 + g, jt * 16, N, d, dk[sl], lane);
+    store_rows<KS>(dqkv + HD + c0, sx, b, h0 + g, jt * 16, N, dn, dk[sl], lane);
   }
 }
 
@@ -816,18 +872,21 @@ tf_bwd_cols_kernel(const bf16* __restrict__ ww, const bf16* __restrict__ dout,
   }
 }
 
-// The instances: KS = pad16(d) / 16 up to 4, heads a warp owns HPW = 1 (H <=
-// 16) or 2 (H <= 24, then KS <= 2: the dv accumulators of two heads and the
-// row kernel's head-pair sums at KS = 4 would not fit 128 registers a thread).
-// NH > 0 fixes the head count at compile time (the students' 24 heads of 32
-// and 12 of 64), so that the head guards and offsets of the row and column
-// kernels fold into constants; NH = 0 takes H from the call.
+// The instances: KS = pad16(d) / 16 up to 8, heads a warp owns HPW = 1 (H <=
+// 16) or 2 (H <= 32, then KS <= 2: the dv accumulators of two heads and the
+// row kernel's head-pair sums and tile fragments at KS = 4 would not fit 128
+// registers a thread).  NH > 0 fixes the head count at compile time (the
+// students' 24 heads of 32 and 12 of 64), so that the head guards and offsets
+// of the row and column kernels fold into constants; NH = 0 takes H from the
+// call.  The dq / dk kernel runs its KS <= 4 instance on 64 columns of d a
+// block.
 template <int KS, int HPW, int NH>
 int launch_bwd(const bf16* qkv, const bf16* wl, const bf16* ww, const bf16* dout,
                const bf16* probs, bf16* dqkv, bf16* ds_hi, bf16* ds_lo, float* partial,
                float* dwl_dww, int batch, int N, int H, int d, float scale, cudaStream_t s) {
+  constexpr int QKS = KS < 4 ? KS : 4;
   const size_t sr = rows_smem(H, d, HPW), sc = cols_smem(H, d);
-  const QkPlan qp = qk_plan(N, H, d);
+  const QkPlan qp = qk_plan(N, H, d < 64 ? d : 64);
   if (qp.G == 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(tf_bwd_rows_kernel<KS, HPW, NH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sr);
@@ -835,16 +894,16 @@ int launch_bwd(const bf16* qkv, const bf16* wl, const bf16* ww, const bf16* dout
     err = cudaFuncSetAttribute(tf_bwd_cols_kernel<KS, HPW, NH>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sc);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(tf_bwd_qk_kernel<KS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(tf_bwd_qk_kernel<QKS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)qp.smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(pad16(N) / 16, batch);
-  tf_bwd_rows_kernel<KS, HPW, NH><<<grid, kThreads, sr, s>>>(qkv, wl, ww, dout, probs, ds_hi,
-                                                            ds_lo, partial, N, H, d, scale);
+  tf_bwd_rows_kernel<KS, HPW, NH><<<grid, kThreads, sr, s>>>(
+      qkv, wl, ww, dout, probs, ds_hi, ds_lo, partial, N, H, d, scale);
   int e = (int)cudaGetLastError();
   if (e != 0) return e;
-  tf_bwd_qk_kernel<KS><<<dim3(batch, (H + qp.G - 1) / qp.G), kQkWarps * 32, qp.smem, s>>>(
-      qkv, ds_hi, ds_lo, dqkv, N, H, d, qp.G, qp.R);
+  tf_bwd_qk_kernel<QKS><<<dim3(batch, (H + qp.G - 1) / qp.G, (KS + 3) / 4), kQkWarps * 32,
+                          qp.smem, s>>>(qkv, ds_hi, ds_lo, dqkv, N, H, d, qp.G, qp.R);
   e = (int)cudaGetLastError();
   if (e != 0) return e;
   tf_bwd_cols_kernel<KS, HPW, NH><<<grid, kThreads, sc, s>>>(ww, dout, probs, dqkv, N, H,
@@ -854,10 +913,11 @@ int launch_bwd(const bf16* qkv, const bf16* wl, const bf16* ww, const bf16* dout
   return reduce_partials(partial, dwl_dww, (int)grid.x * batch, 2 * H * H, s);
 }
 
-// Heads a warp owns, 0 where the kernels do not take (H, d).
+// Heads a warp owns, 0 where the kernels do not take (H, d): d % 8 == 0, up
+// to 32 heads at d <= 32 and 16 at d <= 128.
 __host__ inline int heads_per_warp(int H, int d) {
   const int ks = pad16(d) / 16, hpw = (H + kWarps - 1) / kWarps;
-  if (H < 1 || H > 24 || d < 8 || d % 8 || ks > 4 || (hpw == 2 && ks > 2)) return 0;
+  if (H < 1 || H > 32 || d < 8 || d % 8 || ks > 8 || (hpw == 2 && ks > 2)) return 0;
   return hpw;
 }
 
@@ -866,12 +926,12 @@ __host__ inline int heads_per_warp(int H, int d) {
 }  // namespace dc
 
 // Shared memory the largest of the kernels needs at (N, H, d), or -1 where
-// they do not take (N, H, d): d % 8 == 0 up to 64, H up to 24 (16 with d >
-// 32), N up to 256.
+// they do not take (N, H, d): d % 8 == 0, up to 32 heads at d <= 32 and 16 at
+// d <= 128, N up to 256.
 DC_EXPORT long long dc_tf_bwd_smem_bytes(int N, int H, int d) {
   const int hpw = dc::heads_per_warp(H, d);
   if (hpw == 0) return -1;
-  const dc::QkPlan qp = dc::qk_plan(N, H, d);
+  const dc::QkPlan qp = dc::qk_plan(N, H, d < 64 ? d : 64);
   if (qp.G == 0) return -1;
   size_t m = dc::rows_smem(H, d, hpw);
   if (dc::cols_smem(H, d) > m) m = dc::cols_smem(H, d);
@@ -893,10 +953,12 @@ DC_EXPORT int dc_transform_attention_bwd(const void* qkv, const void* wl, const 
                                          void* dwl_dww, int batch, int N, int H, int d,
                                          float scale, void* stream) {
   using dc::bf16;
-  decltype(&dc::launch_bwd<1, 1, 0>) const launchers[2][4] = {
+  // [heads a warp owns - 1][KS - 1]
+  decltype(&dc::launch_bwd<1, 1, 0>) const launchers[2][8] = {
       {dc::launch_bwd<1, 1, 0>, dc::launch_bwd<2, 1, 0>, dc::launch_bwd<3, 1, 0>,
-       dc::launch_bwd<4, 1, 0>},
-      {dc::launch_bwd<1, 2, 0>, dc::launch_bwd<2, 2, 0>, nullptr, nullptr}};
+       dc::launch_bwd<4, 1, 0>, dc::launch_bwd<5, 1, 0>, dc::launch_bwd<6, 1, 0>,
+       dc::launch_bwd<7, 1, 0>, dc::launch_bwd<8, 1, 0>},
+      {dc::launch_bwd<1, 2, 0>, dc::launch_bwd<2, 2, 0>}};
   const int hpw = dc::heads_per_warp(H, d), ks = dc::mma_attn::pad16(d) / 16;
   if (hpw == 0) return (int)cudaErrorInvalidValue;
   const auto launch = H == 24 && ks == 2   ? dc::launch_bwd<2, 2, 24>

@@ -1,7 +1,7 @@
 // #6's second route: the backward of head-transform attention on the fused
 // qkv projection on the CUDA cores, for the head shapes past the tensor-core
-// backward (transform_attention_bwd.cu takes d <= 64, H <= 24, and H <= 16
-// once d > 32).  The autograd function of ops/transform_attention.py picks
+// backward (transform_attention_bwd.cu takes d % 8 == 0 with H <= 32 at d <=
+// 32 and H <= 16 at d <= 128: here 48 heads of 8, 32 of 64 and the like).  The autograd function of ops/transform_attention.py picks
 // the route by shape before its forward runs, and this route reads the P that
 // the forward's second route (transform_attention.cu with its save-P flag)
 // wrote: bf16 [B, H, N, N], element by element, so any row alignment.
@@ -52,8 +52,9 @@
 // products and five head mixes or head-pair reductions per sample, all fp32
 // outside the tensor cores (67 TFLOP/s), and two fp32 [B, H, N, N] planes
 // written and read back.  The tensor-core backward replaced this kernel at
-// the head shapes that one takes; putting these shapes on the tensor cores
-// too (heads split over a cluster, or the planes in bf16 hi / lo pairs) is
+// the head shapes that one takes, up to 32 heads of 32 and 16 of 128 (its
+// row kernel holding the dO and q tiles in registers); putting the
+// shapes past those on the tensor cores too (heads split over a cluster) is
 // later work.
 #include "transform_attention.cuh"
 

@@ -35,13 +35,15 @@
 //   runs' copy-out waits at the tile's end.
 // * A single bf16 P' (the TPU kernel's pb) adds up to 2^-9·|v| to each term
 //   of O; P' enters as hi + lo.
-// * Shapes: d % 8 == 0 up to 64, H up to 24 (16 with d > 32), as the
-//   backward takes them.  The Python wrapper sends the lean forward at other
-//   head shapes to the CUDA-core kernel; the students' shapes (24 heads of
-//   32, 12 of 64) have instances with H and d fixed at compile time, which on
-//   an H100 (SXM, 700 W) at B = 256 take 12% off the generic instance's time
-//   at 24 heads of 32 (the mixes make three tiles of 8 heads, not four) and
-//   4-5% at 12 of 64 (the loops over d and H unroll).
+// * Shapes: d % 8 == 0 up to 64, H up to 24 (16 with d > 32) with P' in
+//   planes of its own, and past that, with P' in X (tf_fwd_tiles' PIX), up to
+//   32 heads at d <= 32 and 16 at d <= 128, as the backward takes them.  The
+//   Python wrapper sends the lean forward at other head shapes to the
+//   CUDA-core kernel; the students' shapes (24 heads of 32, 12 of 64) have
+//   instances with H and d fixed at compile time, which on an H100 (SXM, 700
+//   W) at B = 256 take 12% off the generic instance's time at 24 heads of 32
+//   (the mixes make three tiles of 8 heads, not four) and 4-5% at 12 of 64
+//   (the loops over d and H unroll).
 #include "transform_attention_mma.cuh"
 
 namespace dc {
@@ -52,35 +54,35 @@ using namespace tf_mma;
 
 // The kernel: K3 / #5's instance of tf_fwd_tiles.  `map`: the fused qkv as
 // [B][N][3·H·d] for TMA; probs null: the lean forward.
-template <int KS, int HPW, int NH, int ND>
+template <int KS, int HPW, int NH, int ND, bool PIX>
 __global__ void __launch_bounds__(kThreads, 1)
 tf_fwd_mma_kernel(const __grid_constant__ CUtensorMap map, const bf16* __restrict__ qkv,
                   const bf16* __restrict__ wl, const bf16* __restrict__ ww,
                   bf16* __restrict__ out, bf16* __restrict__ probs, int batch, int N, int H_,
                   int d_, float scale_log2) {
-  tf_fwd_tiles<KS, HPW, NH, ND, false>(&map, &map, qkv, Views{}, wl, ww, out, probs, batch, N,
-                                       H_, d_, scale_log2);
+  tf_fwd_tiles<KS, HPW, NH, ND, false, PIX>(&map, &map, qkv, Views{}, wl, ww, out, probs, batch,
+                                            N, H_, d_, scale_log2);
 }
 
-template <int KS, int HPW, int NH, int ND>
+template <int KS, int HPW, int NH, int ND, bool PIX = false>
 int launch_fwd(const bf16* qkv, const bf16* wl, const bf16* ww, bf16* out, bf16* probs,
                int batch, int N, int H, int d, float scale, cudaStream_t s) {
   constexpr float kLog2e = 1.4426950408889634f;
-  const size_t smem = layout(H, d).total;
+  const size_t smem = layout(H, d, false, PIX).total;
   // qkv as [batch][N][3·H·d]: boxes of 64 columns x 16 rows of one sample
   const cuuint64_t dims[3] = {(cuuint64_t)3 * H * d, (cuuint64_t)N, (cuuint64_t)batch};
   const cuuint64_t strides[2] = {(cuuint64_t)3 * H * d * 2, (cuuint64_t)N * 3 * H * d * 2};
   const cuuint32_t box[3] = {64, 16, 1};
   CUtensorMap map;
   if (!wg::make_tensor_map_nd(&map, qkv, 3, dims, strides, box)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(tf_fwd_mma_kernel<KS, HPW, NH, ND>,
+  cudaError_t err = cudaFuncSetAttribute(tf_fwd_mma_kernel<KS, HPW, NH, ND, PIX>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   int dev = 0, sms = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
   const int tiles = pad16(N) / 16 * batch;
-  tf_fwd_mma_kernel<KS, HPW, NH, ND><<<tiles < sms ? tiles : sms, kThreads, smem, s>>>(
+  tf_fwd_mma_kernel<KS, HPW, NH, ND, PIX><<<tiles < sms ? tiles : sms, kThreads, smem, s>>>(
       map, qkv, wl, ww, out, probs, batch, N, H, d, scale * kLog2e);
   return (int)cudaGetLastError();
 }
@@ -90,10 +92,10 @@ int launch_fwd(const bf16* qkv, const bf16* wl, const bf16* ww, bf16* out, bf16*
 }  // namespace dc
 
 // Shared memory of a block at (H, d), or -1 where the kernel does not take
-// them (d % 8 == 0 up to 64, H up to 24, 16 with d > 32; any N).
+// them (d % 8 == 0, up to 32 heads at d <= 32, 16 at d <= 128; any N).
 DC_EXPORT long long dc_tf_fwd_mma_smem_bytes(int H, int d) {
-  if (dc::tf_mma::heads_per_warp(H, d) == 0) return -1;
-  return (long long)dc::tf_mma::layout(H, d).total;
+  if (dc::tf_mma::fwd_heads_per_warp(H, d) == 0) return -1;
+  return (long long)dc::tf_mma::layout(H, d, false, dc::tf_mma::p_in_x(H, d)).total;
 }
 
 // qkv: [batch·N, 3·H·d]; wl, ww: [H, H]; out: [batch·N, H·d]; all bf16, qkv
@@ -104,15 +106,20 @@ DC_EXPORT int dc_transform_attention_mma(const void* qkv, const void* wl, const 
                                          void* out, void* probs, int batch, int N, int H,
                                          int d, float scale, void* stream) {
   using dc::bf16;
-  decltype(&dc::launch_fwd<1, 1, 0, 0>) const launchers[2][4] = {
-      {dc::launch_fwd<1, 1, 0, 0>, dc::launch_fwd<2, 1, 0, 0>, dc::launch_fwd<3, 1, 0, 0>,
-       dc::launch_fwd<4, 1, 0, 0>},
-      {dc::launch_fwd<1, 2, 0, 0>, dc::launch_fwd<2, 2, 0, 0>, nullptr, nullptr}};
-  const int hpw = dc::tf_mma::heads_per_warp(H, d), ks = dc::mma_attn::pad16(d) / 16;
+  // [P' in X][heads a warp spans - 1][KS - 1]
+  decltype(&dc::launch_fwd<1, 1, 0, 0>) const launchers[2][2][8] = {
+      {{dc::launch_fwd<1, 1, 0, 0>, dc::launch_fwd<2, 1, 0, 0>, dc::launch_fwd<3, 1, 0, 0>,
+        dc::launch_fwd<4, 1, 0, 0>},
+       {dc::launch_fwd<1, 2, 0, 0>, dc::launch_fwd<2, 2, 0, 0>}},
+      {{nullptr, nullptr, nullptr, nullptr, dc::launch_fwd<5, 1, 0, 0, true>,
+        dc::launch_fwd<6, 1, 0, 0, true>, dc::launch_fwd<7, 1, 0, 0, true>,
+        dc::launch_fwd<8, 1, 0, 0, true>},
+       {dc::launch_fwd<1, 2, 0, 0, true>, dc::launch_fwd<2, 2, 0, 0, true>}}};
+  const int hpw = dc::tf_mma::fwd_heads_per_warp(H, d), ks = dc::mma_attn::pad16(d) / 16;
   if (hpw == 0) return (int)cudaErrorInvalidValue;
   const auto launch = H == 24 && d == 32   ? dc::launch_fwd<2, 2, 24, 32>
                       : H == 12 && d == 64 ? dc::launch_fwd<4, 1, 12, 64>
-                                           : launchers[hpw - 1][ks - 1];
+                                           : launchers[dc::tf_mma::p_in_x(H, d)][hpw - 1][ks - 1];
   return launch((const bf16*)qkv, (const bf16*)wl, (const bf16*)ww, (bf16*)out, (bf16*)probs,
                 batch, N, H, d, scale, (cudaStream_t)stream);
 }

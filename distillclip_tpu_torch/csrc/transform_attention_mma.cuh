@@ -60,10 +60,21 @@
 //   mix, P the ww mix and P' the product with v as two bf16 operands, hi =
 //   bf16(x) and lo = bf16(x − hi), into one fp32 sum; O and the saved P are
 //   each rounded once to bf16.
-// * Shapes: d % 8 == 0 up to 64, H up to 24 (16 with d > 32): every head of a
-//   16 x 16 tile lives in one block and a warp's O accumulators in its
-//   registers.  The Python wrappers send other head shapes to the CUDA-core
-//   kernels.
+// * Shapes: d % 8 == 0 up to 64, H up to 24 (16 with d > 32) with P' in
+//   planes of its own, the layout #17 keeps.  K3 / #5 also take up to 32 heads
+//   at d <= 32 and 16 at d <= 128 (PIX: 32 heads of 32, 12 of 128), where those
+//   planes, q's and the double-buffered k / v chunks pass a block's 227 KB (263
+//   KB at 32 heads of 32, 350 KB at 16 of 128).  There a warp writes P' of its
+//   query row into its own row of X, which it alone reads (the mixes) and which
+//   nothing reads again before the next chunk's scores: P' costs no shared
+//   memory, and the mixes mask X's head columns past H (they then hold P', not
+//   zeros).  Where two k and two v chunks still do not fit beside the q tile
+//   (12 and 16 heads of 128, 16 of 80) the block keeps one of each: the next
+//   chunk's k is copied once every warp has made its scores, its v once every
+//   warp has used this chunk's.  O
+//   leaves through X where its [16][H·d + 8] bf16 rows fit, else from the
+//   fragments as 4-byte pairs.  The O accumulators of 16 heads of 128 take 64
+//   registers a thread; every other head shape goes to the CUDA-core kernels.
 #pragma once
 
 #include "mma_attention_bwd.cuh"
@@ -95,9 +106,13 @@ constexpr int kPP = 16 * kPL + 8;
 
 // The chunk's scores X[row][key][head] in fp32: a key's heads padded to HP
 // and 8 more, a row's 16 keys and 2 more (the A fragments' float2 reads are
-// free of bank conflicts, the head warps' stores two-way).
+// free of bank conflicts, the head warps' stores two-way).  With P' in X
+// (PIX) 4 more, so that each row starts on 16 bytes for ldmatrix (and the
+// eight rows it reads fall in different banks; the stores are four-way).
 __host__ __device__ constexpr int x_stride(int HP) { return HP + 8; }
-__host__ __device__ constexpr int x_row(int HP) { return 16 * x_stride(HP) + 2; }
+__host__ __device__ constexpr int x_row(int HP, bool pix = false) {
+  return 16 * x_stride(HP) + (pix ? 4 : 2);
+}
 
 // K3 / #5: a chunk's k (or v) rows as TMA boxes of 16 rows x 64 columns (128
 // bytes, swizzled: 16-byte word w of row r at word w ^ (r % 8)) over the H·d
@@ -129,33 +144,53 @@ __host__ __device__ inline size_t view_buffer(int H, int d) {
 }
 
 // Byte offsets of the regions of a block's shared memory, from a base
-// aligned to 1024 bytes (the swizzle's period).
+// aligned to 1024 bytes (the swizzle's period); `bufs` k buffers and as many v
+// buffers (one each only with PIX, where two do not fit), and whether O's
+// staged rows fit the X and P' regions.
 struct Layout {
   size_t q, v, x, ph, pl, wl, ww, bar, total;
+  int bufs;
+  bool o_fits;
 };
 
-__host__ __device__ inline Layout layout(int H, int d, bool views = false) {
+__host__ __device__ inline Layout layout(int H, int d, bool views = false, bool pix = false) {
   const size_t kv = views ? view_buffer(H, d) : (size_t)boxes(H, d) * 2048;  // a k or v buffer
-  const size_t pp = (size_t)H * kPP * 2;
+  const size_t pp = pix ? 0 : (size_t)H * kPP * 2;
   const int HP = pad16(H);
+  const size_t q = (size_t)H * 16 * (pad16(d) + 8) * 2, x = (size_t)16 * x_row(HP, pix) * 4;
+  const size_t w = (size_t)HP * (HP + 8) * 2;
+  const size_t rest = q + x + 2 * pp + 2 * w + 4 * 8 + 1024;
   Layout s;
-  s.v = 2 * kv;                        // two k buffers at 0, then two v buffers
-  s.q = s.v + 2 * kv;                  // [H][16][LD] bf16
-  s.x = s.q + (size_t)H * 16 * (pad16(d) + 8) * 2;
-  s.ph = s.x + (size_t)16 * x_row(HP) * 4;
+  s.bufs = pix && 4 * kv + rest > mma_attn::kMaxSmem ? 1 : 2;
+  s.v = s.bufs * kv;                   // the k buffers at 0, then the v buffers
+  s.q = s.v + s.bufs * kv;             // [H][16][LD] bf16
+  s.x = s.q + q;
+  s.ph = s.x + x;
   s.pl = s.ph + pp;
   s.wl = s.pl + pp;
-  s.ww = s.wl + (size_t)HP * (HP + 8) * 2;
-  s.bar = s.ww + (size_t)HP * (HP + 8) * 2;    // four mbarriers
-  s.total = s.bar + 4 * 8 + 1024;              // and room to align the base
+  s.ww = s.wl + w;
+  s.bar = s.ww + w;                    // four mbarriers
+  s.total = s.bar + 4 * 8 + 1024;      // and room to align the base
+  s.o_fits = (size_t)16 * (H * d + 8) * 2 <= s.wl - s.x;
   return s;
 }
 
-// Heads a warp's items span (pad16(H) / 16), 0 where the kernel does not take
-// (H, d): d % 8 == 0 up to 64, H up to 24, 16 with d > 32.
+// Heads a warp's items span (pad16(H) / 16) with P' in planes of its own, 0
+// where that layout does not take (H, d): d % 8 == 0 up to 64, H up to 24, 16
+// with d > 32.  #17 takes these shapes.
 __host__ inline int heads_per_warp(int H, int d) {
   const int ks = pad16(d) / 16, hpw = (H + 15) / 16;
   if (H < 1 || H > 24 || d < 8 || d % 8 || ks > 4 || (hpw == 2 && ks > 2)) return 0;
+  return hpw;
+}
+
+// The same for K3 / #5, which also take, with P' in X (p_in_x), up to 32
+// heads at d <= 32 and up to 16 at d <= 128; 0 past that.
+__host__ inline bool p_in_x(int H, int d) { return heads_per_warp(H, d) == 0; }
+
+__host__ inline int fwd_heads_per_warp(int H, int d) {
+  const int ks = pad16(d) / 16, hpw = (H + 15) / 16;
+  if (H < 1 || H > 32 || d < 8 || d % 8 || ks > 8 || (hpw == 2 && ks > 2)) return 0;
   return hpw;
 }
 
@@ -197,10 +232,11 @@ __device__ __forceinline__ void mix_step(float (&c)[2 * HPW][4], const uint32_t 
 }
 
 // c = Xr · Wᵀ: the row's [16 keys x HP heads] fp32 scores (from X) mixed;
-// tiles past NT stay zero.
-template <int HPW, int NT>
+// tiles past NT stay zero.  MASK: X's head columns past H hold P', not zeros,
+// and enter as 0.
+template <int HPW, int NT, bool MASK = false>
 __device__ __forceinline__ void mix_scores(float (&c)[2 * HPW][4], const float* Xr,
-                                           const bf16* W, int lane) {
+                                           const bf16* W, int H, int lane) {
   constexpr int XS = x_stride(16 * HPW);
   const int gid = lane >> 2, tig = lane & 3;
 #pragma unroll
@@ -210,8 +246,12 @@ __device__ __forceinline__ void mix_scores(float (&c)[2 * HPW][4], const float* 
     uint32_t hi[4], lo[4];
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      const float2 x = *reinterpret_cast<const float2*>(
-          Xr + (gid + (r & 1) * 8) * XS + kt * 16 + (r >> 1) * 8 + 2 * tig);
+      const int col = kt * 16 + (r >> 1) * 8 + 2 * tig;
+      float2 x = *reinterpret_cast<const float2*>(Xr + (gid + (r & 1) * 8) * XS + col);
+      if (MASK) {
+        x.x = col < H ? x.x : 0.f;
+        x.y = col + 1 < H ? x.y : 0.f;
+      }
       split2(x.x, x.y, hi[r], lo[r]);
     }
     mix_step<HPW, NT>(c, hi, lo, W, kt, lane);
@@ -221,11 +261,11 @@ __device__ __forceinline__ void mix_scores(float (&c)[2 * HPW][4], const float* 
 // S_g = q_g · k_gᵀ of the chunk for the warp's heads, into X[row][key][g]: q
 // rows from their planes (rows of LD), k rows from the chunk's boxes (K3) or
 // buffer (#17, VIEWS).
-template <int KS, int HPW, bool VIEWS>
+template <int KS, int HPW, bool VIEWS, bool PIX>
 __device__ __forceinline__ void chunk_scores(const bf16* Qs, const unsigned char* Kc, float* X,
                                              int H, int d, int swz, int warp, int lane) {
   constexpr int LD = 16 * KS + 8, PL = 16 * LD;
-  constexpr int XS = x_stride(16 * HPW), XR = x_row(16 * HPW);
+  constexpr int XS = x_stride(16 * HPW), XR = x_row(16 * HPW, PIX);
   const int gid = lane >> 2, tig = lane & 3;
   // A: rows 0-7 | d 0-7, rows 8-15 | d 0-7, rows 0-7 | d 8-15, rows 8-15 | d 8-15;
   // B: keys 0-7 | d 0-7, keys 0-7 | d 8-15, keys 8-15 | d 0-7, keys 8-15 | d 8-15
@@ -310,8 +350,9 @@ struct Views {
 // pad16(d) / 16, HPW = pad16(H) / 16; NH > 0 and ND > 0 fix H and d at compile
 // time (the mixes then make only H's ceil(H / 8) tiles of 8 heads).  K3 / #5
 // (VIEWS false): kmap = vmap, the fused qkv as [B][N][3·H·d]; probs null: the
-// lean forward.  #17 (VIEWS): the views' maps and `vw`; probs unused.
-template <int KS, int HPW, int NH, int ND, bool VIEWS>
+// lean forward.  #17 (VIEWS): the views' maps and `vw`; probs unused.  PIX:
+// P' in X (K3 / #5 only), one k and one v buffer where two do not fit.
+template <int KS, int HPW, int NH, int ND, bool VIEWS, bool PIX = false>
 __device__ __forceinline__ void tf_fwd_tiles(const CUtensorMap* kmap, const CUtensorMap* vmap,
                                              const bf16* __restrict__ qkv, Views vw,
                                              const bf16* __restrict__ wl,
@@ -324,28 +365,34 @@ __device__ __forceinline__ void tf_fwd_tiles(const CUtensorMap* kmap, const CUte
   constexpr int LD = 16 * KS + 8;
   constexpr int PL = 16 * LD;             // a head's 16 staged q rows
   constexpr int HP = 16 * HPW;
-  constexpr int XS = x_stride(HP), XR = x_row(HP), WL = HP + 8;
+  constexpr int XS = x_stride(HP), XR = x_row(HP, PIX), WL = HP + 8;
   // (head, 16 columns of d) items of P'·V a warp owns, at the most heads
-  constexpr int HMAX = NH > 0 ? NH : (HPW == 1 ? 16 : 24);
+  constexpr int HMAX = NH > 0 ? NH : (HPW == 1 ? 16 : PIX ? 32 : 24);
   constexpr int IPW = (HMAX * KS + kWarps - 1) / kWarps;
   constexpr int NT = NH > 0 ? (NH + 7) / 8 : 2 * HPW;    // tiles of 8 heads in the mixes
+  // X's head columns past H hold P' (PIX): the mixes mask them
+  constexpr bool MASK = PIX && (NH == 0 || NH % 16 != 0);
+  // P' hi / lo of head h, query row r at PH / PLo + h·PHS + r·PRS: planes of
+  // their own, or (PIX) row r's [head][16 keys] in its own X row
+  constexpr int PHS = PIX ? 16 : kPP, PRS = PIX ? 2 * XR : kPL;
   const float kNegInf = -__int_as_float(0x7f800000);
   extern __shared__ __align__(128) unsigned char tf_fwd_smem[];
   // aligned by an offset from the array, so that the compiler keeps every
   // pointer below in the shared window
   unsigned char* smem = tf_fwd_smem + ((1024 - (wg::smem_u32(tf_fwd_smem) & 1023)) & 1023);
-  const Layout lay = layout(H, d, VIEWS);
+  const Layout lay = layout(H, d, VIEWS, PIX);
+  const bool dbl = !PIX || lay.bufs == 2;   // two k and two v buffers
   const int nbox = VIEWS ? view_boxes(H, d) : boxes(H, d);
   const int hb = VIEWS ? view_box_heads(H, d) : 0;
   const uint32_t vbytes = VIEWS ? (uint32_t)hb * 32 * d : 0;   // a #17 box
   const int swz = VIEWS ? view_swizzle(d) : 0;
-  const size_t KB = VIEWS ? lay.v / 2 : (size_t)nbox * 2048;  // a k or v buffer
-  unsigned char* Ks = smem;                             // 2 x a chunk's k boxes
-  unsigned char* Vs = smem + lay.v;                     // 2 x a chunk's v boxes
+  const size_t KB = lay.v / lay.bufs;                   // a k or v buffer
+  unsigned char* Ks = smem;                             // bufs x a chunk's k boxes
+  unsigned char* Vs = smem + lay.v;                     // bufs x a chunk's v boxes
   bf16* Qs = reinterpret_cast<bf16*>(smem + lay.q);     // [H][16][LD]: q rows of the tile
   float* X = reinterpret_cast<float*>(smem + lay.x);    // [16][XR]: S of the chunk (then O)
-  bf16* PH = reinterpret_cast<bf16*>(smem + lay.ph);    // [H][kPP]: P' hi [row][key]
-  bf16* PLo = reinterpret_cast<bf16*>(smem + lay.pl);   // P' lo
+  bf16* PH = reinterpret_cast<bf16*>(smem + (PIX ? lay.x : lay.ph));   // P' hi
+  bf16* PLo = PH + (PIX ? 16 * H : H * kPP);            // P' lo
   bf16* Wl = reinterpret_cast<bf16*>(smem + lay.wl);    // [HP][HP + 8]: wl[h][g]
   bf16* Ww = reinterpret_cast<bf16*>(smem + lay.ww);    // ww[h][g]
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem + lay.bar);   // k buffers 0 / 1, v 0 / 1
@@ -424,11 +471,13 @@ __device__ __forceinline__ void tf_fwd_tiles(const CUtensorMap* kmap, const CUte
       Tk = ((vw.causal ? min(vw.kv_len, i0 + 16) : vw.kv_len) + 15) / 16;
     }
     // X's head columns past H are never written by the scores: zero, for the
-    // mixes' A operand (again after a tile's O went through X)
-    for (int idx = threadIdx.x; idx < 16 * 16 * (HP - H); idx += kThreads) {
-      const int rk = idx / (HP - H), g = H + idx - rk * (HP - H);
-      X[(rk >> 4) * XR + (rk & 15) * XS + g] = 0.f;
-    }
+    // mixes' A operand (again after a tile's O went through X); with P' in X
+    // the mixes mask them instead
+    if (!PIX)
+      for (int idx = threadIdx.x; idx < 16 * 16 * (HP - H); idx += kThreads) {
+        const int rk = idx / (HP - H), g = H + idx - rk * (HP - H);
+        X[(rk >> 4) * XR + (rk & 15) * XS + g] = 0.f;
+      }
     cp_async_wait<0>();   // this tile's q
 
     // pass 1: per (row, head) column of the warp's fragments, the running max
@@ -438,16 +487,18 @@ __device__ __forceinline__ void tf_fwd_tiles(const CUtensorMap* kmap, const CUte
     for (int n = 0; n < 2 * HPW; ++n) m[n][0] = m[n][1] = kNegInf, l[n][0] = l[n][1] = 0.f;
     for (int jt = 0; jt < Tk; ++jt) {
       __syncthreads();    // X free; the next k buffer read by the previous chunk
-      const int kb = jt & 1;
+      const int kb = dbl ? jt & 1 : 0;
       wg::mbar_wait(&bar[kb], (kph >> kb) & 1);
       kph ^= 1u << kb;
-      chunk_scores<KS, HPW, VIEWS>(Qs, Ks + kb * KB, X, H, d, swz, warp, lane);
-      // the next chunk's k rows (after the last, chunk 0's again for pass 2)
-      fill_k(Ks + (kb ^ 1) * KB, jt + 1 < Tk ? 16 * (jt + 1) : 0, b, &bar[kb ^ 1], light,
-             nlight);
+      chunk_scores<KS, HPW, VIEWS, PIX>(Qs, Ks + kb * KB, X, H, d, swz, warp, lane);
+      // the next chunk's k rows (after the last, chunk 0's again for pass 2):
+      // into the other buffer, or into this one once every warp has read it
+      const int nk = jt + 1 < Tk ? 16 * (jt + 1) : 0;
+      if (dbl) fill_k(Ks + (kb ^ 1) * KB, nk, b, &bar[kb ^ 1], light, nlight);
       __syncthreads();
+      if (!dbl) fill_k(Ks, nk, b, &bar[0], 0, kWarps);
       float c[2 * HPW][4];
-      mix_scores<HPW, NT>(c, X + warp * XR, Wl, lane);
+      mix_scores<HPW, NT, MASK>(c, X + warp * XR, Wl, H, lane);
       const bool ok0 = 16 * jt + gid < lim, ok1 = 16 * jt + gid + 8 < lim;
 #pragma unroll
       for (int n = 0; n < NT; ++n)
@@ -484,18 +535,21 @@ __device__ __forceinline__ void tf_fwd_tiles(const CUtensorMap* kmap, const CUte
       for (int n = 0; n < 2; ++n) o[it][n][0] = o[it][n][1] = o[it][n][2] = o[it][n][3] = 0.f;
     __syncthreads();      // X free
     for (int jt = 0; jt < Tk; ++jt) {
-      const int j0 = 16 * jt, kb = (Tk + jt) & 1, vb = (vb0 + jt) & 1;
+      const int j0 = 16 * jt;
+      const int kb = dbl ? (Tk + jt) & 1 : 0, vb = dbl ? (vb0 + jt) & 1 : 0;
       const int next = tile + gridDim.x;    // the block's next tile, if below tiles
+      // the next chunk's k and v rows: this tile's, or the next tile's first
+      const bool more = jt + 1 < Tk || next < tiles;
+      const int rows = jt + 1 < Tk ? j0 + 16 : 0, bs = jt + 1 < Tk ? b : next / T;
       wg::mbar_wait(&bar[kb], (kph >> kb) & 1);
       kph ^= 1u << kb;
-      chunk_scores<KS, HPW, VIEWS>(Qs, Ks + kb * KB, X, H, d, swz, warp, lane);
-      // the next chunk's k and v rows: this tile's, or the next tile's first
-      if (jt + 1 < Tk || next < tiles) {
-        const int rows = jt + 1 < Tk ? j0 + 16 : 0, bs = jt + 1 < Tk ? b : next / T;
+      chunk_scores<KS, HPW, VIEWS, PIX>(Qs, Ks + kb * KB, X, H, d, swz, warp, lane);
+      if (dbl && more) {
         fill_k(Ks + (kb ^ 1) * KB, rows, bs, &bar[kb ^ 1], light, nlight);
         fill_v(Vs + (vb ^ 1) * KB, rows, bs, &bar[2 + (vb ^ 1)], light, nlight);
       }
       __syncthreads();
+      if (!dbl && more) fill_k(Ks, rows, bs, &bar[0], 0, kWarps);
       // after the tile's last scores, the next tile's q rows
       if (jt + 1 == Tk && next < tiles) {
         const int nb = next / T;
@@ -504,7 +558,7 @@ __device__ __forceinline__ void tf_fwd_tiles(const CUtensorMap* kmap, const CUte
       }
       {
         float c1[2 * HPW][4];
-        mix_scores<HPW, NT>(c1, X + warp * XR, Wl, lane);
+        mix_scores<HPW, NT, MASK>(c1, X + warp * XR, Wl, H, lane);
         const bool ok0 = j0 + gid < lim, ok1 = j0 + gid + 8 < lim;
 #pragma unroll
         for (int n = 0; n < NT; ++n)
@@ -556,6 +610,7 @@ __device__ __forceinline__ void tf_fwd_tiles(const CUtensorMap* kmap, const CUte
           split2(c1[2 * kt + 1][2], c1[2 * kt + 1][3], hi[3], lo[3]);
           mix_step<HPW, NT>(c2, hi, lo, Ww, kt, lane);
         }
+        if (PIX) __syncwarp();   // every lane's reads of the warp's X row made
 #pragma unroll
         for (int n = 0; n < NT; ++n)
 #pragma unroll
@@ -563,7 +618,7 @@ __device__ __forceinline__ void tf_fwd_tiles(const CUtensorMap* kmap, const CUte
             const int h = n * 8 + 2 * tig + (e & 1);
             if (h >= H) continue;
             const bf16 hi = __float2bfloat16_rn(c2[n][e]);
-            const int at = h * kPP + warp * kPL + gid + (e >> 1) * 8;
+            const int at = h * PHS + warp * PRS + gid + (e >> 1) * 8;
             PH[at] = hi;
             PLo[at] = __float2bfloat16_rn(c2[n][e] - __bfloat162float(hi));
           }
@@ -578,8 +633,8 @@ __device__ __forceinline__ void tf_fwd_tiles(const CUtensorMap* kmap, const CUte
         const int h = item / KS, dt = item - h * KS;
         if (h >= H) continue;
         uint32_t ahi[4], alo[4], bv[4];
-        p_frag(ahi, PH + h * kPP, kPL, 0, 0, lane);
-        p_frag(alo, PLo + h * kPP, kPL, 0, 0, lane);
+        p_frag(ahi, PH + h * PHS, PRS, 0, 0, lane);
+        p_frag(alo, PLo + h * PHS, PRS, 0, 0, lane);
         // matrices: keys 0-7 | d 0-7, keys 8-15 | d 0-7, keys 0-7 | d 8-15, keys 8-15 | d 8-15
         if constexpr (VIEWS)
           ldsm_x4_trans(bv, view_at(Vc, h, (lane & 7) + ((lane >> 3) & 1) * 8,
@@ -593,8 +648,30 @@ __device__ __forceinline__ void tf_fwd_tiles(const CUtensorMap* kmap, const CUte
         mma_bf16(o[it][1], alo, bv[2], bv[3]);
       }
       __syncthreads();    // P', X and this v buffer free
+      if (!dbl && more) fill_v(Vs, rows, bs, &bar[2], 0, kWarps);
     }
 
+    if (!VIEWS && !lay.o_fits) {
+      // O from the fragments as bf16 pairs, rows below N (X is not touched)
+#pragma unroll
+      for (int it = 0; it < IPW; ++it) {
+        const int item = warp + it * kWarps;
+        const int h = item / KS, dt = item - h * KS;
+        if (h >= H) continue;
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const int cc = dt * 16 + n * 8 + 2 * tig;
+          if (cc >= d) continue;
+          bf16* o0 = out + ((size_t)b * N + i0 + gid) * HD + h * d + cc;
+          if (i0 + gid < N)
+            *reinterpret_cast<uint32_t*>(o0) = pack2(o[it][n][0], o[it][n][1]);
+          if (i0 + gid + 8 < N)
+            *reinterpret_cast<uint32_t*>(o0 + 8 * HD) = pack2(o[it][n][2], o[it][n][3]);
+        }
+      }
+      vb0 ^= Tk & 1;
+      continue;
+    }
     // O: bf16 pairs through the free X and P' planes as [16][H·d + 8], then
     // 16-byte stores of the rows below N
     const int OL = HD + 8;

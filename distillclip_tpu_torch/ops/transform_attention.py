@@ -9,8 +9,8 @@ inside each) and the result ``[B·seq, H·d]``.
 
 On a CUDA tensor it launches K3 at the true sequence length: the
 tensor-core kernel (``csrc/transform_attention_mma.cu``) where it takes the
-head shape (head dim a multiple of 8 up to 64, at most 24 heads, 16 with a
-head dim past 32; any length), and otherwise, by shape, its second route
+head shape (head dim a multiple of 8, at most 32 heads up to a head dim of
+32 and 16 up to 128; any length), and otherwise, by shape, its second route
 :func:`transform_attention_rows_qkv_wide` (``csrc/transform_attention.cu``,
 the CUDA cores, any head count), which counts its own launches.  On a CPU
 tensor it runs :func:`transform_attention_rows_qkv_plain`.
@@ -27,14 +27,16 @@ for its backward:
 * the tensor cores (``"tensor_core"``): K3 with its save-P flag
   (:func:`transform_attention_save_p`, #5) and
   :func:`transform_attention_bwd` (#6, ``csrc/transform_attention_bwd.cu``),
-  where #6 takes the shape: d up to 64, at most 24 heads (16 with d > 32);
+  where #6 takes the shape (:func:`tensor_core_takes`): at most 32 heads of
+  up to 32 and 16 heads of up to 128, 32 heads of 32 and 12 of 128 among
+  them;
 * the CUDA cores (``"wide"``) for every other head shape:
   :func:`transform_attention_save_p_wide` (K3's second route with its save-P
   flag) and :func:`transform_attention_bwd_wide`
   (``csrc/transform_attention_bwd_wide.cu``), where one query row's score
   planes of all H heads fit a block's shared memory
-  (:func:`wide_route_takes`): at 256 tokens, 32 heads of 32 and 12 heads of
-  128 among others.
+  (:func:`wide_route_takes`): at 256 tokens, 48 heads of 8 and 32 of 64
+  among others.
 
 Both take up to :data:`MAX_SEQ` tokens, as the JAX package's Pallas kernels
 do; past that its towers, and the port's (``models.layers.attention_kernel_ok``),
@@ -159,15 +161,100 @@ def _check_bwd_shape(lib, seq, heads, d, what: str):
     they hold every head of a 16 x 16 tile in one block."""
     if not _tc_takes(lib, seq, heads, d):
         raise ValueError(f"{what}: {heads} heads of {d} at {seq} tokens do not fit the "
-                         f"tensor-core backward's kernels (d up to 64, at most 24 heads, 16 "
-                         f"with d > 32, up to {MAX_SEQ} tokens); transform_attention_rows_qkv "
-                         f"trains other head shapes on the CUDA-core pair (*_wide)")
+                         f"tensor-core backward's kernels (at most 32 heads with d up to 32, "
+                         f"16 with d up to 128, up to {MAX_SEQ} tokens); "
+                         f"transform_attention_rows_qkv trains other head shapes on the "
+                         f"CUDA-core pair (*_wide)")
 
 
 def _tensor_core_shape(lib, heads: int, d: int) -> bool:
     """True where the tensor-core forward takes (heads, d)."""
     smem = lib.dc_tf_fwd_mma_smem_bytes(heads, d)
     return 0 <= smem <= _build.MAX_SMEM_BYTES
+
+
+# bf16 planes of a head's 16 x 16 chunk tile in the tensor-core kernels: rows
+# of 24 elements, planes of 392 (kPP, kXP, kBP in the sources)
+_PLANE = 16 * 24 + 8
+
+
+def _pad16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def _tc_heads_per_warp(heads: int, d: int) -> int:
+    """Heads a warp's items span in #5 / #6 (K3 too), 0 where they do not
+    take (heads, d): d a multiple of 8, at most 32 heads with d up to 32 and
+    16 with d up to 128."""
+    ks, hpw = _pad16(d) // 16, -(-heads // 16)
+    if not (1 <= heads <= 32 and 8 <= d and d % 8 == 0 and ks <= 8) or (hpw == 2 and ks > 2):
+        return 0
+    return hpw
+
+
+def _tc_fwd_smem(heads: int, d: int) -> int:
+    """Shared memory of a block of the tensor-core forward (K3 / #5), as
+    ``dc_tf_fwd_mma_smem_bytes`` counts it: two (or, where those do not fit,
+    one) k and v chunks of 16 rows as 64-column TMA boxes, the q tile, the
+    fp32 score plane X, P' hi / lo planes (none past 24 heads or d = 64,
+    where P' lives in X), the two [H, H] mixes, the barriers and 1024 bytes
+    to align the base."""
+    pix = heads > 24 or d > 64
+    kv = (heads * d + d % 16 + 63) // 64 * 2048
+    pp = 0 if pix else heads * _PLANE * 2
+    hp = _pad16(heads)
+    q, x = heads * 16 * (_pad16(d) + 8) * 2, 16 * (16 * (hp + 8) + (4 if pix else 2)) * 4
+    rest = q + x + 2 * pp + 2 * hp * (hp + 8) * 2 + 4 * 8 + 1024
+    bufs = 1 if pix and 4 * kv + rest > _build.MAX_SMEM_BYTES else 2
+    return 2 * bufs * kv + rest
+
+
+def _tc_qk_smem(seq: int, heads: int, d: int) -> Optional[int]:
+    """Shared memory of a block of #6's dq / dk kernel (its ``qk_plan``): the
+    q and k rows of one or two heads (two where their key tiles fit the warps'
+    slots and two blocks an SM) whole, up to 64 columns of d, and dS hi / lo
+    in row chunks; None past 256 tokens (more key tiles than the slots)."""
+    n = _pad16(seq)
+    ld = _pad16(min(d, 64)) + 8
+    size = lambda g, r: g * (2 * n * ld + 2 * r * (n + 8)) * 2
+    if heads >= 2 and n // 16 <= 8 and size(2, n) <= _build.MAX_SMEM_BYTES // 2:
+        return size(2, n)
+    if n // 16 > 16:
+        return None
+    r = n
+    while r > 16 and size(1, r) > _build.MAX_SMEM_BYTES:
+        r -= 16
+    return size(1, r) if size(1, r) <= _build.MAX_SMEM_BYTES else None
+
+
+def _tc_bwd_smem(seq: int, heads: int, d: int) -> Optional[int]:
+    """Shared memory of the largest block of the tensor-core backward (#6),
+    as ``dc_tf_bwd_smem_bytes`` counts it: the row kernel (fp32 X and Y, δ,
+    P's words, the v and k chunks, the two mixes; the dO and q tiles stay in
+    registers), the column kernel and the dq / dk kernel."""
+    hpw, ld, hp = _tc_heads_per_warp(heads, d), _pad16(d) + 8, _pad16(heads)
+    xy = max(2 * heads * _PLANE * 4, 16 * (16 * hpw) ** 2 * 4)
+    mixes = 2 * hp * (hp + 8) * 2
+    rows = (xy + 16 * hp * 4 + heads * _PLANE * 2
+            + heads * 2 * 16 * ld * 2 + mixes)
+    cols = heads * (2 * 16 * ld + 4 * _PLANE) * 2 + mixes // 2
+    qk = _tc_qk_smem(seq, heads, d)
+    return None if qk is None else max(rows, cols, qk)
+
+
+def tensor_core_takes(seq: int, heads: int, d: int) -> bool:
+    """True where the tensor-core pair (#5 and #6) trains heads of ``d`` at
+    ``seq`` tokens: d a multiple of 8, at most 32 heads with d up to 32 and
+    16 with d up to 128, up to :data:`MAX_SEQ` tokens, every block within a
+    block's shared memory.  A statement for the tests, which hold it to the
+    library's limits (``dc_tf_bwd_smem_bytes``, ``dc_tf_fwd_mma_smem_bytes``)
+    on the card and pin the routes by it on the CPU; nothing in the package
+    calls it: the wrappers and :func:`grad_route` ask the library, so a
+    change of the kernels' layout is made in both."""
+    if _tc_heads_per_warp(heads, d) == 0 or not 1 <= seq <= MAX_SEQ:
+        return False
+    bwd = _tc_bwd_smem(seq, heads, d)
+    return bwd is not None and max(bwd, _tc_fwd_smem(heads, d)) <= _build.MAX_SMEM_BYTES
 
 
 def _wide_smem(seq: int, heads: int, d: int, tq: int, planes: int) -> int:

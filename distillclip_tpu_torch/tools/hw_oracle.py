@@ -145,7 +145,9 @@ class Case:
     another stream: its device time is read from the profiler.
     ``composition`` is a few PyTorch calls that do the same work where no
     one call does (timed beside the kernel, not in the JSON line's
-    ``library_ms``)."""
+    ``library_ms``).  ``times_of`` names, as (kernel, label), an earlier case
+    at the same shape whose plain and composition times this case's line
+    shows instead of timing its own."""
 
     kernel: str
     label: str
@@ -161,6 +163,7 @@ class Case:
     also: Optional[Callable[[tuple], Optional[str]]] = None
     library_eager: bool = False
     composition: Optional[Callable[[], object]] = None
+    times_of: Optional[tuple] = None
 
     def bound(self):
         by_bytes, by_ops = self.nbytes / HBM_BYTES_PER_S, self.flops / self.peak
@@ -363,8 +366,14 @@ def oracle_cases(rng, samples: int = PAIRS, device=DEVICE, only: Optional[str] =
         # K3 / save-P / backward: the head mixes are drawn at std H^-1/2, so the
         # mixed logits have std ~1 and the softmax is far from uniform; at the
         # towers' init std (0.02) it is nearly uniform and the check would be weak.
+        # the students' shapes (first: their times stand in the JSON line), a
+        # ragged one, and the widest heads the tensor-core pair takes: the
+        # stage-1 ViT-L/14 student's (32 heads of 32 at 197 tokens, 1024 wide)
+        # and 12 heads of 128 at 256 tokens
         for label, B, H, d, N in (("image", samples, 24, 32, 50), ("text", samples, 12, 64, 77),
-                                  ("ragged", 64, 4, 16, 17)):
+                                  ("ragged", 64, 4, 16, 17),
+                                  ("L/14 student", samples, 32, 32, 197),
+                                  ("12 heads of 128", max(samples // 4, 1), 12, 128, 256)):
             qkv, do = t((B * N, 3 * H * d)), t((B * N, H * d))
             wl, ww = t((H, H), H ** -0.5), t((H, H), H ** -0.5)
             kw = dict(heads=H, seq=N, scale=d ** -0.5)
@@ -391,10 +400,10 @@ def oracle_cases(rng, samples: int = PAIRS, device=DEVICE, only: Optional[str] =
                 lambda q=qkv, l=wl, w=ww, k=kw: ta.transform_attention_save_p_plain(q, l, w, **k),
                 2 * product + 2 * mix, io + pbytes, same=lean, composition=comp))
             p = ta.transform_attention_save_p_plain(qkv, wl, ww, **kw)[1]
+            bwd = lambda q=qkv, l=wl, w=ww, g=do, p=p, k=kw: ta.transform_attention_bwd(
+                q, l, w, g, p, **k)
             cases.append(Case(
-                "transform_attention_bwd", shape,
-                lambda q=qkv, l=wl, w=ww, g=do, p=p, k=kw: ta.transform_attention_bwd(
-                    q, l, w, g, p, **k),
+                "transform_attention_bwd", shape, bwd,
                 lambda q=qkv, l=wl, w=ww, g=do, p=p, k=kw: ta.transform_attention_bwd_plain(
                     q.float(), l.float(), w.float(), g.float(), p.float(), **k),
                 (("abs", 3e-2), ("rel", 6e-3), ("rel", 6e-3)),
@@ -402,18 +411,24 @@ def oracle_cases(rng, samples: int = PAIRS, device=DEVICE, only: Optional[str] =
                     q, l, w, g, p, **k),
                 5 * product + 5 * mix,
                 2 * (B * N * 7 * H * d + 2 * H * H) + pbytes + 8 * H * H,
+                # the partials are added in a fixed order: a second run, the same bits
+                also=lambda outs, f=bwd: None if all(
+                    torch.equal(a, b) for a, b in zip(outs, f())) else "two runs differ",
                 composition=lambda q=qkv, l=wl, w=ww, g=do, p=p, k=kw: tf_bwd_composition(
                     q, l, w, g, p, **k)))
-        # #5 and #6's second route, the CUDA-core training pair, at head shapes
-        # past the tensor-core pair's: the stage-1 ViT-L/14 student's (32 heads
-        # of 32 at 197 tokens, 1024 wide; first, its times stand in the JSON
-        # line) and 12 heads of 128 at 256 tokens; limits as for #5 and #6
-        for label, B, H, d, N in (("L/14 student", samples, 32, 32, 197),
+        # #5 and #6's second route, the CUDA-core training pair: first at a
+        # head shape past the tensor-core pair's (32 heads of 64, 2048 wide, at
+        # 197 tokens; its times stand in the JSON line), then at the two widest
+        # shapes the tensor-core pair takes, timed beside it (their plain and
+        # composition times are the tensor-core cases'); limits as for #5 and #6
+        for label, B, H, d, N in (("32 heads of 64", max(samples // 8, 1), 32, 64, 197),
+                                  ("L/14 student", samples, 32, 32, 197),
                                   ("12 heads of 128", max(samples // 4, 1), 12, 128, 256)):
             qkv, do = t((B * N, 3 * H * d)), t((B * N, H * d))
             wl, ww = t((H, H), H ** -0.5), t((H, H), H ** -0.5)
             kw = dict(heads=H, seq=N, scale=d ** -0.5)
             shape = f"{label} B={B} H={H} d={d} N={N}"
+            beside = label != "32 heads of 64"
             product, mix = 2.0 * B * H * N * N * d, 2.0 * B * H * H * N * N
             io, pbytes = 2 * (B * N * 4 * H * d + 2 * H * H), 2 * B * H * N * N
             cases.append(Case(
@@ -426,7 +441,8 @@ def oracle_cases(rng, samples: int = PAIRS, device=DEVICE, only: Optional[str] =
                 2 * product + 2 * mix, io + pbytes,
                 same=lambda q=qkv, l=wl, w=ww, k=kw: ta.transform_attention_rows_qkv_wide(
                     q, l, w, **k),
-                composition=lambda q=qkv, l=wl, w=ww, k=kw: tf_composition(q, l, w, **k)))
+                composition=lambda q=qkv, l=wl, w=ww, k=kw: tf_composition(q, l, w, **k),
+                times_of=("transform_attention_save_p", shape) if beside else None))
             p = ta.transform_attention_save_p_plain(qkv, wl, ww, **kw)[1]
             cases.append(Case(
                 "transform_attention_bwd_wide", shape,
@@ -440,10 +456,11 @@ def oracle_cases(rng, samples: int = PAIRS, device=DEVICE, only: Optional[str] =
                 5 * product + 5 * mix,
                 2 * (B * N * 7 * H * d + 2 * H * H) + pbytes + 8 * H * H,
                 composition=lambda q=qkv, l=wl, w=ww, g=do, p=p, k=kw: tf_bwd_composition(
-                    q, l, w, g, p, **k)))
+                    q, l, w, g, p, **k),
+                times_of=("transform_attention_bwd", shape) if beside else None))
         # K3's second route, the CUDA-core kernel, at a head shape past the
-        # tensor-core kernel's (H > 24), the students' N and width
-        B, H, d, N = samples, 32, 32, 50
+        # tensor-core kernel's (H > 16 at d > 32), the students' N
+        B, H, d, N = samples, 32, 64, 50
         qkv, wl, ww = t((B * N, 3 * H * d)), t((H, H), H ** -0.5), t((H, H), H ** -0.5)
         kw = dict(heads=H, seq=N, scale=d ** -0.5)
         cases.append(Case(
@@ -710,7 +727,7 @@ def kernel_oracles(card: str):
     library times and the bound; beside them the kernel time of every case,
     by (kernel, label).  Raises :class:`Disagreement` at the first case that
     misses a limit."""
-    results, case_ms = {}, {}
+    results, case_ms, side_ms = {}, {}, {}
     for case in oracle_cases(np.random.default_rng(SEED)):
         with torch.no_grad():
             err = check_case(case)
@@ -720,15 +737,17 @@ def kernel_oracles(card: str):
             # more calls for a steadier mean.  A library call through autograd
             # is timed at the end of the run (library_device_times).
             ms = graph_ms(case.run) or cuda_ms(case.run)
-            plain_ms = cuda_ms(case.plain)
+            of = side_ms.get(case.times_of)
+            plain_ms = of[0] if of else cuda_ms(case.plain)
             lib_ms = None
             if case.library is not None and not case.library_eager:
                 lib_ms = graph_ms(case.library, 100) or cuda_ms(case.library, 100, 10)
-            comp = ""
+            comp, comp_ms = "", None
             if case.composition is not None:
-                comp_ms = graph_ms(case.composition) or cuda_ms(case.composition)
+                comp_ms = of[1] if of else graph_ms(case.composition) or cuda_ms(case.composition)
                 comp = f", composition {comp_ms:.4f} ms (kernel / composition {ms / comp_ms:.2f})"
         case_ms[case.kernel, case.label] = ms
+        side_ms[case.kernel, case.label] = plain_ms, comp_ms
         bound_ms, bound_by = case.bound()
         print(f"time {case.kernel} {case.label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms by {bound_by} ({case.flops / 1e9:.3f} GFLOP, "
@@ -736,6 +755,7 @@ def kernel_oracles(card: str):
               + ("at the end of the run" if case.library_eager
                  else "none" if lib_ms is None
                  else f"{lib_ms:.4f} ms (kernel / library {ms / lib_ms:.2f})") + comp
+              + (f" (plain and composition: {case.times_of[0]}'s)" if of else "")
               + f" [{card}]", flush=True)
         r = results.setdefault(case.kernel, {
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,

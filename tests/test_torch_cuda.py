@@ -69,18 +69,25 @@ def test_dense_ln_kernels_match_plain(rows, C, N, act, bias):
 # it takes, d padded to 16 (8) or not (16), N at one, a whole 16-key chunk,
 # one past it, two past it and the backward's largest
 _TF_EDGES = [(2, H, d, N) for H in (1, 24) for d in (8, 16) for N in (1, 16, 17, 33, 256)]
-# head shapes past the tensor-core kernel (H > 24; H > 16 with d > 32; d > 64):
+# head shapes with P' in the score plane X (past 24 heads, or d > 64): 32 heads
+# of 32 (the stage-1 ViT-L/14 student) and of 8, 25 heads (the mixes' masked
+# head columns), 12 and 16 heads of 128 (one k and one v buffer), d = 72, 80
+# and 120 (d not a multiple of 16), at ragged lengths down to 1 token
+_TF_PIX = [(2, 32, 32, 197), (2, 32, 8, 256), (2, 25, 8, 17), (2, 29, 24, 1),
+           (2, 16, 128, 256), (2, 12, 128, 77), (3, 2, 72, 9), (2, 16, 80, 50),
+           (2, 9, 120, 17), (2, 1, 128, 33)]
+# head shapes past the tensor-core kernel (H > 32; H > 16 with d > 32; d > 128):
 # the lean forward's second route, the CUDA-core kernel
-_TF_WIDE = [(2, 32, 32, 50), (2, 25, 8, 16), (2, 17, 48, 33), (2, 4, 128, 17), (2, 2, 72, 1)]
+_TF_WIDE = [(2, 33, 8, 16), (2, 48, 8, 50), (2, 17, 48, 33), (2, 32, 40, 1), (2, 4, 136, 17)]
 
 
 def _tensor_core_heads(H, d):
-    return H <= 24 and d <= 64 and (H <= 16 or d <= 32)
+    return ta._tc_heads_per_warp(H, d) > 0
 
 
 @pytest.mark.parametrize("B,H,d,N", [(3, 1, 8, 1), (5, 4, 16, 17), (4, 24, 32, 50),
                                      (4, 12, 64, 77), (2, 2, 8, 256), (2, 16, 64, 256)]
-                         + _TF_EDGES + _TF_WIDE)
+                         + _TF_EDGES + _TF_PIX + _TF_WIDE)
 def test_transform_attention_kernel_matches_plain(B, H, d, N):
     rng = np.random.default_rng(B * H * N)
     qkv = _bf16(rng, (B * N, 3 * H * d))
@@ -192,7 +199,7 @@ def test_layer_norm_stats_and_bwd_kernels_match_plain(rows, C):
 
 @pytest.mark.parametrize("B,H,d,N", [(3, 1, 8, 1), (5, 4, 16, 17), (4, 24, 32, 50),
                                      (4, 12, 64, 77), (2, 3, 8, 40), (2, 2, 8, 256),
-                                     (2, 16, 64, 256)] + _TF_EDGES)
+                                     (2, 16, 64, 256)] + _TF_EDGES + _TF_PIX)
 def test_transform_attention_save_p_and_bwd_match_plain(B, H, d, N):
     rng = np.random.default_rng(B * H * N)
     qkv, do = _bf16(rng, (B * N, 3 * H * d)), _bf16(rng, (B * N, H * d))
@@ -222,13 +229,15 @@ def test_transform_attention_save_p_and_bwd_match_plain(B, H, d, N):
 
 
 @pytest.mark.parametrize("B,H,d,N", [(64, 24, 32, 50), (64, 24, 32, 33), (67, 12, 64, 77),
-                                     (300, 4, 16, 17)])
+                                     (300, 4, 16, 17), (24, 32, 32, 197), (41, 12, 128, 77),
+                                     (35, 16, 128, 50)])
 def test_transform_attention_forward_takes_many_tiles_a_block(B, H, d, N):
     """More tiles of 16 query rows than the card has SMs, so each of the
     tensor-core kernel's persistent blocks takes several in turn (the next
-    tile's q, k and v copied during the last one), at even and odd tile
-    counts per sample, and P stored as 4-byte pairs (even N) or 2-byte
-    values (odd N)."""
+    tile's q, k and v copied during the last one, or once the last one has
+    read its k and v where a block holds one buffer of each: 12 and 16 heads
+    of 128), at even and odd tile counts per sample, and P stored as 4-byte
+    pairs (even N) or 2-byte values (odd N)."""
     rng = np.random.default_rng(B + H + N)
     qkv = _bf16(rng, (B * N, 3 * H * d))
     wl, ww = _bf16(rng, (H, H), H ** -0.5), _bf16(rng, (H, H), H ** -0.5)
@@ -298,9 +307,26 @@ def test_transform_attention_bwd_is_deterministic_at_the_image_heads():
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+@pytest.mark.parametrize("H,d,N", [(32, 32, 197), (16, 128, 77)],
+                         ids=["32 heads of 32", "16 heads of 128"])
+def test_transform_attention_bwd_is_deterministic_past_24_heads_and_d_64(H, d, N):
+    """The row kernel's register tiles and the dq / dk kernel's column
+    halves: two runs, the same bits."""
+    rng = np.random.default_rng(H + d)
+    B = 6
+    qkv, do = _bf16(rng, (B * N, 3 * H * d)), _bf16(rng, (B * N, H * d))
+    wl, ww = _bf16(rng, (H, H), H ** -0.5), _bf16(rng, (H, H), H ** -0.5)
+    kw = dict(heads=H, seq=N, scale=d ** -0.5)
+    _, p = ta.transform_attention_save_p(qkv, wl, ww, **kw)
+    a = ta.transform_attention_bwd(qkv, wl, ww, do, p, **kw)
+    b = ta.transform_attention_bwd(qkv, wl, ww, do, p, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 def test_transform_attention_bwd_refuses_heads_it_does_not_take():
     rng = np.random.default_rng(7)
-    for H, d in ((25, 8), (17, 48), (2, 72)):
+    for H, d in ((33, 8), (17, 48), (2, 136)):
         qkv, do = _bf16(rng, (8, 3 * H * d)), _bf16(rng, (8, H * d))
         w = _bf16(rng, (H, H))
         p = torch.zeros((1, H, 8, 8), dtype=torch.bfloat16, device="cuda")
@@ -314,7 +340,7 @@ def test_training_forward_refuses_what_the_backward_does_not_take():
     second route (the CUDA-core save-P forward), and the lean forward takes it
     on K3's second route."""
     rng = np.random.default_rng(8)
-    for H, d in ((25, 8), (17, 48), (2, 72)):
+    for H, d in ((33, 8), (17, 48), (2, 136)):
         qkv, w = _bf16(rng, (8, 3 * H * d)), _bf16(rng, (H, H))
         kw = dict(heads=H, seq=8, scale=1.0)
         ref = ta.transform_attention_rows_qkv_plain(qkv.float(), w.float(), w.float(), **kw)
@@ -333,9 +359,10 @@ def test_training_forward_refuses_what_the_backward_does_not_take():
 
 # -- #5 / #6's second route: the training pair at wide head shapes -----------------
 
-# (B, H, d, N): the stage-1 L/14 student's heads (32 of 32) at its 197 tokens and
-# at 256, 12 heads of 128 (the widest heads asked of the route), 48 heads of 8 at 256 (near
-# the limit), and past the tensor-core pair at ragged lengths down to 1 token
+# (B, H, d, N): the CUDA-core pair called directly, off any route, held against plain
+# at shapes inside the tensor-core limits (32 heads of 32 at 197 and 256 tokens, 12 of 128,
+# (25, 8) and (2, 72) at ragged lengths down to 1 token) and past them (48 heads of 8 at
+# 256 tokens, near the CUDA-core route's own limit; 17 of 48)
 _TF_WIDE_GRAD = [(4, 32, 32, 197), (2, 32, 32, 256), (2, 12, 128, 256), (3, 12, 128, 197),
                  (2, 48, 8, 256), (2, 25, 8, 17), (2, 17, 48, 33), (3, 2, 72, 1)]
 
@@ -377,8 +404,9 @@ def test_wide_save_p_and_bwd_match_plain(B, H, d, N):
 
 @pytest.mark.parametrize("H,d,N,route", [
     (24, 32, 50, "tensor_core"), (12, 64, 77, "tensor_core"), (16, 64, 256, "tensor_core"),
-    (4, 16, 17, "tensor_core"), (32, 32, 197, "wide"), (12, 128, 256, "wide"),
-    (25, 8, 16, "wide"), (2, 72, 9, "wide")])
+    (4, 16, 17, "tensor_core"), (32, 32, 197, "tensor_core"), (12, 128, 256, "tensor_core"),
+    (25, 8, 16, "tensor_core"), (2, 72, 9, "tensor_core"), (48, 8, 256, "wide"),
+    (32, 64, 197, "wide"), (33, 8, 16, "wide"), (17, 48, 33, "wide")])
 def test_training_routes_by_head_shape(H, d, N, route):
     """Under autograd the tensor-core shapes still take #5 and #6 on the tensor
     cores and the others the second route, one launch each, and the
@@ -403,6 +431,24 @@ def test_training_routes_by_head_shape(H, d, N, route):
     for g, r in zip(leaves[1:], ref[1:]):
         # the bf16 mixes also round their own gradient (2^-9 relative)
         assert g.grad.dtype == torch.bfloat16 and _rel_to_max(g.grad, r.grad) < 6e-3 + 2 ** -8
+
+
+def test_tensor_core_limits_are_the_librarys():
+    """``tensor_core_takes`` and its shared-memory counts state the
+    library's: the route ``grad_route`` asks the library for, and each
+    block's bytes where the pair takes the shape."""
+    from distillclip_tpu_torch.ops import _build
+
+    lib = _build.lib()
+    for N in (1, 16, 17, 50, 197, 256, 257):
+        for H in (1, 2, 12, 16, 17, 24, 25, 32, 33, 48):
+            for d in (8, 16, 24, 32, 40, 64, 72, 80, 96, 120, 128, 136):
+                takes = ta.tensor_core_takes(N, H, d)
+                assert takes == ta._tc_takes(lib, N, H, d), (N, H, d)
+                if takes:
+                    assert ta._tc_bwd_smem(N, H, d) == lib.dc_tf_bwd_smem_bytes(N, H, d)
+                    assert ta._tc_fwd_smem(H, d) == lib.dc_tf_fwd_mma_smem_bytes(H, d)
+                    assert ta._tensor_core_shape(lib, H, d)
 
 
 def test_wide_route_limits_are_the_librarys():

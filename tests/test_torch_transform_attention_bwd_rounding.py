@@ -41,8 +41,11 @@ from distillclip_tpu_torch.ops import transform_attention as ta
 
 B = 2
 LIMIT, MIX_LIMIT = 3e-2, 6e-3
-# (H, d, N): the image and text students, and a ragged sequence length
-SHAPES = {"image student": (24, 32, 50), "text student": (12, 64, 77), "ragged": (4, 16, 17)}
+# (H, d, N): the image and text students, a ragged sequence length, and the
+# widest heads the tensor-core pair takes (32 heads, as the stage-1 ViT-L/14
+# student's, and d = 128) at small N
+SHAPES = {"image student": (24, 32, 50), "text student": (12, 64, 77), "ragged": (4, 16, 17),
+          "32 heads": (32, 32, 20), "d = 128": (12, 128, 17)}
 
 
 def _inputs(H, d, N, seed, batch=B):

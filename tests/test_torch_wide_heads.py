@@ -3,15 +3,18 @@
 The JAX package's head-transform kernels take every head count from 12 up
 (``distillclip_tpu/ops/transform_attention.py``; fewer go to XLA), limited
 only by their VMEM scratch.  The port's tensor-core #5 / #6 hold every head of
-a 16 x 16 tile in one block and so take d <= 64 and at most 24 heads (16 once
-d > 32); the training pair's second route, the CUDA-core save-P forward and
-backward (``transform_attention_save_p_wide``, ``transform_attention_bwd_wide``),
-takes the other head shapes, which the autograd function picks by shape
-before anything runs (``grad_route``) and remembers for its backward.  Here:
+a 16 x 16 tile in one block and so take at most 32 heads with d up to 32 and
+16 with d up to 128 (``tensor_core_takes``); the training pair's second route,
+the CUDA-core save-P forward and backward (``transform_attention_save_p_wide``,
+``transform_attention_bwd_wide``), takes the other head shapes, which the
+autograd function picks by shape before anything runs (``grad_route``) and
+remembers for its backward.  Here:
 
-* the wide route's limits as stated in Python (``wide_route_takes``): at 256
-  tokens it takes 32 heads of 32 and 12 of 128, and refuses 257 tokens and
-  head counts whose one query row of score planes would not fit;
+* the routes' limits as stated in Python: the tensor-core pair's at every
+  head shape within them and up to 256 tokens, its blocks within 227 KB; the
+  wide route's (``wide_route_takes``): at 256 tokens it takes 48 heads of 8
+  and 32 of 64, and refuses 257 tokens and head counts whose one query row of
+  score planes would not fit; which pair trains each shape;
 * the autograd function runs the backward of the route whose forward wrote P;
 * the plain versions at wide head shapes against ``torch.autograd`` (fp32,
   1e-5 of the largest entry) and against the JAX package's kernels in
@@ -61,6 +64,40 @@ def test_wide_route_limits(seq, heads, d, takes):
         assert fits is takes
         # the forward's two planes always fit where the backward's three do
         assert not takes or ta._wide_smem(seq, heads, d, 1, 2) <= _build.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("seq", [1, 17, 197, 256])
+def test_tensor_core_limits(seq):
+    """The tensor-core pair takes every head shape up to 32 heads of 32 and
+    16 heads of 128 (d a multiple of 8), and no other: its blocks' shared
+    memory, as the library counts it, stays within 232448 bytes there."""
+    for heads in range(1, 35):
+        for d in range(8, 145, 8):
+            within = heads <= 32 and d <= 32 or heads <= 16 and d <= 128
+            assert ta.tensor_core_takes(seq, heads, d) is within, (seq, heads, d)
+            if within:
+                assert max(ta._tc_fwd_smem(heads, d),
+                           ta._tc_bwd_smem(seq, heads, d)) <= _build.MAX_SMEM_BYTES
+    assert not ta.tensor_core_takes(seq, 8, 36) and not ta.tensor_core_takes(257, 8, 32)
+
+
+@pytest.mark.parametrize("seq,heads,d,route", [
+    (197, 32, 32, "tensor_core"), (256, 32, 32, "tensor_core"), (256, 12, 128, "tensor_core"),
+    (256, 16, 128, "tensor_core"), (50, 24, 32, "tensor_core"), (77, 12, 64, "tensor_core"),
+    (17, 25, 8, "tensor_core"), (9, 2, 72, "tensor_core"), (256, 48, 8, "wide"),
+    (256, 32, 64, "wide"), (16, 33, 8, "wide"), (33, 17, 48, "wide"), (17, 4, 136, "wide"),
+    (257, 32, 32, None), (256, 64, 8, None)])
+def test_route_by_head_shape(seq, heads, d, route):
+    """The pair that trains each shape on the card: the tensor cores where
+    they take it (32 heads of 32, the stage-1 ViT-L/14 student's, and 12 of
+    128 among them), else the CUDA cores, else neither (``grad_route`` asks
+    the library; ``tests/test_torch_cuda.py`` holds the two statements to
+    it)."""
+    tc, wide = ta.tensor_core_takes(seq, heads, d), ta.wide_route_takes(seq, heads, d)
+    got = "tensor_core" if tc else "wide" if wide else None
+    assert got == route
+    # the CUDA-core pair takes every shape the tensor-core pair does
+    assert wide or not tc
 
 
 def test_cpu_tensors_train_on_the_plain_versions():
