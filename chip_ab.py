@@ -38,9 +38,13 @@ limit (with ``--only``, only the sections named):
   ``softmax``, ``matmul``), device ms per call over 20 calls replayed from one
   CUDA graph, three rounds in turn: the median and the rounds;
 - ``flash_tf``: ``flash_transform_attention_fwd`` (#17, as the tapped stage-1
-  step runs it: q, k, v the views of a fused qkv, no mask) at the two
-  students' shapes, beside the PyTorch composition of the same work
-  (``hw_oracle.flash_tf_composition``), the same way;
+  steps run it: q, k, v the views of a fused qkv, no mask) at the two
+  students' shapes and at ``tf_fwd``'s two widest, beside the PyTorch
+  composition of the same work (``hw_oracle.flash_tf_composition``), the same
+  way; at the widest two also its CUDA-core route
+  ``flash_transform_attention_fwd_wide`` (17w) and the bound (the larger of
+  q, k, v and O's bytes over 3.35 TB/s and the products' and mixes' FLOPs
+  over 989 TFLOP/s);
 - ``tf_bwd``: ``transform_attention_bwd`` (#6) at ``tf_fwd``'s four shapes,
   beside the PyTorch composition of the same work
   (``hw_oracle.tf_bwd_composition``), the same way;
@@ -217,16 +221,22 @@ def one(root: Path, only: tuple[str, ...] = SECTIONS) -> None:
         print(f"{tag} tf_fwd ms: {'; '.join(tff)} [{card}]", flush=True)
 
     ftf = []
-    for B, H, d, N in () if "flash_tf" not in only else ((256, 24, 32, 50), (256, 12, 64, 77)):
+    for B, H, d, N in () if "flash_tf" not in only else tf_shapes:
         qkv = torch.cat([t((B, N, 2, H, d)), t((B, N, 1, H, d), 0.7)], dim=2)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
         wl, ww = t((H, H), H ** -0.5), t((H, H), H ** -0.5)
         kw = dict(scale=d ** -0.5)
+        fns = [lambda: fa.flash_transform_attention_fwd(q, k, v, wl, ww, **kw),
+               lambda: own.flash_tf_composition(q, k, v, wl, ww, **kw)]
+        wide = N > 77
+        if wide:
+            fns.append(lambda: fa.flash_transform_attention_fwd_wide(q, k, v, wl, ww, **kw))
         with torch.inference_mode():
-            times = _rounds(torch, (
-                lambda: fa.flash_transform_attention_fwd(q, k, v, wl, ww, **kw),
-                lambda: own.flash_tf_composition(q, k, v, wl, ww, **kw)))
-        ftf.append(f"H={H} d={d} N={N} #17 {times[0]} (composition {times[1]})")
+            times = _rounds(torch, fns)
+        bound = max(2 * (4 * B * N * H * d + 2 * H * H) / own.HBM_BYTES_PER_S,
+                    4.0 * B * H * N * N * (d + H) / own.TENSOR_FLOPS) * 1e3
+        ftf.append(f"B={B} H={H} d={d} N={N} #17 {times[0]} (composition {times[1]}"
+                   + (f"; 17w {times[2]}; bound {bound:.4f}" if wide else "") + ")")
     if ftf:
         print(f"{tag} flash_tf ms: {'; '.join(ftf)} [{card}]", flush=True)
 

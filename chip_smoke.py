@@ -79,8 +79,11 @@ phases, each of which exits non-zero on failure:
    differs), out_dim 768, 256 pairs: #5 and #6 on the tensor cores (the
    widened pair), six launches each a step, their CUDA-core route none; then
    the same student at patch 14 (257 tokens, its
-   attention materialised, freeze_embed on), 64 pairs; each step phased like
-   5 ((a) 16 pairs against the plain fp32 CPU path, (b), (c));
+   attention materialised, freeze_embed on), 64 pairs; the 1024-wide student
+   (out_dim 512) tapped by vit_kd against the live ViT-B/16 (197 tokens, six
+   teacher layers), 256 pairs: #17 at 32 heads of 32, six launches a step,
+   its CUDA-core route none, #16's forward in the teacher; each step phased
+   like 5 ((a) 16 pairs against the plain fp32 CPU path, (b), (c));
 5e. the perf knobs (config.perf): under fc1_ln "0", fc1_ln "0" with fc1_res u,
    fc1_res u, and tf_impl factored, the serving call and the text-cached step
    of 5c, rebuilt under the knob: 16 pairs against the plain fp32 CPU path
@@ -250,9 +253,10 @@ SERVING_LAUNCHES = {"dense_ln": 10, "dense_act_ln": 10, "transform_attention_row
                     "layer_norm_rows": 2}
 # K3's, #5 / #6's and #17's second routes, the CUDA-core kernels, serve head
 # shapes past the tensor-core kernels' (past 32 heads of 32 and 16 of 128 for
-# K3, #5 and #6; past 24 heads of 32 and 16 of 64 for #17), which no path here
-# runs (the 32-head stage-1 L/14 student trains on the tensor-core #5 and #6):
-# their oracle cases hold them against their plain versions
+# all four), which no published CLIP geometry has and no path here runs (the
+# 32-head students train on the tensor-core #5 and #6, and run #17 when a loss
+# taps their hidden states): their oracle cases hold them against their plain
+# versions
 OFF_MAIN_PATH = ("transform_attention_rows_qkv_wide", "transform_attention_save_p_wide",
                  "transform_attention_bwd_wide", "flash_transform_attention_fwd_wide")
 # launches of one train step: 10 logical layers (6 image + 4 text), two LN
@@ -338,8 +342,8 @@ KNOB_PHASES = {
 # run prints: the LN GEMM (its statistics launch, and its product in every
 # instance: K1 <0, 0>, K2 <1|2, 0>, #8 <1|2, 1>), #9 and the no-LN GEMM on the
 # wgmma main loop, K4, #17 and K3 / #5 on the tensor cores
-# (flash_tf_fwd_mma_kernel<KS, HPW, NH, ND>, tf_fwd_mma_kernel<KS, HPW, NH,
-# ND>: one tile loop) and the CUDA-core routes of K3 (its save-P mode #5's)
+# (flash_tf_fwd_mma_kernel<KS, HPW, NH, ND, PIX>, tf_fwd_mma_kernel<KS, HPW,
+# NH, ND, PIX>: one tile loop) and the CUDA-core routes of K3 (its save-P mode #5's)
 # and #17, #6's row, dq/dk and column kernels and its CUDA-core route's two,
 # and the partials' reduction that #6 and #9 share.  An
 # entry function takes the first name it holds (flash_tf_fwd_mma_kernel holds
@@ -890,12 +894,16 @@ CONTRASTIVE_LOSSES = {
     "loss_scale": {"cos_diff": 0.1, "smd_multi_model": 0.01}, "temperature": 0.5}
 
 
-def tapped_image_phase(ops, card: str, label: str, steps: int, keep_state: bool) -> dict:
+def tapped_image_phase(ops, card: str, label: str, steps: int, keep_state: bool,
+                       spec: Optional[tuple] = None, teacher: Optional[str] = None) -> dict:
     """One stage-1 step with tap losses: (a) against the plain fp32 CPU path
-    with the same vit_kd mask, then (b) and (c)."""
-    losses, student_over, expected = TAPPED_IMAGE_PHASES[label]
-    task = make_image_task("bfloat16", losses, SIX_TEACHER_LAYERS, TAPPED_LR, **student_over)
-    plain = make_image_task("float32", losses, SIX_TEACHER_LAYERS, TAPPED_LR, **student_over)
+    with the same vit_kd mask, then (b) and (c).  ``spec`` (losses, student
+    and task arguments, launches) where the label is not in
+    TAPPED_IMAGE_PHASES; ``teacher`` a checkpoint other than the config's."""
+    losses, student_over, expected = spec or TAPPED_IMAGE_PHASES[label]
+    kw = dict(teacher=teacher, **student_over)
+    task = make_image_task("bfloat16", losses, SIX_TEACHER_LAYERS, TAPPED_LR, **kw)
+    plain = make_image_task("float32", losses, SIX_TEACHER_LAYERS, TAPPED_LR, **kw)
     print(f"train {label}: lr {TAPPED_LR:g} instead of the config's (tuned for out_l1 + "
           f"out_cos; with per-layer losses the repeated batch diverges at it)", flush=True)
     state, tx = task.init_state(SEED, steps_per_epoch=1, device=DEVICE)
@@ -1188,6 +1196,41 @@ STAGE_L14 = {
 }
 
 
+# stage 1 of configs/final/image.yaml with a tap-reading loss and a 32-head
+# student: stage-1 L/14's student (1024 wide, 32 heads of 32, patch 16 at 224
+# px: 197 tokens) with ViT-B/16's embedding width, against the seeded ViT-B/16
+# (768 wide, 12 layers, 12 heads of 64, 197 tokens) at SIX_TEACHER_LAYERS.
+# vit_kd reads both towers' hidden states (need_rep), which sends the
+# student's six attention forwards to #17 at 32 heads of 32 and the teacher's
+# twelve to #16's forward; its own projection takes the student's 1024 columns
+# to the teacher's 768 (196 = 14 x 14 patch tokens).  hidden_rep_mse and
+# embedding_mse subtract the two towers' states element by element, in the
+# JAX package as here, so they need equal widths and are left out at 1024
+# against 768.  ViT-L/14 (1024 wide) has 257 tokens, which a 197-token student
+# cannot be held against.  freeze_embed off: the patch geometries differ.
+B16_TAPPED = "stage-1 B/16 tapped"
+B16_TAPPED_SPEC = (
+    {"loss_name": ["out_l1", "out_cos", "vit_kd"],
+     "vit_kd_para": {"student_dims": 1024, "teacher_dims": 768}},
+    dict(L14_STUDENT, out_dim=512, task_over={"freeze_embed": False}),
+    add_counts(TAPPED_IMAGE_STEP_LAUNCHES, TAPPED_IMAGE_TEACHER_LAUNCHES))
+
+
+def b16_tapped_phase(ops, card: str, keep_state: bool = False) -> dict:
+    """Stage 1 against the live ViT-B/16 with B16_TAPPED_SPEC: (a) 16 pairs
+    against the plain fp32 CPU path, (b) steps on one batch with the launch
+    table met (six of #17 and none of its CUDA-core route), (c) ms/step and
+    peak memory; the phase's wall."""
+    t0 = time.perf_counter()
+    run = tapped_image_phase(ops, card, B16_TAPPED, 6, keep_state, B16_TAPPED_SPEC,
+                             preset_checkpoint("ViT-B/16"))
+    counts = run["counts"]
+    print(f"train {B16_TAPPED}: #17 launches a step {counts['flash_transform_attention_fwd']}, "
+          f"its CUDA-core route {counts['flash_transform_attention_fwd_wide']}; ok; wall of "
+          f"the phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return run
+
+
 def preset_checkpoint(name: str) -> str:
     """A seeded CLIP checkpoint of a published geometry, written once under
     build/ (no OpenAI weights are in the repository)."""
@@ -1317,12 +1360,14 @@ def l14_stage_phase(ops, card: str, label: str, keep_state: bool = False) -> dic
 
 
 def long_seq_phases(ops, card: str, keep_state: bool = False) -> tuple:
-    """Phase 5d'': the teachers past 256 tokens, the L/14 scorer, and stage 1
-    against the live ViT-L/14 with a 32-head student (#5 and #6's second
-    route) and with a patch-14 student (its attention materialised)."""
+    """Phase 5d'': the teachers past 256 tokens, the L/14 scorer, stage 1
+    against the live ViT-L/14 with a 32-head student (#5 and #6 at 32 heads)
+    and with a patch-14 student (its attention materialised), and the 32-head
+    student tapped against ViT-B/16 (#17 at 32 heads)."""
     counts = long_teacher_phase(ops, card)
     counts.update(l14_score_phase(ops, card))
     runs = {label: l14_stage_phase(ops, card, label, keep_state) for label in STAGE_L14}
+    runs[B16_TAPPED] = b16_tapped_phase(ops, card, keep_state)
     return counts, runs
 
 
@@ -2471,7 +2516,8 @@ def main() -> None:
         for label in ("all-cached", "text-cached", "live", "all-cached plain-attention",
                       "stage-1 tapped",
                       "stage-1 tapped plain-attention", "stage-1 attention-taps",
-                      "live contrastive", "stage-1 L/14", "stage-1 L/14 patch-14 student"):
+                      "live contrastive", "stage-1 L/14", "stage-1 L/14 patch-14 student",
+                      B16_TAPPED):
             run = runs[label]
             profile(f"train step {label} {int(run['batch'][0].shape[0])} pairs",
                     lambda r=run: r["step"](r["state"], *r["batch"]), 5, card)

@@ -1,7 +1,7 @@
 // Head-transform attention forward on [B, H, N, d] operands on the CUDA
 // cores: #17's second route, for the head shapes its tensor-core kernel
-// (flash_transform_attention_mma.cu: d up to 64, at most 24 heads, 16 past
-// d = 32) does not take; any head count whose planes fit a block, d up to 128.
+// (flash_transform_attention_mma.cu: at most 32 heads at d <= 32, 16 at d <=
+// 128) does not take; any head count whose planes fit a block, d up to 128.
 //
 // Replaces distillclip_tpu/ops/flash_attention.py:_tf_fwd_kernel (called by
 // _tf_fwd behind flash_attention(q, k, v, head_transform=(Wl, Ww), ...)): the
@@ -31,7 +31,8 @@
 // TQ <= 16 query rows with two [H, TQ, N] fp32 planes in shared memory, and
 // every product runs on the CUDA cores in fp32 (0.4257 / 0.6306 ms at the
 // students' shapes on an H100 SXM at 700 W, where the tensor-core kernel
-// takes 0.15 / 0.17).
+// takes 0.15 / 0.17).  No published CLIP geometry has heads past the
+// tensor-core kernel's (33 heads of 32, 17 of 64 and more).
 #include "transform_attention.cuh"
 
 namespace dc {

@@ -25,11 +25,14 @@
 //   columns of the fused rows (128-byte swizzle, zero past N); a box row runs
 //   on into the next head where d is not a multiple of 16: q is zero there,
 //   so those products add nothing, and the output columns past d are not
-//   stored.  #17: a 4-D map (d, N, H, B) per operand with the view's strides,
-//   boxes of 16 rows of 64 / d heads, landing as [head][16 rows][d] with the
-//   swizzle as wide as a row (128, 64, 32 bytes at d = 64, 32, 16; none at
-//   other d, where the k-step past d reads the next row, or the zeroed 16
-//   bytes after the last).
+//   stored.  #17: a 4-D map (d, N, H, B) per operand with the view's strides.
+//   Up to d = 64, boxes of 16 rows of 64 / d heads, landing as [head][16
+//   rows][d] with the swizzle as wide as a row (128, 64, 32 bytes at d = 64,
+//   32, 16; none at other d, where the k-step past d reads the next row, or
+//   the zeroed 16 bytes after the last).  Past d = 64, a head's rows come as
+//   ceil(d / 64) boxes of 16 rows x 64 columns with the 128-byte swizzle, as
+//   K3's (zero past d): unswizzled 256-byte rows would put the eight rows of
+//   an ldmatrix in the same banks.
 // * The mixes couple the heads at each (query, key) position.  Head items
 //   (warp w: heads w, w + 16) make S_g = q_g·k_gᵀ for the chunk into a fp32
 //   plane X[row][key][head]; then warp w owns query row w and mixes with the
@@ -60,21 +63,21 @@
 //   mix, P the ww mix and P' the product with v as two bf16 operands, hi =
 //   bf16(x) and lo = bf16(x − hi), into one fp32 sum; O and the saved P are
 //   each rounded once to bf16.
-// * Shapes: d % 8 == 0 up to 64, H up to 24 (16 with d > 32) with P' in
-//   planes of its own, the layout #17 keeps.  K3 / #5 also take up to 32 heads
-//   at d <= 32 and 16 at d <= 128 (PIX: 32 heads of 32, 12 of 128), where those
-//   planes, q's and the double-buffered k / v chunks pass a block's 227 KB (263
-//   KB at 32 heads of 32, 350 KB at 16 of 128).  There a warp writes P' of its
+// * Shapes (K3 / #5 and #17 alike): d % 8 == 0 up to 64, H up to 24 (16 with
+//   d > 32) with P' in planes of its own; past that up to 32 heads at d <= 32
+//   and 16 at d <= 128 (PIX: 32 heads of 32, 12 of 128), where those planes,
+//   q's and the double-buffered k / v chunks pass a block's 227 KB (263 KB at
+//   32 heads of 32, 350 KB at 16 of 128).  There a warp writes P' of its
 //   query row into its own row of X, which it alone reads (the mixes) and which
 //   nothing reads again before the next chunk's scores: P' costs no shared
 //   memory, and the mixes mask X's head columns past H (they then hold P', not
 //   zeros).  Where two k and two v chunks still do not fit beside the q tile
 //   (12 and 16 heads of 128, 16 of 80) the block keeps one of each: the next
 //   chunk's k is copied once every warp has made its scores, its v once every
-//   warp has used this chunk's.  O
-//   leaves through X where its [16][H·d + 8] bf16 rows fit, else from the
-//   fragments as 4-byte pairs.  The O accumulators of 16 heads of 128 take 64
-//   registers a thread; every other head shape goes to the CUDA-core kernels.
+//   warp has used this chunk's.  O leaves through X where its [16][H·d + 8]
+//   bf16 rows fit, else from the fragments as 4-byte pairs (#17: through O's
+//   strides).  The O accumulators of 16 heads of 128 take 64 registers a
+//   thread; every other head shape goes to the CUDA-core kernels.
 #pragma once
 
 #include "mma_attention_bwd.cuh"
@@ -120,27 +123,36 @@ __host__ __device__ constexpr int x_row(int HP, bool pix = false) {
 // 16 (the last head's k-step reads them; q is zero there).
 __host__ __device__ inline int boxes(int H, int d) { return (H * d + d % 16 + 63) / 64; }
 
-// #17: a box holds 16 rows of view_box_heads heads (a head's rows are 32·d
-// bytes), view_boxes of them a chunk.
+// #17: a box holds 16 rows of view_cols(d) columns (d, or 64 past d = 64) of
+// view_box_heads heads; a head's row takes view_col_boxes(d) boxes side by
+// side (one up to d = 64, two past it), view_boxes of them a chunk.
+__host__ __device__ inline int view_cols(int d) { return d < 64 ? d : 64; }
+__host__ __device__ inline int view_col_boxes(int d) { return (d + 63) / 64; }
 __host__ __device__ inline int view_box_heads(int H, int d) {
   const int hb = d < 64 ? 64 / d : 1;
   return hb < H ? hb : H;
 }
 __host__ __device__ inline int view_boxes(int H, int d) {
   const int hb = view_box_heads(H, d);
-  return (H + hb - 1) / hb;
+  return (H + hb - 1) / hb * view_col_boxes(d);
+}
+__host__ __device__ inline uint32_t view_box_bytes(int H, int d) {
+  return (uint32_t)view_box_heads(H, d) * 32 * view_cols(d);
 }
 // The swizzle of a #17 buffer as the mask of the 16-byte word bits that byte
-// offset bits 7.. flip: a row of d·2 = 128, 64, 32 bytes is swizzled as wide
+// offset bits 7.. flip: a box row of 128, 64, 32 bytes is swizzled as wide
 // (TMA's 128-, 64-, 32-byte modes), other rows not at all.
 __host__ __device__ inline int view_swizzle(int d) {
-  return d == 64 ? 7 : d == 32 ? 3 : d == 16 ? 1 : 0;
+  return d >= 64 ? 7 : d == 32 ? 3 : d == 16 ? 1 : 0;
 }
-// A #17 k or v buffer: the boxes, and 16 zero bytes after them where the last
-// head's k-step reads past d.
+// The zero bytes after a #17 buffer's boxes, which the last head's k-step
+// reads where d < 64 is not a multiple of 16 (past 64 TMA zeroes the columns
+// past d in the last box).
+__host__ __device__ inline int view_tail(int d) { return d < 64 && d % 16 ? 16 : 0; }
+// A #17 k or v buffer: the boxes and the tail.
 __host__ __device__ inline size_t view_buffer(int H, int d) {
-  const size_t data = (size_t)view_boxes(H, d) * view_box_heads(H, d) * 32 * d;
-  return (data + (d % 16 ? 16 : 0) + 1023) / 1024 * 1024;
+  const size_t data = (size_t)view_boxes(H, d) * view_box_bytes(H, d);
+  return (data + view_tail(d) + 1023) / 1024 * 1024;
 }
 
 // Byte offsets of the regions of a block's shared memory, from a base
@@ -177,15 +189,15 @@ __host__ __device__ inline Layout layout(int H, int d, bool views = false, bool 
 
 // Heads a warp's items span (pad16(H) / 16) with P' in planes of its own, 0
 // where that layout does not take (H, d): d % 8 == 0 up to 64, H up to 24, 16
-// with d > 32.  #17 takes these shapes.
+// with d > 32.
 __host__ inline int heads_per_warp(int H, int d) {
   const int ks = pad16(d) / 16, hpw = (H + 15) / 16;
   if (H < 1 || H > 24 || d < 8 || d % 8 || ks > 4 || (hpw == 2 && ks > 2)) return 0;
   return hpw;
 }
 
-// The same for K3 / #5, which also take, with P' in X (p_in_x), up to 32
-// heads at d <= 32 and up to 16 at d <= 128; 0 past that.
+// The same for the forward (K3 / #5 and #17), which also takes, with P' in X
+// (p_in_x), up to 32 heads at d <= 32 and up to 16 at d <= 128; 0 past that.
 __host__ inline bool p_in_x(int H, int d) { return heads_per_warp(H, d) == 0; }
 
 __host__ inline int fwd_heads_per_warp(int H, int d) {
@@ -201,10 +213,12 @@ __device__ __forceinline__ const bf16* box_at(const unsigned char* base, int row
 }
 
 // The 16-byte word of (head h, row, column col, a multiple of 8) in a #17
-// chunk's buffer: [head][16 rows][d], swizzled by `swz` (view_swizzle).
+// chunk's buffer: [head][col / 64][16 rows][view_cols(d)], swizzled by `swz`
+// (view_swizzle); up to d = 64 that is [head][16 rows][d].
 __device__ __forceinline__ const bf16* view_at(const unsigned char* base, int h, int row, int col,
                                                int d, int swz) {
-  const int o = (h * 16 + row) * 2 * d + col * 2;
+  const int w = view_cols(d);
+  const int o = ((h * view_col_boxes(d) + (col >> 6)) * 16 + row) * 2 * w + (col & 63) * 2;
   return reinterpret_cast<const bf16*>(base + (o ^ (((o >> 7) & swz) << 4)));
 }
 
@@ -318,10 +332,10 @@ __device__ __forceinline__ void fill(unsigned char* dst, const CUtensorMap* map,
 }
 
 // A #17 chunk's k or v rows, j0 .. j0 + 15 of sample b, from the view's 4-D
-// map (d, N, H, B): nbox boxes of hb heads (box_bytes each; zero past N and
-// H), issued as `fill` issues them.
+// map (d, N, H, B): nbox boxes of hb heads and 64 columns from column 64·(bx %
+// kc) (box_bytes each; zero past d, N and H), issued as `fill` issues them.
 __device__ __forceinline__ void fill_view(unsigned char* dst, const CUtensorMap* map, int j0,
-                                          int b, int nbox, int hb, uint32_t box_bytes,
+                                          int b, int nbox, int hb, int kc, uint32_t box_bytes,
                                           uint64_t* bar, int first, int count) {
   const int w = (threadIdx.x >> 5) - first;
   if ((threadIdx.x & 31) != 0 || w < 0 || w >= count) return;
@@ -330,7 +344,8 @@ __device__ __forceinline__ void fill_view(unsigned char* dst, const CUtensorMap*
     asm volatile(
         "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
         "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(wg::smem_u32(dst + bx * box_bytes)),
-        "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(j0), "r"(bx * hb), "r"(b),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(bx % kc * 64), "r"(j0), "r"(bx / kc * hb),
+        "r"(b),
         "r"(wg::smem_u32(bar))
         : "memory");
 }
@@ -351,7 +366,7 @@ struct Views {
 // time (the mixes then make only H's ceil(H / 8) tiles of 8 heads).  K3 / #5
 // (VIEWS false): kmap = vmap, the fused qkv as [B][N][3·H·d]; probs null: the
 // lean forward.  #17 (VIEWS): the views' maps and `vw`; probs unused.  PIX:
-// P' in X (K3 / #5 only), one k and one v buffer where two do not fit.
+// P' in X, one k and one v buffer where two do not fit.
 template <int KS, int HPW, int NH, int ND, bool VIEWS, bool PIX = false>
 __device__ __forceinline__ void tf_fwd_tiles(const CUtensorMap* kmap, const CUtensorMap* vmap,
                                              const bf16* __restrict__ qkv, Views vw,
@@ -383,8 +398,8 @@ __device__ __forceinline__ void tf_fwd_tiles(const CUtensorMap* kmap, const CUte
   const Layout lay = layout(H, d, VIEWS, PIX);
   const bool dbl = !PIX || lay.bufs == 2;   // two k and two v buffers
   const int nbox = VIEWS ? view_boxes(H, d) : boxes(H, d);
-  const int hb = VIEWS ? view_box_heads(H, d) : 0;
-  const uint32_t vbytes = VIEWS ? (uint32_t)hb * 32 * d : 0;   // a #17 box
+  const int hb = VIEWS ? view_box_heads(H, d) : 0, kc = VIEWS ? view_col_boxes(d) : 0;
+  const uint32_t vbytes = VIEWS ? view_box_bytes(H, d) : 0;   // a #17 box
   const int swz = VIEWS ? view_swizzle(d) : 0;
   const size_t KB = lay.v / lay.bufs;                   // a k or v buffer
   unsigned char* Ks = smem;                             // bufs x a chunk's k boxes
@@ -415,13 +430,13 @@ __device__ __forceinline__ void tf_fwd_tiles(const CUtensorMap* kmap, const CUte
   };
   auto fill_k = [&](unsigned char* dst, int j0, int b, uint64_t* br, int first, int count) {
     if constexpr (VIEWS)
-      fill_view(dst, kmap, j0, b, nbox, hb, vbytes, br, first, count);
+      fill_view(dst, kmap, j0, b, nbox, hb, kc, vbytes, br, first, count);
     else
       fill(dst, kmap, HD, j0, b, nbox, br, first, count);
   };
   auto fill_v = [&](unsigned char* dst, int j0, int b, uint64_t* br, int first, int count) {
     if constexpr (VIEWS)
-      fill_view(dst, vmap, j0, b, nbox, hb, vbytes, br, first, count);
+      fill_view(dst, vmap, j0, b, nbox, hb, kc, vbytes, br, first, count);
     else
       fill(dst, vmap, 2 * HD, j0, b, nbox, br, first, count);
   };
@@ -440,9 +455,8 @@ __device__ __forceinline__ void tf_fwd_tiles(const CUtensorMap* kmap, const CUte
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   if constexpr (VIEWS) {
-    // the 16 bytes after each buffer's boxes, which the last head's k-step
-    // reads where d is not a multiple of 16: zero (TMA never writes them)
-    if (d % 16 && threadIdx.x < 4)
+    // each k and v buffer's tail (view_tail): zero (TMA never writes it)
+    if (view_tail(d) && threadIdx.x < 2 * lay.bufs)
       *reinterpret_cast<uint4*>(smem + threadIdx.x * KB + (size_t)nbox * vbytes) =
           make_uint4(0, 0, 0, 0);
   }
@@ -651,8 +665,10 @@ __device__ __forceinline__ void tf_fwd_tiles(const CUtensorMap* kmap, const CUte
       if (!dbl && more) fill_v(Vs, rows, bs, &bar[2], 0, kWarps);
     }
 
-    if (!VIEWS && !lay.o_fits) {
-      // O from the fragments as bf16 pairs, rows below N (X is not touched)
+    if (!lay.o_fits) {
+      // O from the fragments as bf16 pairs, rows below N (X is not touched):
+      // into the [B·N, H·d] rows, or (#17) through O's strides
+      const size_t rs = VIEWS ? vw.so.n : (size_t)HD;   // a row's stride
 #pragma unroll
       for (int it = 0; it < IPW; ++it) {
         const int item = warp + it * kWarps;
@@ -662,11 +678,12 @@ __device__ __forceinline__ void tf_fwd_tiles(const CUtensorMap* kmap, const CUte
         for (int n = 0; n < 2; ++n) {
           const int cc = dt * 16 + n * 8 + 2 * tig;
           if (cc >= d) continue;
-          bf16* o0 = out + ((size_t)b * N + i0 + gid) * HD + h * d + cc;
+          bf16* o0 = VIEWS ? vw.out + b * vw.so.b + h * vw.so.h + (size_t)(i0 + gid) * rs + cc
+                           : out + ((size_t)b * N + i0 + gid) * HD + h * d + cc;
           if (i0 + gid < N)
             *reinterpret_cast<uint32_t*>(o0) = pack2(o[it][n][0], o[it][n][1]);
           if (i0 + gid + 8 < N)
-            *reinterpret_cast<uint32_t*>(o0 + 8 * HD) = pack2(o[it][n][2], o[it][n][3]);
+            *reinterpret_cast<uint32_t*>(o0 + 8 * rs) = pack2(o[it][n][2], o[it][n][3]);
         }
       }
       vb0 ^= Tk & 1;

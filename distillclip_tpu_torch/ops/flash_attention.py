@@ -21,13 +21,13 @@ Three kernels, each beside its plain PyTorch version:
   ``csrc/mma_attention_bwd.cuh``);
 * :func:`flash_transform_attention_fwd` (``csrc/flash_transform_attention_mma.cu``):
   the head-transform forward, on the tensor cores on K3's tile loop
-  (``csrc/transform_attention_mma.cuh``) where it takes the head shape
-  (:func:`tensor_core_head_shape`), and otherwise, by shape, on its second
-  route :func:`flash_transform_attention_fwd_wide`
-  (``csrc/flash_transform_attention.cu``, the CUDA cores, any head count),
-  which counts its own launches.  Its gradient is the JAX package's: a
-  recompute of the forward in plain fp32 PyTorch (outside any kernel there
-  too).
+  (``csrc/transform_attention_mma.cuh``) at the head shapes K3 takes (up to
+  32 heads of 32 and 16 of 128, :func:`tensor_core_head_shape`), and past
+  them, by shape, on its second route :func:`flash_transform_attention_fwd_wide`
+  (``csrc/flash_transform_attention.cu``, the CUDA cores, any head count
+  whose planes fit a block), which counts its own launches.  Its gradient is
+  the JAX package's: a recompute of the forward in plain fp32 PyTorch
+  (outside any kernel there too).
 
 On a CUDA tensor each launches its kernel or raises; on a CPU tensor it runs
 its plain version.  The kernels take bf16 views with unit stride in d and any
@@ -213,11 +213,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float, causal: bool = Fal
 
 def tensor_core_head_shape(heads: int, d: int) -> bool:
     """True where the tensor-core head-transform forward takes ``heads`` heads
-    of ``d``: d a multiple of 8 up to 64, at most 24 heads, 16 once d > 32
-    (every head of a 16 x 16 tile in one block).  The Python statement of the
-    library's predicate (``dc_flash_tf_fwd_mma_smem_bytes``), which the
-    wrapper asks."""
-    return d % 8 == 0 and 8 <= d <= 64 and 1 <= heads <= (16 if d > 32 else 24)
+    of ``d``: d a multiple of 8 up to 128, at most 32 heads, 16 once d > 32
+    (every head of a 16 x 16 tile in one block), as K3 takes them.  The
+    Python statement of the library's predicate
+    (``dc_flash_tf_fwd_mma_smem_bytes``), which the wrapper asks."""
+    return d % 8 == 0 and 8 <= d <= 128 and 1 <= heads <= (16 if d > 32 else 32)
 
 
 def _tensor_core_shape(lib, heads: int, d: int) -> bool:

@@ -620,25 +620,40 @@ def oracle_cases(rng, samples: int = PAIRS, device=DEVICE, only: Optional[str] =
                 2 * product + 2 * mix, 4 * tensor + 4 * H * H,
                 composition=lambda q=q, k=k, v=v, l=wl, w=ww, kw=kw: flash_tf_composition(
                     q, k, v, l, w, **kw)))
-        # #17's second route, the CUDA-core kernel, at a head shape past the
-        # tensor-core kernel's (H > 24) on views of a fused qkv, the students' N
-        B, H, d, N = samples, 32, 32, 50
-        qkv = torch.cat([t((B, N, 2, H, d)), t((B, N, 1, H, d), 0.7)], dim=2)
-        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
-        wl, ww = t((H, H), H ** -0.5), t((H, H), H ** -0.5)
-        kw = dict(scale=d ** -0.5)
-        cases.append(Case(
-            "flash_transform_attention_fwd_wide", f"B={B} H={H} d={d} N={N}, views of a fused qkv",
-            lambda q=q, k=k, v=v, l=wl, w=ww, kw=kw: (fa.flash_transform_attention_fwd_wide(
-                q, k, v, l, w, **kw),),
-            lambda q=q, k=k, v=v, l=wl, w=ww, kw=kw: (fa.flash_transform_attention_fwd_plain(
-                *[x.float() for x in (q, k, v, l, w)], **kw),),
-            (("abs", 8e-3),),
-            lambda q=q, k=k, v=v, l=wl, w=ww, kw=kw: fa.flash_transform_attention_fwd_plain(
-                q, k, v, l, w, **kw),
-            4.0 * B * H * N * N * (d + H), 2 * (4 * B * N * H * d + 2 * H * H),
-            composition=lambda q=q, k=k, v=v, l=wl, w=ww, kw=kw: flash_tf_composition(
-                q, k, v, l, w, **kw)))
+        # #17 at the widest head shapes it takes, on views of a fused qkv: 32
+        # heads of 32 at the students' N and at 197 tokens (a 32-head student
+        # against ViT-B/16), 12 heads of 128 at 256; then its second route, the
+        # CUDA-core kernel, first at a head shape past the tensor-core kernel's
+        # (32 heads of 64, 2048 wide, at 197 tokens; its times stand in the JSON
+        # line), then beside #17 at the two widest of those shapes (their plain
+        # and composition times are #17's).  Limits as above.
+        wide = (("32 heads", samples, 32, 32, 50), ("L/14 student", samples, 32, 32, 197),
+                ("12 heads of 128", max(samples // 4, 1), 12, 128, 256))
+        for kernel, cases_at in (
+                ("flash_transform_attention_fwd", wide),
+                ("flash_transform_attention_fwd_wide",
+                 (("32 heads of 64", max(samples // 8, 1), 32, 64, 197),) + wide[1:])):
+            for label, B, H, d, N in cases_at:
+                qkv = torch.cat([t((B, N, 2, H, d)), t((B, N, 1, H, d), 0.7)], dim=2)
+                q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+                wl, ww = t((H, H), H ** -0.5), t((H, H), H ** -0.5)
+                kw = dict(scale=d ** -0.5)
+                shape = f"{label} B={B} H={H} d={d} N={N}, views of a fused qkv"
+                beside = kernel.endswith("_wide") and label != "32 heads of 64"
+                fn = getattr(fa, kernel)
+                cases.append(Case(
+                    kernel, shape,
+                    lambda q=q, k=k, v=v, l=wl, w=ww, kw=kw, f=fn: (f(q, k, v, l, w, **kw),),
+                    lambda q=q, k=k, v=v, l=wl, w=ww, kw=kw: (
+                        fa.flash_transform_attention_fwd_plain(
+                            *[x.float() for x in (q, k, v, l, w)], **kw),),
+                    (("abs", 8e-3),),
+                    lambda q=q, k=k, v=v, l=wl, w=ww, kw=kw: fa.flash_transform_attention_fwd_plain(
+                        q, k, v, l, w, **kw),
+                    4.0 * B * H * N * N * (d + H), 2 * (4 * B * N * H * d + 2 * H * H),
+                    composition=lambda q=q, k=k, v=v, l=wl, w=ww, kw=kw: flash_tf_composition(
+                        q, k, v, l, w, **kw),
+                    times_of=("flash_transform_attention_fwd", shape) if beside else None))
 
     if wants("layer_norm_rows", "layer_norm_rows_bwd"):
         # K4 and its backward: rows uniform on [-sqrt(3), sqrt(3)] (unit variance),

@@ -922,8 +922,12 @@ import importlib  # noqa: E402
 # ``ops.flash_attention`` is the public function; this is its module
 fa = importlib.import_module("distillclip_tpu_torch.ops.flash_attention")
 
+# (the last six: the widest head shapes the head-transform forward's tensor
+# cores take, 32 heads of 32 to 16 of 128, and two past them, for its CUDA-core
+# route)
 _FA_SHAPES = [(3, 1, 8, 1), (5, 4, 16, 17), (4, 12, 64, 50), (3, 8, 64, 77), (4, 24, 32, 50),
-              (2, 5, 48, 33), (2, 2, 128, 256)]
+              (2, 5, 48, 33), (2, 2, 128, 256), (2, 32, 32, 197), (2, 16, 128, 256),
+              (2, 12, 96, 77), (3, 29, 24, 1), (2, 33, 32, 50), (2, 32, 64, 197)]
 
 
 def _qkv_views(rng, B, H, d, N, layout):
@@ -970,8 +974,9 @@ def test_flash_attention_kernels_match_plain(B, H, d, N, layout, causal, kv):
 @pytest.mark.parametrize("causal,kv", [(False, None), (True, None), (False, "short")],
                          ids=["full", "causal", "kv_len"])
 def test_flash_transform_attention_kernel_matches_plain(B, H, d, N, layout, causal, kv):
-    """Every shape on the route it takes: the tensor cores up to d = 64 (at
-    most 24 heads, 16 past d = 32), the CUDA-core kernel at (2, 2, 128, 256)."""
+    """Every shape on the route it takes: the tensor cores up to 32 heads of
+    32 and 16 of 128, the CUDA-core kernel past them (33 heads of 32, 32 of
+    64)."""
     rng = np.random.default_rng(B * 1000 + H * 100 + d + N + 7)
     q, k, v = _qkv_views(rng, B, H, d, N, layout)
     wl, ww = _bf16(rng, (2, H, H), H ** -0.5)
@@ -985,8 +990,8 @@ def test_flash_transform_attention_kernel_matches_plain(B, H, d, N, layout, caus
     _close(o, ref)
     assert o.stride() == (q.contiguous().stride() if layout == "contiguous"
                           else (N * H * d, d, H * d, 1))
-    route = ("flash_transform_attention_fwd_wide" if (B, H, d, N) == (2, 2, 128, 256)
-             else "flash_transform_attention_fwd")
+    route = ("flash_transform_attention_fwd" if fa.tensor_core_head_shape(H, d)
+             else "flash_transform_attention_fwd_wide")
     assert ops.launch_counts() == {**dict.fromkeys(ops.KERNELS, 0), route: 1}
 
 
@@ -996,19 +1001,21 @@ def test_flash_transform_attention_route_is_the_librarys():
     from distillclip_tpu_torch.ops import _build
 
     lib = _build.lib()
-    for H in range(1, 33):
-        for d in range(4, 136, 4):
+    for H in range(1, 49):
+        for d in range(4, 137, 4):
             assert fa._tensor_core_shape(lib, H, d) == fa.tensor_core_head_shape(H, d), (H, d)
 
 
 @pytest.mark.parametrize("B,H,d,N", [(64, 4, 32, 200), (40, 12, 64, 77), (33, 24, 32, 50),
-                                     (17, 16, 48, 33), (9, 6, 40, 130), (11, 24, 24, 45)])
+                                     (17, 16, 48, 33), (9, 6, 40, 130), (11, 24, 24, 45),
+                                     (150, 32, 32, 90), (70, 16, 128, 130), (90, 29, 24, 61)])
 @pytest.mark.parametrize("layout", ["contiguous", "fused_view"])
 @pytest.mark.parametrize("causal,kv", [(True, None), (True, "third"), (False, "third")],
                          ids=["causal", "causal_kv_len", "kv_len"])
 def test_flash_transform_attention_takes_many_tiles_a_block(B, H, d, N, layout, causal, kv):
     """More tiles than blocks, so a block takes tiles of different key
-    counts in turn (the k / v buffers' parity follows each tile's count)."""
+    counts in turn (the k / v buffers' parity follows each tile's count; at
+    16 heads of 128 one k and one v buffer, refilled in turn)."""
     rng = np.random.default_rng(B + H + d + N)
     q, k, v = _qkv_views(rng, B, H, d, N, layout)
     wl, ww = _bf16(rng, (2, H, H), H ** -0.5)

@@ -17,7 +17,10 @@ makes P = 2^(L − m − log2 Σ) in fp32 (an exact 0 past lim(i)), P' = Σ_g ww
 with P as hi + lo, and O = P'·v with P' as hi + lo, rounded once to bf16.
 
 At the image and text student shapes (full), the text shape under the causal
-mask and a ragged head shape with kv_len < N (B = 2; q, k at unit scale, v at
+mask, a ragged head shape with kv_len < N and the widest head shapes (32 heads
+of 32, 16 of 128, 29 of 24 with kv_len < N: the instances that keep P' in
+each warp's row of the score plane, whose arithmetic is the same, the mixes
+reading the head columns past H as zeros) (B = 2; q, k at unit scale, v at
 0.7, the mixes at std H^-1/2, ww at half that under the causal mask, as
 ``chip_smoke.py`` draws them) this arithmetic is held within 8e-3 of
 ``flash_transform_attention_fwd_plain`` in fp32 on the same inputs after the
@@ -47,7 +50,9 @@ O_LIMIT = 8e-3
 LOG2E = 1.4426950408889634
 # (H, d, N, causal, kv_len)
 SHAPES = {"image student": (24, 32, 50, False, None), "text student": (12, 64, 77, False, None),
-          "causal": (12, 64, 77, True, None), "ragged": (5, 48, 33, False, 29)}
+          "causal": (12, 64, 77, True, None), "ragged": (5, 48, 33, False, 29),
+          "32 heads": (32, 32, 33, False, None), "16 heads of 128": (16, 128, 20, False, None),
+          "29 heads ragged": (29, 24, 33, False, 27)}
 
 
 def _inputs(H, d, N, causal, seed, batch=B):
@@ -136,13 +141,15 @@ def test_kernel_arithmetic_matches_jax_kernel(shape):
 
 def test_tensor_core_route_takes_the_students_head_shapes():
     """The head shapes the tensor-core kernel takes (the rest go to the
-    CUDA-core route): d a multiple of 8 up to 64, at most 24 heads, 16 past
-    d = 32; the wrapper asks the library, which the card tests hold to this."""
-    taken = {(H, d) for H in range(1, 33) for d in range(4, 136, 4)
+    CUDA-core route): d a multiple of 8 up to 128, at most 32 heads, 16 past
+    d = 32, as K3 takes them; the wrapper asks the library, which the card
+    tests hold to this."""
+    taken = {(H, d) for H in range(1, 49) for d in range(4, 140, 4)
              if fa.tensor_core_head_shape(H, d)}
-    assert {(24, 32), (12, 64), (3, 16), (5, 48), (16, 64), (24, 8)} <= taken
-    assert not {(25, 32), (17, 40), (2, 128), (4, 72), (12, 12), (8, 4)} & taken
-    assert taken == {(H, d) for d in range(8, 72, 8) for H in range(1, 25 if d <= 32 else 17)}
+    assert {(24, 32), (12, 64), (3, 16), (5, 48), (16, 64), (24, 8), (32, 32), (29, 24),
+            (25, 32), (16, 128), (12, 128), (16, 80), (4, 72)} <= taken
+    assert not {(33, 32), (17, 40), (17, 128), (32, 64), (2, 136), (12, 12), (8, 4)} & taken
+    assert taken == {(H, d) for d in range(8, 136, 8) for H in range(1, 33 if d <= 32 else 17)}
 
 
 def margins(batch: int) -> None:
