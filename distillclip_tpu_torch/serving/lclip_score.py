@@ -235,13 +235,15 @@ class LCLIPScorer:
 
     # -- device legs ---------------------------------------------------------
 
-    def _to_device(self, x, pin: bool = False) -> torch.Tensor:
+    def _to_device(self, x) -> torch.Tensor:
         t = torch.as_tensor(x)
-        if t.device == self.device:
-            return t
-        if pin and self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+        return t if t.device == self.device else t.to(self.device)
+
+    def _pinned(self, x) -> torch.Tensor:
+        """``x`` as a tensor; in pinned host memory where it is to be copied
+        to a card without blocking."""
+        t = torch.as_tensor(x)
+        return t.pin_memory() if self.device.type == "cuda" and t.device.type == "cpu" else t
 
     def _image_features(self, images: torch.Tensor) -> torch.Tensor:
         return l2_normalize(_rep(self.image_tower(prepare_inputs(images, self.dtype))).float())
@@ -282,26 +284,43 @@ class LCLIPScorer:
         memory without blocking, its scores come back the same way, and the
         host waits only on the oldest batch, so it stages the next batches
         while the card computes.
+
+        Under ``torch.profiler`` each batch shows three spans
+        (``training.profiling.span``): ``score.stage`` (its inputs copied into
+        pinned memory), ``score.launch`` (the copies to the device, the
+        towers, the readback queued) and ``score.wait`` (the host waiting for
+        its scores and copying them out).
         """
+        # imported here: the training package imports this module
+        from distillclip_tpu_torch.training.profiling import span
+
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
         cuda = self.device.type == "cuda"
         inflight = deque()
+
+        def oldest() -> np.ndarray:
+            with span("score.wait"):
+                return self._collect(*inflight.popleft())
+
         for images, tokens in batches:
-            scores = self._score_on_device(self._to_device(images, pin=True),
-                                           self._to_device(tokens, pin=True))
-            done = None
-            if cuda:
-                host = torch.empty(scores.shape, dtype=scores.dtype, pin_memory=True)
-                host.copy_(scores, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record()
-                scores = host
-            inflight.append((scores, done))
+            with span("score.stage"):
+                images, tokens = self._pinned(images), self._pinned(tokens)
+            with span("score.launch"):
+                scores = self._score_on_device(images.to(self.device, non_blocking=True),
+                                               tokens.to(self.device, non_blocking=True))
+                done = None
+                if cuda:
+                    host = torch.empty(scores.shape, dtype=scores.dtype, pin_memory=True)
+                    host.copy_(scores, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record()
+                    scores = host
+                inflight.append((scores, done))
             if len(inflight) >= depth:
-                yield self._collect(*inflight.popleft())
+                yield oldest()
         while inflight:
-            yield self._collect(*inflight.popleft())
+            yield oldest()
 
     @staticmethod
     def _collect(scores: torch.Tensor, done) -> np.ndarray:

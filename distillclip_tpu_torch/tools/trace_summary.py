@@ -13,7 +13,8 @@ port's kernels by name (:data:`PROFILE_GROUPS`, the table ``chip_smoke.py``'s
 optimizer's foreach kernels, and the elementwise rest.  Durations are reported
 per traced step (``--steps``: the profiler traces the first 5 train steps by
 default).  ``--ops N`` also lists the N costliest kernels by name.
-:func:`trace_split` splits the traced steps between the host and the device.
+:func:`trace_split` splits the traced steps between the host and the device,
+and between the step's phase spans.
 
 On a trace taken on the CPU there are no device events: the table is empty.
 """
@@ -113,9 +114,13 @@ def summarize(path, top: int = 25, steps: int = 5, ops: int = 0) -> dict:
 def trace_split(path, skip: int = 1) -> dict:
     """Per step of a fit's torch.profiler trace, past its first ``skip``
     steps: the host's ms between step starts, in ``host_to_device`` and in
-    ``train_step`` (launching the step), and the device's busy ms (the union
+    ``train_step`` (launching the step), the device's busy ms (the union
     of the kernels and copies those steps launched) and its window (first
-    start to last end of that work)."""
+    start to last end of that work), and ``phases``: for each of the step's
+    phase spans (``step.student``, ``step.teacher``, ``step.loss``,
+    ``step.backward``, ``step.optimizer``; ``training.profiling.span``) its
+    host ms and the device ms of the work launched while it was open (the
+    backward's launches come from autograd's own thread)."""
     events = [e for e in load_events(path) if e.get("ph") == "X"]
     spans = {name: sorted((e["ts"], e["ts"] + e["dur"]) for e in events
                           if e.get("cat") == "user_annotation" and e["name"] == name)
@@ -124,23 +129,36 @@ def trace_split(path, skip: int = 1) -> dict:
     if len(h2d) != len(steps) or len(steps) <= skip + 1:
         raise ValueError(f"fit: the trace at {path} holds {len(h2d)} / {len(steps)} step spans")
     t0, t1 = h2d[skip][0], steps[-1][1]
-    launched = {e["args"]["correlation"] for e in events
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
                 if e.get("cat") in ("cuda_runtime", "cuda_driver") and t0 <= e["ts"] <= t1
                 and "correlation" in e.get("args", {})}
-    work = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
-                  and e.get("args", {}).get("correlation") in launched)
-    if not work:
+    device = [e for e in events if e.get("cat") in DEVICE_CATEGORIES
+              and e.get("args", {}).get("correlation") in launched]
+    if not device:
         raise ValueError(f"fit: the trace at {path} holds no device work for the traced steps")
+    work = sorted((e["ts"], e["ts"] + e["dur"]) for e in device)
     busy, end = 0.0, work[0][0]
     for a, b in work:
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
+    phases = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+              if e.get("cat") == "user_annotation" and e["name"].startswith("step.")
+              and t0 <= e["ts"] <= t1]
+    host_us, device_us = collections.Counter(), collections.Counter()
+    for a, b, name in phases:
+        host_us[name] += b - a
+    for e in device:
+        t = launched[e["args"]["correlation"]]
+        inner = [(b - a, name) for a, b, name in phases if a <= t < b]
+        if inner:
+            device_us[min(inner)[1]] += e["dur"]
     n = len(steps) - skip
     mean = lambda xs: sum(b - a for a, b in xs) / len(xs) / 1e3
     return {"steps": n, "host_step_ms": (h2d[-1][0] - h2d[skip][0]) / (n - 1) / 1e3,
             "to_device_ms": mean(h2d[skip:]), "train_step_ms": mean(steps[skip:]),
-            "device_busy_ms": busy / n / 1e3, "device_window_ms": (end - work[0][0]) / n / 1e3}
+            "device_busy_ms": busy / n / 1e3, "device_window_ms": (end - work[0][0]) / n / 1e3,
+            "phases": {name: {"device_ms": device_us[name] / n / 1e3,
+                              "host_ms": host_us[name] / n / 1e3} for name in sorted(host_us)}}
 
 
 def main(argv=None) -> int:

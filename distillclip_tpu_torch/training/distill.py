@@ -26,6 +26,11 @@ batch's contrary representations).  Under data parallelism the loss reads
 both towers' outputs gathered over the ranks, and the eval step's
 representations are the global batch's (``parallel.distributed``, the sum
 rule).
+
+Under ``torch.profiler`` a step marks its phases (``profiling.span``): the
+student's forward ``step.student``, the teacher's ``step.teacher``, the loss
+``step.loss``, then :func:`task_common.make_step`'s ``step.backward`` and
+``step.optimizer``.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from distillclip_tpu_torch.models.teacher_init import init_layers_with_teacher
 from distillclip_tpu_torch.parallel import all_gather
 from distillclip_tpu_torch.serving.lclip_score import seeded_init
 from distillclip_tpu_torch.training import metrics as M
+from distillclip_tpu_torch.training.profiling import span
 from distillclip_tpu_torch.training.task_common import (
     adopt_params,
     build_optimizer,
@@ -180,25 +186,27 @@ class DistillTask:
     def _student_forward(self, params, inputs, deterministic: bool, generator):
         """(student output, prepared inputs, the loss's own variables).  The
         student is stochastic (training mode) exactly when not deterministic."""
-        student, aux = split_params(params)
-        x = self._prepare_inputs(inputs)
-        self.student.train(not deterministic)
-        out = torch.func.functional_call(self.student, cast_to_compute(student, self._dtype),
-                                         (x, self.flags, generator))
-        if isinstance(out, torch.Tensor):        # a weight-share student's pooled rows
-            out = self._out_cls(last_representation=out)
-        return out, x, aux
+        with span("step.student"):
+            student, aux = split_params(params)
+            x = self._prepare_inputs(inputs)
+            self.student.train(not deterministic)
+            out = torch.func.functional_call(self.student, cast_to_compute(student, self._dtype),
+                                             (x, self.flags, generator))
+            if isinstance(out, torch.Tensor):        # a weight-share student's pooled rows
+                out = self._out_cls(last_representation=out)
+            return out, x, aux
 
     def _finish(self, stu_out, tea_out, aux=None, generator=None):
-        stu_out, tea_out = gather_output(stu_out, True), gather_output(tea_out, False)
-        if self.norm:
-            stu_out = dataclasses.replace(
-                stu_out, last_representation=l2_normalize(stu_out.last_representation))
-            tea_out = dataclasses.replace(
-                tea_out, last_representation=l2_normalize(tea_out.last_representation))
-        loss, parts = self.loss_control(stu_out, tea_out, self.model_type,
-                                        vit_kd_variables=aux, generator=generator)
-        return loss, (parts, stu_out, tea_out)
+        with span("step.loss"):
+            stu_out, tea_out = gather_output(stu_out, True), gather_output(tea_out, False)
+            if self.norm:
+                stu_out = dataclasses.replace(
+                    stu_out, last_representation=l2_normalize(stu_out.last_representation))
+                tea_out = dataclasses.replace(
+                    tea_out, last_representation=l2_normalize(tea_out.last_representation))
+            loss, parts = self.loss_control(stu_out, tea_out, self.model_type,
+                                            vit_kd_variables=aux, generator=generator)
+            return loss, (parts, stu_out, tea_out)
 
     def loss_fn(self, params, inputs, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
@@ -206,7 +214,7 @@ class DistillTask:
         the task's flags.  ``generator`` feeds the student's dropout and
         drop-path when not deterministic, then ``vit_kd``'s token mask."""
         stu_out, x, aux = self._student_forward(params, inputs, deterministic, generator)
-        with torch.no_grad():
+        with span("step.teacher"), torch.no_grad():
             tea_out = self.teacher.compute(device_of(params))(x, self.flags)
         return self._finish(stu_out, tea_out, aux, generator)
 
@@ -221,7 +229,8 @@ class DistillTask:
                        generator: Optional[torch.Generator] = None):
         """The teacher's last representations given."""
         stu_out, _, aux = self._student_forward(params, inputs, deterministic, generator)
-        tea_out = self._out_cls(last_representation=tea_rep.detach().to(self._dtype))
+        with span("step.teacher"):
+            tea_out = self._out_cls(last_representation=tea_rep.detach().to(self._dtype))
         return self._finish(stu_out, tea_out, aux, generator)
 
     def make_teacher_encode(self, device="cuda") -> Callable:

@@ -35,6 +35,11 @@ outputs, the students' and the teachers' (live or cached), are gathered over
 the ranks before the loss, and the eval step's representations are the whole
 validation batch's, in rank order (``parallel.distributed``, the sum rule).
 The JAX package gets the same global negatives from its data mesh.
+
+Under ``torch.profiler`` a step marks its phases as ``DistillTask``'s do
+(``profiling.span``): ``step.student``, ``step.teacher`` (the live teacher, or
+the cached representations' cast and logits), ``step.loss``,
+``step.backward``, ``step.optimizer``.
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ from distillclip_tpu_torch.models.outputs import TextOutput, VisionOutput
 from distillclip_tpu_torch.serving.lclip_score import seeded_init
 from distillclip_tpu_torch.training import metrics as M
 from distillclip_tpu_torch.training.checkpoints import restore_tower_params
+from distillclip_tpu_torch.training.profiling import span
 from distillclip_tpu_torch.training.task_common import (
     adopt_params,
     build_optimizer,
@@ -211,21 +217,23 @@ class DualDistillTask:
     def _student_forward(self, params, tokens, images, deterministic: bool, generator):
         """(students' output, the loss's own variables).  The students are
         stochastic (training mode) exactly when not deterministic."""
-        student, aux = split_params(params)
-        imgs = prepare_inputs(images, self._dtype)
-        self.student.train(not deterministic)
-        out = torch.func.functional_call(self.student, cast_to_compute(student, self._dtype),
-                                         (tokens.long(), imgs, self.flags, generator))
-        return out, aux
+        with span("step.student"):
+            student, aux = split_params(params)
+            imgs = prepare_inputs(images, self._dtype)
+            self.student.train(not deterministic)
+            out = torch.func.functional_call(self.student, cast_to_compute(student, self._dtype),
+                                             (tokens.long(), imgs, self.flags, generator))
+            return out, aux
 
     def _finish(self, stu_out: CLIPOutput, tea_out: CLIPOutput, aux=None, generator=None):
-        stu_out, tea_out = gather_clip_output(stu_out, True), gather_clip_output(tea_out, False)
-        if self.norm:
-            stu_out = norm_last_representation(stu_out)
-            tea_out = norm_last_representation(tea_out)
-        loss, parts = self.loss_control(stu_out, tea_out, "all", vit_kd_variables=aux,
-                                        generator=generator)
-        return loss, (parts, stu_out, tea_out)
+        with span("step.loss"):
+            stu_out, tea_out = gather_clip_output(stu_out, True), gather_clip_output(tea_out, False)
+            if self.norm:
+                stu_out = norm_last_representation(stu_out)
+                tea_out = norm_last_representation(tea_out)
+            loss, parts = self.loss_control(stu_out, tea_out, "all", vit_kd_variables=aux,
+                                            generator=generator)
+            return loss, (parts, stu_out, tea_out)
 
     def loss_fn(self, params, tokens, images, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
@@ -233,7 +241,7 @@ class DualDistillTask:
         with the task's flags.  ``generator`` feeds the students' dropout and
         drop-path when not deterministic, then ``vit_kd``'s token mask."""
         stu_out, aux = self._student_forward(params, tokens, images, deterministic, generator)
-        with torch.no_grad():
+        with span("step.teacher"), torch.no_grad():
             tea_out = self.teacher.compute(device_of(params))(
                 tokens.long(), prepare_inputs(images, self._dtype), self.flags)
         return self._finish(stu_out, tea_out, aux, generator)
@@ -244,14 +252,14 @@ class DualDistillTask:
         """The text teacher's last representations given, the image teacher
         live; the teacher's logits by the arithmetic of ``CLIPModel.forward``."""
         stu_out, aux = self._student_forward(params, tokens, images, deterministic, generator)
-        with torch.no_grad():
+        with span("step.teacher"), torch.no_grad():
             tea_vis = self.teacher.compute(device_of(params)).encode_image(
                 prepare_inputs(images, self._dtype), self.flags)
             text_rep = tea_text_rep.to(self._dtype)
             logits = cosine_logits(tea_vis.last_representation, text_rep)
-        tea_out = CLIPOutput(
-            visual_output=tea_vis, text_output=TextOutput(last_representation=text_rep),
-            i2t_logits=logits, t2i_logits=logits.t())
+            tea_out = CLIPOutput(
+                visual_output=tea_vis, text_output=TextOutput(last_representation=text_rep),
+                i2t_logits=logits, t2i_logits=logits.t())
         return self._finish(stu_out, tea_out, aux, generator)
 
     def loss_fn_cached_all(self, params, tokens, images, tea_text_rep, tea_image_rep,
@@ -260,13 +268,14 @@ class DualDistillTask:
         """Both teachers' last representations given; the teacher's logits are
         their cosines."""
         stu_out, aux = self._student_forward(params, tokens, images, deterministic, generator)
-        text_rep = tea_text_rep.detach().to(self._dtype)
-        image_rep = tea_image_rep.detach().to(self._dtype)
-        logits = cosine_logits(image_rep, text_rep)
-        tea_out = CLIPOutput(
-            visual_output=VisionOutput(last_representation=image_rep),
-            text_output=TextOutput(last_representation=text_rep),
-            i2t_logits=logits, t2i_logits=logits.t())
+        with span("step.teacher"):
+            text_rep = tea_text_rep.detach().to(self._dtype)
+            image_rep = tea_image_rep.detach().to(self._dtype)
+            logits = cosine_logits(image_rep, text_rep)
+            tea_out = CLIPOutput(
+                visual_output=VisionOutput(last_representation=image_rep),
+                text_output=TextOutput(last_representation=text_rep),
+                i2t_logits=logits, t2i_logits=logits.t())
         return self._finish(stu_out, tea_out, aux, generator)
 
     def make_teacher_image_encode(self, device="cuda") -> Callable:

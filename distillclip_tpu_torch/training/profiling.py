@@ -8,6 +8,10 @@ Port of ``distillclip_tpu/training/profiling.py``:
   (the host and, on a card, the device), written as a Chrome trace to
   ``<run>/torch_trace/trace.json`` (the JAX package writes a jax.profiler
   trace under ``jax_trace``).
+
+:func:`span` marks a phase of the program (the train step's ``step.*``, the
+score stream's ``score.*``) in whatever ``torch.profiler`` trace is being
+recorded, and costs a flag check when none is.
 """
 
 from __future__ import annotations
@@ -19,6 +23,18 @@ from collections import defaultdict
 from typing import Dict, Optional
 
 import torch
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``torch.profiler.record_function(name)`` while a profiler records, a
+    shared no-op context otherwise: an unrecorded ``record_function`` costs
+    ~10 µs on a CPU, the check well under one."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 class SimpleProfiler:
@@ -89,10 +105,8 @@ class TraceProfiler:
             self._prof.export_chrome_trace(os.path.join(self.out_dir, "trace.json"))
             self._prof = None
 
-    @contextlib.contextmanager
     def profile(self, name: str):
-        with torch.profiler.record_function(name):
-            yield
+        return span(name)
 
     def write(self):
         self.stop()

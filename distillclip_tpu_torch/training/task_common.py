@@ -28,6 +28,7 @@ from distillclip_tpu_torch.parallel import (
     all_reduce_gradients,
     gather_with_grad,
 )
+from distillclip_tpu_torch.training.profiling import span
 from distillclip_tpu_torch.training.schedules import hf_cosine_with_warmup, per_epoch
 from distillclip_tpu_torch.training.train_state import (
     AdamW,
@@ -184,23 +185,27 @@ def make_step(loss_fn: Callable, tx: AdamW, trainable_mask, log_grad_norm: bool)
     is the global batch's and the students' gradients are summed over the
     ranks before the norm and the update; the loss's own variables
     (``loss_aux``) are not summed: they act after the gather, so each rank's
-    gradient of them is already the whole one."""
+    gradient of them is already the whole one.  The gradients and their sum
+    run in the span ``step.backward``, the norm and the update in
+    ``step.optimizer`` (``profiling.span``)."""
 
     def step(state: TrainState, *batch):
         names = list(state.params)
         leaves = [state.params[k].requires_grad_() for k in names]
         loss, (parts, _, _) = loss_fn(dict(zip(names, leaves)), *batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = {k: torch.zeros_like(p) if g is None else g
-                 for k, p, g in zip(names, leaves, grads)}
-        # the students' shares are summed; the loss's own variables act on the
-        # gathered outputs, so every rank already holds their whole gradient
-        all_reduce_gradients({k: g for k, g in grads.items() if not k.startswith(LOSS_AUX)})
-        for p in leaves:
-            p.requires_grad_(False)
-        metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in parts.items()}}
-        if log_grad_norm:
-            metrics["grad_norm"] = global_norm(grads)
-        return state.apply_gradients(grads, tx, trainable_mask), metrics
+        with span("step.backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            grads = {k: torch.zeros_like(p) if g is None else g
+                     for k, p, g in zip(names, leaves, grads)}
+            # the students' shares are summed; the loss's own variables act on
+            # the gathered outputs, so every rank already holds their whole gradient
+            all_reduce_gradients({k: g for k, g in grads.items() if not k.startswith(LOSS_AUX)})
+            for p in leaves:
+                p.requires_grad_(False)
+            metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in parts.items()}}
+        with span("step.optimizer"):
+            if log_grad_norm:
+                metrics["grad_norm"] = global_norm(grads)
+            return state.apply_gradients(grads, tx, trainable_mask), metrics
 
     return step

@@ -132,19 +132,24 @@ def test_roofline_json(capsys):
 
 # -- trace_summary ------------------------------------------------------------------------
 
-def _synthetic_trace(tmp_path):
+def _synthetic_trace(tmp_path, phases: bool = False):
     """A chrome trace as torch.profiler writes it: host spans, runtime calls
-    and the device events they launched."""
+    and the device events they launched; with ``phases`` also the step's
+    phase spans around the launches (the second from autograd's thread)."""
     ev = []
     for s in range(3):
         t = 1000.0 * s
+        if phases:
+            ev += [{"ph": "X", "cat": "user_annotation", "name": name, "ts": t + a, "dur": 10,
+                    "tid": 1} for name, a in (("step.student", 15), ("step.backward", 28),
+                                              ("step.optimizer", 38))]
         ev += [
             {"ph": "X", "cat": "user_annotation", "name": "host_to_device", "ts": t, "dur": 10},
             {"ph": "X", "cat": "user_annotation", "name": "train_step", "ts": t + 10, "dur": 100},
             {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": t + 20,
              "dur": 5, "args": {"correlation": 3 * s}},
             {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": t + 30,
-             "dur": 5, "args": {"correlation": 3 * s + 1}},
+             "dur": 5, "tid": 2, "args": {"correlation": 3 * s + 1}},
             {"ph": "X", "cat": "cuda_runtime", "name": "cudaMemcpyAsync", "ts": t + 40,
              "dur": 5, "args": {"correlation": 3 * s + 2}},
             {"ph": "X", "cat": "kernel", "name": "void dense_ln_wgmma_kernel<1, 0>(Params)",
@@ -177,6 +182,19 @@ def test_trace_summary_groups_device_events_by_family(tmp_path, capsys):
     assert split["device_busy_ms"] == pytest.approx(0.45)
     assert trace_summary.main([str(run), "--steps", "3"]) == 0
     assert "ms/step" in capsys.readouterr().out
+
+
+def test_trace_split_by_phase_spans(tmp_path):
+    """Each ``step.*`` span's device ms is the work launched while it was
+    open, from whichever thread; its host ms is its own length."""
+    run = _synthetic_trace(tmp_path, phases=True)
+    phases = trace_summary.trace_split(run / "torch_trace" / "trace.json", skip=1)["phases"]
+    assert phases == {"step.backward": {"device_ms": 0.1, "host_ms": 0.01},
+                      "step.optimizer": {"device_ms": 0.05, "host_ms": 0.01},
+                      "step.student": {"device_ms": 0.3, "host_ms": 0.01}}
+    plain = trace_summary.trace_split(_synthetic_trace(tmp_path / "plain") / "torch_trace"
+                                      / "trace.json", skip=1)
+    assert plain["phases"] == {}
 
 
 # -- input_bench, cached_teacher_ab, experiments ----------------------------------------
