@@ -22,6 +22,18 @@ limit (with ``--only``, only the sections named):
   from one CUDA graph;
 - ``dln_bwd``: ``dense_ln_bwd`` (#9) at its four main-path shapes (image and
   text rows, qkv and fc1), the same way;
+- ``k2_bwd``: K2's backward as the checkout runs it
+  (``fc1_act._DenseActLn.backward`` on the saved tensors of
+  ``dense_act_ln_res``: fc1's input, LayerNorm and weight gradients, exact
+  GELU, u and e saved) at the fc1 of the ``distill_l14`` student ([100864,
+  1024] -> 4096) and of the two ``lclip_b32`` students ([25600, 768] and
+  [39424, 768] -> 3072); where the checkout's #9 has its activation mode
+  (``dense_ln_bwd.act_launches`` exists), also #9 alone in it (e saved, and
+  recomputed as under ``fc1_res: u``), the composition it replaced
+  (``_act_du``, then #9 on du), the plain version (events over 3 eager
+  calls) and the bound (bytes of x, γ, β, W, dh, u, e and the statistics
+  read, dx, xn, du, dγ, dβ written, over 3.35 TB/s; 2·rows·C·N FLOPs over
+  989 TFLOP/s), device ms per call as ``k1``;
 - ``k2``: lean ``dense_act_ln`` (K2, as the teachers and serving run it) and
   ``dense_act_ln_res`` (#8, as a train step runs it) at the fc1 of the image
   and text students (exact GELU) and of the image and text teachers
@@ -135,8 +147,8 @@ def _own_yardsticks():
     return module
 
 
-SECTIONS = ("build", "k1", "dln_bwd", "k2", "tf_fwd", "flash_tf", "tf_bwd", "reduce_partials", "k4",
-            "serving", "step")
+SECTIONS = ("build", "k1", "dln_bwd", "k2_bwd", "k2", "tf_fwd", "flash_tf", "tf_bwd",
+            "reduce_partials", "k4", "serving", "step")
 
 
 def _rounds(torch, fns, rounds: int = 3) -> list[str]:
@@ -190,6 +202,9 @@ def one(root: Path, only: tuple[str, ...] = SECTIONS) -> None:
         print(f"{tag} k1 ms: {'; '.join(k1)} [{card}]", flush=True)
     if "dln_bwd" in only:
         print(f"{tag} dln_bwd ms: {'; '.join(dlb)} [{card}]", flush=True)
+
+    if "k2_bwd" in only:
+        k2_bwd(torch, fc1_act, t, own, tag, card)
 
     k2 = []
     for rows, c, act in () if "k2" not in only else ((12800, 768, "gelu_exact"), (19712, 768, "gelu_exact"),
@@ -273,6 +288,54 @@ def one(root: Path, only: tuple[str, ...] = SECTIONS) -> None:
         serving(torch, LCLIPScorer, root, rng, tag, card)
     if "step" in only:
         steps(root, tag, card)
+
+
+def _event_ms(torch, fn, iters: int = 3) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def k2_bwd(torch, fc1_act, t, own, tag: str, card: str) -> None:
+    """The ``k2_bwd`` lines (see the module's docstring)."""
+    from types import SimpleNamespace
+
+    fused = hasattr(fc1_act.dense_ln_bwd, "act_launches")
+    for rows, c in ((100864, 1024), (25600, 768), (39424, 768)):
+        n, act = 4 * c, "gelu_exact"
+        x, g, b, w, bias = t((rows, c)), t((c,), 0.1, 1.0), t((c,), 0.1), t((c, n), c ** -0.5), \
+            t((n,), 0.02)
+        _, u, e, mean, rstd = fc1_act.dense_act_ln_res(x, g, b, w, bias, act)
+        dh = t((rows, n), 0.01)
+        ctx = SimpleNamespace(saved_tensors=(x, g, b, w, u, e, mean, rstd), act=act)
+        ms = _graph_ms(torch, lambda: fc1_act._DenseActLn.backward(ctx, dh))
+        line = f"[{rows},{c}]->{n} K2 backward {ms:.4f}"
+        if fused:
+            def composition():
+                du = fc1_act._act_du(dh, u, e, act)
+                return fc1_act.dense_ln_bwd(x, g, b, w, du, mean, rstd)
+
+            kernel, kernel_u, comp = (_graph_ms(torch, fn) for fn in (
+                lambda: fc1_act.dense_ln_bwd(x, g, b, w, dh, mean, rstd, act, u, e),
+                lambda: fc1_act.dense_ln_bwd(x, g, b, w, dh, mean, rstd, act, u, None),
+                composition))
+            plain = _event_ms(torch, lambda: fc1_act.dense_ln_bwd_plain(
+                x.float(), g.float(), b.float(), w.float(), dh, mean, rstd, act, u, e))
+            nbytes = 2 * (rows * c + 2 * c + c * n + 3 * rows * n) + 8 * rows \
+                + 2 * (2 * rows * c + rows * n) + 8 * c
+            bound = max(nbytes / own.HBM_BYTES_PER_S, 2.0 * rows * c * n / own.TENSOR_FLOPS) * 1e3
+            line += (f"; #9 activation mode {kernel:.4f} (e recomputed {kernel_u:.4f}); "
+                     f"composition (_act_du, #9) {comp:.4f}; plain {plain:.4f}; bound "
+                     f"{bound:.4f} ({2.0 * rows * c * n / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB)")
+        print(f"{tag} k2_bwd ms: {line} [{card}]", flush=True)
+        del x, w, u, e, dh, ctx
+        torch.cuda.empty_cache()
 
 
 def build_times(root: Path, tag: str, card: str) -> None:

@@ -391,16 +391,18 @@ def ptxas_lines(log: Path) -> None:
 
 
 def cluster_line(lib, card: str) -> None:
-    """#9's cluster at the students' width: its blocks (one per 256 columns of
-    C) and how many such clusters the card holds at once."""
+    """#9's cluster at the students' width, in its du mode and its activation
+    mode: its blocks (one per 256 columns of C) and how many such clusters
+    the card holds at once."""
     C = 768
     blocks = -(-C // 256)
-    n = lib.dc_dense_ln_bwd_max_clusters(C)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    print(f"cluster dense_ln_bwd C={C}: {blocks} blocks a cluster, at most {n} clusters at "
-          f"once ({max(n, 0) * blocks} of {sms} SMs) [{card}]", flush=True)
-    if n < 1:
-        fail(f"dense_ln_bwd: no cluster of {blocks} blocks fits the card ({n})")
+    for act, mode in ((0, "du"), (1, "activation")):
+        n = lib.dc_dense_ln_bwd_max_clusters(C, act)
+        print(f"cluster dense_ln_bwd ({mode} mode) C={C}: {blocks} blocks a cluster, at most "
+              f"{n} clusters at once ({max(n, 0) * blocks} of {sms} SMs) [{card}]", flush=True)
+        if n < 1:
+            fail(f"dense_ln_bwd: no cluster of {blocks} blocks fits the card ({n})")
 
 
 def scale_lines(card: str) -> None:

@@ -126,16 +126,6 @@ __device__ __forceinline__ void ln_fragment(const unsigned char* tile, int row_o
   a[3] = ln_pair(x[3], nmr[1], rstd[1], g.z, g.w);
 }
 
-// Keep a stage's fragment registers as they are up to here: a wgmma that
-// reads them runs on after it is issued, until a wait_group says it has
-// completed.
-__device__ __forceinline__ void hold(uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[k][i])::"memory");
-}
-
 // Where a consumer thread's fragments come from in a stage's x tile.
 struct FragPlace {
   int row_off;   // byte offset of this lane's ldmatrix row in the tile
@@ -173,7 +163,7 @@ __device__ __forceinline__ void ln_step(const wg::Ring& ring, const FragPlace& a
     wg::wgmma_m64n256k16_rs_f16(d, a[P][kk], wg::desc(b + kk * 2048, wg::kBBox, 1024));
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
   asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-  hold(a[P ^ 1]);
+  wg::hold(a[P ^ 1]);
   if (kt > 0) wg::mbar_arrive(&ring.empty[(kt - 1) % wg::STAGES]);
   if (kt + 1 < nk) {
     wg::mbar_wait(&ring.full[(kt + 1) % wg::STAGES], ((kt + 1) / wg::STAGES) & 1);
@@ -202,8 +192,8 @@ __device__ __forceinline__ void ln_consume(const wg::Ring& ring, int cw, int C,
     if (kt + 1 < nk) ln_step<1>(ring, at, kt + 1, nk, gb, nmr, rstd, a, d);
   }
   wg::end_mainloop(d);
-  hold(a[0]);   // read by the last groups, which end_mainloop waited for
-  hold(a[1]);
+  wg::hold(a[0]);   // read by the last groups, which end_mainloop waited for
+  wg::hold(a[1]);
 }
 
 template <int ACT, bool RES>

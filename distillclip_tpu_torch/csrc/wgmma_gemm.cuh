@@ -2,7 +2,8 @@
 // with fp32 sums, one BM x BN output tile per block, for a kernel that brings
 // its own epilogue.  Its users: dense_act.cu (#10-#12), dense_ln_wgmma.cu (K1,
 // K2 and #8, with the LayerNorm applied to the A fragments in registers) and
-// dense_ln_bwd.cu (#9, B K-major, its row sums across a thread-block cluster).
+// dense_ln_bwd.cu (#9, B K-major, its row sums across a thread-block cluster;
+// in its activation mode A = du made in registers from dh, u and e).
 //
 // Layouts: X row-major (K contiguous: a K-major A operand).  B is either
 // W[K, N] row-major (N contiguous, the Flax Dense layout the converter keeps:
@@ -235,6 +236,28 @@ __device__ __forceinline__ void wgmma_m64n256k16_rs_f16(float (&d)[128], const u
       ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
       : DC_WG_ACC_OPS(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// The same in bf16 with B K-major (the B of du·Wᵀ).
+__device__ __forceinline__ void wgmma_m64n256k16_rs_bf16_kmajor(float (&d)[128],
+                                                                const uint32_t (&a)[4],
+                                                                uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " DC_WG_ACC
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : DC_WG_ACC_OPS(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// Keep a stage's A fragment registers as they are up to here: a wgmma that
+// reads them runs on after it is issued, until a wait_group says it has
+// completed.
+__device__ __forceinline__ void hold(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[k][i])::"memory");
 }
 
 // Registers a thread: the producer warpgroup gives most of its share to the

@@ -84,6 +84,7 @@ KERNELS = {
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    dense_ln_bwd.act_launches = 0
 
 
 def launch_counts() -> dict:

@@ -58,10 +58,11 @@ _SIGNATURES = {
     # x, w, bias, h, u, e | rows, C, N, act, res, stream (dense_act.cu)
     "dc_dense_act": (_I, [_P] * 6 + [_I] * 5 + [_P]),
     "dc_dense_ln_bwd_max_c": (_I, []),
-    "dc_dense_ln_bwd_max_clusters": (_I, [_I]),
+    "dc_dense_ln_bwd_max_clusters": (_I, [_I, _I]),
     "dc_dense_ln_bwd_blocks": (_I, [_I]),
-    # x, gamma, beta, w, du, mean, rstd, dx, xn, partial, dgamma_dbeta | rows, C, N, stream
-    "dc_dense_ln_bwd": (_I, [_P] * 11 + [_I, _I, _I, _P]),
+    # x, gamma, beta, w, g, u, e, du, mean, rstd, dx, xn, partial, dgamma_dbeta | rows,
+    # C, N, act, stream
+    "dc_dense_ln_bwd": (_I, [_P] * 14 + [_I, _I, _I, _I, _P]),
     "dc_tf_fwd_mma_smem_bytes": (ctypes.c_longlong, [_I, _I]),
     # qkv, wl, ww, out, probs | batch, N, H, d, scale, stream (transform_attention_mma.cu)
     "dc_transform_attention_mma": (_I, [_P] * 5 + [_I, _I, _I, _I, _F, _P]),

@@ -31,16 +31,19 @@ writes u, K2 writes h only.  With one, each function is a
   the lean ones, so all run the same launches);
 * backward: :func:`dense_ln_bwd` (``csrc/dense_ln_bwd.cu``: wgmma and TMA,
   one thread-block cluster along C per 128 rows) makes dx, the normalised
-  rows xn and dγ, dβ from du in one pass.  The GELU derivative,
-  dW = xnᵀ·du and db = Σ du stay plain PyTorch, as the JAX package leaves
-  them to XLA.
+  rows xn and dγ, dβ from du in one pass; K2's backward hands it dh, u and e
+  instead, and the kernel forms du = dh·act'(u) in registers as its A
+  operand and stores it once (its activation mode, where the JAX package
+  leaves the derivative to XLA).  dW = xnᵀ·du and db = Σ du stay plain
+  PyTorch, as the JAX package leaves them to XLA.
 
 With ``res="u"`` (the ``fc1_res: u`` knob) fc1 under a gradient saves u
 only: :func:`dense_act_ln` runs K1 with its statistics and :func:`dense_act`
 the no-LN mode that writes u (#11); h and e come from u in PyTorch with an
-exact erf, and the backward recomputes e from u, as the JAX package's
-``_recombine_u`` and ``_dense_act_bwd`` do.  In the default ``"ue"`` mode
-:func:`dense_act` runs the no-LN mode that writes h, u and e (#10).  The
+exact erf, and the backward recomputes e from u (in #9's registers on the
+card), as the JAX package's ``_recombine_u`` and ``_dense_act_bwd`` do.  In
+the default ``"ue"`` mode :func:`dense_act` runs the no-LN mode that writes h,
+u and e (#10).  The
 backward of :func:`dense_act` is the JAX package's XLA backward in PyTorch:
 dx = du·Wᵀ, dW = xᵀ·du and db = Σ du.
 
@@ -142,9 +145,15 @@ def dense_act_plain(x, w, b, act: str = "gelu_exact"):
     return dense_act_res_plain(x, w, b, act)[0]
 
 
-def dense_ln_bwd_plain(x, ls, lb, w, du, mean, rstd):
+def dense_ln_bwd_plain(x, ls, lb, w, g, mean, rstd, act=None, u=None, e=None):
     """Plain PyTorch version of the backward kernel: (dx, xn in x's dtype,
-    dγ fp32, dβ fp32) from du and the saved row statistics."""
+    dγ fp32, dβ fp32) from g = du and the saved row statistics.  With
+    ``act``, g is dh, the gradient of h = act(u); du = dh·act'(u) is formed
+    first (e recomputed from u when None) and returned last, in g's dtype."""
+    if act is not None:
+        du = _act_du(g, u, e, act)
+        return (*dense_ln_bwd_plain(x, ls, lb, w, du, mean, rstd), du)
+    du = g
     ls32 = ls.float()
     xhat = (x.float() - mean[:, None]) * rstd[:, None]
     xn = xhat * ls32 + lb.float()
@@ -281,30 +290,47 @@ def dense_act_u(x, w, b):
     return _launch_dense_act(dense_act_u, x, w, b, 0, False)[0]
 
 
-def dense_ln_bwd(x, ls, lb, w, du, mean, rstd):
-    """(dx, xn, dγ fp32, dβ fp32) of u = LN(x)·W from du: the backward
-    kernel on CUDA tensors, :func:`dense_ln_bwd_plain` on the CPU."""
+def dense_ln_bwd(x, ls, lb, w, g, mean, rstd, act: Optional[str] = None, u=None, e=None):
+    """(dx, xn, dγ fp32, dβ fp32) of u = LN(x)·W from g = du: the backward
+    kernel on CUDA tensors, :func:`dense_ln_bwd_plain` on the CPU.
+
+    With ``act`` (K2's backward) g is dh, the gradient of h = act(u), and u
+    (with the saved e, or None to recompute it) comes beside it: the kernel
+    forms du = dh·act'(u) itself and the call also returns that du, last
+    (counted on ``dense_ln_bwd.act_launches`` too)."""
+    if (act is None) != (u is None) or (u is None and e is not None):
+        raise ValueError("dense_ln_bwd: an activation takes u (and e or None), and only it")
+    if act is not None and act not in _ACTS:
+        raise ValueError(f"dense_ln_bwd: unknown activation {act!r}")
     if _build.plain_only("dense_ln_bwd", x):
-        return dense_ln_bwd_plain(x, ls, lb, w, du, mean, rstd)
-    du = du.contiguous()
-    _build.check_operands("dense_ln_bwd", x, ls, lb, w, du, fp32=(mean, rstd))
+        return dense_ln_bwd_plain(x, ls, lb, w, g, mean, rstd, act, u, e)
+    g = g.contiguous()
+    acts = tuple(t for t in (u, e) if t is not None)
+    _build.check_operands("dense_ln_bwd", x, ls, lb, w, g, *acts, fp32=(mean, rstd))
     rows, C = x.shape
     N = w.shape[1]
+    if any(t.shape != g.shape for t in acts):
+        raise ValueError(f"dense_ln_bwd: u and e must be shaped as dh {tuple(g.shape)}")
     lib = _build.lib()
     _check_widths("dense_ln_bwd", C, N, C > lib.dc_dense_ln_bwd_max_c(), rows)
     dx, xn = torch.empty_like(x), torch.empty_like(x)
+    du = None if act is None else torch.empty_like(g)
     grads = torch.zeros(2 * C, dtype=torch.float32, device=x.device)
+    out = (dx, xn, grads[:C], grads[C:]) + (() if du is None else (du,))
     if rows == 0:
-        return dx, xn, grads[:C], grads[C:]
+        return out
     partial = torch.empty((lib.dc_dense_ln_bwd_blocks(rows), 2 * C), dtype=torch.float32,
                           device=x.device)
     _build.check(lib.dc_dense_ln_bwd(x.data_ptr(), ls.data_ptr(), lb.data_ptr(), w.data_ptr(),
-                                     du.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-                                     dx.data_ptr(), xn.data_ptr(), partial.data_ptr(),
-                                     grads.data_ptr(), rows, C, N, _build.stream_ptr(x)),
-                 "dense_ln_bwd")
+                                     g.data_ptr(), _ptr(u), _ptr(e), _ptr(du),
+                                     mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
+                                     xn.data_ptr(), partial.data_ptr(), grads.data_ptr(), rows,
+                                     C, N, _ACTS.get(act, 0),
+                                     _build.stream_ptr(x)), "dense_ln_bwd")
     dense_ln_bwd.launches += 1
-    return dx, xn, grads[:C], grads[C:]
+    if act is not None:
+        dense_ln_bwd.act_launches += 1
+    return out
 
 
 def _weight_grads(xn, du, w, has_bias: bool):
@@ -359,8 +385,7 @@ class _DenseActLn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dh):
         x, ls, lb, w, u, e, mean, rstd = ctx.saved_tensors
-        du = _act_du(dh, u, e, ctx.act)
-        dx, xn, dls, dlb = dense_ln_bwd(x, ls, lb, w, du, mean, rstd)
+        dx, xn, dls, dlb, du = dense_ln_bwd(x, ls, lb, w, dh, mean, rstd, ctx.act, u, e)
         dw, db = _weight_grads(xn, du, w, True)
         return dx, dls.to(ls.dtype), dlb.to(lb.dtype), dw, db, None, None, None
 
@@ -442,3 +467,5 @@ dense_act_res.launches = 0
 dense_act_u.launches = 0
 dense_act_ln_res.launches = 0
 dense_ln_bwd.launches = 0
+# the calls of dense_ln_bwd that formed du in the kernel (K2's backward)
+dense_ln_bwd.act_launches = 0

@@ -282,6 +282,18 @@ def oracle_cases(rng, samples: int = PAIRS, device=DEVICE, only: Optional[str] =
                 (("abs", 3e-2), ("abs", 3e-2), ("rel", 6e-3), ("rel", 6e-3)),
                 lambda: fc1_act.dense_ln_bwd_plain(*args[:4], du, *stats), flops,
                 2 * (3 * rows * c + rows * n + c * n + 2 * c) + 8 * rows + 8 * c))
+        if bwd and k2:
+            # K2's backward: #9 forms du = dh·act'(u) from dh, u and e itself
+            _, u, e = fc1_act.dense_act_ln_res(*args, act)[:3]
+            cases.append(Case(
+                "dense_ln_bwd", f"{label} [{rows},{n}]->{c} from dh, u, e ({act})",
+                lambda: fc1_act.dense_ln_bwd(*args[:4], du, *stats, act, u, e),
+                lambda: fc1_act.dense_ln_bwd_plain(*_f32(args[:4]), du, *stats, act, u, e),
+                (("abs", 3e-2), ("abs", 3e-2), ("rel", 6e-3), ("rel", 6e-3), ("abs", 3e-2)),
+                lambda: fc1_act.dense_ln_bwd_plain(*args[:4], du, *stats, act, u, e), flops,
+                2 * (3 * rows * c + 4 * rows * n + c * n + 2 * c) + 8 * rows + 8 * c,
+                composition=lambda: fc1_act.dense_ln_bwd(
+                    *args[:4], fc1_act._act_du(du, u, e, act), *stats)))
         if k1:
             cases.append(Case(
                 "dense_ln", f"{label} [{rows},{c}]->{n}, with mean/rstd",

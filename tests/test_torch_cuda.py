@@ -178,6 +178,43 @@ def test_dense_ln_bwd_kernel_matches_plain(rows, C, N):
     assert _rel_to_max(dls, rdls) < 6e-3 and _rel_to_max(dlb, rdlb) < 6e-3
 
 
+@pytest.mark.parametrize("rows,C,N", [(63, 96, 136), (200, 768, 3072), (256, 768, 3072),
+                                      (333, 1024, 4096), (384, 1024, 4096)])
+@pytest.mark.parametrize("res", ["ue", "u"])
+@pytest.mark.parametrize("act", ["gelu_exact", "quick_gelu"])
+def test_dense_ln_bwd_activation_mode_matches_plain(rows, C, N, act, res):
+    """#9 given dh, u and e (K2's backward; e recomputed under ``res="u"``),
+    at the cells' fc1 widths and a ragged one: du against the plain
+    ``_act_du`` on the same bf16 values, dx, xn, dγ, dβ against the plain
+    version, dW from the stored du against the plain dW; the du mode on the
+    stored du gives the same bits (the product read the stored du), and two
+    calls give the same bits."""
+    rng = np.random.default_rng(rows + C + N)
+    x, ls, lb = _bf16(rng, (rows, C), 1.0, 0.5), _bf16(rng, (C,), 0.1, 1.0), _bf16(rng, (C,), 0.1)
+    w, b, dh = _bf16(rng, (C, N), C ** -0.5), _bf16(rng, (N,), 0.1), _bf16(rng, (rows, N))
+    _, u, e, mean, rstd = fc1_act.dense_act_ln_res(x, ls, lb, w, b, act)
+    e = e if res == "ue" else None
+    ops.reset_launch_counts()
+    out = fc1_act.dense_ln_bwd(x, ls, lb, w, dh, mean, rstd, act, u, e)
+    again = fc1_act.dense_ln_bwd(x, ls, lb, w, dh, mean, rstd, act, u, e)
+    torch.cuda.synchronize()
+    assert fc1_act.dense_ln_bwd.launches == fc1_act.dense_ln_bwd.act_launches == 2
+    assert all(torch.equal(o, a) for o, a in zip(out, again))
+    dx, xn, dls, dlb, du = out
+    rdx, rxn, rdls, rdlb, rdu = fc1_act.dense_ln_bwd_plain(
+        x.float(), ls.float(), lb.float(), w.float(), dh, mean, rstd, act, u, e)
+    _close(du, rdu)
+    _close(dx, rdx)
+    _close(xn, rxn)
+    assert dls.dtype == torch.float32 and dlb.dtype == torch.float32
+    assert _rel_to_max(dls, rdls) < 6e-3 and _rel_to_max(dlb, rdlb) < 6e-3
+    dw, db = fc1_act._weight_grads(xn, du, w, True)
+    assert _rel_to_max(dw, rxn.t() @ rdu.float()) < 1e-2
+    assert _rel_to_max(db, rdu.float().sum(0)) < 1e-2
+    same = fc1_act.dense_ln_bwd(x, ls, lb, w, du, mean, rstd)
+    assert all(torch.equal(o, s) for o, s in zip(out, same))
+
+
 @pytest.mark.parametrize("rows,C", [(1, 8), (9, 768), (256, 768), (77, 40)])
 def test_layer_norm_stats_and_bwd_kernels_match_plain(rows, C):
     rng = np.random.default_rng(rows + C)
@@ -712,6 +749,7 @@ def test_backward_launches_count_once_each():
                  "layer_norm_rows": 1, "transform_attention_bwd": 1, "dense_ln_bwd": 2,
                  "layer_norm_rows_bwd": 1})
     assert ops.launch_counts() == want
+    assert fc1_act.dense_ln_bwd.act_launches == 1      # K2's backward formed du in #9
     assert all(t.grad is not None and torch.isfinite(t.grad.float()).all()
                for t in (x, ls, lb, w, b, wl, ww))
 
@@ -760,9 +798,11 @@ def test_tiny_scorer_on_card_matches_plain_cpu_path(tmp_path):
     assert cos.min() > 0.999
 
 
-def test_tiny_teacher_and_text_cached_step_on_card_match_plain_cpu_path(tmp_path):
+def test_tiny_teacher_and_text_cached_step_on_card_match_plain_cpu_path(tmp_path, monkeypatch):
     """A fabricated two-head teacher: its encode functions on the card against
-    the fp32 CPU path, and one text-cached step's loss and launch counts."""
+    the fp32 CPU path, and one text-cached step's loss and launch counts: #9
+    twice a trained layer, once in its activation mode a trained MLP, and the
+    eager GELU gradient never on a CUDA tensor."""
     from distillclip_tpu_torch.models import RepeatTextTransformer, RepeatVisionTransformer
     from distillclip_tpu_torch.tools.fabricate_teacher import make_clip_state_dict
     from distillclip_tpu_torch.training import DualDistillTask
@@ -800,11 +840,17 @@ def test_tiny_teacher_and_text_cached_step_on_card_match_plain_cpu_path(tmp_path
     state, tx = card.init_state(0, 1, device="cuda")
     batch = [torch.from_numpy(tokens), torch.from_numpy(images), txt.cpu()]
     ref, _ = cpu.loss_fn_cached_text({k: v.cpu() for k, v in state.params.items()}, *batch)
+    eager_du, act_du = [], fc1_act._act_du
+    monkeypatch.setattr(fc1_act, "_act_du", lambda dh, *a: eager_du.append(dh.device.type)
+                        or act_du(dh, *a))
     ops.reset_launch_counts()
     state, metrics = card.make_train_step(tx, cached_text_teacher=True)(
         state, *(t.cuda() for t in batch))
     counts = ops.launch_counts()
     assert abs(float(metrics["loss"]) - float(ref)) < 2e-2
+    # two trained layers a student, each an MLP
+    assert counts["dense_ln_bwd"] == 8 and counts["dense_act_ln_res"] == 4
+    assert fc1_act.dense_ln_bwd.act_launches == 4 and "cuda" not in eager_du
     # image student: head-transform attention; text student: plain attention
     assert counts["transform_attention_save_p"] == counts["transform_attention_bwd"] == 2
     assert counts["plain_attention_save_p"] == counts["plain_attention_bwd"] == 2
@@ -1557,4 +1603,6 @@ def test_dense_ln_bwd_refuses_a_row_wider_than_its_largest_cluster():
 def test_dense_ln_bwd_clusters_fit_the_card():
     from distillclip_tpu_torch.ops import _build
 
-    assert _build.lib().dc_dense_ln_bwd_max_clusters(768) >= 1
+    # the du mode and the activation mode (whose rings take more shared memory)
+    assert _build.lib().dc_dense_ln_bwd_max_clusters(768, 0) >= 1
+    assert _build.lib().dc_dense_ln_bwd_max_clusters(1024, 1) >= 1

@@ -246,6 +246,27 @@ def test_row_op_gradients_match_jax_pallas_kernels_bf16(name, lim):
         assert _rel(g, r) <= lim
 
 
+@pytest.mark.parametrize("res", ["ue", "u"])
+@pytest.mark.parametrize("act", ["gelu_exact", "quick_gelu"])
+def test_dense_act_ln_gradients_match_jax_dense_act_ln_bwd(act, res):
+    """dx, dγ, dβ, dW and db of K2 under a gradient, whose backward hands #9
+    dh, u and e (e recomputed from u under ``res="u"``), against the JAX
+    package's ``_dense_act_ln_bwd`` on the residuals of its own forward
+    kernels (``_fc1_ln_call``; ``_dense_ln_call`` for u alone) in interpret
+    mode: fp32, 1e-4 of the largest entry."""
+    arrays, cot = _dense_case(N=128)
+    j = [jnp.asarray(a) for a in arrays]
+    if res == "ue":
+        u, e, mean, rstd = jax_fc1._fc1_ln_call(*j, act, 1e-5)
+    else:
+        (u, mean, rstd), e = jax_fc1._dense_ln_call(*j, 1e-5), None
+    rgrads = jax_fc1._dense_act_ln_bwd(act, 1e-5, (*j[:4], u, e, mean, rstd), jnp.asarray(cot))
+    _, grads = _torch_grads(lambda *a: fc1_act.dense_act_ln(*a, act=act, res=res), arrays, cot)
+    assert len(grads) == len(rgrads) == 5
+    for g, r in zip(grads, rgrads):
+        assert g.shape == r.shape and _rel(g, np.asarray(r)) <= 1e-4
+
+
 # -- (c) the residuals the forward kernels save ----------------------------------
 
 @pytest.mark.parametrize("N", [17, 32])
@@ -321,3 +342,39 @@ def test_backward_kernels_outputs_match_jax_bwd_calls():
     out = ops.layer_norm_rows_bwd(*t(x, s, g), mean, rstd)
     for o, r in zip(out, ref):
         assert _rel(o.numpy(), np.asarray(r)) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("res", ["ue", "u"])
+@pytest.mark.parametrize("act", ["gelu_exact", "quick_gelu"])
+def test_dense_ln_bwd_activation_mode_is_act_du_then_the_du_mode(act, res, dtype):
+    """#9's plain activation mode (dh, u, e; e None under ``res="u"``) gives
+    the bits of ``_act_du`` followed by the du mode, with that du last; in
+    fp32 du is dh times autograd's derivative of the activation."""
+    (x, ls, lb, w, b), dh = _dense_case(N=128)
+    x, ls, lb, w, b, dh = (torch.from_numpy(a).to(dtype) for a in (x, ls, lb, w, b, dh))
+    _, u, e, mean, rstd = fc1_act.dense_act_ln_res_plain(x, ls, lb, w, b, act)
+    e = e if res == "ue" else None
+    out = ops.dense_ln_bwd(x, ls, lb, w, dh, mean, rstd, act, u, e)
+    du = fc1_act._act_du(dh, u, e, act)
+    ref = (*ops.dense_ln_bwd(x, ls, lb, w, du, mean, rstd), du)
+    assert len(out) == 5 and all(torch.equal(o, r) for o, r in zip(out, ref))
+    if dtype == torch.float32:
+        uf = u.clone().requires_grad_()
+        h = (torch.nn.functional.gelu(uf) if act == "gelu_exact"
+             else uf * torch.sigmoid(1.702 * uf))
+        (want,) = torch.autograd.grad(h, uf, dh)
+        assert _rel(out[-1].numpy(), want.numpy()) <= 1e-5
+
+
+def test_dense_ln_bwd_refuses_a_mode_it_does_not_have():
+    """An activation comes with u (e optional), and u and e only with one."""
+    (x, ls, lb, w, b), dh = _dense_case(N=128)
+    x, ls, lb, w, b, dh = (torch.from_numpy(a) for a in (x, ls, lb, w, b, dh))
+    _, u, e, mean, rstd = fc1_act.dense_act_ln_res_plain(x, ls, lb, w, b, "gelu_exact")
+    for act, uu, ee in (("gelu_exact", None, None), (None, u, None), (None, None, e),
+                        ("gelu_exact", None, e)):
+        with pytest.raises(ValueError, match="an activation takes u"):
+            ops.dense_ln_bwd(x, ls, lb, w, dh, mean, rstd, act, uu, ee)
+    with pytest.raises(ValueError, match="unknown activation"):
+        ops.dense_ln_bwd(x, ls, lb, w, dh, mean, rstd, "relu", u, e)
