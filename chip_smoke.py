@@ -193,7 +193,8 @@ def add_counts(*parts: dict) -> dict:
     return out
 
 
-# kernel -> (source, the TPU kernel it replaces)
+# kernel -> (source, the TPU kernel it replaces; None for EVA-02's modes, of
+# which the JAX package has no tower and no kernel)
 SOURCES = {
     "dense_ln": ("distillclip_tpu_torch/csrc/dense_ln_wgmma.cu",
                  "distillclip_tpu/ops/fc1_act.py:419"),
@@ -241,6 +242,9 @@ SOURCES = {
                       "distillclip_tpu/ops/fc1_act.py:71"),
     "dense_act_u": ("distillclip_tpu_torch/csrc/dense_act.cu",
                     "distillclip_tpu/ops/fc1_act.py:131"),
+    "dense_ln_rope": ("distillclip_tpu_torch/csrc/dense_ln_wgmma.cu", None),
+    "dense_swiglu_ln": ("distillclip_tpu_torch/csrc/dense_ln_wgmma.cu", None),
+    "dense_ln_width": ("distillclip_tpu_torch/csrc/dense_ln_wgmma.cu", None),
 }
 # the head-by-head formulation (tf_impl: factored) is served by K3 / #5 / #6
 FACTORED = ("tf_factored_qkv", "distillclip_tpu/ops/transform_factored.py:392",
@@ -340,7 +344,8 @@ KNOB_PHASES = {
 
 # kernels whose registers and spills (nvcc -Xptxas -v, in the build log) the
 # run prints: the LN GEMM (its statistics launch, and its product in every
-# instance: K1 <0, 0>, K2 <1|2, 0>, #8 <1|2, 1>), #9 and the no-LN GEMM on the
+# instance: K1 <0, 0>, K2 <1|2, 0>, #8 <1|2, 1>; EVA-02's three modes and
+# their statistics launch), #9 and the no-LN GEMM on the
 # wgmma main loop, K4, #17 and K3 / #5 on the tensor cores
 # (flash_tf_fwd_mma_kernel<KS, HPW, NH, ND, PIX>, tf_fwd_mma_kernel<KS, HPW,
 # NH, ND, PIX>: one tile loop) and the CUDA-core routes of K3 (its save-P mode #5's)
@@ -348,7 +353,9 @@ KNOB_PHASES = {
 # and the partials' reduction that #6 and #9 share.  An
 # entry function takes the first name it holds (flash_tf_fwd_mma_kernel holds
 # tf_fwd_mma_kernel).
-PTXAS_KERNELS = ("dense_ln_wgmma_kernel", "ln_stats_w16_kernel", "dense_ln_bwd_wgmma_kernel",
+PTXAS_KERNELS = ("dense_ln_wgmma_kernel", "ln_stats_w16_kernel", "dense_ln_rope_wgmma_kernel",
+                 "dense_swiglu_ln_wgmma_kernel", "dense_ln_width_wgmma_kernel",
+                 "ln_stats_width_w16_kernel", "dense_ln_bwd_wgmma_kernel",
                  "dense_act_wgmma_kernel", "layer_norm_rows_kernel", "flash_tf_fwd_mma_kernel",
                  "tf_fwd_mma_kernel", "transform_attention_kernel",
                  "flash_transform_attention_fwd_kernel", "tf_bwd_rows_kernel",
@@ -1361,15 +1368,75 @@ def l14_stage_phase(ops, card: str, label: str, keep_state: bool = False) -> dic
     return run
 
 
+# stage 1 of configs/final/image.yaml under configs/eva02_image.yaml: the
+# config's student (out_dim 768, freeze_embed off) against a seeded
+# EVA02-CLIP-L/14 vision tower (1024 wide, 24 blocks of 16 heads of 64, the
+# SwiGLU width 2730 padded to 2752, 257 tokens: its attention materialised).
+# A block runs each of EVA-02's three modes once and K1 once (the sub-LN and
+# proj); the class rows' final norm is K4
+EVA_OVERLAY = ROOT / "configs" / "eva02_image.yaml"
+EVA_LABEL = "stage-1 EVA02-L/14"
+EVA_TEACHER_LAUNCHES = {"dense_ln_rope": 24, "dense_swiglu_ln": 24, "dense_ln_width": 24,
+                        "dense_ln": 24, "layer_norm_rows": 1}
+EVA_STEP_LAUNCHES = add_counts(IMAGE_STEP_LAUNCHES, EVA_TEACHER_LAUNCHES)
+
+
+def eva_checkpoint() -> str:
+    """A seeded EVA02-CLIP-L/14 vision tower in EVA-CLIP's key layout, written
+    once under build/ (no EVA-02 weights are in the repository)."""
+    from distillclip_tpu_torch.tools.fabricate_teacher import make_eva_state_dict
+
+    path = ROOT / "build" / "chip_smoke" / f"eva02_clip_l14_arch_seed{SEED}.pt"
+    if not path.exists():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        torch.save(make_eva_state_dict(width=1024, layers=24, patch_size=14,
+                                       image_resolution=224, embed_dim=768, seed=SEED),
+                   str(path))
+    return str(path)
+
+
+def eva_stage_phase(ops, card: str) -> dict:
+    """Stage 1 against the live EVA02-CLIP-L/14 tower, the task built as the
+    overlay sets it: (a) 16 pairs against the plain fp32 CPU path, (b) steps
+    on one batch with the launch table met (each of EVA-02's modes 24 times a
+    step), (c) ms/step; the phase's wall."""
+    t0 = time.perf_counter()
+    over = _config_args(EVA_OVERLAY)
+    kw = dict(teacher=eva_checkpoint(),
+              task_over={k: over[k] for k in ("freeze_embed", "teacher_need_layers")},
+              **over["student_encoder"]["init_args"])
+    task, plain = make_image_task("bfloat16", **kw), make_image_task("float32", **kw)
+    state, tx = task.init_state(SEED, steps_per_epoch=1, device=DEVICE)
+    visual = task.teacher.tower(DEVICE, "image").visual
+    print(f"train {EVA_LABEL}: teacher {type(visual).__name__} (seeded) {visual.width} wide, "
+          f"{len(visual.blocks)} blocks, SwiGLU {visual.blocks[0].hidden} padded to "
+          f"{visual.blocks[0].ffn_ln.scale.numel()}; student {over['student_encoder']}, "
+          f"{len(state.params)} parameter leaves "
+          f"({sum(v.numel() for v in state.params.values()) / 1e6:.2f} M fp32 masters)",
+          flush=True)
+    small = [torch.from_numpy(make_images(np.random.default_rng(SEED + 74), 16))]
+    compare_with_plain(EVA_LABEL, task, plain, "loss_fn", state.params, small,
+                       relative_loss=True)
+    del plain
+    batch = [torch.from_numpy(make_images(np.random.default_rng(SEED + 75), PAIRS)).to(DEVICE)]
+    run = run_steps(ops, card, EVA_LABEL, task.make_train_step(tx), state, batch,
+                    EVA_STEP_LAUNCHES, 6, False)
+    print(f"train {EVA_LABEL}: ok; wall of the phase {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return run
+
+
 def long_seq_phases(ops, card: str, keep_state: bool = False) -> tuple:
     """Phase 5d'': the teachers past 256 tokens, the L/14 scorer, stage 1
     against the live ViT-L/14 with a 32-head student (#5 and #6 at 32 heads)
-    and with a patch-14 student (its attention materialised), and the 32-head
-    student tapped against ViT-B/16 (#17 at 32 heads)."""
+    and with a patch-14 student (its attention materialised), the 32-head
+    student tapped against ViT-B/16 (#17 at 32 heads), and image.yaml's
+    student against the live EVA02-CLIP-L/14 (EVA-02's three modes)."""
     counts = long_teacher_phase(ops, card)
     counts.update(l14_score_phase(ops, card))
     runs = {label: l14_stage_phase(ops, card, label, keep_state) for label in STAGE_L14}
     runs[B16_TAPPED] = b16_tapped_phase(ops, card, keep_state)
+    runs[EVA_LABEL] = eva_stage_phase(ops, card)
     return counts, runs
 
 
@@ -2500,7 +2567,8 @@ def main() -> None:
     t0 = time.perf_counter()
     long_counts, long_runs = long_seq_phases(ops, card, profiling)
     runs.update(long_runs)
-    print(f"wall: the ViT-L/14 and ViT-B/16 phases {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"wall: the ViT-L/14, ViT-B/16 and EVA02-L/14 phases {time.perf_counter() - t0:.1f} s",
+          flush=True)
     knob_runs = {label: knob_phase(ops, card, label, runs["text-cached"],
                                    profiling and label.startswith("fc1_ln=0"))
                  for label in KNOB_PHASES}

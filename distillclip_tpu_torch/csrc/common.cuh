@@ -107,6 +107,13 @@ int reduce_partials(const float* partials, float* out, int nparts, int width,
 int ln_stats_w16(const void* x, float* mean, float* rstd, int rows, int C, float eps,
                  const void* w, void* w16, long long w_elems, cudaStream_t stream);
 
+// The same over the first `width` of each row's C columns (the rest padding):
+// the statistics launch of EVA-02's modes (width = C for the rotary and SwiGLU
+// ones).
+int ln_stats_width_w16(const void* x, float* mean, float* rstd, int rows, int C, int width,
+                       float eps, const void* w, void* w16, long long w_elems,
+                       cudaStream_t stream);
+
 }  // namespace dc
 
 DC_EXPORT const char* dc_error_string(int err);

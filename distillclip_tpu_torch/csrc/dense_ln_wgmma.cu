@@ -196,25 +196,18 @@ __device__ __forceinline__ void ln_consume(const wg::Ring& ring, int cw, int C,
   wg::hold(a[1]);
 }
 
-template <int ACT, bool RES>
-__global__ void __launch_bounds__(wg::kThreads, 1)
-dense_ln_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
-                      const __grid_constant__ CUtensorMap tw, const bf16* __restrict__ gamma,
-                      const bf16* __restrict__ beta, const float* __restrict__ mean,
-                      const float* __restrict__ rstd, const bf16* __restrict__ bias,
-                      bf16* __restrict__ out, bf16* __restrict__ out_u,
-                      bf16* __restrict__ out_e, int rows, int C, int N) {
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
-  const wg::Ring ring = wg::ring_init();
-  if (threadIdx.x < 128) {
-    wg::producer_regs();
-    if (threadIdx.x == 0) wg::produce<false>(ring, &tx, &tw, m0, n0, C);
-    return;
-  }
-  wg::consumer_regs();
+// A consumer's part of the block up to its epilogue: γ and β staged in shared
+// memory while the first stages load, its rows' statistics, the main loop; its
+// sums in d.  Every kernel below keeps the producer's branch, with its return,
+// in its own body: with one if and no path back, ptxas gives the consumers'
+// code the registers that setmaxnreg grants them.
+__device__ __forceinline__ void ln_consumer_sums(const wg::Ring& ring,
+                                                 const bf16* __restrict__ gamma,
+                                                 const bf16* __restrict__ beta,
+                                                 const float* __restrict__ mean,
+                                                 const float* __restrict__ rstd, int rows,
+                                                 int C, int m0, float (&d)[128]) {
   const int t = threadIdx.x - 128, cw = t >> 7, lane = t & 31;
-  // γ and β into shared memory while the first stages load
   uint4* gb = reinterpret_cast<uint4*>(wg::after_ring());
   for (int i = t; i < gb_slots(C); i += 256) {
     const int p = (i >> 2) * 8 + (i & 3);
@@ -239,26 +232,237 @@ dense_ln_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
     nmr[r] = in ? -mean[g0 + 8 * r] * rs[r] : 0.f;
   }
   asm volatile("bar.sync 1, 256;\n" ::: "memory");     // gb is written
-  float d[128];
   ln_consume(ring, cw, C, gb, nmr, rs, d);
-  wg::epilogue_store<ACT, RES>(d, bias, out, out_u, out_e, m0, n0, rows, N);
 }
 
 template <int ACT, bool RES>
-int launch(const CUtensorMap& tx, const CUtensorMap& tw, const void* gamma, const void* beta,
-           const void* mean, const void* rstd, const void* bias, void* out, void* out_u,
-           void* out_e, int rows, int C, int N, cudaStream_t s) {
-  auto kernel = dense_ln_wgmma_kernel<ACT, RES>;
+__global__ void __launch_bounds__(wg::kThreads, 1)
+dense_ln_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                      const __grid_constant__ CUtensorMap tw, const bf16* __restrict__ gamma,
+                      const bf16* __restrict__ beta, const float* __restrict__ mean,
+                      const float* __restrict__ rstd, const bf16* __restrict__ bias,
+                      bf16* __restrict__ out, bf16* __restrict__ out_u,
+                      bf16* __restrict__ out_e, int rows, int C, int N) {
+  const int n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * BM;
+  const wg::Ring ring = wg::ring_init();
+  if (threadIdx.x < 128) {
+    wg::producer_regs();
+    if (threadIdx.x == 0) wg::produce<false>(ring, &tx, &tw, m0, n0, C);
+    return;
+  }
+  wg::consumer_regs();
+  float d[128];
+  ln_consumer_sums(ring, gamma, beta, mean, rstd, rows, C, m0, d);
+  wg::epilogue_store<ACT, RES>(d, bias, out, out_u, out_e, m0, n0, rows, N);
+}
+
+// The product of K1, K2, #8 or one of EVA-02's modes: `kernel` on the grid of
+// BM x BN output tiles, with the tensor maps of x and of W's fp16 copy, the
+// ring and γ/β's staging in shared memory, and `args` after the two maps.
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, const void* x, const void* w16, int rows, int C, int N,
+           cudaStream_t s, Args... args) {
+  CUtensorMap tx, tw;
+  if (!wg::make_tensor_map(&tx, x, C, rows, BK, BM) ||
+      !wg::make_tensor_map(&tw, w16, N, C, 64, BK, CU_TENSOR_MAP_DATA_TYPE_FLOAT16))
+    return (int)cudaErrorInvalidValue;
   const size_t smem = k1_smem_bytes(C);
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((N + BN - 1) / BN, (rows + BM - 1) / BM);
-  kernel<<<grid, wg::kThreads, smem, s>>>(tx, tw, (const bf16*)gamma, (const bf16*)beta,
-                                          (const float*)mean, (const float*)rstd,
-                                          (const bf16*)bias, (bf16*)out, (bf16*)out_u,
-                                          (bf16*)out_e, rows, C, N);
+  kernel<<<grid, wg::kThreads, smem, s>>>(tx, tw, args...);
   return (int)cudaGetLastError();
+}
+
+// ---- EVA-02's modes ------------------------------------------------------------
+//
+// The blocks of EVA-02-CLIP's vision tower (arXiv:2303.11331) take three more
+// forward modes of the LN GEMM, each a kernel of its own so that the trace
+// tells them apart and the instances above stay as they are:
+//   rotary (K1r):  u = (LN(x)·γ + β)·W + b, then the 2-D rotary embedding on
+//                  the q and k columns of the fused rows, on the fp32 sums
+//                  before the one bf16 rounding (EVA rounds q and k to bf16,
+//                  rotates, and rounds again);
+//   SwiGLU (K2g):  over W = [W1 | W2] interleaved column by column, each sum
+//                  pair (x1_j, x2_j) becomes h_j = silu(x1_j + b1_j)·(x2_j + b2_j),
+//                  written at half width;
+//   width (K1w):   K1 over rows padded with zeros past their true width, the
+//                  LayerNorm's moments over the true width (EVA's LN_ffn over
+//                  the 2730 SwiGLU channels, padded to 2752 for the tiles).
+// The main loop is K1's, with the LN applied to the A fragments in registers;
+// K1r's and K2g's epilogues are their own, K1w's is K1's.  The three take
+// their statistics (and W's fp16 copy) from a launch of their own,
+// ln_stats_width_w16 (layer_norm.cu: the moments over a width, which is C for
+// K1r and K2g), so that the trace charges it to them and not to K1.  Bound as
+// K1 and K2: operations (at EVA-L's 263,168 rows, qkv 1.66 TFLOP against
+// 2.2 GB; fc 2.97 TFLOP against 2.0 GB; w3 1.48 TFLOP against 2.0 GB).
+
+// Where a consumer thread's sums lie: rows ra, ra + 8 of its warpgroup's 64
+// (row m0 + 64·cw + ra of the output), columns c = 8j + 2q, c + 1 of the tile
+// in d[4j + 2r], d[4j + 2r + 1] (r the row of the two), as epilogue_store has
+// them.
+struct SumPlace {
+  int cw, ti, q, ra;
+};
+
+__device__ __forceinline__ SumPlace sum_place() {
+  const int t = threadIdx.x - 128, lane = t & 31;
+  return {t >> 7, t & 127, lane & 3, ((t >> 5) & 3) * 16 + (lane >> 2)};
+}
+
+// K1r's epilogue: u = sum + b on every column, then on the columns below
+// `rot` (the q and k of the fused rows) each pair (2i, 2i + 1) of a head of
+// `hd` columns, in the row of patch p = row % seq - 1 (the class row, p = -1,
+// is not turned), turned by the angle whose (cos, sin) is cs[p·hd/2 + i]:
+//   u'_2i = u_2i·cos - u_2i+1·sin,   u'_2i+1 = u_2i+1·cos + u_2i·sin
+// (EVA's rotate_half on interleaved pairs).  A pair is a thread's own two sums.
+__device__ __forceinline__ void epilogue_store_rope(const float (&d)[128],
+                                                    const bf16* __restrict__ bias,
+                                                    const float2* __restrict__ cs,
+                                                    bf16* __restrict__ out, int m0, int n0,
+                                                    int rows, int N, int seq, int hd,
+                                                    int rot) {
+  const SumPlace at = sum_place();
+  bf16* bh = wg::epilogue_buffer(0, at.cw);
+  int patch[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int g = m0 + 64 * at.cw + at.ra + 8 * r;
+    patch[r] = g < rows ? g % seq - 1 : -1;
+  }
+  const int half = hd >> 1;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = 8 * j + 2 * at.q, n = n0 + c;
+    float b0 = 0.f, b1 = 0.f;
+    if (n < N) {
+      const __nv_bfloat162 bb = *reinterpret_cast<const __nv_bfloat162*>(bias + n);
+      b0 = __low2float(bb);
+      b1 = __high2float(bb);
+    }
+    const int pair = n < rot ? (n % hd) >> 1 : -1;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float u0 = d[4 * j + 2 * r] + b0, u1 = d[4 * j + 2 * r + 1] + b1;
+      if (pair >= 0 && patch[r] >= 0) {
+        const float2 f = cs[patch[r] * half + pair];
+        const float v0 = u0 * f.x - u1 * f.y;
+        u1 = u1 * f.x + u0 * f.y;
+        u0 = v0;
+      }
+      *reinterpret_cast<__nv_bfloat162*>(bh + wg::epilogue_index(at.ra + 8 * r, c)) =
+          __floats2bfloat162_rn(u0, u1);
+    }
+  }
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + at.cw) : "memory");
+  wg::store_slice(bh, out, m0 + 64 * at.cw, n0, rows, N, at.ti);
+}
+
+__global__ void __launch_bounds__(wg::kThreads, 1)
+dense_ln_rope_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                           const __grid_constant__ CUtensorMap tw,
+                           const bf16* __restrict__ gamma, const bf16* __restrict__ beta,
+                           const float* __restrict__ mean, const float* __restrict__ rstd,
+                           const bf16* __restrict__ bias, const float2* __restrict__ cs,
+                           bf16* __restrict__ out, int rows, int C, int N, int seq, int hd,
+                           int rot) {
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const wg::Ring ring = wg::ring_init();
+  if (threadIdx.x < 128) {
+    wg::producer_regs();
+    if (threadIdx.x == 0) wg::produce<false>(ring, &tx, &tw, m0, n0, C);
+    return;
+  }
+  wg::consumer_regs();
+  float d[128];
+  ln_consumer_sums(ring, gamma, beta, mean, rstd, rows, C, m0, d);
+  epilogue_store_rope(d, bias, cs, out, m0, n0, rows, N, seq, hd, rot);
+}
+
+// Element (r, c) of a half-width epilogue slice: 64 rows of BN / 2 bf16, the
+// 16-byte word c / 8 of row r at word (c / 8) ^ (r % 8).
+__device__ __forceinline__ int half_index(int r, int c) {
+  return r * (BN / 2) + (((c >> 3) ^ (r & 7)) << 3) + (c & 7);
+}
+
+// K2g's epilogue: the thread's sum pair (c, c + 1) is (x1_j, x2_j) of output
+// column j = (n0 + c) / 2; h_j = silu(x1_j + b1_j)·(x2_j + b2_j) in fp32, one
+// bf16 rounding, into a half-width slice stored along rows of out [rows, N / 2].
+__device__ __forceinline__ void epilogue_store_swiglu(const float (&d)[128],
+                                                      const bf16* __restrict__ bias,
+                                                      bf16* __restrict__ out, int m0, int n0,
+                                                      int rows, int N) {
+  const SumPlace at = sum_place();
+  bf16* bh = wg::epilogue_buffer(0, at.cw);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = 8 * j + 2 * at.q;
+    float b0 = 0.f, b1 = 0.f;
+    if (n0 + c < N) {
+      const __nv_bfloat162 bb = *reinterpret_cast<const __nv_bfloat162*>(bias + n0 + c);
+      b0 = __low2float(bb);
+      b1 = __high2float(bb);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float x1 = d[4 * j + 2 * r] + b0, x2 = d[4 * j + 2 * r + 1] + b1;
+      bh[half_index(at.ra + 8 * r, c >> 1)] = __float2bfloat16(x1 / (1.f + __expf(-x1)) * x2);
+    }
+  }
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + at.cw) : "memory");
+  const int nh = N >> 1, m0w = m0 + 64 * at.cw;
+#pragma unroll 4
+  for (int idx = at.ti; idx < 64 * (BN / 16); idx += 128) {
+    const int r = idx / (BN / 16), c = idx % (BN / 16);
+    const int g = m0w + r, col = (n0 >> 1) + c * 8;
+    if (g < rows && col < nh)
+      *reinterpret_cast<uint4*>(out + (size_t)g * nh + col) =
+          *reinterpret_cast<const uint4*>(bh + r * (BN / 2) + ((c ^ (r & 7)) << 3));
+  }
+}
+
+__global__ void __launch_bounds__(wg::kThreads, 1)
+dense_swiglu_ln_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                             const __grid_constant__ CUtensorMap tw,
+                             const bf16* __restrict__ gamma, const bf16* __restrict__ beta,
+                             const float* __restrict__ mean, const float* __restrict__ rstd,
+                             const bf16* __restrict__ bias, bf16* __restrict__ out, int rows,
+                             int C, int N) {
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const wg::Ring ring = wg::ring_init();
+  if (threadIdx.x < 128) {
+    wg::producer_regs();
+    if (threadIdx.x == 0) wg::produce<false>(ring, &tx, &tw, m0, n0, C);
+    return;
+  }
+  wg::consumer_regs();
+  float d[128];
+  ln_consumer_sums(ring, gamma, beta, mean, rstd, rows, C, m0, d);
+  epilogue_store_swiglu(d, bias, out, m0, n0, rows, N);
+}
+
+// K1w's product: K1's (act 0, with a bias) behind the statistics over the true
+// width, under a name of its own so that the trace tells it from K1's.
+__global__ void __launch_bounds__(wg::kThreads, 1)
+dense_ln_width_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                            const __grid_constant__ CUtensorMap tw,
+                            const bf16* __restrict__ gamma, const bf16* __restrict__ beta,
+                            const float* __restrict__ mean, const float* __restrict__ rstd,
+                            const bf16* __restrict__ bias, bf16* __restrict__ out, int rows,
+                            int C, int N) {
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const wg::Ring ring = wg::ring_init();
+  if (threadIdx.x < 128) {
+    wg::producer_regs();
+    if (threadIdx.x == 0) wg::produce<false>(ring, &tx, &tw, m0, n0, C);
+    return;
+  }
+  wg::consumer_regs();
+  float d[128];
+  ln_consumer_sums(ring, gamma, beta, mean, rstd, rows, C, m0, d);
+  wg::epilogue_store<0, false>(d, bias, out, nullptr, nullptr, m0, n0, rows, N);
 }
 
 }  // namespace
@@ -287,20 +491,73 @@ DC_EXPORT int dc_dense_ln_wgmma(const void* x, const void* gamma, const void* be
   int err = ln_stats_w16(x, (float*)mean, (float*)rstd, rows, C, eps, w, w16,
                          (long long)C * N, s);
   if (err != 0) return err;
-  CUtensorMap tx, tw;
-  if (!wg::make_tensor_map(&tx, x, C, rows, BK, BM) ||
-      !wg::make_tensor_map(&tw, w16, N, C, 64, BK, CU_TENSOR_MAP_DATA_TYPE_FLOAT16))
-    return (int)cudaErrorInvalidValue;
+  const auto run = [&](auto kernel) {
+    return launch(kernel, x, w16, rows, C, N, s, (const bf16*)gamma, (const bf16*)beta,
+                  (const float*)mean, (const float*)rstd, (const bf16*)bias, (bf16*)out,
+                  (bf16*)out_u, (bf16*)out_e, rows, C, N);
+  };
   switch (act * 2 + res) {
-    case 0: return launch<0, false>(tx, tw, gamma, beta, mean, rstd, bias, out, out_u, out_e,
-                                    rows, C, N, s);
-    case 2: return launch<1, false>(tx, tw, gamma, beta, mean, rstd, bias, out, out_u, out_e,
-                                    rows, C, N, s);
-    case 3: return launch<1, true>(tx, tw, gamma, beta, mean, rstd, bias, out, out_u, out_e,
-                                   rows, C, N, s);
-    case 4: return launch<2, false>(tx, tw, gamma, beta, mean, rstd, bias, out, out_u, out_e,
-                                    rows, C, N, s);
-    default: return launch<2, true>(tx, tw, gamma, beta, mean, rstd, bias, out, out_u, out_e,
-                                    rows, C, N, s);
+    case 0: return run(dense_ln_wgmma_kernel<0, false>);
+    case 2: return run(dense_ln_wgmma_kernel<1, false>);
+    case 3: return run(dense_ln_wgmma_kernel<1, true>);
+    case 4: return run(dense_ln_wgmma_kernel<2, false>);
+    default: return run(dense_ln_wgmma_kernel<2, true>);
   }
+}
+
+// K1r: out [rows, N] = (LN(x)·γ + β)·W + b with the rotary turn on the
+// columns below rot (a multiple of hd): rows are seq tokens a sample, the
+// first the class token; cs [seq - 1, hd / 2] (cos, sin) fp32 pairs.  Takes
+// what dc_dense_ln_wgmma takes with act 0 and a bias, and hd even.
+DC_EXPORT int dc_dense_ln_rope_wgmma(const void* x, const void* gamma, const void* beta,
+                                     const void* w, void* w16, const void* bias,
+                                     const void* cs, void* out, void* mean, void* rstd,
+                                     int rows, int C, int N, float eps, int seq, int hd,
+                                     int rot, void* stream) {
+  using namespace dc;
+  if (bias == nullptr || seq < 1 || hd < 2 || hd % 2 || rot % hd || rot > N)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  int err = ln_stats_width_w16(x, (float*)mean, (float*)rstd, rows, C, C, eps, w, w16,
+                               (long long)C * N, s);
+  if (err != 0) return err;
+  return launch(dense_ln_rope_wgmma_kernel, x, w16, rows, C, N, s, (const bf16*)gamma,
+                (const bf16*)beta, (const float*)mean, (const float*)rstd, (const bf16*)bias,
+                (const float2*)cs, (bf16*)out, rows, C, N, seq, hd, rot);
+}
+
+// K2g: out [rows, N / 2], h_j = silu(u_2j)·u_2j+1 with u = (LN(x)·γ + β)·W + b,
+// W's columns W1 and W2 interleaved (and b's); N % 16 == 0, otherwise as
+// dc_dense_ln_wgmma with a bias.
+DC_EXPORT int dc_dense_swiglu_ln_wgmma(const void* x, const void* gamma, const void* beta,
+                                       const void* w, void* w16, const void* bias, void* out,
+                                       void* mean, void* rstd, int rows, int C, int N,
+                                       float eps, void* stream) {
+  using namespace dc;
+  if (bias == nullptr || N % 16) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  int err = ln_stats_width_w16(x, (float*)mean, (float*)rstd, rows, C, C, eps, w, w16,
+                               (long long)C * N, s);
+  if (err != 0) return err;
+  return launch(dense_swiglu_ln_wgmma_kernel, x, w16, rows, C, N, s, (const bf16*)gamma,
+                (const bf16*)beta, (const float*)mean, (const float*)rstd, (const bf16*)bias,
+                (bf16*)out, rows, C, N);
+}
+
+// K1w: out [rows, N] = (LN_width(x)·γ + β)·W + b, the moments over each row's
+// first `width` columns of C (zero past it, as γ, β and W's rows there);
+// otherwise as dc_dense_ln_wgmma with act 0 and a bias.
+DC_EXPORT int dc_dense_ln_width_wgmma(const void* x, const void* gamma, const void* beta,
+                                      const void* w, void* w16, const void* bias, void* out,
+                                      void* mean, void* rstd, int rows, int C, int N,
+                                      float eps, int width, void* stream) {
+  using namespace dc;
+  if (bias == nullptr || width < 1 || width > C) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  int err = ln_stats_width_w16(x, (float*)mean, (float*)rstd, rows, C, width, eps, w, w16,
+                               (long long)C * N, s);
+  if (err != 0) return err;
+  return launch(dense_ln_width_wgmma_kernel, x, w16, rows, C, N, s, (const bf16*)gamma,
+                (const bf16*)beta, (const float*)mean, (const float*)rstd, (const bf16*)bias,
+                (bf16*)out, rows, C, N);
 }

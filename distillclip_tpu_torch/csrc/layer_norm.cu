@@ -280,6 +280,85 @@ int ln_stats_w16(const void* x, float* mean, float* rstd, int rows, int C, float
   return (int)cudaGetLastError();
 }
 
+// The first launch of EVA-02's modes of the LN GEMM (dense_ln_wgmma.cu): the
+// moments over the first `width` of the C columns only (EVA-02's LN_ffn
+// normalises the 2730 SwiGLU channels of rows padded to 2752 for the product's
+// tiles; the rotary and SwiGLU modes pass width = C), each row read from L1 as
+// row_moments_l1 reads it, every element past `width` masked; W's fp16 copy in
+// the blocks past `stat_blocks`, as above.  A kernel of its own, so that
+// ln_stats_w16_kernel's instances stay as they are and the trace charges
+// these launches to the modes, not to K1.
+__global__ void __launch_bounds__(kLnThreads)
+ln_stats_width_w16_kernel(const bf16* __restrict__ x, float* __restrict__ mean_out,
+                          float* __restrict__ rstd_out, int rows, int C, int width, float eps,
+                          int stat_blocks, const bf16* __restrict__ w, f16* __restrict__ w16,
+                          long long w_words) {
+  if ((int)blockIdx.x >= stat_blocks) {
+    const long long step = (long long)(gridDim.x - stat_blocks) * kLnThreads;
+    for (long long i = (long long)(blockIdx.x - stat_blocks) * kLnThreads + threadIdx.x;
+         i < w_words; i += step) {
+      float f[8];
+      unpack8(reinterpret_cast<const uint4*>(w)[i], f);
+      store8(w16 + 8 * i, f);
+    }
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  const int nwarps = stat_blocks * (kLnThreads >> 5);
+  const float inv_w = 1.0f / (float)width;
+  for (int r = blockIdx.x * (kLnThreads >> 5) + (threadIdx.x >> 5); r < rows; r += nwarps) {
+    const bf16* xr = x + (size_t)r * C;
+    float s = 0.f;
+    for (int c = lane * 8; c < width; c += 32 * 8) {
+      float f[8];
+      load8(xr + c, f);
+#pragma unroll
+      for (int t = 0; t < 8; ++t) s += c + t < width ? f[t] : 0.f;
+    }
+    const float mean = warp_sum(s) * inv_w;
+    float v = 0.f;
+    for (int c = lane * 8; c < width; c += 32 * 8) {
+      float f[8];
+      load8(xr + c, f);
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const float d = f[t] - mean;
+        v += c + t < width ? d * d : 0.f;
+      }
+    }
+    const float rstd = rsqrtf(warp_sum(v) * inv_w + eps);
+    if (lane == 0) {
+      mean_out[r] = mean;
+      rstd_out[r] = rstd;
+    }
+  }
+}
+
+int ln_stats_width_w16(const void* x, float* mean, float* rstd, int rows, int C, int width,
+                       float eps, const void* w, void* w16, long long w_elems,
+                       cudaStream_t stream) {
+  static int sms = 0, per_sm = 0;
+  cudaError_t err = cudaSuccess;
+  if (sms == 0) {
+    int dev = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess && per_sm == 0)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ln_stats_width_w16_kernel,
+                                                        kLnThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  const int warps = kLnThreads / 32;
+  const int stat_blocks = std::max(1, std::min((rows + warps - 1) / warps, sms * per_sm));
+  const long long words = w_elems / 8;
+  const int conv_blocks =
+      (int)std::min<long long>((words + kLnThreads - 1) / kLnThreads, 2LL * sms);
+  ln_stats_width_w16_kernel<<<stat_blocks + conv_blocks, kLnThreads, 0, stream>>>(
+      (const bf16*)x, mean, rstd, rows, C, width, eps, stat_blocks, (const bf16*)w,
+      (f16*)w16, words);
+  return (int)cudaGetLastError();
+}
+
 constexpr int kLnBwdThreads = 512;
 // Blocks whose partials one block adds: the last of a group adds its group's
 // partials, and the last group's adder adds the groups' sums.

@@ -20,7 +20,11 @@ The loaders return the module with the weights loaded as fp32, in eval mode
 and without gradients, on ``device``.  A checkpoint without ``visual.proj`` is
 an RN-class CLIP (RN50, RN101, RN50x4 ...): its image tower is a
 :class:`models.resnet.ModifiedResNet` (``map_resnet_weights``), its text tower
-the same transformer as a ViT checkpoint's.
+the same transformer as a ViT checkpoint's.  A checkpoint in EVA-CLIP's layout
+(``visual.blocks.{i}.attn.q_proj.weight`` ...) is an EVA-02-CLIP teacher: its
+image tower is a :class:`models.eva_vit.EvaImageEncoder`
+(``map_eva_visual_weights``: q, k, v fused, W1 and W2 interleaved, the SwiGLU
+width padded to a multiple of 32), without taps; its text tower is not built.
 """
 
 from __future__ import annotations
@@ -38,6 +42,12 @@ from torch import nn
 from distillclip_tpu_torch.config.perf import require_module_kernels
 from distillclip_tpu_torch.models.clip import CLIPModel
 from distillclip_tpu_torch.models.encoders import ImageEncoder, TextEncoder
+from distillclip_tpu_torch.models.eva_vit import (
+    EvaImageEncoder,
+    eva_visual_para,
+    is_eva_state_dict,
+    map_eva_visual_weights,
+)
 from distillclip_tpu_torch.models.resnet import ModifiedResNet, map_resnet_weights
 
 # Official OpenAI CLIP checkpoint URLs.
@@ -238,8 +248,18 @@ def load_image_teacher(name: str, download_root: Optional[str] = None,
                        need_layers: Optional[Sequence[int]] = None,
                        device="cuda") -> nn.Module:
     """An ``ImageEncoder`` for a ViT checkpoint, a ``ModifiedResNet`` for an
-    RN one (``need_layers`` does not apply to it)."""
+    RN one (``need_layers`` does not apply to it), an ``EvaImageEncoder`` for
+    an EVA-02-CLIP one (which takes no ``need_layers``)."""
     sd = load_torch_state_dict(resolve_checkpoint(name, download_root))
+    if is_eva_state_dict(sd):
+        if need_layers is not None:
+            raise ValueError(f"teacher_need_layers {list(need_layers)}: the EVA-02-CLIP "
+                             "teacher has no taps (its blocks return no hidden states, "
+                             "scores or probabilities); set teacher_need_layers to null")
+        para = eva_visual_para(sd)
+        module = EvaImageEncoder(**para)
+        module.visual.load_state_dict(map_eva_visual_weights(sd, para["layers"]), strict=True)
+        return _frozen(module, device)
     para = get_visual_para(sd)
     if para.pop("kind") == "resnet":
         module = ModifiedResNet(**para)
@@ -254,6 +274,9 @@ def load_text_teacher(name: str, download_root: Optional[str] = None,
                       need_layers: Optional[Sequence[int]] = None,
                       device="cuda") -> TextEncoder:
     sd = load_torch_state_dict(resolve_checkpoint(name, download_root))
+    if is_eva_state_dict(sd):
+        raise ValueError(f"{name}: the text tower of an EVA-02-CLIP checkpoint is not built "
+                         "(it serves as a stage-1 image teacher only)")
     para = get_transformer_para(sd)
     module = TextEncoder(is_student=False, need_layers=need_layers, **para)
     module.text.load_state_dict(map_text_weights(sd, para["layers"]), strict=True)

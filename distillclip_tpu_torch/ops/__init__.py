@@ -19,7 +19,10 @@ next is the head-transform forward's second route, the CUDA-core kernel, for
 head shapes past its tensor-core kernel's (it counts its own launches).  The
 last two are the second route of the head-transform training pair, the
 CUDA-core save-P forward and backward, for the head shapes past the
-tensor-core backward's (``ops.transform_attention.grad_route``).
+tensor-core backward's (``ops.transform_attention.grad_route``).  The last
+three are EVA-02's forward modes of the LN GEMM (the EVA-02-CLIP teacher's
+blocks): K1 with the rotary turn of q and k, K2 with SwiGLU at half width, and
+K1 with the LayerNorm's moments over a true width below the padded one.
 """
 
 from distillclip_tpu_torch.ops.fc1_act import (
@@ -30,6 +33,9 @@ from distillclip_tpu_torch.ops.fc1_act import (
     dense_act_u,
     dense_ln,
     dense_ln_bwd,
+    dense_ln_rope,
+    dense_ln_width,
+    dense_swiglu_ln,
 )
 from distillclip_tpu_torch.ops.flash_attention import (
     flash_attention,
@@ -78,6 +84,9 @@ KERNELS = {
     "flash_transform_attention_fwd_wide": flash_transform_attention_fwd_wide,
     "transform_attention_save_p_wide": transform_attention_save_p_wide,
     "transform_attention_bwd_wide": transform_attention_bwd_wide,
+    "dense_ln_rope": dense_ln_rope,
+    "dense_swiglu_ln": dense_swiglu_ln,
+    "dense_ln_width": dense_ln_width,
 }
 
 
@@ -100,6 +109,9 @@ __all__ = [
     "dense_act_u",
     "dense_ln",
     "dense_ln_bwd",
+    "dense_ln_rope",
+    "dense_ln_width",
+    "dense_swiglu_ln",
     "flash_attention",
     "flash_attention_bwd",
     "flash_attention_fwd",

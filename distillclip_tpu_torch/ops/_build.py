@@ -55,6 +55,14 @@ _SIGNATURES = {
     # x, gamma, beta, w, w16, bias, out, out_u, out_e, mean, rstd | rows, C, N, eps,
     # act, res, stream (dense_ln_wgmma.cu: K1, K2, #8)
     "dc_dense_ln_wgmma": (_I, [_P] * 11 + [_I, _I, _I, _F, _I, _I, _P]),
+    # x, gamma, beta, w, w16, bias, cs, out, mean, rstd | rows, C, N, eps, seq, hd, rot,
+    # stream (EVA-02's rotary K1)
+    "dc_dense_ln_rope_wgmma": (_I, [_P] * 10 + [_I, _I, _I, _F, _I, _I, _I, _P]),
+    # x, gamma, beta, w, w16, bias, out, mean, rstd | rows, C, N, eps, stream (SwiGLU K2)
+    "dc_dense_swiglu_ln_wgmma": (_I, [_P] * 9 + [_I, _I, _I, _F, _P]),
+    # x, gamma, beta, w, w16, bias, out, mean, rstd | rows, C, N, eps, width, stream
+    # (K1 with the moments over a true width)
+    "dc_dense_ln_width_wgmma": (_I, [_P] * 9 + [_I, _I, _I, _F, _I, _P]),
     # x, w, bias, h, u, e | rows, C, N, act, res, stream (dense_act.cu)
     "dc_dense_act": (_I, [_P] * 6 + [_I] * 5 + [_P]),
     "dc_dense_ln_bwd_max_c": (_I, []),

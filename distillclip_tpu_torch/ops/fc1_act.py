@@ -460,6 +460,147 @@ def dense_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, act: str = "gel
     return _launch_dense_act(dense_act, x, w, b, _ACTS[act], False)[0]
 
 
+# -- EVA-02's forward modes ---------------------------------------------------------
+#
+# The blocks of EVA-02-CLIP's vision tower (``models/eva_vit.py``) run three more
+# lean modes of the LN GEMM (``csrc/dense_ln_wgmma.cu``), forward only (the
+# teacher is frozen): K1 with the rotary turn of q and k in its epilogue, K2
+# with SwiGLU over interleaved [W1 | W2] columns writing half width, and K1 with
+# the LayerNorm's moments over a true width below the padded one.
+
+
+def _ln_width(x, ls, lb, eps, width):
+    """LN(x)·γ+β in fp32 with the moments over the first ``width`` columns."""
+    x32 = x.float()
+    mean = x32[:, :width].mean(-1, keepdim=True)
+    d = x32 - mean
+    rstd = torch.rsqrt(d[:, :width].square().mean(-1, keepdim=True) + eps)
+    return d * rstd * ls.float() + lb.float()
+
+
+def rotate_pairs(u: torch.Tensor, cs: torch.Tensor, seq: int, hd: int, rot: int) -> torch.Tensor:
+    """The rotary turn of fp32 rows ``u`` [B·seq, N]: on the columns below
+    ``rot``, each pair (2i, 2i+1) of a head of ``hd`` columns in the row of
+    patch p (the token after the class token) turned by ``cs[p, i]`` = (cos,
+    sin): (a, b) -> (a·cos - b·sin, b·cos + a·sin).  The class rows and the
+    columns from ``rot`` on pass unchanged."""
+    rows, N = u.shape
+    out = u.clone()
+    pairs = out.view(rows // seq, seq, N)[:, 1:, :rot].unflatten(-1, (rot // hd, hd // 2, 2))
+    cos, sin = cs[None, :, None, :, 0], cs[None, :, None, :, 1]
+    a, b = pairs[..., 0].clone(), pairs[..., 1].clone()
+    pairs[..., 0] = a * cos - b * sin
+    pairs[..., 1] = b * cos + a * sin
+    return out
+
+
+def dense_ln_rope_plain(x, ls, lb, w, b, cs, seq: int, hd: int, rot: int, eps: float = 1e-6):
+    """Plain PyTorch version of K1's rotary mode: u = LN(x)·W + b (the LN
+    output rounded to x's dtype, as :func:`dense_ln_plain`), turned in fp32,
+    rounded once."""
+    u = _ln_stats(x, ls, lb, eps)[0].to(x.dtype).float() @ w.float() + b.float()
+    return rotate_pairs(u, cs.float(), seq, hd, rot).to(x.dtype)
+
+
+def swiglu_pairs(u: torch.Tensor) -> torch.Tensor:
+    """silu(u[:, 2j])·u[:, 2j+1]: SwiGLU over interleaved [W1 | W2] sums."""
+    return torch.nn.functional.silu(u[:, 0::2]) * u[:, 1::2]
+
+
+def dense_swiglu_ln_plain(x, ls, lb, w, b, eps: float = 1e-6):
+    """Plain PyTorch version of K2's SwiGLU mode: [rows, N / 2]."""
+    u = _ln_stats(x, ls, lb, eps)[0].to(x.dtype).float() @ w.float() + b.float()
+    return swiglu_pairs(u).to(x.dtype)
+
+
+def dense_ln_width_plain(x, ls, lb, w, b, width: int, eps: float = 1e-6):
+    """Plain PyTorch version of K1 with the moments over ``width`` columns."""
+    u = _ln_width(x, ls, lb, eps, width).to(x.dtype).float() @ w.float() + b.float()
+    return u.to(x.dtype)
+
+
+def _forward_only(what, *tensors):
+    if _build.needs_grad(*tensors):
+        raise ValueError(f"{what}: a forward-only mode (the frozen teacher's); "
+                         "no gradient flows through it")
+
+
+def _launch_mode(wrapper, fn, x, ls, lb, w, b, eps, n_out: int, inputs=(), ints=()):
+    """One of EVA-02's modes on CUDA tensors, counted on ``wrapper``: the C
+    entry ``fn`` takes x, γ, β, w, w16, b, the further ``inputs``' pointers,
+    then out (``n_out`` columns), mean, rstd, rows, C, N, eps, the mode's
+    ``ints`` and the stream."""
+    what = wrapper.__name__
+    _build.check_operands(what, x, ls, lb, w, b)
+    rows, C = x.shape
+    N = w.shape[1]
+    lib = _build.lib()
+    _check_widths(what, C, N, lib.dc_dense_ln_wgmma_smem_bytes(C) > _build.MAX_SMEM_BYTES,
+                  rows)
+    out = torch.empty((rows, n_out), dtype=x.dtype, device=x.device)
+    if rows:
+        mean, rstd = _stats_buffers(x)
+        w16 = torch.empty((C, N), dtype=torch.float16, device=x.device)
+        _build.check(fn(*(t.data_ptr() for t in (x, ls, lb, w, w16, b, *inputs, out, mean,
+                                                   rstd)),
+                        rows, C, N, float(eps), *ints,
+                        _build.stream_ptr(x)), what)
+        wrapper.launches += 1
+    return out
+
+
+def dense_ln_rope(x: torch.Tensor, ls: torch.Tensor, lb: torch.Tensor, w: torch.Tensor,
+                  b: torch.Tensor, cs: torch.Tensor, seq: int, hd: int, rot: int,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """u = LN(x)·W + b on rows of ``seq`` tokens (the first a class token),
+    with the rotary turn (:func:`rotate_pairs`, ``cs`` fp32 [seq - 1, hd / 2,
+    2]) on the columns below ``rot``: K1's rotary mode on CUDA tensors, the
+    plain version on the CPU.  Forward only."""
+    _check_shapes("dense_ln_rope", x, ls, lb, w, b)
+    _forward_only("dense_ln_rope", x, ls, lb, w, b)
+    if cs.shape != (seq - 1, hd // 2, 2) or hd % 2 or rot % hd or rot > w.shape[1] \
+            or x.shape[0] % seq:
+        raise ValueError(f"dense_ln_rope: cs [{seq - 1}, {hd // 2}, 2], hd even, rot a "
+                         f"multiple of hd <= N and rows a multiple of seq; got cs "
+                         f"{tuple(cs.shape)}, hd={hd}, rot={rot}, rows={x.shape[0]}")
+    if _build.plain_only("dense_ln_rope", x):
+        return dense_ln_rope_plain(x, ls, lb, w, b, cs, seq, hd, rot, eps)
+    _build.check_operands("dense_ln_rope", x, fp32=(cs,))
+    return _launch_mode(dense_ln_rope, _build.lib().dc_dense_ln_rope_wgmma, x, ls, lb, w, b,
+                        eps, w.shape[1], inputs=(cs,), ints=(seq, hd, rot))
+
+
+def dense_swiglu_ln(x: torch.Tensor, ls: torch.Tensor, lb: torch.Tensor, w: torch.Tensor,
+                    b: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """h = silu(u_2j)·u_2j+1 of u = LN(x)·W + b over W = [W1 | W2] interleaved
+    by columns, [rows, N / 2]: K2's SwiGLU mode on CUDA tensors, the plain
+    version on the CPU.  Forward only."""
+    _check_shapes("dense_swiglu_ln", x, ls, lb, w, b)
+    _forward_only("dense_swiglu_ln", x, ls, lb, w, b)
+    if w.shape[1] % 16:
+        raise ValueError(f"dense_swiglu_ln: N % 16 == 0 (pairs, a half width of whole "
+                         f"16-byte words), got N={w.shape[1]}")
+    if _build.plain_only("dense_swiglu_ln", x):
+        return dense_swiglu_ln_plain(x, ls, lb, w, b, eps)
+    return _launch_mode(dense_swiglu_ln, _build.lib().dc_dense_swiglu_ln_wgmma, x, ls, lb, w,
+                        b, eps, w.shape[1] // 2)
+
+
+def dense_ln_width(x: torch.Tensor, ls: torch.Tensor, lb: torch.Tensor, w: torch.Tensor,
+                   b: torch.Tensor, width: int, eps: float = 1e-6) -> torch.Tensor:
+    """u = LN_width(x)·W + b on rows zero past ``width`` (γ, β and W's rows
+    zero there too), the moments over the first ``width`` columns: K1's width
+    mode on CUDA tensors, the plain version on the CPU.  Forward only."""
+    _check_shapes("dense_ln_width", x, ls, lb, w, b)
+    _forward_only("dense_ln_width", x, ls, lb, w, b)
+    if not 1 <= width <= x.shape[1]:
+        raise ValueError(f"dense_ln_width: 1 <= width <= C, got {width} of {x.shape[1]}")
+    if _build.plain_only("dense_ln_width", x):
+        return dense_ln_width_plain(x, ls, lb, w, b, width, eps)
+    return _launch_mode(dense_ln_width, _build.lib().dc_dense_ln_width_wgmma, x, ls, lb, w, b,
+                        eps, w.shape[1], ints=(width,))
+
+
 dense_ln.launches = 0
 dense_act_ln.launches = 0
 dense_act.launches = 0
@@ -467,5 +608,8 @@ dense_act_res.launches = 0
 dense_act_u.launches = 0
 dense_act_ln_res.launches = 0
 dense_ln_bwd.launches = 0
+dense_ln_rope.launches = 0
+dense_swiglu_ln.launches = 0
+dense_ln_width.launches = 0
 # the calls of dense_ln_bwd that formed du in the kernel (K2's backward)
 dense_ln_bwd.act_launches = 0

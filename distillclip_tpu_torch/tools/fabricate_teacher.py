@@ -5,11 +5,13 @@ hand: a ``torch.save`` state dict with OpenAI CLIP's key names, which the
 teacher loader reads.  The same seed gives the same tensors as the JAX
 package's ``tools/fabricate_teacher.py``, so one saved file feeds both;
 :func:`make_rn_state_dict` writes an RN-class (ModifiedResNet) checkpoint the
-same way.
+same way, and :func:`make_eva_state_dict` (``--eva``) an EVA-02-CLIP vision
+tower in EVA-CLIP's layout, which the port alone reads.
 
     python -m distillclip_tpu_torch.tools.fabricate_teacher --out .cache/tiny_clip.pt \
         --vision-width 64 --vision-layers 3 --text-width 64 --text-layers 2
     python -m distillclip_tpu_torch.tools.fabricate_teacher --out vit_l14.pt --preset ViT-L/14
+    python -m distillclip_tpu_torch.tools.fabricate_teacher --out eva.pt --eva --vision-width 64
 
 ``--preset`` takes a published geometry (:data:`PRESETS`: the ViT CLIP
 models' widths, depths, patch sizes, resolutions and embedding widths) with
@@ -161,6 +163,39 @@ def make_rn_state_dict(width=16, layers=(1, 1, 1, 1), image_resolution=64, embed
     return sd
 
 
+def make_eva_state_dict(width=64, layers=2, patch_size=14, image_resolution=42,
+                        mlp_ratio=2.6667, embed_dim=48, seed=0):
+    """An EVA-02-CLIP vision tower in EVA-CLIP's key layout (``visual.*``:
+    separate q, k, v projections with q and v biases, the sub-LNs
+    ``attn.inner_attn_ln`` and ``mlp.ffn_ln``, SwiGLU ``mlp.w1`` / ``w2`` /
+    ``w3`` of width ``int(width · mlp_ratio)``, ``norm`` and ``head``), by
+    EVA's init (weights N(0, 0.02), LayerNorms 1 / 0), with small random
+    biases so that every bias reaches the tower; no text tower."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s, std=0.02: torch.randn(*s, generator=g) * std
+    hidden = int(width * mlp_ratio)
+    grid = image_resolution // patch_size
+    sd = {"visual.patch_embed.proj.weight": r(width, 3, patch_size, patch_size),
+          "visual.patch_embed.proj.bias": r(width),
+          "visual.cls_token": r(1, 1, width), "visual.pos_embed": r(1, grid * grid + 1, width),
+          "visual.norm.weight": torch.ones(width), "visual.norm.bias": torch.zeros(width),
+          "visual.head.weight": r(embed_dim, width), "visual.head.bias": r(embed_dim)}
+    for i in range(layers):
+        p = f"visual.blocks.{i}."
+        for ln, n in (("norm1", width), ("attn.inner_attn_ln", width), ("norm2", width),
+                      ("mlp.ffn_ln", hidden)):
+            sd[f"{p}{ln}.weight"] = 1.0 + r(n, std=0.1)
+            sd[f"{p}{ln}.bias"] = r(n, std=0.1)
+        for n in "qkv":
+            sd[f"{p}attn.{n}_proj.weight"] = r(width, width)
+        sd[p + "attn.q_bias"], sd[p + "attn.v_bias"] = r(width), r(width)
+        sd[p + "attn.proj.weight"], sd[p + "attn.proj.bias"] = r(width, width), r(width)
+        for n in ("w1", "w2"):
+            sd[f"{p}mlp.{n}.weight"], sd[f"{p}mlp.{n}.bias"] = r(hidden, width), r(hidden)
+        sd[p + "mlp.w3.weight"], sd[p + "mlp.w3.bias"] = r(width, hidden), r(width)
+    return sd
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--out", required=True)
@@ -177,11 +212,19 @@ def main(argv=None):
     p.add_argument("--vocab-size", type=int)
     p.add_argument("--embed-dim", type=int)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--eva", action="store_true",
+                   help="an EVA-02-CLIP vision tower (EVA-CLIP's layout) of --vision-width, "
+                        "--vision-layers, --patch-size, --image-resolution, --embed-dim")
     args = p.parse_args(argv)
 
     given = {k: v for k, v in vars(args).items()
-             if k not in ("out", "preset", "seed") and v is not None}
-    if args.preset is not None:
+             if k not in ("out", "preset", "seed", "eva") and v is not None}
+    if args.eva:
+        names = {"vision_width": "width", "vision_layers": "layers", "patch_size": "patch_size",
+                 "image_resolution": "image_resolution", "embed_dim": "embed_dim"}
+        sd = make_eva_state_dict(**{names[k]: v for k, v in given.items() if k in names},
+                                 seed=args.seed)
+    elif args.preset is not None:
         sd = preset_state_dict(args.preset, args.seed, **given)
     else:
         sd = make_clip_state_dict(**given, seed=args.seed)

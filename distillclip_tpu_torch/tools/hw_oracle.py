@@ -704,6 +704,70 @@ def oracle_cases(rng, samples: int = PAIRS, device=DEVICE, only: Optional[str] =
                 library=lambda a=args, g=g, c=c, m=mean, r=rstd:
                     torch.ops.aten.native_layer_norm_backward(
                         g, a[0], [c], m, r, a[1], a[2], [True, True, True])))
+    # EVA-02's forward modes of the LN GEMM (the frozen EVA-02-CLIP teacher),
+    # last, so that the other cases draw the inputs they drew before them,
+    # at the EVA cell's shapes, 4·samples pictures of 257 tokens (263,168 rows
+    # at 256): K1r (1024 -> 3072, q and k turned), K2g (1024 -> 2 x 2752
+    # interleaved, 2752 out) and K1w (2752 wide, zero past 2730, -> 1024).
+    # W's std keeps u's std near 0.5 (largest ~3 over 0.3-0.8G values);
+    # SwiGLU's h stays under 1.  K1w also holds its moments to the true width:
+    # over the padded row, rows of mean 0.5 and std 0.3 would lose 0.8% of
+    # their mean in the centring (a shift of 1.3% of a std) and rstd 0.4%, under
+    # the bf16 store's rounding element by element but not on the mean.
+    def eva_cases():
+        from distillclip_tpu_torch.models.eva_vit import rope_table
+
+        seq, E, hd, width = 257, 1024, 64, 2730
+        hp, rows = -(-width // 32) * 32, 4 * samples * seq
+        x, g, lb = t((rows, E)), t((E,), 0.1, 1.0), t((E,), 0.1)
+        ln = lambda a, gg, bb, c=E: F.layer_norm(a, (c,), gg, bb, 1e-6)
+        cs = rope_table(16, hd).to(device)
+        w, b = t((E, 3 * E), 0.015), t((3 * E,), 0.02)
+        args = (x, g, lb, w, b, cs, seq, hd, 2 * E, 1e-6)
+        cases.append(Case(
+            "dense_ln_rope", f"EVA qkv [{rows},{E}]->{3 * E}, rotary on q and k",
+            lambda: (fc1_act.dense_ln_rope(*args),),
+            lambda: (fc1_act.dense_ln_rope_plain(*_f32(args[:6]), *args[6:]),),
+            (("abs", 1e-2, 1e-3),), lambda: fc1_act.dense_ln_rope_plain(*args),
+            2.0 * rows * E * 3 * E, gemm_bytes(rows, E, 3 * E, 1) + 4 * cs.numel(),
+            composition=lambda: fc1_act.rotate_pairs(torch.addmm(b, ln(x, g, lb), w), cs,
+                                                     seq, hd, 2 * E)))
+        w12, b12 = t((E, 2 * hp), 0.015), t((2 * hp,), 0.02)
+        cases.append(Case(
+            "dense_swiglu_ln", f"EVA SwiGLU [{rows},{E}]->2x{hp}, {hp} out",
+            lambda: (fc1_act.dense_swiglu_ln(x, g, lb, w12, b12, 1e-6),),
+            lambda: (fc1_act.dense_swiglu_ln_plain(*_f32((x, g, lb, w12, b12)), 1e-6),),
+            (("abs", 1e-2, 1e-3),), lambda: fc1_act.dense_swiglu_ln_plain(x, g, lb, w12, b12),
+            2.0 * rows * E * 2 * width,
+            2 * (rows * E + E * 2 * width + 2 * E + 2 * width + rows * width),
+            composition=lambda: fc1_act.swiglu_pairs(torch.addmm(b12, ln(x, g, lb), w12))))
+        h, gh, bh, w3, b3 = (t((rows, hp), 0.3, 0.5), t((hp,), 0.1, 1.0), t((hp,), 0.1),
+                             t((hp, E), 0.01), t((E,), 0.02))
+        for pad in (h[:, width:], gh[width:], bh[width:], w3[width:]):
+            pad.zero_()
+        wargs = (h, gh, bh, w3, b3)
+
+        def true_moments(outs):
+            """The kernel nearer the true width's moments than the padded row's."""
+            true = fc1_act.dense_ln_width_plain(*_f32(wargs), width, 1e-6)
+            padded = fc1_act.dense_ln_width_plain(*_f32(wargs), hp, 1e-6)
+            near = (outs[0].float() - true).abs().mean().item()
+            far = (outs[0].float() - padded).abs().mean().item()
+            return None if near < 0.5 * far else (
+                f"mean gap {near:.3e} to the true width's moments, {far:.3e} to the padded "
+                f"row's (want under half)")
+
+        cases.append(Case(
+            "dense_ln_width", f"EVA w3 [{rows},{hp}] (moments over {width})->{E}",
+            lambda: (fc1_act.dense_ln_width(*wargs, width, 1e-6),),
+            lambda: (fc1_act.dense_ln_width_plain(*_f32(wargs), width, 1e-6),),
+            (("abs", 1e-2, 1e-3),), lambda: fc1_act.dense_ln_width_plain(*wargs, width),
+            2.0 * rows * width * E, gemm_bytes(rows, width, E, 1), also=true_moments,
+            composition=lambda: torch.addmm(b3, ln(h[:, :width], gh[:width], bh[:width],
+                                                   width), w3[:width])))
+
+    if wants("dense_ln_rope", "dense_swiglu_ln", "dense_ln_width"):
+        eva_cases()
     return cases
 
 

@@ -1606,3 +1606,88 @@ def test_dense_ln_bwd_clusters_fit_the_card():
     # the du mode and the activation mode (whose rings take more shared memory)
     assert _build.lib().dc_dense_ln_bwd_max_clusters(768, 0) >= 1
     assert _build.lib().dc_dense_ln_bwd_max_clusters(1024, 1) >= 1
+
+
+# -- EVA-02's modes of the LN GEMM (the EVA-02-CLIP teacher) --------------------
+
+def _eva_ln_args(rng, rows, C, N, width=None):
+    """x zero past ``width`` (and γ, β, W's rows there), as EVA's padded
+    SwiGLU rows reach LN_ffn."""
+    width = width or C
+    x, ls, lb = _bf16(rng, (rows, C), 1.0, 0.3), _bf16(rng, (C,), 0.1, 1.0), _bf16(rng, (C,), 0.1)
+    w, b = _bf16(rng, (C, N), width ** -0.5), _bf16(rng, (N,), 0.1)
+    for t in (x[:, width:], ls[width:], lb[width:], w[width:]):
+        t.zero_()
+    return x, ls, lb, w, b
+
+
+@pytest.mark.parametrize("B,grid,C,heads", [(3, 3, 64, 4), (5, 4, 256, 4), (4, 16, 1024, 16)],
+                         ids=["tiny", "ragged", "eva_l14"])
+def test_dense_ln_rope_kernel_matches_plain(B, grid, C, heads):
+    from distillclip_tpu_torch.models.eva_vit import rope_table
+
+    seq, hd = grid * grid + 1, C // heads
+    rng = np.random.default_rng(seq + C)
+    x, ls, lb, w, b = _eva_ln_args(rng, B * seq, C, 3 * C)
+    cs = rope_table(grid, hd).cuda()
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        out = fc1_act.dense_ln_rope(x, ls, lb, w, b, cs, seq, hd, 2 * C, 1e-6)
+    assert ops.launch_counts() == {**dict.fromkeys(ops.KERNELS, 0), "dense_ln_rope": 1}
+    ref = fc1_act.dense_ln_rope_plain(x.float(), ls.float(), lb.float(), w.float(), b.float(),
+                                      cs, seq, hd, 2 * C, 1e-6)
+    _close(out, ref)
+
+
+@pytest.mark.parametrize("rows,C,N", [(1, 32, 16), (65, 96, 384), (257 * 4, 1024, 5504)],
+                         ids=["one_row", "ragged", "eva_l14"])
+def test_dense_swiglu_ln_kernel_matches_plain(rows, C, N):
+    rng = np.random.default_rng(rows + C + N)
+    x, ls, lb, w, b = _eva_ln_args(rng, rows, C, N)
+    with torch.inference_mode():
+        out = fc1_act.dense_swiglu_ln(x, ls, lb, w, b, 1e-6)
+    assert out.shape == (rows, N // 2)
+    ref = fc1_act.dense_swiglu_ln_plain(x.float(), ls.float(), lb.float(), w.float(), b.float(),
+                                        1e-6)
+    _close(out, ref)
+
+
+@pytest.mark.parametrize("rows,C,width,N", [(65, 192, 170, 64), (257 * 4, 2752, 2730, 1024)],
+                         ids=["tiny", "eva_l14"])
+def test_dense_ln_width_kernel_matches_plain(rows, C, width, N):
+    rng = np.random.default_rng(rows + width)
+    x, ls, lb, w, b = _eva_ln_args(rng, rows, C, N, width)
+    with torch.inference_mode():
+        out = fc1_act.dense_ln_width(x, ls, lb, w, b, width, 1e-6)
+    ref = fc1_act.dense_ln_width_plain(x.float(), ls.float(), lb.float(), w.float(), b.float(),
+                                       width, 1e-6)
+    _close(out, ref)
+    # the moments are the true width's, not the padded row's: at 2730 of 2752
+    # the two differ by 0.4% in rstd, under the bf16 store's rounding element
+    # by element but not on the mean (0.0012 against 0.0033 at EVA-L's shape)
+    padded = fc1_act.dense_ln_width_plain(x.float(), ls.float(), lb.float(), w.float(),
+                                          b.float(), C, 1e-6)
+    assert (out.float() - ref).abs().mean() < 0.5 * (out.float() - padded).abs().mean()
+
+
+def test_tiny_eva_teacher_on_card_matches_plain_cpu_path(tmp_path):
+    """A fabricated EVA-02-CLIP tower (two heads of 64 at 3 × 3 patches and
+    at 17 × 17, where attention is materialised) through the frozen teacher:
+    each mode once a block, the card against the fp32 CPU path."""
+    from distillclip_tpu_torch.models.frozen_teacher import FrozenTeacher
+    from distillclip_tpu_torch.tools.fabricate_teacher import make_eva_state_dict
+
+    for res in (42, 238):
+        path = tmp_path / f"eva_{res}.pt"
+        torch.save(make_eva_state_dict(width=128, layers=2, image_resolution=res), str(path))
+        card, cpu = (FrozenTeacher(str(path), None, "image", None, dt)
+                     for dt in (torch.bfloat16, torch.float32))
+        images = np.random.default_rng(res).integers(0, 256, (5, res, res, 3), dtype=np.uint8)
+        ops.reset_launch_counts()
+        out = card.image_encode("cuda")(images)
+        counts = ops.launch_counts()
+        assert counts["dense_ln_rope"] == counts["dense_swiglu_ln"] == 2
+        assert counts["dense_ln_width"] == counts["dense_ln"] == 2
+        assert counts["plain_attention_rows_qkv"] == (2 if res == 42 else 0)
+        cos = torch.nn.functional.cosine_similarity
+        assert cos(out.cpu(), cpu.image_encode("cpu")(images)).min() > 0.999

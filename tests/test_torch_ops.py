@@ -142,6 +142,7 @@ def _op_calls():
     stat = torch.ones(10)
     kw = dict(heads=2, seq=5, scale=0.5)
     q4 = qkv.view(2, 5, 3, 2, 8).permute(2, 0, 3, 1, 4).unbind(0)     # [B, H, N, d] views
+    cs = torch.rand(4, 4, 2)                    # (cos, sin) of 4 patches, heads of 8
     on = lambda dev, *ts: (t.to(dev) for t in ts)
     return {
         "dense_ln": lambda dev: ops.dense_ln(*on(dev, x, ls, lb, w, b)),
@@ -180,6 +181,10 @@ def _op_calls():
             *on(dev, qkv, wl, ww), **kw)[0],
         "transform_attention_bwd_wide": lambda dev: ops.transform_attention_bwd_wide(
             *on(dev, qkv, wl, ww, do, p), **kw)[0],
+        "dense_ln_rope": lambda dev: ops.dense_ln_rope(*on(dev, x, ls, lb, w, b, cs), seq=5,
+                                                       hd=8, rot=32),
+        "dense_swiglu_ln": lambda dev: ops.dense_swiglu_ln(*on(dev, x, ls, lb, w, b)),
+        "dense_ln_width": lambda dev: ops.dense_ln_width(*on(dev, x, ls, lb, w, b), width=12),
     }
 
 

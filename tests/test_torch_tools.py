@@ -102,6 +102,28 @@ def test_oracle_limits_hold_on_a_real_case():
         assert hw_oracle.check_case(cases[0]) <= 1e-2
 
 
+@pytest.mark.parametrize("kernel", ["dense_ln_rope", "dense_swiglu_ln", "dense_ln_width"])
+def test_eva_oracle_cases_hold_on_the_cpu(kernel, monkeypatch):
+    """EVA-02's modes at the EVA cell's widths (one picture's 4 x 257 rows):
+    the plain version in bf16 meets the limits, and K1w's case refuses a
+    kernel that takes the moments over the padded row."""
+    from distillclip_tpu_torch.ops import fc1_act
+
+    cases = [c for c in hw_oracle.oracle_cases(np.random.default_rng(0), samples=1,
+                                               device="cpu", only=kernel)
+             if c.kernel == kernel]
+    assert len(cases) == 1
+    with torch.no_grad():
+        assert hw_oracle.check_case(cases[0]) <= 1e-2
+        if kernel == "dense_ln_width":
+            plain = fc1_act.dense_ln_width_plain
+            monkeypatch.setattr(fc1_act, "dense_ln_width",
+                                lambda x, ls, lb, w, b, width, eps: plain(x, ls, lb, w, b,
+                                                                          x.shape[1], eps))
+            with pytest.raises(hw_oracle.Disagreement, match="true width"):
+                hw_oracle.check_case(cases[0])
+
+
 # -- roofline ---------------------------------------------------------------------------
 
 def test_roofline_text_dense_flops_equal_a_hand_count():

@@ -128,6 +128,7 @@ CONFIGS = [["configs/smoke_text.yaml"], ["configs/smoke_dual.yaml"],
            ["configs/bench_fit_lclip.yaml", "configs/bench_fit_prestaged.yaml"],
            ["configs/image_real.yaml"], ["configs/final/image.yaml"],
            ["configs/final/image.yaml", "configs/final/image_allcached.yaml"],
+           ["configs/final/image.yaml", "configs/eva02_image.yaml"],
            ["configs/final/text.yaml"], ["configs/final/l_clip.yaml"],
            ["configs/final/l_clip.yaml", "configs/final/l_clip_allcached.yaml"]]
 _IDS = ["+".join(os.path.basename(p)[:-5] for p in c) for c in CONFIGS]
