@@ -245,6 +245,7 @@ SOURCES = {
     "dense_ln_rope": ("distillclip_tpu_torch/csrc/dense_ln_wgmma.cu", None),
     "dense_swiglu_ln": ("distillclip_tpu_torch/csrc/dense_ln_wgmma.cu", None),
     "dense_ln_width": ("distillclip_tpu_torch/csrc/dense_ln_wgmma.cu", None),
+    "plain_attention_long": ("distillclip_tpu_torch/csrc/plain_attention_long.cu", None),
 }
 # the head-by-head formulation (tf_impl: factored) is served by K3 / #5 / #6
 FACTORED = ("tf_factored_qkv", "distillclip_tpu/ops/transform_factored.py:392",
@@ -360,7 +361,8 @@ PTXAS_KERNELS = ("dense_ln_wgmma_kernel", "ln_stats_w16_kernel", "dense_ln_rope_
                  "tf_fwd_mma_kernel", "transform_attention_kernel",
                  "flash_transform_attention_fwd_kernel", "tf_bwd_rows_kernel",
                  "tf_bwd_qk_kernel", "tf_bwd_cols_kernel", "tf_bwd_wide_q_kernel",
-                 "tf_bwd_wide_kv_kernel", "reduce_partials_kernel")
+                 "tf_bwd_wide_kv_kernel", "reduce_partials_kernel",
+                 "plain_attention_long_kernel")
 
 
 def fail(msg: str) -> None:
@@ -1371,13 +1373,13 @@ def l14_stage_phase(ops, card: str, label: str, keep_state: bool = False) -> dic
 # stage 1 of configs/final/image.yaml under configs/eva02_image.yaml: the
 # config's student (out_dim 768, freeze_embed off) against a seeded
 # EVA02-CLIP-L/14 vision tower (1024 wide, 24 blocks of 16 heads of 64, the
-# SwiGLU width 2730 padded to 2752, 257 tokens: its attention materialised).
-# A block runs each of EVA-02's three modes once and K1 once (the sub-LN and
-# proj); the class rows' final norm is K4
+# SwiGLU width 2730 padded to 2752, 257 tokens: its attention the long-row
+# kernel).  A block runs each of EVA-02's three modes once, K1 once (the
+# sub-LN and proj) and #13L once; the class rows' final norm is K4
 EVA_OVERLAY = ROOT / "configs" / "eva02_image.yaml"
 EVA_LABEL = "stage-1 EVA02-L/14"
 EVA_TEACHER_LAUNCHES = {"dense_ln_rope": 24, "dense_swiglu_ln": 24, "dense_ln_width": 24,
-                        "dense_ln": 24, "layer_norm_rows": 1}
+                        "dense_ln": 24, "plain_attention_long": 24, "layer_norm_rows": 1}
 EVA_STEP_LAUNCHES = add_counts(IMAGE_STEP_LAUNCHES, EVA_TEACHER_LAUNCHES)
 
 

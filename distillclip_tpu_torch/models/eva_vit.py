@@ -15,8 +15,10 @@ output 768).  LayerNorm ε = 1e-6 throughout, no ``ln_pre``, no layer scale:
 
 The blocks run on ``[B·N, C]`` rows through EVA-02's modes of the LN GEMM
 (``ops.fc1_act``): ``LN_1`` + fused qkv + rotary is :func:`ops.dense_ln_rope`;
-attention takes the towers' gate (:func:`layers.attention_kernel_ok`: the
-kernel up to 256 tokens, materialised in PyTorch past it, as at 257);
+attention is #13 (:func:`ops.plain_attention_rows_qkv`) up to 256 tokens,
+the towers' gate (:func:`layers.attention_kernel_ok`), and the long-row kernel
+:func:`ops.plain_attention_long` past it, as at 257 (the tower has no JAX
+counterpart, so nothing holds it to the JAX towers' materialised attention);
 ``LN_inner`` + ``proj`` is :func:`ops.dense_ln` (K1); ``LN_2`` + ``[W1 | W2]``
 + SwiGLU is :func:`ops.dense_swiglu_ln`; ``LN_ffn`` + ``w3`` is
 :func:`ops.dense_ln_width` at the hidden width padded to a multiple of 32 (the
@@ -37,13 +39,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from distillclip_tpu_torch.models.layers import (
-    Dense,
-    LayerNorm,
-    attention_kernel_ok,
-    merge_heads,
-    split_heads,
-)
+from distillclip_tpu_torch.models.layers import Dense, LayerNorm, attention_kernel_ok
 from distillclip_tpu_torch.models.outputs import ControlFlags, VisionOutput
 from distillclip_tpu_torch.models.vit import patchify
 from distillclip_tpu_torch.ops import (
@@ -51,6 +47,7 @@ from distillclip_tpu_torch.ops import (
     dense_ln_rope,
     dense_ln_width,
     dense_swiglu_ln,
+    plain_attention_long,
     plain_attention_rows_qkv,
 )
 
@@ -84,13 +81,11 @@ def rope_table(grid: int, head_dim: int, pt_grid: int = PT_GRID,
 
 
 def _attend(qkv: torch.Tensor, heads: int, seq: int) -> torch.Tensor:
-    """Attention of the fused rows: the kernel up to 256 tokens, else
-    materialised (fp32 on fp32 rows, the compute dtype otherwise)."""
+    """Attention of the fused rows, by the sequence length: #13 up to 256
+    tokens, the long-row kernel past it."""
     if attention_kernel_ok(ControlFlags(), seq, False):
         return plain_attention_rows_qkv(qkv, heads=heads, seq=seq)
-    q, k, v = split_heads(qkv, heads, seq)
-    scores = (q @ k.transpose(-1, -2)) * torch.tensor(q.shape[-1] ** -0.5, dtype=q.dtype)
-    return merge_heads(torch.softmax(scores, dim=-1) @ v)
+    return plain_attention_long(qkv, heads=heads, seq=seq)
 
 
 class EvaBlock(nn.Module):

@@ -22,7 +22,8 @@ CUDA-core save-P forward and backward, for the head shapes past the
 tensor-core backward's (``ops.transform_attention.grad_route``).  The last
 three are EVA-02's forward modes of the LN GEMM (the EVA-02-CLIP teacher's
 blocks): K1 with the rotary turn of q and k, K2 with SwiGLU at half width, and
-K1 with the LayerNorm's moments over a true width below the padded one.
+K1 with the LayerNorm's moments over a true width below the padded one.  The
+last is plain attention past 256 tokens, forward only (the EVA-02 tower's).
 """
 
 from distillclip_tpu_torch.ops.fc1_act import (
@@ -48,6 +49,7 @@ from distillclip_tpu_torch.ops.flash_attention import (
 from distillclip_tpu_torch.ops.layer_norm import layer_norm_rows, layer_norm_rows_bwd
 from distillclip_tpu_torch.ops.plain_attention import (
     plain_attention_bwd,
+    plain_attention_long,
     plain_attention_rows_qkv,
     plain_attention_save_p,
 )
@@ -87,6 +89,7 @@ KERNELS = {
     "dense_ln_rope": dense_ln_rope,
     "dense_swiglu_ln": dense_swiglu_ln,
     "dense_ln_width": dense_ln_width,
+    "plain_attention_long": plain_attention_long,
 }
 
 
@@ -120,6 +123,7 @@ __all__ = [
     "layer_norm_rows",
     "layer_norm_rows_bwd",
     "plain_attention_bwd",
+    "plain_attention_long",
     "plain_attention_rows_qkv",
     "plain_attention_save_p",
     "reference_attention",

@@ -90,6 +90,8 @@ _SIGNATURES = {
     "dc_plain_attention": (_I, [_P] * 3 + [_I, _I, _I, _I, _F, _I, _I, _P]),
     # qkv, dout, probs, dqkv | batch, N, H, d, scale, stream
     "dc_plain_attention_bwd": (_I, [_P] * 4 + [_I, _I, _I, _I, _F, _P]),
+    # qkv, out | batch, N, H, d, scale, stream (plain_attention_long.cu)
+    "dc_plain_attention_long": (_I, [_P] * 2 + [_I, _I, _I, _I, _F, _P]),
     # q, k, v, out, lse, strides (host, 4 x 3 int64) | batch, N, H, d, scale, causal,
     # kv_len, stream
     "dc_flash_attention_fwd": (_I, [_P] * 6 + [_I, _I, _I, _I, _F, _I, _I, _P]),

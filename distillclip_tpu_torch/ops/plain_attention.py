@@ -16,6 +16,13 @@ both products on the tensor cores, one warp per 16 query rows of a head (the
 design is in ``csrc/mma_attention.cuh``).  On a CPU tensor it runs
 :func:`plain_attention_rows_qkv_plain`.
 
+Past 256 tokens the EVA-02 tower's attention goes to
+:func:`plain_attention_long` (``csrc/plain_attention_long.cu``): the same
+function without a mask, forward only, at ``d`` = 64 and up to
+:data:`LONG_MAX_SEQ` tokens, on ``wgmma`` with k and v streamed through a ring
+of 64-key tiles and an online softmax.  The CLIP towers keep the JAX towers'
+gate and materialise there.
+
 With a gradient it is a ``torch.autograd.Function``: the forward is the kernel
 with its save-P flag (:func:`plain_attention_save_p`), which also stores the
 probabilities P ``[B, H, N, N]`` in qkv's dtype, and the backward
@@ -38,6 +45,10 @@ from distillclip_tpu_torch.ops import _build
 from distillclip_tpu_torch.ops.transform_attention import MAX_SEQ, _check_head_dim, _split_heads
 
 MAX_HEAD_DIM = 128
+# what plain_attention_long takes: heads of 64, up to 1024 tokens (577 at
+# ViT-L/14@336px, the longest published CLIP geometry)
+LONG_HEAD_DIM = 64
+LONG_MAX_SEQ = 1024
 
 
 def _merge_heads(x: torch.Tensor) -> torch.Tensor:
@@ -203,6 +214,41 @@ def plain_attention_rows_qkv(qkv: torch.Tensor, *, heads: int, seq: int,
                        False)[0]
 
 
+def plain_attention_long(qkv: torch.Tensor, *, heads: int, seq: int,
+                         scale: Optional[float] = None, causal: bool = False,
+                         kv_len: Optional[int] = None) -> torch.Tensor:
+    """Unmasked attention of the fused rows without a gradient, for any
+    sequence up to :data:`LONG_MAX_SEQ` at heads of :data:`LONG_HEAD_DIM`
+    (the EVA-02 tower past 256 tokens): the long-row kernel on a CUDA tensor,
+    :func:`plain_attention_rows_qkv_plain` on the CPU.  ``scale`` defaults to
+    d ** -0.5.  It refuses a mask (``causal``, ``kv_len``), another head dim,
+    a longer sequence and a gradient, on every device."""
+    what = "plain_attention_long"
+    d = _check_shapes(qkv, heads, seq, kv_len)
+    if causal or kv_len is not None:
+        raise ValueError(f"{what}: the kernel takes unmasked attention only, got "
+                         f"causal={causal}, kv_len={kv_len}")
+    if d != LONG_HEAD_DIM or seq > LONG_MAX_SEQ:
+        raise ValueError(f"{what}: the kernel takes heads of {LONG_HEAD_DIM} and sequences "
+                         f"up to {LONG_MAX_SEQ}, got d={d}, seq={seq}")
+    if _build.needs_grad(qkv):
+        raise ValueError(f"{what}: forward only; the kernel has no backward")
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if _build.plain_only(what, qkv):
+        return plain_attention_rows_qkv_plain(qkv, heads=heads, seq=seq, scale=scale)
+    _build.check_operands(what, qkv)
+    rows = qkv.shape[0]
+    out = torch.empty((rows, heads * d), dtype=qkv.dtype, device=qkv.device)
+    if rows > 0:
+        _build.check(_build.lib().dc_plain_attention_long(
+            qkv.data_ptr(), out.data_ptr(), rows // seq, seq, heads, d, float(scale),
+            _build.stream_ptr(qkv)), what)
+        plain_attention_long.launches += 1
+    return out
+
+
 plain_attention_rows_qkv.launches = 0
+plain_attention_long.launches = 0
 plain_attention_save_p.launches = 0
 plain_attention_bwd.launches = 0

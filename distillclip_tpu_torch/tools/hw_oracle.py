@@ -220,6 +220,16 @@ def tf_bwd_composition(qkv, wl, ww, do, p, heads, seq, scale):
     return dqkv.permute(1, 3, 0, 2, 4).reshape(rows, -1), dwl, dww
 
 
+def materialised_attention(qkv, heads, seq):
+    """Attention of the fused rows materialised in the rows' dtype, as the
+    EVA-02 tower ran it past 256 tokens before #13L: q·kᵀ on strided views,
+    the scale, the softmax, P·v, the heads merged; [B·N, H·d]."""
+    rows = qkv.shape[0]
+    q, k, v = qkv.view(rows // seq, seq, 3, heads, -1).permute(2, 0, 3, 1, 4)
+    s = (q @ k.transpose(-1, -2)) * torch.tensor(q.shape[-1] ** -0.5, dtype=q.dtype)
+    return (torch.softmax(s, dim=-1) @ v).permute(0, 2, 1, 3).reshape(rows, -1)
+
+
 def flash_tf_composition(q, k, v, wl, ww, scale, causal=False, kv_len=None):
     """#17's work in PyTorch's own kernels on bf16 [B, H, N, d] views: q·kᵀ by
     matmul, the wl mix by einsum, the mask, the softmax, the ww mix, P'·v by
@@ -768,6 +778,23 @@ def oracle_cases(rng, samples: int = PAIRS, device=DEVICE, only: Optional[str] =
 
     if wants("dense_ln_rope", "dense_swiglu_ln", "dense_ln_width"):
         eva_cases()
+    # #13L, plain attention past 256 tokens, last, so that every case above
+    # draws the inputs it drew before: the EVA cell's 4·samples pictures of 257
+    # tokens, 16 heads of 64, inputs drawn as #13's (q, k at unit scale, v at
+    # 0.7), held to #13's limit.  The library time is the composition the
+    # kernel replaced in the EVA tower, its attention materialised in bf16
+    # (the port no longer calls it).
+    if wants("plain_attention_long"):
+        B, H, d, N = 4 * samples, 16, 64, 257
+        qkv = torch.cat([t((B * N, 2 * H * d)), t((B * N, H * d), 0.7)], dim=1)
+        kw = dict(heads=H, seq=N, scale=d ** -0.5)
+        cases.append(Case(
+            "plain_attention_long", f"EVA teacher B={B} H={H} d={d} N={N}",
+            lambda: (pa.plain_attention_long(qkv, heads=H, seq=N),),
+            lambda: (pa.plain_attention_rows_qkv_plain(qkv.float(), **kw),),
+            (("abs", 8e-3),), lambda: pa.plain_attention_rows_qkv_plain(qkv, **kw),
+            4.0 * B * H * N * N * d, 2 * B * N * 4 * H * d,
+            library=lambda: materialised_attention(qkv, H, N)))
     return cases
 
 

@@ -50,6 +50,7 @@ PROFILE_GROUPS = (
     ("plain_attention forward (#13 lean / save_p, tensor cores)",
      ("plain_attention_mma_kernel",)),
     ("plain_attention_bwd (#14, tensor cores)", ("plain_attention_bwd_mma_kernel",)),
+    ("#13L plain_attention_long (wgmma, past 256 tokens)", ("plain_attention_long_kernel",)),
     ("layer_norm_rows + bwd", ("layer_norm_rows",)),
     ("reduce_partials (#6, #9)", ("reduce_partials",)),
     ("optimizer (foreach kernels)", ("multi_tensor_apply",)),

@@ -615,10 +615,74 @@ def test_plain_attention_refuses_what_the_kernel_does_not_take():
         pa.plain_attention_rows_qkv(qkv.float(), heads=2, seq=8)
     with pytest.raises(ValueError):
         pa.plain_attention_rows_qkv(_bf16(rng, (2 * 8, 3 * 2 * 12)), heads=2, seq=8)   # d % 8
+    # past 256 tokens #13, its save-P mode and #14 refuse (plain_attention_long
+    # takes the EVA tower's long rows)
+    long_qkv = _bf16(rng, (257, 3 * 16))
     with pytest.raises(ValueError):
-        pa.plain_attention_rows_qkv(_bf16(rng, (257, 3 * 16)), heads=2, seq=257)
+        pa.plain_attention_rows_qkv(long_qkv, heads=2, seq=257)
+    with pytest.raises(ValueError):
+        pa.plain_attention_save_p(long_qkv, heads=2, seq=257, scale=0.25)
+    with pytest.raises(ValueError):
+        pa.plain_attention_bwd(long_qkv, _bf16(rng, (257, 16)), _bf16(rng, (1, 2, 257, 257)),
+                               heads=2, seq=257, scale=0.25)
     with pytest.raises(ValueError):
         pa.plain_attention_rows_qkv(qkv, heads=2, seq=8, kv_len=0)
+
+
+# -- #13L: plain attention past 256 tokens (the EVA-02 tower's) ---------------------
+
+def _long_qkv(rng, B, H, N):
+    """q and k at unit scale, v at 0.7, as #13's oracle cases draw them."""
+    d = pa.LONG_HEAD_DIM
+    return torch.cat([_bf16(rng, (B * N, 2 * H * d)), _bf16(rng, (B * N, H * d), 0.7)], dim=1)
+
+
+# (B, H, d, N): the EVA cell's heads at 257 tokens (a 64-row q box at row 256
+# holds one query; the last sample ends mid-box), ViT-L/14@336px's 577 (two
+# passes of q tiles), a ragged 300, one head, one pass of two tiles, the limit
+@pytest.mark.parametrize("B,H,N", [(4, 16, 257), (2, 16, 577), (3, 2, 300), (1, 1, 257),
+                                   (2, 4, 100), (1, 2, 1024)])
+def test_plain_attention_long_matches_plain(B, H, N):
+    """Within #13's limit (8e-3 absolute) of the fp32 plain version on the
+    same bf16 inputs; one launch a call."""
+    rng = np.random.default_rng(B * H * N)
+    qkv = _long_qkv(rng, B, H, N)
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        out = pa.plain_attention_long(qkv, heads=H, seq=N)
+        ref = pa.plain_attention_rows_qkv_plain(qkv.float(), heads=H, seq=N, scale=0.125)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {**dict.fromkeys(ops.KERNELS, 0), "plain_attention_long": 1}
+    assert out.shape == (B * N, H * 64) and torch.isfinite(out.float()).all()
+    assert (out.float() - ref).abs().max().item() < 8e-3
+
+
+def test_plain_attention_long_is_deterministic():
+    rng = np.random.default_rng(11)
+    B, H, N = 3, 16, 257
+    qkv = _long_qkv(rng, B, H, N)
+    with torch.inference_mode():
+        first = pa.plain_attention_long(qkv, heads=H, seq=N)
+        again = pa.plain_attention_long(qkv, heads=H, seq=N)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+def test_plain_attention_long_refuses_what_the_kernel_does_not_take():
+    rng = np.random.default_rng(12)
+    qkv = _long_qkv(rng, 2, 2, 257)
+    with pytest.raises(ValueError, match="unmasked"):
+        pa.plain_attention_long(qkv, heads=2, seq=257, causal=True)
+    with pytest.raises(ValueError, match="unmasked"):
+        pa.plain_attention_long(qkv, heads=2, seq=257, kv_len=200)
+    with pytest.raises(ValueError, match="heads of 64"):
+        pa.plain_attention_long(_bf16(rng, (2 * 257, 3 * 4 * 32)), heads=4, seq=257)
+    with pytest.raises(ValueError, match="heads of 64"):
+        pa.plain_attention_long(_bf16(rng, (1025, 3 * 64)), heads=1, seq=1025)
+    with pytest.raises(ValueError, match="forward only"):
+        pa.plain_attention_long(qkv.clone().requires_grad_(), heads=2, seq=257)
+    with pytest.raises(TypeError):
+        pa.plain_attention_long(qkv.float(), heads=2, seq=257)
 
 
 # -- the teacher's LN GEMMs: width 512, QuickGELU -------------------------------------
@@ -1671,13 +1735,14 @@ def test_dense_ln_width_kernel_matches_plain(rows, C, width, N):
 
 
 def test_tiny_eva_teacher_on_card_matches_plain_cpu_path(tmp_path):
-    """A fabricated EVA-02-CLIP tower (two heads of 64 at 3 × 3 patches and
-    at 17 × 17, where attention is materialised) through the frozen teacher:
-    each mode once a block, the card against the fp32 CPU path."""
+    """A fabricated EVA-02-CLIP tower (two heads of 64 at 3 × 3 patches, and
+    at 16 × 16 and 17 × 17, past 256 tokens, where attention is the long-row
+    kernel) through the frozen teacher: each mode and each attention kernel
+    once a block, the card against the fp32 CPU path."""
     from distillclip_tpu_torch.models.frozen_teacher import FrozenTeacher
     from distillclip_tpu_torch.tools.fabricate_teacher import make_eva_state_dict
 
-    for res in (42, 238):
+    for res in (42, 224, 238):
         path = tmp_path / f"eva_{res}.pt"
         torch.save(make_eva_state_dict(width=128, layers=2, image_resolution=res), str(path))
         card, cpu = (FrozenTeacher(str(path), None, "image", None, dt)
@@ -1689,5 +1754,7 @@ def test_tiny_eva_teacher_on_card_matches_plain_cpu_path(tmp_path):
         assert counts["dense_ln_rope"] == counts["dense_swiglu_ln"] == 2
         assert counts["dense_ln_width"] == counts["dense_ln"] == 2
         assert counts["plain_attention_rows_qkv"] == (2 if res == 42 else 0)
+        # 257 and 290 tokens: the long-row kernel, once a layer
+        assert counts["plain_attention_long"] == (0 if res == 42 else 2)
         cos = torch.nn.functional.cosine_similarity
         assert cos(out.cpu(), cpu.image_encode("cpu")(images)).min() > 0.999

@@ -101,6 +101,40 @@ def test_state_dict_mapping_fuses_interleaves_pads_and_round_trips(tiny):
     assert torch.equal(p["patch_kernel"].reshape(PATCH, PATCH, 3, WIDTH).permute(3, 2, 0, 1), conv)
 
 
+def test_tower_at_257_tokens_matches_the_plain_reference():
+    """Past 256 tokens (a 16 × 16 grid and the class token) the tower's
+    attention takes the long-row route (its plain version here), two heads of
+    64, against the reference's own attention."""
+    width, heads, res, layers = 128, 2, 224, 2
+    sd = make_eva_state_dict(width=width, layers=layers, patch_size=PATCH,
+                             image_resolution=res, embed_dim=OUT, seed=4)
+    tower = EvaVisionTransformer(res, PATCH, width, layers, heads, int(width * 2.6667), OUT)
+    tower.load_state_dict(map_eva_visual_weights(sd, layers))
+    images = torch.from_numpy(np.random.default_rng(6).integers(0, 256, (3, res, res, 3),
+                                                                dtype=np.uint8))
+    with torch.no_grad():
+        out = tower(prepare_inputs(images, torch.float32))
+    assert tower.pos_embed.shape[0] == 257
+    assert _rows_gap(out, RE.eva_image(sd, images, Precision(), heads)) < TOL
+
+
+@pytest.mark.parametrize("seq,route", [(10, "plain_attention_rows_qkv"),
+                                       (256, "plain_attention_rows_qkv"),
+                                       (257, "plain_attention_long"),
+                                       (577, "plain_attention_long")])
+def test_attention_route_is_chosen_by_the_sequence_length(monkeypatch, seq, route):
+    """#13 up to 256 tokens, the long-row kernel past it; nothing else."""
+    from distillclip_tpu_torch.models import eva_vit
+
+    calls = []
+    for name in ("plain_attention_rows_qkv", "plain_attention_long"):
+        monkeypatch.setattr(eva_vit, name, lambda qkv, *, heads, seq, n=name:
+                            calls.append((n, heads, seq)) or qkv[:, :qkv.shape[1] // 3])
+    qkv = torch.zeros(2 * seq, 3 * 2 * 64)
+    assert eva_vit._attend(qkv, 2, seq).shape == (2 * seq, 2 * 64)
+    assert calls == [(route, 2, seq)]
+
+
 def test_rope_table_is_the_references_angles():
     table = rope_table(3, 16)
     angles = RE.rotary_angles(3, 16)

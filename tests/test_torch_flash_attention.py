@@ -181,4 +181,4 @@ def test_cpu_runs_count_no_launch_and_the_kernels_are_registered():
     counts = ops.launch_counts()
     assert counts == dict.fromkeys(ops.KERNELS, 0)
     assert {"flash_attention_fwd", "flash_attention_bwd", "flash_transform_attention_fwd",
-            "flash_transform_attention_fwd_wide"} <= set(counts) and len(counts) == 25
+            "flash_transform_attention_fwd_wide"} <= set(counts) and len(counts) == 26

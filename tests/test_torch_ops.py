@@ -138,6 +138,7 @@ def _op_calls():
                                          ((16, 48), 1, 0), ((48,), 1, 0), ((2, 2), 1, 0),
                                          ((2, 2), 1, 0)))
     qkv = torch.randn(10, 48, generator=torch.Generator().manual_seed(0))
+    qkv64 = torch.randn(10, 3 * 64, generator=torch.Generator().manual_seed(1))  # a head of 64
     do, p = qkv[:, :16].contiguous(), torch.full((2, 2, 5, 5), 0.2)
     stat = torch.ones(10)
     kw = dict(heads=2, seq=5, scale=0.5)
@@ -185,6 +186,8 @@ def _op_calls():
                                                        hd=8, rot=32),
         "dense_swiglu_ln": lambda dev: ops.dense_swiglu_ln(*on(dev, x, ls, lb, w, b)),
         "dense_ln_width": lambda dev: ops.dense_ln_width(*on(dev, x, ls, lb, w, b), width=12),
+        "plain_attention_long": lambda dev: ops.plain_attention_long(*on(dev, qkv64), heads=1,
+                                                                     seq=5),
     }
 
 
@@ -213,7 +216,8 @@ def test_build_names_library_by_source_hash():
         "dense_act.cu", "dense_ln_bwd.cu", "dense_ln_wgmma.cu", "flash_attention.cu",
         "flash_attention_bwd.cu", "flash_transform_attention.cu",
         "flash_transform_attention_mma.cu", "layer_norm.cu",
-        "plain_attention.cu", "plain_attention_bwd.cu", "transform_attention.cu",
+        "plain_attention.cu", "plain_attention_bwd.cu", "plain_attention_long.cu",
+        "transform_attention.cu",
         "transform_attention_bwd.cu", "transform_attention_bwd_wide.cu",
         "transform_attention_mma.cu"}
 

@@ -102,11 +102,14 @@ def test_oracle_limits_hold_on_a_real_case():
         assert hw_oracle.check_case(cases[0]) <= 1e-2
 
 
-@pytest.mark.parametrize("kernel", ["dense_ln_rope", "dense_swiglu_ln", "dense_ln_width"])
+@pytest.mark.parametrize("kernel", ["dense_ln_rope", "dense_swiglu_ln", "dense_ln_width",
+                                    "plain_attention_long"])
 def test_eva_oracle_cases_hold_on_the_cpu(kernel, monkeypatch):
-    """EVA-02's modes at the EVA cell's widths (one picture's 4 x 257 rows):
-    the plain version in bf16 meets the limits, and K1w's case refuses a
-    kernel that takes the moments over the padded row."""
+    """EVA-02's modes and its long-row attention at the EVA cell's widths
+    (one picture's 4 x 257 rows): the plain version in bf16 meets the limits,
+    K1w's case refuses a kernel that takes the moments over the padded row,
+    and the attention's library time is the materialised bf16 attention of
+    the same function."""
     from distillclip_tpu_torch.ops import fc1_act
 
     cases = [c for c in hw_oracle.oracle_cases(np.random.default_rng(0), samples=1,
@@ -122,6 +125,9 @@ def test_eva_oracle_cases_hold_on_the_cpu(kernel, monkeypatch):
                                                                           x.shape[1], eps))
             with pytest.raises(hw_oracle.Disagreement, match="true width"):
                 hw_oracle.check_case(cases[0])
+        if kernel == "plain_attention_long":
+            ref = cases[0].ref()[0]
+            assert (cases[0].library().float() - ref).abs().max() < 3e-2
 
 
 # -- roofline ---------------------------------------------------------------------------
